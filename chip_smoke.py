@@ -1,47 +1,79 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
-kernel from the sources in this checkout, holds it against its plain PyTorch
-version, and serves full-width DeepLabV3+ (ResNet-50, 21 classes, 513x513,
-bf16, batch 8, weights made from a seed) through the port's MaskServer.
+kernels from the sources in this checkout, holds each against its plain
+PyTorch version, serves full-width DeepLabV3+ (ResNet-50, 21 classes,
+513x513, bf16, batch 8, weights made from a seed) through the port's
+MaskServer, and trains the same model (batch 32, SGD with momentum) through
+the port's Trainer, then serves masks from the checkpoint it saved.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --profile  # also a torch.profiler table of the step
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
-The line before the last is a JSON object with each kernel's launches on the
-serving run, its error against the plain version and both times; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
-and prints no result.
+The line before the last is a JSON object with each kernel's launches on its
+main-path run (serving or training), its error against the plain version,
+its time, the plain version's and the card's bound for the same work; the
+last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
+from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import build_model
 from pytorch_segmentation_tpu_torch.ops.kernels import build
+from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
-from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
+from pytorch_segmentation_tpu_torch.ops.resize import (resize_bilinear,
+                                                       resize_nearest)
 from pytorch_segmentation_tpu_torch.serving import MaskServer
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
+from pytorch_segmentation_tpu_torch.utils.weights import seeded_state_dict
 
 SEED = 0
 IMG = 513
 BATCH = 8
+TRAIN_BATCH = 32
 NUM_CLASSES = 21
 GAP = 1e-4       # pixels with a larger top-2 gap must agree exactly
 AGREEMENT = 0.999
+# upsample+CE kernels against the plain version and autograd on the same
+# values: the loss to LOSS_RTOL (f32, another summation order); f32 dlogits
+# to GRAD_TOL of the gradient's largest entry; bf16 dlogits to two bf16 ulps
+# (2^-7 relative) of the plain f32 gradient rounded to bf16, with the f32
+# bound as the floor for entries near zero
+LOSS_RTOL = 1e-6
+GRAD_TOL = 1e-5
+BF16_2ULP = 2.0 ** -7
+# small_train_check, final tensors on the card against the CPU, relative to
+# each tensor's largest entry. The updates of convolutions that feed a
+# BatchNorm over 50 values per channel are sums that cancel: two f32 runs
+# differ by up to a third in them (8e-4 of the tensor's largest entry
+# between this package and the JAX package on one CPU, 3e-4 between an
+# H100 and the CPU).
+SMALL_TRAIN_TOL = 2e-3
+# the card's published peaks (H100 SXM): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores, which is where these kernels' arithmetic runs
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def log(phase: str, **fields):
@@ -81,6 +113,23 @@ def cuda_median_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+def bound(n_bytes, n_ops):
+    """The least time the card could take, ms: the larger of the bytes that
+    must move over the memory rate and the operations over the f32 rate."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * n_ops / F32_FLOPS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def interp_flops(w, out_w):
+    """Flops per output pixel and class of the bilinear upsampling, counted
+    for the cheapest way to compute the function, which is separable: the
+    rows first (two taps: 2 multiplies and an add on an out_h x w map), then
+    the columns (the same on the out_h x out_w map)."""
+    return 3.0 * w / out_w + 3.0
+
+
 def kernel_case(name, shape, out_hw, dtype, align, device, tie=None):
     rng = np.random.default_rng(SEED)
     x = rng.standard_normal(shape).astype(np.float32)
@@ -98,10 +147,122 @@ def kernel_case(name, shape, out_hw, dtype, align, device, tie=None):
         logits, out_hw, align_corners=align))
     plain_ms = cuda_median_ms(lambda: ua.upsample_argmax_reference(
         logits, out_hw, align_corners=align))
+    # logits read once, int32 mask written once; per output pixel and class
+    # the separable interpolation and one compare
+    b, _, w, c = shape
+    pixels = b * out_hw[0] * out_hw[1]
+    least = bound(logits.numel() * logits.element_size() + 4 * pixels,
+                  (interp_flops(w, out_hw[1]) + 1) * pixels * c)
     log("kernel", case=name, shape=list(shape), out_hw=list(out_hw),
         dtype=str(dtype).replace("torch.", ""), align_corners=align,
-        agreement=agreement, max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        agreement=agreement, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **least)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
+            "library_ms": None}
+
+
+def peak_mb(fn):
+    """Peak device memory `fn` adds to what is allocated now, MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def ce_case(name, shape, out_hw, dtype, align, device,
+            label_dtype=torch.int32, nchw=False):
+    """The upsample+CE kernels against the plain version and autograd.
+    `nchw=True` hands them the [B, h, w, C] logits as the permuted view of
+    a contiguous [B, C, h, w] tensor, not as a contiguous one."""
+    rng = np.random.default_rng(SEED)
+    b, _, w, c = shape
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+    if nchw:
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    x.requires_grad_(True)
+    y = torch.from_numpy(rng.integers(0, c, (b,) + tuple(out_hw))).to(
+        device=device, dtype=label_dtype)
+    before = ce.launch_count()
+    loss = ce.fused_upsample_ce(x, y, align_corners=align)
+    (grad,) = torch.autograd.grad(loss, x, retain_graph=True)
+    after = ce.launch_count()
+    if (after["fwd"], after["bwd"]) != (before["fwd"] + 1, before["bwd"] + 1):
+        raise AssertionError(f"launch counts {before} -> {after}")
+    xr = x.detach().float().requires_grad_(True)
+    ref = ce.upsample_ce_reference(xr, y, align)
+    (ref_grad,) = torch.autograd.grad(ref, xr)
+    torch.cuda.synchronize()
+    loss_value, ref_value = float(loss.detach()), float(ref.detach())
+    loss_err = abs(loss_value - ref_value)
+    if not loss_err <= LOSS_RTOL * abs(ref_value):
+        raise AssertionError(f"{name}: loss {loss_value} vs plain "
+                             f"{ref_value}")
+    if grad.dtype != dtype or grad.shape != x.shape:
+        raise AssertionError(f"{name}: dlogits {grad.dtype} "
+                             f"{tuple(grad.shape)}")
+    top = float(ref_grad.abs().max())
+    want = ref_grad if dtype == torch.float32 else ref_grad.to(dtype).float()
+    diff = (grad.float() - want).abs()
+    grad_err = float(diff.max())
+    allowed = GRAD_TOL * top
+    if dtype != torch.float32:
+        allowed = BF16_2ULP * want.abs() + allowed
+    if not bool((diff <= allowed).all()):
+        raise AssertionError(f"{name}: dlogits differ by {grad_err} "
+                             f"(largest entry {top})")
+    del xr, ref, ref_grad, want, diff, allowed
+
+    fwd_ms = cuda_median_ms(lambda: ce.fused_upsample_ce(
+        x, y, align_corners=align))
+    bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(
+        loss, x, retain_graph=True))
+    with torch.no_grad():
+        plain_fwd_ms = cuda_median_ms(lambda: ce.upsample_ce_reference(
+            x, y, align))
+    plain_loss = ce.upsample_ce_reference(x, y, align)
+    plain_bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(
+        plain_loss, x, retain_graph=True))
+    del plain_loss
+
+    def plain_both():
+        torch.autograd.grad(ce.upsample_ce_reference(x, y, align), x)
+
+    def kernel_both():
+        torch.autograd.grad(ce.fused_upsample_ce(x, y, align_corners=align),
+                            x)
+
+    plain_both_ms = cuda_median_ms(plain_both)
+    kernel_mb, plain_mb = peak_mb(kernel_both), peak_mb(plain_both)
+    # each input read once, each output written once; per output pixel and
+    # class the separable interpolation, then 4 flops of the logsumexp
+    # (forward) or 3 of the softmax term and the transposed separable
+    # interpolation (backward)
+    pixels = b * out_hw[0] * out_hw[1]
+    logits_bytes = x.numel() * x.element_size()
+    label_bytes = y.numel() * y.element_size()
+    interp = interp_flops(w, out_hw[1])
+    fwd = bound(logits_bytes + label_bytes + 4 * pixels,
+                (interp + 4) * pixels * c)
+    bwd = bound(2 * logits_bytes + label_bytes + 4 * pixels,
+                (2 * interp + 3) * pixels * c)
+    log("kernel", case=name, kernel="softmax_ce", shape=list(shape),
+        out_hw=list(out_hw), dtype=str(dtype).replace("torch.", ""),
+        logits_strides=list(x.stride()), align_corners=align,
+        loss=loss_value, loss_abs_err=loss_err,
+        dlogits_max_abs_err=grad_err, dlogits_largest=top, fwd_ms=fwd_ms,
+        bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+        plain_fwd_bwd_ms=plain_both_ms, fwd_bound_ms=fwd["bound_ms"],
+        fwd_bound_by=fwd["bound_by"], bwd_bound_ms=bwd["bound_ms"],
+        bwd_bound_by=bwd["bound_by"], kernel_peak_mb=kernel_mb,
+        plain_peak_mb=plain_mb)
+    return {"strides": tuple(x.stride()),
+            "fwd": {"max_abs_err": loss_err, "ms": fwd_ms,
+                    "plain_ms": plain_fwd_ms, **fwd, "library_ms": None},
+            "bwd": {"max_abs_err": grad_err, "ms": bwd_ms,
+                    "plain_ms": plain_bwd_ms, **bwd, "library_ms": None}}
 
 
 def small_model_check(device):
@@ -134,10 +295,72 @@ def small_model_check(device):
     log("small_model", logits_max_abs_diff=logit_diff, agreement=agreement)
 
 
+def small_train_check(device):
+    """3 SGD steps of the small f32 model through the Trainer's deferred
+    upsample, on the card (kernels) against the CPU (plain version), from
+    the same seeded weights on the same numpy batch, TF32 off: per-step
+    losses within 1e-4 relative, final tensors within SMALL_TRAIN_TOL of
+    their largest entry. The weights come from a `.pt`: seeded, with
+    non-trivial BN affines, so that every tensor has entries of order 0.1 to
+    hold the updates against, and with uniform conv kernels (see
+    `seeded_state_dict`: under the He kernels the f32 gradient at this size
+    is too badly conditioned to hold two devices against each other)."""
+    rng = np.random.default_rng(SEED + 3)
+    batch = (rng.standard_normal((2, 65, 65, 3)).astype(np.float32),
+             rng.integers(0, 5, (2, 65, 65)).astype(np.int32), 2)
+
+    def build_small():
+        return build_model("deeplabv3plus", 5, backbone_layers=(1, 1, 1, 1),
+                           dtype=torch.float32, full_res_output=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        start = os.path.join(tmp, "start.pt")
+        torch.save({"model": seeded_state_dict(build_small(), SEED,
+                                               init="uniform")}, start)
+
+        def run(dev):
+            model = build_small()
+            trainer = Trainer(model, [batch], lr=1e-3, momentum=0.9,
+                              weights=start, log=False,
+                              log_dir=os.path.join(tmp, f"runs_{dev}"),
+                              device=dev)
+            return ([trainer.step() for _ in range(3)],
+                    {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()})
+
+        cpu_losses, cpu_sd = run("cpu")
+        before = ce.launch_count()
+        gpu_losses, gpu_sd = run(device)
+        after = ce.launch_count()
+    if (after["fwd"] - before["fwd"], after["bwd"] - before["bwd"]) != (3, 3):
+        raise AssertionError(f"small train steps launched {before} -> "
+                             f"{after}, not 3 forward and 3 backward")
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_losses,
+                                                       cpu_losses))
+    param_err = max(
+        float((gpu_sd[k] - v).abs().max()) / float(v.abs().max())
+        for k, v in cpu_sd.items() if v.dtype.is_floating_point)
+    if not (loss_err <= 1e-4 and param_err <= SMALL_TRAIN_TOL):
+        raise AssertionError(f"small train steps: losses {gpu_losses} vs "
+                             f"{cpu_losses} on the CPU differ by "
+                             f"{loss_err}, tensors by {param_err}")
+    log("small_train", losses=gpu_losses, loss_max_rel_diff=loss_err,
+        tensor_max_rel_diff=param_err)
+
+
 def post(url, body, timeout=120):
     req = urllib.request.Request(url, data=body, method="POST")
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def smooth_image(rng, h, w):
+    """A smooth random u8 image (bilinear up from 17x17), so that masks have
+    regions."""
+    small = torch.from_numpy(rng.integers(0, 256, (17, 17, 3)).astype(
+        np.float32))
+    return (resize_bilinear(small, (h, w), align_corners=True)
+            .round().clamp(0, 255).to(torch.uint8).numpy())
 
 
 def serve_phase(device):
@@ -146,13 +369,7 @@ def serve_phase(device):
     model = load_model_bundle(model, None, device, seed=SEED)
     rng = np.random.default_rng(SEED + 2)
     sizes = [(IMG, IMG)] * 10 + [(400, 600), (700, 300)]  # (H, W)
-    # smooth random images (bilinear up from 17x17) so masks have regions
-    imgs = []
-    for h, w in sizes:
-        small = torch.from_numpy(rng.integers(0, 256, (17, 17, 3)).astype(
-            np.float32))
-        imgs.append(resize_bilinear(small, (h, w), align_corners=True)
-                    .round().clamp(0, 255).to(torch.uint8).numpy())
+    imgs = [smooth_image(rng, h, w) for h, w in sizes]
 
     ua.reset_launch_count()
     server = MaskServer(model, img_size=(IMG, IMG), max_batch=BATCH)
@@ -255,7 +472,142 @@ def serve_phase(device):
     return launches
 
 
+class RepeatFetcher:
+    """In-memory fetcher: the same (images, segs, valid) batch `n` times."""
+
+    def __init__(self, batch, n):
+        self.batch, self.n = batch, n
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return (self.batch for _ in range(self.n))
+
+
+def train_phase(device, profile=False):
+    """Full-width DeepLabV3+ R50 through the port's Trainer: a
+    full_res_output=True model, so the Trainer's deferred upsample is what
+    routes the loss through the upsample+CE kernels. One fixed batch of 32
+    at 513x513, bf16 compute over f32 parameters, SGD 1e-3 with momentum
+    0.9: 3 warm-up steps, then 3 synchronised windows of 5 steps. Then
+    save -> load_model_bundle -> make_mask_fn on 8 of the images."""
+    rng = np.random.default_rng(SEED + 4)
+    imgs_u8 = np.stack([smooth_image(rng, IMG, IMG)
+                        for _ in range(TRAIN_BATCH)])
+    # labels in regions: a 9x9 grid of classes per image, nearest-upsampled
+    grid = torch.from_numpy(rng.integers(0, NUM_CLASSES,
+                                         (TRAIN_BATCH, 9, 9)).astype(np.int32))
+    segs = resize_nearest(grid, (IMG, IMG))
+    if len(torch.unique(segs)) < 3:
+        raise AssertionError("labels have fewer than 3 classes")
+    # the batch sits on the card: loading is not part of this slice
+    batch = (normalize_images(torch.from_numpy(imgs_u8).to(device)),
+             segs.to(device), TRAIN_BATCH)
+
+    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fetcher = RepeatFetcher(batch, 1)
+        trainer = Trainer(model, fetcher, workdir=os.path.join(tmp, "w"),
+                          lr=1e-3, momentum=0.9, seed=SEED, log=False,
+                          log_dir=os.path.join(tmp, "runs"), device=device)
+        if trainer._train_module.full_res_output is not False:
+            raise AssertionError("the Trainer did not defer the upsample")
+        stem_mean = model.backbone.stem.bn.running_mean.clone()
+        # the strides of the NHWC view of the logits that the step hands
+        # the loss: they follow the layout cls_conv's output came in
+        strides = set()
+        trainer._train_module.register_forward_hook(
+            lambda mod, args, out: strides.add(
+                tuple(out.permute(0, 2, 3, 1).stride())))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ce.reset_launch_count()
+        losses = [trainer.step() for _ in range(3)]  # warm-up, one by one
+        fetcher.n = 5
+        wall_ms, event_ms = [], []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            losses.append(trainer.step())  # ends by reading the last loss
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t0) / 5)
+            event_ms.append(start.elapsed_time(end) / 5)
+        launches = ce.launch_count()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = trainer.state.step
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"a loss is not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall on the repeated "
+                                 f"batch: {losses}")
+        if steps != 18 or launches != {"fwd": steps, "bwd": steps}:
+            raise AssertionError(f"{steps} steps launched {launches}")
+        if len(strides) != 1:
+            raise AssertionError(f"logits reached the loss with strides "
+                                 f"{strides}")
+        if torch.equal(model.backbone.stem.bn.running_mean, stem_mean):
+            raise AssertionError("BN running_mean did not move")
+        if profile:
+            profile_steps(trainer)
+
+        # train -> save -> serve
+        trainer.save()
+        served = build_model("deeplabv3plus", NUM_CLASSES,
+                             dtype=torch.bfloat16, full_res_output=False)
+        served = load_model_bundle(served, os.path.join(tmp, "w", "last.pt"),
+                                   device)
+    masks = make_mask_fn(served, out_hw=(IMG, IMG))(imgs_u8[:8])
+    classes = len(torch.unique(masks))
+    if masks.shape != (8, IMG, IMG) or masks.dtype != torch.int32:
+        raise AssertionError(f"served masks {masks.dtype} "
+                             f"{tuple(masks.shape)}")
+    if classes < 2 or int(masks.max()) >= NUM_CLASSES:
+        raise AssertionError(f"degenerate masks after training: {classes} "
+                             f"classes")
+    best = min(wall_ms)
+    log("train", batch=TRAIN_BATCH, steps=steps, first_loss=losses[0],
+        window_mean_losses=losses[3:], images_per_s=1e3 * TRAIN_BATCH / best,
+        ms_per_step_wall=wall_ms, ms_per_step_cuda_events=event_ms,
+        peak_memory_gb=peak_gb, launches=launches,
+        logits_strides=list(*strides),
+        served_classes_after_training=classes)
+    return launches, strides.pop()
+
+
+def profile_steps(trainer):
+    """torch.profiler over one window of 3 steady steps: device time by the
+    PyTorch op that launched the kernels, ms per step, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer.fetcher.n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step()
+        torch.cuda.synchronize()
+    # host-side op events only: each carries the device time of the kernels
+    # it launched (the kernels' own events would count that time twice)
+    rows = sorted(((e.self_device_time_total / 3e3, e.count // 3, e.key[:60])
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    log("profile", device_ms_per_step=total,
+        by_op=[{"op": k, "ms_per_step": round(ms, 3), "calls_per_step": n}
+               for ms, n, k in rows[:25]])
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also print a torch.profiler table of the "
+                             "train step by op")
+    args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -266,10 +618,16 @@ def main():
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    build.load_kernel_library("upsample_argmax")
-    log("build", kernel="upsample_argmax", seconds=time.perf_counter() - t0,
-        flags=" ".join(build.NVCC_FLAGS))
+    def build_one(name):  # one nvcc per source, all started together
+        t0 = time.perf_counter()
+        build.load_kernel_library(name)
+        return time.perf_counter() - t0
+
+    names = ("upsample_argmax", "softmax_ce")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for name, seconds in zip(names, pool.map(build_one, names)):
+            log("build", kernel=name, seconds=seconds,
+                flags=" ".join(build.NVCC_FLAGS))
 
     path = kernel_case("path_bf16", (BATCH, 129, 129, NUM_CLASSES),
                        (IMG, IMG), torch.bfloat16, True, device)
@@ -278,15 +636,44 @@ def main():
     kernel_case("ragged_c150", (2, 65, 97, 150), (257, 385), torch.bfloat16,
                 False, device, tie=(3, 7))
 
-    small_model_check(device)
-    launches = serve_phase(device)
+    # the path shape in both layouts a convolution may leave its output in
+    ce_paths = [ce_case(name, (TRAIN_BATCH, 129, 129, NUM_CLASSES),
+                        (IMG, IMG), torch.bfloat16, True, device, nchw=nchw)
+                for name, nchw in (("ce_path_bf16", False),
+                                   ("ce_path_bf16_nchw", True))]
+    ce_case("ce_path_f32", (TRAIN_BATCH, 129, 129, NUM_CLASSES), (IMG, IMG),
+            torch.float32, True, device)
+    ce_case("ce_ragged_c150", (2, 65, 97, 150), (257, 385), torch.bfloat16,
+            False, device, label_dtype=torch.int64)
+    ce_case("ce_c81_f32", (2, 33, 33, 81), (129, 129), torch.float32, True,
+            device)
 
-    print(json.dumps({"kernels": [{
-        "name": "upsample_argmax", "route": "cuda",
-        "source": "pytorch_segmentation_tpu_torch/csrc/upsample_argmax.cu",
-        "replaces": "pytorch_segmentation_tpu/ops/pallas/upsample_argmax.py:31",
-        "launches": launches, "max_abs_err": path["max_abs_err"],
-        "ms": path["ms"], "plain_ms": path["plain_ms"]}]}), flush=True)
+    small_model_check(device)
+    small_train_check(device)
+    launches = serve_phase(device)
+    ce_launches, ce_strides = train_phase(device, profile=args.profile)
+    # the kernels' line reports the case in the layout the train step used
+    ce_path = [p for p in ce_paths if p["strides"] == ce_strides]
+    if len(ce_path) != 1:
+        raise AssertionError(f"no kernel case had the train step's logits "
+                             f"strides {ce_strides}")
+    ce_path = ce_path[0]
+
+    ce_source = "pytorch_segmentation_tpu_torch/csrc/softmax_ce.cu"
+    ce_replaces = ("pytorch_segmentation_tpu/ops/pallas/softmax_ce.py:"
+                   "83,114,153,188")
+    print(json.dumps({"kernels": [
+        {"name": "upsample_argmax", "route": "cuda",
+         "source": "pytorch_segmentation_tpu_torch/csrc/upsample_argmax.cu",
+         "replaces":
+             "pytorch_segmentation_tpu/ops/pallas/upsample_argmax.py:31",
+         "launches": launches, **path},
+        {"name": "softmax_ce_fwd", "route": "cuda", "source": ce_source,
+         "replaces": ce_replaces, "launches": ce_launches["fwd"],
+         **ce_path["fwd"]},
+        {"name": "softmax_ce_bwd", "route": "cuda", "source": ce_source,
+         "replaces": ce_replaces, "launches": ce_launches["bwd"],
+         **ce_path["bwd"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,18 +1,46 @@
-"""Model loading for serving (port of `load_model_bundle` in
-pytorch_segmentation_tpu/engine/checkpoint.py).
+"""Checkpoints of the port (port of `save_checkpoint` and
+`load_model_bundle` in pytorch_segmentation_tpu/engine/checkpoint.py).
 
 The JAX package's own `.ckpt` files are msgpack trees that need flax to read;
-the port reads the `{'model': state_dict}` `.pt` files that
-`port_weights.py --reverse` writes from them.
+the port reads and writes `.pt` files whose `'model'` entry is a state_dict:
+the ones `port_weights.py --reverse` writes from a `.ckpt`, and the trainer's
+own `last.pt` / `best.pt`, which carry the optimizer state, the epoch, the
+best mIoU and the EMA weights beside it.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..utils.weights import load_state, seeded_state_dict
 
-__all__ = ["load_model_bundle"]
+__all__ = ["load_model_bundle", "save_checkpoint"]
+
+
+def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
+                    epoch: int = 0, best_miou: float = 0.0, ema=None) -> None:
+    """Write `{'model', 'optimizer', 'epoch', 'best_miou', 'ema'}` to `path`
+    (tensors moved to the CPU; written to a temporary file and renamed, so
+    a reader never sees half a checkpoint). `load_state` and
+    `load_model_bundle` read the `'model'` entry."""
+    def to_cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu()
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to_cpu(v) for v in tree)
+        return tree
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save({"model": to_cpu(dict(model_state)),
+                "optimizer": to_cpu(optimizer_state),
+                "epoch": int(epoch), "best_miou": float(best_miou),
+                "ema": to_cpu(ema)}, tmp)
+    os.replace(tmp, path)
 
 
 def load_model_bundle(model: torch.nn.Module, weights_path: str | None,

@@ -6,12 +6,13 @@ casts sit where the JAX modules put them, written out instead of
 `torch.autocast`, whose cast points differ:
 
   - the conv casts its input and its kernel to the compute dtype;
-  - BatchNorm folds the running statistics into one scale and shift in f32
-    and applies them in the compute dtype.
+  - BatchNorm folds its statistics (the running ones in eval mode, the
+    batch's in train mode) into one scale and shift in f32 and applies them
+    in the compute dtype.
 
 Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The int8,
-quantization-aware, fused-1x1 and dot-1x1 branches of the JAX module, and
-train-mode batch statistics, are not ported yet.
+quantization-aware, fused-1x1 and dot-1x1 branches of the JAX module are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,10 +40,17 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with the JAX package's eval semantics: running statistics
-    folded into scale and shift in f32, applied in `dtype`. State-dict names
-    are torch's (weight, bias, running_mean, running_var,
-    num_batches_tracked)."""
+    """BatchNorm with the JAX package's semantics: the statistics are folded
+    into scale and shift in f32 and applied in `dtype`. State-dict names are
+    torch's (weight, bias, running_mean, running_var, num_batches_tracked).
+
+    In train mode the statistics are the batch's, taken in f32 from the
+    compute-dtype input with the one-pass variance max(E[x^2] - E[x]^2, 0);
+    gradients flow through them. The running statistics move with momentum
+    0.1 towards the batch mean and the unbiased batch variance (the
+    normalization itself uses the biased one), outside the graph, and
+    `num_batches_tracked` advances by one. The JAX module's `stat_subsample`
+    and `axis_name` (statistics across replicas) are not ported."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__(num_features, eps=1e-5, momentum=BN_MOMENTUM)
@@ -50,11 +58,24 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch statistics are not ported yet (ROADMAP: "
-                "train step); call .eval()")
-        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight
-        shift = self.bias - self.running_mean.float() * inv
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            ex2 = (xf * xf).mean(dim=(0, 2, 3))
+            var = (ex2 - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                n = float(x.numel() // x.shape[1])
+                bessel = n / max(n - 1.0, 1.0)
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * bessel))
+                self.num_batches_tracked += 1
+        else:
+            mean = self.running_mean.float()
+            var = self.running_var.float()
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * inv
         dt = self.compute_dtype
         shape = (1, -1, 1, 1)
         return (x.to(dt) * inv.to(dt).view(shape)

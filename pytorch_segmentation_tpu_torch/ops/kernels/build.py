@@ -6,7 +6,11 @@ at the root of the checkout (listed in `.gitignore`), under a name that
 carries a hash of the source and the flags: an edited source is rebuilt and
 never confused with an old library. Building happens at the first call of a
 kernel's wrapper, never at import, so the CPU-only test run imports this
-module without a CUDA toolkit.
+module without a CUDA toolkit. Different sources build side by side: each
+has its own lock, so threads that ask for different kernels run their nvcc
+processes together: a run that builds every kernel at its start (the smoke
+run, whose time is limited while the number of kernels grows with the port)
+then waits for the slowest source, not for the sum.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_registry_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -47,7 +52,9 @@ def _nvcc() -> str:
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` (once per source and flag set) and return
     the loaded library. Raises if the build fails."""
-    with _lock:
+    with _registry_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"

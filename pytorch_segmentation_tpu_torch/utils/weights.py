@@ -6,8 +6,10 @@ mapping is by name: conv kernels go HWIO -> OIHW, BN scale/bias/mean/var
 become weight/bias/running_mean/running_var. `state_dict_from_jax` is the
 same mapping as the JAX package's `utils/port_torch.export_torch_state_dict`
 (tests hold the two equal), written without jax so that a GPU host without
-jax can run it. `load_state` reads the `{'model': state_dict}` `.pt` files that
-`save_torch_checkpoint` (and `port_weights.py --reverse`) write.
+jax can run it; `jax_trees_from_state_dict` is its inverse. `load_state`
+reads the `.pt` files whose `'model'` entry is a state_dict: those that
+`save_torch_checkpoint` (and `port_weights.py --reverse`) write, and the
+port's own trainer checkpoints.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "load_state", "seeded_state_dict"]
+__all__ = ["state_dict_from_jax", "jax_trees_from_state_dict", "load_state",
+           "seeded_state_dict"]
 
 
 def _conv_oihw(kernel) -> np.ndarray:
@@ -69,6 +72,43 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     return sd
 
 
+def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
+    """The inverse of `state_dict_from_jax`: the port's flat state_dict
+    (tensors or numpy arrays) -> nested numpy `(params, batch_stats)` trees
+    in the JAX package's layout (conv kernels OIHW -> HWIO, BN weight ->
+    scale, running_mean/var -> mean/var; `num_batches_tracked` has no
+    counterpart and is dropped)."""
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def put(tree, parts, leaf, value):
+        for part in parts:
+            tree = tree.setdefault(part, {})
+        tree[leaf] = value
+
+    for name, value in sd.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = np.asarray(value)
+        *parts, leaf = name.split(".")
+        is_bn = bool(parts) and parts[-1] == "bn"
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            put(batch_stats, parts, leaf[len("running_"):],
+                value.astype(np.float32))
+        elif is_bn and leaf == "weight":
+            put(params, parts, "scale", value.astype(np.float32))
+        elif leaf == "weight":  # OIHW -> HWIO
+            put(params, parts, "kernel", np.ascontiguousarray(
+                np.transpose(value, (2, 3, 1, 0))).astype(np.float32))
+        elif leaf == "bias":
+            put(params, parts, "bias", value.astype(np.float32))
+        else:
+            raise ValueError(f"unmapped state_dict entry {name!r}")
+    return params, batch_stats
+
+
 def load_state(path: str) -> dict:
     """Read a `{'model': state_dict}` `.pt` file -> state_dict of CPU
     tensors (tensors only: nothing in the file is executed)."""
@@ -79,12 +119,29 @@ def load_state(path: str) -> dict:
     return dict(ckpt["model"])
 
 
-def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
+def seeded_state_dict(model: torch.nn.Module, seed: int,
+                      init: str = "serve") -> dict:
     """Random weights for `model` made with numpy from `seed`, the same on
-    every device: conv kernels He-normal over fan-out (the JAX package's
-    conv init), conv biases small normal; BN affines and running statistics
+    every device. `init` names one of three starts:
+
+    'serve': conv kernels He-normal over fan-out (the JAX package's conv
+    init), conv biases small normal; BN affines and running statistics
     non-trivial (weight 0.5..1.5, bias N(0, 0.1), mean N(0, 0.1),
-    var 0.5..1.5), so eval-mode BN is exercised."""
+    var 0.5..1.5), so eval-mode BN is exercised.
+
+    'train': the JAX package's own start of training: the same kind of conv
+    kernels, but conv biases 0, BN weight 1, bias 0, running mean 0 and
+    variance 1.
+
+    'uniform': as 'serve', but the conv kernels uniform in
+    +-1/sqrt(fan_in), torch's default init. Small f32 models whose deep
+    stages normalize a few dozen values per channel train from it with
+    well-conditioned gradients; under the He kernels two f32 runs that sum
+    in another order part by 10% in single gradients within a step, which
+    leaves nothing to hold a second device or package against."""
+    if init not in ("serve", "train", "uniform"):
+        raise ValueError(f"init must be 'serve', 'train' or 'uniform', not "
+                         f"{init!r}")
     rng = np.random.default_rng(seed)
     sd = {}
     for name, t in model.state_dict().items():
@@ -94,13 +151,19 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
         is_bn = len(parts) > 1 and parts[-2] == "bn"
         if leaf == "num_batches_tracked":
             v = np.zeros((), np.int64)
+        elif init == "train" and (is_bn or leaf != "weight"):
+            v = (np.ones if leaf in ("weight", "running_var")
+                 else np.zeros)(shape)
         elif is_bn and leaf == "weight":
             v = rng.uniform(0.5, 1.5, shape)
         elif is_bn and leaf in ("bias", "running_mean"):
             v = 0.1 * rng.standard_normal(shape)
         elif leaf == "running_var":
             v = rng.uniform(0.5, 1.5, shape)
-        elif leaf == "weight":  # conv OIHW
+        elif leaf == "weight" and init == "uniform":  # conv OIHW
+            bound = 1.0 / np.sqrt(int(np.prod(shape[1:])))
+            v = rng.uniform(-bound, bound, shape)
+        elif leaf == "weight":
             fan_out = shape[0] * int(np.prod(shape[2:]))
             v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_out)
         elif leaf == "bias":

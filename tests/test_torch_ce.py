@@ -1,0 +1,283 @@
+"""PyTorch port: the fused upsample + cross-entropy module and ops/loss.py
+against the JAX package on the same numpy inputs (CPU; the JAX Pallas kernels
+run in interpret mode). On the CPU the port's wrapper runs its plain version;
+the CUDA kernels' arithmetic is emulated here in torch."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from pytorch_segmentation_tpu.ops import loss as jloss
+from pytorch_segmentation_tpu.ops.pallas import softmax_ce as jce
+from pytorch_segmentation_tpu_torch.ops import loss as tloss
+from pytorch_segmentation_tpu_torch.ops import resize as tresize
+from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
+from pytorch_segmentation_tpu_torch.ops.kernels.upsample_argmax import (
+    interp_taps)
+
+torch.set_num_threads(1)
+
+# name -> (logits shape, label (H, W), align_corners)
+CASES = {
+    "align_true_c5": ((2, 9, 11, 5), (33, 41), True),
+    "align_false_c5": ((2, 9, 11, 5), (33, 41), False),
+    # 19 output rows: not a multiple of the Pallas row tile
+    "ragged_rows_c3": ((1, 5, 7, 3), (19, 23), False),
+    "c21": ((2, 8, 8, 21), (16, 16), True),
+    # 65..128 classes: the JAX _fwd_lse / _bwd_cb kernel pair
+    "c81": ((1, 8, 8, 81), (16, 16), True),
+}
+
+
+def _inputs(shape, out_hw, seed=0):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal(shape).astype(np.float32)
+    labels = rng.integers(0, shape[-1], (shape[0],) + out_hw).astype(np.int32)
+    return logits, labels
+
+
+def _torch_value_and_grad(fn, logits, labels, dtype=torch.float32):
+    x = torch.from_numpy(logits).to(dtype).requires_grad_(True)
+    value = fn(x, torch.from_numpy(labels))
+    value.backward()
+    assert x.grad.dtype == dtype and value.dtype == torch.float32
+    return float(value.detach()), x.grad
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_ce_matches_jax_reference_and_kernel(case):
+    shape, out_hw, align = CASES[case]
+    logits, labels = _inputs(shape, out_hw)
+    before = ce.launch_count()
+    got, got_grad = _torch_value_and_grad(
+        lambda x, y: ce.fused_upsample_ce(x, y, align_corners=align),
+        logits, labels)
+    assert ce.launch_count() == before  # CPU tensor: plain version
+
+    jl, jy = jnp.asarray(logits), jnp.asarray(labels)
+    ref, ref_grad = jax.value_and_grad(
+        lambda l: jloss.compute_loss(l, jy, align_corners=align))(jl)
+    with pltpu.force_tpu_interpret_mode():
+        ker, ker_grad = jax.value_and_grad(
+            lambda l: jce.fused_upsample_ce(l, jy, align_corners=align,
+                                            tile=8, interpret=True))(jl)
+    # f32 on all sides; only the summation order differs
+    for want, want_grad in ((ref, ref_grad), (ker, ker_grad)):
+        np.testing.assert_allclose(got, float(want), rtol=1e-5)
+        np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad),
+                                   rtol=0, atol=1e-6)
+
+
+def test_plain_ce_150_classes():
+    """Beyond the Pallas kernels' 128-class cap the JAX package falls back
+    to compute_loss; the port has one path for every class count."""
+    logits, labels = _inputs((1, 7, 9, 150), (25, 33), seed=4)
+    got, got_grad = _torch_value_and_grad(ce.fused_upsample_ce, logits,
+                                          labels)
+    jy = jnp.asarray(labels)
+    ref, ref_grad = jax.value_and_grad(
+        lambda l: jce.fused_upsample_ce(l, jy, tile=8, interpret=True))(
+            jnp.asarray(logits))
+    np.testing.assert_allclose(got, float(ref), rtol=1e-5)
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(ref_grad),
+                               rtol=0, atol=1e-6)
+
+
+def test_per_sample_matches_jax_kernel():
+    logits, labels = _inputs((4, 16, 16, 5), (64, 64), seed=1)
+    want = np.asarray(jce.fused_upsample_ce_per_sample(
+        jnp.asarray(logits), jnp.asarray(labels), interpret=True))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    got = ce.fused_upsample_ce_per_sample(x, torch.from_numpy(labels))
+    assert got.shape == (4,) and not got.requires_grad  # forward only
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    # the mean of the per-sample losses is the batch loss
+    np.testing.assert_allclose(
+        float(got.mean()),
+        float(ce.fused_upsample_ce(x, torch.from_numpy(labels))), rtol=1e-6)
+
+
+def test_bf16_logits_give_bf16_gradient():
+    """bf16 logits are upcast exactly and all arithmetic is f32 on both
+    sides; the gradient rounds to bf16 once at the end, so it may land one
+    rounding step away: two bf16 ulps (2^-7 relative) of the JAX one."""
+    logits, labels = _inputs((2, 9, 11, 5), (33, 41), seed=2)
+    jl = jnp.asarray(logits, jnp.bfloat16)
+    jy = jnp.asarray(labels)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_grad = jax.value_and_grad(
+            lambda l: jce.fused_upsample_ce(l, jy, tile=8, interpret=True))(jl)
+    assert want_grad.dtype == jnp.bfloat16
+    exact = np.array(jl.astype(jnp.float32))
+    got, got_grad = _torch_value_and_grad(ce.fused_upsample_ce, exact, labels,
+                                          dtype=torch.bfloat16)
+    np.testing.assert_allclose(got, float(want), rtol=1e-5)
+    want_grad = np.asarray(want_grad.astype(jnp.float32))
+    np.testing.assert_allclose(got_grad.float().numpy(), want_grad,
+                               rtol=2 ** -7, atol=2 ** -7 * 1e-6)
+
+
+def test_labels_outside_the_classes_match_no_class():
+    """As the TPU kernel's one-hot compare: true logit 0, empty one-hot."""
+    logits, labels = _inputs((1, 5, 7, 3), (19, 23), seed=3)
+    labels[0, :4] = 7
+    labels[0, 4:6] = -1
+    jl, jy = jnp.asarray(logits), jnp.asarray(labels)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_grad = jax.value_and_grad(
+            lambda l: jce._fused_ce(l, jy, (19, 23), True, 8))(jl)
+    got, got_grad = _torch_value_and_grad(ce.fused_upsample_ce, logits,
+                                          labels)
+    np.testing.assert_allclose(got, float(want), rtol=1e-5)
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("align", [True, False])
+def test_interp_taps_transposed_are_the_matrix_columns(align):
+    for n_in, n_out in [(1, 1), (1, 7), (5, 5), (5, 17), (9, 33), (129, 513),
+                        (20, 7), (33, 1)]:
+        mat = tresize._interp_weights(n_in, n_out, align)
+        start, count, weight = ce.interp_taps_transposed(n_in, n_out, align)
+        assert start.dtype == count.dtype == np.int32
+        assert weight.dtype == np.float32
+        rebuilt = np.zeros_like(mat)
+        for i in range(n_in):
+            rebuilt[start[i]:start[i] + count[i], i] = weight[i, :count[i]]
+            assert not weight[i, count[i]:].any()
+        assert np.array_equal(rebuilt, mat), (n_in, n_out, align)
+
+
+def _kernel_arithmetic(logits, labels, align):
+    """The CUDA kernels' arithmetic, in torch. Forward: per output pixel the
+    2x2 taps (H first, then W), logsumexp over classes, the label's logit by
+    comparison. Backward: per source pixel and class, the transposed tap
+    table's outputs, columns summed first, then rows."""
+    b, h, w, c = logits.shape
+    out_h, out_w = labels.shape[1:]
+    hi0, hi1, hw0, hw1 = (torch.from_numpy(np.array(a))
+                          for a in interp_taps(h, out_h, align))
+    wi0, wi1, ww0, ww1 = (torch.from_numpy(np.array(a))
+                          for a in interp_taps(w, out_w, align))
+    x = logits.float()
+    hw0, hw1 = hw0[None, :, None, None], hw1[None, :, None, None]
+    ww0, ww1 = ww0[None, None, :, None], ww1[None, None, :, None]
+    r0, r1 = x[:, hi0.long()], x[:, hi1.long()]
+    a0 = hw0 * r0[:, :, wi0.long()] + hw1 * r1[:, :, wi0.long()]
+    a1 = hw0 * r0[:, :, wi1.long()] + hw1 * r1[:, :, wi1.long()]
+    up = ww0 * a0 + ww1 * a1
+    lse = torch.logsumexp(up, dim=-1)
+    onehot = (labels.long()[..., None] == torch.arange(c)).float()
+    loss = (lse - (up * onehot).sum(-1)).mean()
+
+    resid = torch.exp(up - lse[..., None]) - onehot       # [B, H, W, C]
+    ys, yc, yw = ce.interp_taps_transposed(h, out_h, align)
+    xs, xc, xw = ce.interp_taps_transposed(w, out_w, align)
+    dlogits = torch.zeros_like(x)
+    for i in range(h):
+        for j in range(w):
+            rows = resid[:, ys[i]:ys[i] + yc[i], xs[j]:xs[j] + xc[j]]
+            row_acc = (rows * torch.from_numpy(xw[j, :xc[j]].copy())
+                       [None, None, :, None]).sum(2)
+            dlogits[:, i, j] = (row_acc * torch.from_numpy(
+                yw[i, :yc[i]].copy())[None, :, None]).sum(1)
+    return loss, dlogits / (b * out_h * out_w)
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    ((2, 5, 7, 4), (17, 23)),    # upsample
+    ((1, 9, 6, 3), (9, 4)),      # identity rows, downsampled columns
+    ((1, 1, 4, 5), (7, 1)),      # one source row, one output column
+])
+@pytest.mark.parametrize("align", [True, False])
+def test_kernel_arithmetic_matches_autograd_of_plain(shape, out_hw, align):
+    logits, labels = _inputs(shape, out_hw, seed=6)
+    labels[0, 0, 0] = shape[-1]  # one label outside the classes
+    want, want_grad = _torch_value_and_grad(
+        lambda x, y: ce.upsample_ce_reference(x, y, align), logits, labels)
+    got, got_grad = _kernel_arithmetic(torch.from_numpy(logits),
+                                       torch.from_numpy(labels), align)
+    np.testing.assert_allclose(float(got), want, rtol=1e-6)
+    torch.testing.assert_close(got_grad, want_grad, rtol=0, atol=1e-6)
+
+
+def test_wrapper_routes_and_checks():
+    logits, labels = _inputs((2, 5, 7, 4), (17, 23))
+    x = torch.from_numpy(logits).permute(0, 3, 1, 2).contiguous()
+    nhwc_view = x.permute(0, 2, 3, 1)           # NCHW memory, NHWC view
+    y = torch.from_numpy(labels)
+    before = ce.launch_count()
+    assert set(before) == {"fwd", "bwd"}
+    got = ce.fused_upsample_ce(nhwc_view, y.long())  # int64 labels too
+    assert torch.equal(got, ce.upsample_ce_reference(
+        torch.from_numpy(logits), y))
+    assert ce.launch_count() == before
+    with pytest.raises(ValueError, match=r"\[B, h, w, C\]"):
+        ce.fused_upsample_ce(nhwc_view[0], y)
+    with pytest.raises(ValueError, match=r"\[B, H, W\]"):
+        ce.fused_upsample_ce(nhwc_view, y[0])
+    with pytest.raises(ValueError, match=r"\[B, H, W\]"):
+        ce.fused_upsample_ce(nhwc_view, y[:1])
+    with pytest.raises(TypeError, match="integers"):
+        ce.fused_upsample_ce(nhwc_view, y.float())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ce.fused_upsample_ce(nhwc_view.half(), y)
+    with pytest.raises(ValueError, match="no path"):
+        ce.fused_upsample_ce(nhwc_view.to("meta"), y.to("meta"))
+    with pytest.raises(ValueError, match="no path"):
+        ce.fused_upsample_ce_per_sample(nhwc_view.to("meta"), y.to("meta"))
+
+
+@pytest.mark.parametrize("ignore_index", [None, 2])
+def test_softmax_cross_entropy_matches_jax(ignore_index):
+    rng = np.random.default_rng(7)
+    logits = rng.standard_normal((2, 6, 7, 5)).astype(np.float32)
+    labels = rng.integers(0, 5, (2, 6, 7)).astype(np.int32)
+    want, want_grad = jax.value_and_grad(
+        lambda l: jloss.softmax_cross_entropy(
+            l, jnp.asarray(labels), ignore_index=ignore_index))(
+                jnp.asarray(logits))
+    got, got_grad = _torch_value_and_grad(
+        lambda x, y: tloss.softmax_cross_entropy(x, y,
+                                                 ignore_index=ignore_index),
+        logits, labels)
+    np.testing.assert_allclose(got, float(want), rtol=1e-6)
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("align", [True, False])
+def test_compute_loss_and_loss_fn_routing(align, monkeypatch):
+    logits, labels = _inputs((2, 9, 11, 5), (33, 41), seed=8)
+    labels[0, :3] = 4
+    want = float(jloss.compute_loss(jnp.asarray(logits), jnp.asarray(labels),
+                                    ignore_index=4, align_corners=align))
+    got = tloss.compute_loss(torch.from_numpy(logits),
+                             torch.from_numpy(labels), ignore_index=4,
+                             align_corners=align)
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+    # make_loss_fn: the fused wrapper exactly where the logits are below the
+    # label resolution; compute_loss at the same resolution or when asked
+    calls = []
+    real = tloss.fused_upsample_ce
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tloss, "fused_upsample_ce", counting)
+    x, y = torch.from_numpy(logits), torch.from_numpy(labels)
+    low = tloss.make_loss_fn(align_corners=align)(x, y)
+    assert calls == [{"align_corners": align}]
+    np.testing.assert_allclose(
+        float(low), float(jloss.compute_loss(jnp.asarray(logits),
+                                             jnp.asarray(labels),
+                                             align_corners=align)), rtol=1e-5)
+    same = torch.from_numpy(_inputs((2, 33, 41, 5), (33, 41))[0])
+    tloss.make_loss_fn(align_corners=align)(same, y)
+    tloss.make_loss_fn(align_corners=align, use_pallas=False)(x, y)
+    assert len(calls) == 1

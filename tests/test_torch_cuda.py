@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the hand-written upsample+argmax kernel against
-its plain PyTorch version at edge shapes, and the small model against the
-CPU. Skips without a CUDA device. On the card (no jax there, so without the
+"""PyTorch port on the card: the hand-written kernels (upsample+argmax;
+upsample+cross-entropy forward and backward) against their plain PyTorch
+versions at edge shapes, and the small model against the CPU. Skips without
+a CUDA device. On the card (no jax there, so without the
 JAX-side conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -14,6 +15,7 @@ from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
 from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
 from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
@@ -93,3 +95,159 @@ def test_small_model_on_card_matches_cpu(device):
     up = resize_bilinear(lc, (65, 65), align_corners=True)
     assert_masks_agree(got.numpy(), want.numpy(), up.numpy(),
                        gap=max(1e-4, 2 * diff))
+
+
+def _ce_inputs(shape, out_hw, dtype, device, label_dtype=torch.int32, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, shape[-1], (shape[0],) + out_hw))
+    return (x.to(device=device, dtype=dtype).requires_grad_(True),
+            y.to(device=device, dtype=label_dtype))
+
+
+def _ce_check(x, y, align):
+    """Kernel loss and dlogits against the plain version and autograd on an
+    f32 copy of the same values: loss to 1e-6 relative (f32, another
+    summation order); f32 dlogits to 1e-5 of the gradient's largest entry;
+    bf16 dlogits to two bf16 ulps of the f32 gradient rounded to bf16 (with
+    the f32 bound as the floor for entries near zero)."""
+    before = ce.launch_count()
+    loss = ce.fused_upsample_ce(x, y, align_corners=align)
+    (grad,) = torch.autograd.grad(loss, x)
+    after = ce.launch_count()
+    assert (after["fwd"], after["bwd"]) == (before["fwd"] + 1,
+                                            before["bwd"] + 1)
+    xr = x.detach().float().requires_grad_(True)
+    ref = ce.upsample_ce_reference(xr, y, align)
+    (ref_grad,) = torch.autograd.grad(ref, xr)
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    assert grad.dtype == x.dtype and grad.shape == x.shape
+    assert grad.stride() == x.detach().contiguous().stride() or (
+        grad.stride() == x.stride())
+    torch.testing.assert_close(loss, ref, rtol=1e-6, atol=0)
+    top = float(ref_grad.abs().max())
+    if x.dtype == torch.float32:
+        assert float((grad - ref_grad).abs().max()) <= 1e-5 * top
+    else:
+        want = ref_grad.to(torch.bfloat16).float()
+        assert bool(((grad.float() - want).abs()
+                     <= 2 ** -7 * want.abs() + 1e-5 * top).all())
+    return grad
+
+
+@pytest.mark.parametrize("shape,out_hw,align,dtype,label_dtype", [
+    ((32, 129, 129, 21), (513, 513), True, torch.bfloat16, torch.int32),
+    ((32, 129, 129, 21), (513, 513), True, torch.float32, torch.int64),
+    ((2, 65, 97, 150), (257, 385), False, torch.bfloat16, torch.int64),
+    ((2, 33, 33, 81), (129, 129), True, torch.float32, torch.int32),
+    ((1, 1, 1, 1), (1, 1), True, torch.float32, torch.int32),
+    ((1, 1, 1, 3), (5, 7), False, torch.bfloat16, torch.uint8),
+    ((3, 4, 5, 2), (4, 5), True, torch.float32, torch.int64),   # same size
+    ((1, 20, 30, 21), (7, 9), True, torch.float32, torch.int32),  # downsample
+])
+def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
+                                label_dtype):
+    x, y = _ce_inputs(shape, out_hw, dtype, device, label_dtype)
+    _ce_check(x, y, align)
+    per = ce.fused_upsample_ce_per_sample(x, y, align_corners=align)
+    assert per.shape == (shape[0],) and not per.requires_grad
+    torch.testing.assert_close(
+        per.mean(), ce.upsample_ce_reference(x.detach().float(), y, align),
+        rtol=1e-5, atol=0)
+
+
+def test_ce_labels_outside_the_classes(device):
+    x, y = _ce_inputs((2, 9, 11, 5), (33, 41), torch.float32, device)
+    y[0, :4] = 9
+    y[1, 5:7] = -1
+    _ce_check(x, y, True)
+
+
+def test_ce_backward_is_bit_reproducible_and_reads_strides(device):
+    x, y = _ce_inputs((4, 33, 33, 21), (129, 129), torch.bfloat16, device)
+    first = _ce_check(x, y, True)
+    for _ in range(3):
+        loss = ce.fused_upsample_ce(x, y)
+        assert torch.equal(torch.autograd.grad(loss, x)[0], first)
+    assert torch.equal(ce.fused_upsample_ce(x, y), loss)
+    # NCHW memory seen as NHWC through strides: same values, and the
+    # gradient comes back in that layout
+    nchw = x.detach().permute(0, 3, 1, 2).contiguous()
+    view = nchw.permute(0, 2, 3, 1).requires_grad_(True)
+    assert not view.is_contiguous()
+    loss_v = ce.fused_upsample_ce(view, y)
+    (grad_v,) = torch.autograd.grad(loss_v, view)
+    assert torch.equal(loss_v, loss) and torch.equal(grad_v, first)
+    assert grad_v.stride() == view.stride()
+
+
+def test_ce_gradient_by_finite_differences(device):
+    """The backward kernel against central differences of the forward
+    kernel on a tiny f32 case (f32 differences: 2e-2 relative to the
+    largest entry)."""
+    x, y = _ce_inputs((1, 3, 4, 3), (7, 9), torch.float32, device, seed=3)
+    (grad,) = torch.autograd.grad(ce.fused_upsample_ce(x, y, False), x)
+    flat = x.detach().clone().reshape(-1)
+    fd = torch.zeros_like(flat)
+    eps = 1e-2
+    for i in range(flat.numel()):
+        for sign in (1.0, -1.0):
+            bumped = flat.clone()
+            bumped[i] += sign * eps
+            fd[i] += sign * ce.fused_upsample_ce(bumped.view(x.shape), y,
+                                                 False) / (2 * eps)
+    assert float((fd.view(x.shape) - grad).abs().max()) <= 2e-2 * float(
+        grad.abs().max())
+
+
+def test_ce_wrapper_rejects_what_the_kernels_do_not_take(device):
+    x, y = _ce_inputs((1, 4, 4, 3), (8, 8), torch.float32, device)
+    with pytest.raises(TypeError):
+        ce.fused_upsample_ce(x.half(), y)
+    with pytest.raises(TypeError):
+        ce.fused_upsample_ce(x, y.float())
+    with pytest.raises(ValueError):
+        ce.fused_upsample_ce(x, y.cpu())
+
+
+def test_small_train_steps_on_card_match_cpu(device, tmp_path):
+    """3 SGD steps of the small f32 model through the Trainer's deferred
+    upsample: the kernels on the card against the plain version on the CPU.
+    Seeded weights with uniform conv kernels: under the He kernels the f32
+    gradient at this size is badly conditioned (see `seeded_state_dict`).
+    Tensors to 2e-3 of their largest entry (measured 3e-4): the small
+    updates of convolutions that feed a BatchNorm over 50 values per channel
+    are sums that cancel, and differ by up to a third between two f32
+    runs."""
+    from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
+    from pytorch_segmentation_tpu_torch.utils.weights import seeded_state_dict
+    rng = np.random.default_rng(2)
+    batch = (rng.standard_normal((2, 65, 65, 3)).astype(np.float32),
+             rng.integers(0, 5, (2, 65, 65)).astype(np.int32), 2)
+
+    def build():
+        return build_model("deeplabv3plus", 5, backbone_layers=(1, 1, 1, 1),
+                           dtype=torch.float32, full_res_output=True)
+
+    start = str(tmp_path / "start.pt")
+    torch.save({"model": seeded_state_dict(build(), 0,
+                                           init="uniform")}, start)
+
+    def run(dev):
+        model = build()
+        trainer = Trainer(model, [batch], lr=1e-3, weights=start, log=False,
+                          log_dir=str(tmp_path / str(dev)), device=dev)
+        return [trainer.step() for _ in range(3)], model.state_dict()
+
+    cpu_losses, cpu_sd = run("cpu")
+    before = ce.launch_count()
+    gpu_losses, gpu_sd = run(device)
+    after = ce.launch_count()
+    assert (after["fwd"] - before["fwd"], after["bwd"] - before["bwd"]) == (
+        3, 3)
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    for k, v in cpu_sd.items():
+        if v.dtype.is_floating_point:
+            assert float((gpu_sd[k].cpu() - v).abs().max()) <= 2e-3 * float(
+                v.abs().max()), k

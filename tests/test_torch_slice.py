@@ -267,12 +267,15 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pytorch_segmentation_tpu'))\n"
         "assert not bad, bad\n"
+        "new = ['ops.loss', 'ops.kernels.softmax_ce', 'engine.steps', "
+        "'engine.trainer']\n"
+        "assert all(pkg.__name__ + '.' + n in names for n in new), names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 24
 
 
 def test_serve_cli_needs_cuda(weights):
