@@ -3,15 +3,20 @@
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version, serves full-width DeepLabV3+ (ResNet-50, 21 classes,
 513x513, bf16, batch 8, weights made from a seed) through the port's
-MaskServer, and trains the same model (batch 32, SGD with momentum) through
-the port's Trainer, then serves masks from the checkpoint it saved.
+MaskServer, trains the same model (batch 32, SGD with momentum) through the
+port's Trainer on one fixed batch, serves masks from the checkpoint it saved,
+and then trains it end to end from u8 host batches: an in-memory dataset ->
+DataLoader -> Fetcher -> PostFetch (the default augmentation policy on the
+card, whose warp runs the row-resample kernel twice per batch) -> Trainer.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --profile  # also a torch.profiler table of the step
+    python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
+                                     # the step and of the augmentation
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
-main-path run (serving or training), its error against the plain version,
+main-path run (serving, training, or training end to end), its error
+against the plain version,
 its time, the plain version's and the card's bound for the same work; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero and prints no result.
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -33,11 +39,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
+from pytorch_segmentation_tpu_torch.data import augment as taug
+from pytorch_segmentation_tpu_torch.data.loader import DataLoader, Fetcher
+from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
+                                                          normalize_images)
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
 from pytorch_segmentation_tpu_torch.ops.kernels import build
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
@@ -70,6 +80,16 @@ BF16_2ULP = 2.0 ** -7
 # between this package and the JAX package on one CPU, 3e-4 between an
 # H100 and the CPU).
 SMALL_TRAIN_TOL = 2e-3
+# small_augment_check, the policy applied on the card (kernel) against the
+# CPU (plain version) under the same drawn parameters. The two differ only
+# in f32 rounding (the 3x3 inverse, sin/cos/exp, the filters' summation
+# order): that moves a coordinate by ~1e-5 px and a bilinear sample by a
+# fraction of a count, which the u8 requantisation turns into whole counts
+# on a few pixels and later ops amplify. Shares of labels / image elements
+# that may differ, and the largest mean absolute image difference in counts.
+AUG_LABEL_SHARE = 1e-3
+AUG_IMAGE_SHARE = 1e-2
+AUG_IMAGE_MEAN = 0.01
 # the card's published peaks (H100 SXM): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores, which is where these kernels' arithmetic runs
 HBM_BYTES_PER_S = 3.35e12
@@ -265,6 +285,106 @@ def ce_case(name, shape, out_hw, dtype, align, device,
                     "plain_ms": plain_bwd_ms, **bwd, "library_ms": None}}
 
 
+def resample_case(name, planes, coords, use_bil, out_dtype):
+    """The row-resample kernel against its plain version on the same
+    tensors: equal bit for bit (two exact bf16 x bf16 products and one f32
+    sum on both sides), so the label plane is exact too."""
+    before = br.launch_count()
+    got = br.banded_resample_rows(planes, coords, use_bil,
+                                  out_dtype=out_dtype)
+    if br.launch_count() != before + 1:
+        raise AssertionError(f"{name}: the wrapper did not count its launch")
+    want = br.banded_resample_reference(planes, coords, use_bil, out_dtype)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype != out_dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel and plain version differ by "
+                             f"{err}")
+    del got, want
+    ms = cuda_median_ms(lambda: br.banded_resample_rows(
+        planes, coords, use_bil, out_dtype=out_dtype))
+    plain_ms = cuda_median_ms(lambda: br.banded_resample_reference(
+        planes, coords, use_bil, out_dtype))
+    # planes and coordinates read once, the output written once; per output
+    # position the two weights and the nearest tap (~10 f32 operations),
+    # then two products and a sum for each of the four planes
+    positions = coords.numel()
+    out_bytes = 4 * positions * torch.empty((), dtype=out_dtype).element_size()
+    least = bound(planes.numel() * planes.element_size() + 4 * positions
+                  + use_bil.numel() + out_bytes, (10 + 4 * 3) * positions)
+    log("kernel", case=name, kernel="banded_resample",
+        planes=list(planes.shape), planes_strides=list(planes.stride()),
+        out_w=coords.shape[-1], out_dtype=str(out_dtype).replace("torch.", ""),
+        bilinear_samples=int(use_bil.sum()), max_abs_err=err, equal=True,
+        ms=ms, plain_ms=plain_ms, **least)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
+            "library_ms": None}
+
+
+def capture_resample_calls(fn):
+    """Run `fn()` with the augmentation's resampler wrapped so that the
+    arguments of every call are kept: [(planes, coords, use_bil, kwargs)]."""
+    calls = []
+    real = taug.banded_resample_rows
+
+    def recording(planes, coords, use_bil, **kwargs):
+        calls.append((planes, coords, use_bil, kwargs))
+        return real(planes, coords, use_bil, **kwargs)
+
+    taug.banded_resample_rows = recording
+    try:
+        fn()
+    finally:
+        taug.banded_resample_rows = real
+    return calls
+
+
+def resample_cases(device, dataset):
+    """The kernel at the two calls the default policy makes on a real batch
+    (first pass: a contiguous source; second pass: the transposed view of the
+    first pass's output, read through its strides), the same to f32, a copy
+    of the strided source (is materialising the transpose worth it?), and a
+    ragged non-square shape with coordinates at 0 and C-1."""
+    post = PostFetch(taug.make_augment_fn(), dtype=torch.bfloat16, seed=SEED,
+                     device=device)
+    batch = next(iter(DataLoader(dataset, TRAIN_BATCH)))
+    calls = capture_resample_calls(lambda: post(batch))
+    if len(calls) != 2:
+        raise AssertionError(f"one augmented batch made {len(calls)} "
+                             f"resampler calls, not 2")
+    (p1, c1, ub, kw1), (p2, c2, _, _) = calls
+    if kw1 != {"out_dtype": torch.bfloat16} or p2.is_contiguous():
+        raise AssertionError(f"unexpected resampler calls: {kw1}, second "
+                             f"source strides {p2.stride()}")
+    for c in (c1, c2):
+        if float(c.min()) < 0 or float(c.max()) > IMG - 1:
+            raise AssertionError("a coordinate left [0, C-1]")
+    pass1 = resample_case("path_pass1_bf16", p1, c1, ub, torch.bfloat16)
+    pass2 = resample_case("path_pass2_bf16_transposed_view", p2, c2, ub,
+                          torch.bfloat16)
+    resample_case("path_pass1_f32", p1, c1, ub, torch.float32)
+    copy_ms = cuda_median_ms(lambda: p2.contiguous())
+    resample_case("path_pass2_bf16_copied_source", p2.contiguous(), c2, ub,
+                  torch.bfloat16)
+    log("transpose", copy_of_the_transposed_source_ms=copy_ms)
+
+    rng = np.random.default_rng(SEED)
+    planes = rng.uniform(0, 255, (2, 4, 37, 211)).astype(np.float32)
+    planes[:, 3] = rng.integers(0, NUM_CLASSES, (2, 37, 211))
+    coords = rng.uniform(0, 210, (2, 37, 150)).astype(np.float32)
+    coords[:, :, 0], coords[:, :, -1] = 0.0, 210.0
+    resample_case("ragged_211_to_150",
+                  torch.from_numpy(planes).to(device, torch.bfloat16),
+                  torch.from_numpy(coords).to(device),
+                  torch.tensor([True, False], device=device), torch.float32)
+    # one figure per launch on the path: the mean of the two passes
+    mean = {key: (pass1[key] + pass2[key]) / 2
+            for key in ("ms", "plain_ms", "bound_ms")}
+    return {"max_abs_err": max(pass1["max_abs_err"], pass2["max_abs_err"]),
+            **mean, "bound_by": pass1["bound_by"], "library_ms": None,
+            "pass_ms": [pass1["ms"], pass2["ms"]]}
+
+
 def small_model_check(device):
     """The f32 model at small size on the card (kernel) against the CPU
     (plain version), same seeded weights and images, TF32 off. A pixel can
@@ -346,6 +466,54 @@ def small_train_check(device):
                              f"{loss_err}, tensors by {param_err}")
     log("small_train", losses=gpu_losses, loss_max_rel_diff=loss_err,
         tensor_max_rel_diff=param_err)
+
+
+def to_device(obj, device):
+    """A nest of dicts, lists and tensors moved to `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [to_device(v, device) for v in obj]
+    return obj
+
+
+def small_augment_check(device):
+    """The default policy on a small batch, its parameters drawn once (on
+    the CPU) and applied on the card (kernel) and on the CPU (plain
+    version): see AUG_* above for the bounds and their reason."""
+    rng = np.random.default_rng(SEED + 5)
+    imgs = torch.from_numpy(np.stack([smooth_image(rng, 65, 65)
+                                      for _ in range(8)]))
+    segs = resize_nearest(torch.from_numpy(rng.integers(
+        1, NUM_CLASSES, (8, 5, 5)).astype(np.uint8)), (65, 65))
+    fn = taug.make_augment_fn()
+    params = fn.draw(torch.Generator().manual_seed(SEED), 8, 65, 65)
+    cpu_img, cpu_seg = fn.apply(params, imgs, segs)
+    before = br.launch_count()
+    gpu_img, gpu_seg = fn.apply(to_device(params, device), imgs.to(device),
+                                segs.to(device))
+    if br.launch_count() != before + 2:
+        raise AssertionError("the policy on the card did not launch the "
+                             "resampler twice")
+    gpu_img, gpu_seg = gpu_img.cpu(), gpu_seg.cpu()
+    label_share = float((gpu_seg != cpu_seg).float().mean())
+    diff = (gpu_img - cpu_img).abs()
+    image_share, image_mean = float((diff > 0).float().mean()), float(
+        diff.mean())
+    if not (label_share <= AUG_LABEL_SHARE and image_share <= AUG_IMAGE_SHARE
+            and image_mean <= AUG_IMAGE_MEAN):
+        raise AssertionError(
+            f"small augment: labels differ on {label_share}, image elements "
+            f"on {image_share} (mean {image_mean}, max {float(diff.max())})")
+    if torch.equal(cpu_img, imgs.float()) or len(cpu_seg.unique()) < 3:
+        raise AssertionError("the drawn policy changed nothing")
+    log("small_augment", labels_differing_share=label_share,
+        image_elements_differing_share=image_share,
+        image_mean_abs_diff=image_mean, image_max_abs_diff=float(diff.max()),
+        gates_per_sample=params["gates"].sum(1).tolist(),
+        order=params["order"])
 
 
 def post(url, body, timeout=120):
@@ -570,34 +738,172 @@ def train_phase(device, profile=False):
     if classes < 2 or int(masks.max()) >= NUM_CLASSES:
         raise AssertionError(f"degenerate masks after training: {classes} "
                              f"classes")
-    best = min(wall_ms)
+    images_per_s = 1e3 * TRAIN_BATCH / min(wall_ms)
     log("train", batch=TRAIN_BATCH, steps=steps, first_loss=losses[0],
-        window_mean_losses=losses[3:], images_per_s=1e3 * TRAIN_BATCH / best,
+        window_mean_losses=losses[3:], images_per_s=images_per_s,
         ms_per_step_wall=wall_ms, ms_per_step_cuda_events=event_ms,
         peak_memory_gb=peak_gb, launches=launches,
         logits_strides=list(*strides),
         served_classes_after_training=classes)
-    return launches, strides.pop()
+    return launches, strides.pop(), images_per_s
+
+
+class MemoryDataset:
+    """Seeded u8 images and labels held in host memory: smooth images and,
+    as labels, a 9x9 grid of classes per image, nearest-upsampled."""
+
+    def __init__(self, n, rng):
+        self.images = np.stack([smooth_image(rng, IMG, IMG)
+                                for _ in range(n)])
+        grid = torch.from_numpy(rng.integers(0, NUM_CLASSES,
+                                             (n, 9, 9)).astype(np.uint8))
+        self.segs = resize_nearest(grid, (IMG, IMG)).numpy()
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return self.images[i], self.segs[i]
+
+
+def label_sets(segs):
+    """[B, 256] bool: which label values each sample holds."""
+    flat = segs.reshape(segs.shape[0], -1).long()
+    present = torch.zeros((segs.shape[0], 256), dtype=torch.bool,
+                          device=segs.device)
+    return present.scatter_(1, flat, True)
+
+
+def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
+                  profile=False):
+    """The end-to-end train path at full width: u8 host batches from the
+    in-memory dataset -> DataLoader(batch 32, shuffle, drop_last) -> Fetcher
+    (a producer thread) -> PostFetch(default AugmentConfig, bf16) ->
+    Trainer.step(). One warm-up epoch whose batches are checked, then timed
+    epochs, each synchronised at its end."""
+    n_batches = len(dataset) // TRAIN_BATCH
+    fn = taug.make_augment_fn(taug.AugmentConfig())
+    post = PostFetch(fn, dtype=torch.bfloat16, seed=SEED, device=device)
+
+    # the augmentation alone on one host batch: device time (CUDA events,
+    # the copy to the card included), host time to enqueue it, and both
+    # together with a synchronise at the end
+    batch = next(iter(DataLoader(dataset, TRAIN_BATCH)))
+    for _ in range(2):
+        post(batch)
+    event_ms, enqueue_ms, wall_ms = [], [], []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        post(batch)
+        end.record()
+        enqueue_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        event_ms.append(start.elapsed_time(end))
+    augment_peak_mb = peak_mb(lambda: post(batch))
+    if profile:
+        profile_table("profile_augment", lambda: post(batch), 3)
+
+    # the main path, with every count at 0 and its own batch counter
+    post = PostFetch(fn, dtype=torch.bfloat16, seed=SEED, device=device)
+    checked = []
+
+    def checking(host_batch):
+        """PostFetch, and while `checked` is a list the batch's checks, kept
+        on the card: finite images, and per sample no label but 0 or one of
+        the input's."""
+        images, segs, valid = post(host_batch)
+        if checked is not None:
+            allowed = label_sets(torch.from_numpy(host_batch.segs).to(device))
+            allowed[:, 0] = True
+            stray = (label_sets(segs) & ~allowed).any()
+            checked.append(torch.stack([torch.isfinite(images).all(),
+                                        ~stray]))
+        return images, segs, valid
+
+    loader = DataLoader(dataset, TRAIN_BATCH, shuffle=True, drop_last=True,
+                        seed=SEED)
+    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, Fetcher(loader, checking),
+                          workdir=os.path.join(tmp, "w"), lr=1e-3,
+                          momentum=0.9, seed=SEED, log=False,
+                          log_dir=os.path.join(tmp, "runs"), device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        br.reset_launch_count()
+        ce.reset_launch_count()
+        losses = [trainer.step()]                 # warm-up epoch, checked
+        ok = torch.stack(checked).all(0).tolist()
+        checked = None
+        epoch_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.step())
+            torch.cuda.synchronize()
+            epoch_ms.append(1e3 * (time.perf_counter() - t0))
+        resample_launches = br.launch_count()
+        ce_launches = ce.launch_count()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = trainer.state.step
+    if ok != [True, True]:
+        raise AssertionError(f"augmented batches: images finite {ok[0]}, "
+                             f"labels from the input {ok[1]}")
+    if steps != 4 * n_batches or resample_launches != 2 * steps:
+        raise AssertionError(f"{steps} steps, {resample_launches} resampler "
+                             f"launches: not two per batch")
+    if ce_launches != {"fwd": steps, "bwd": steps}:
+        raise AssertionError(f"{steps} steps launched {ce_launches}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"end-to-end epoch losses {losses}")
+    best = min(epoch_ms) / n_batches
+    log("augment_train", batch=TRAIN_BATCH, steps=steps,
+        epoch_mean_losses=losses,
+        images_per_s_end_to_end=1e3 * TRAIN_BATCH / best,
+        ms_per_step_end_to_end=[ms / n_batches for ms in epoch_ms],
+        images_per_s_train_only=train_images_per_s,
+        augment_ms_per_batch_cuda_events=statistics.median(event_ms),
+        augment_ms_per_batch_host_enqueue=statistics.median(enqueue_ms),
+        augment_ms_per_batch_wall=statistics.median(wall_ms),
+        resample_kernel_ms_per_pass=resample_pass_ms,
+        augment_peak_memory_mb=augment_peak_mb, peak_memory_gb=peak_gb,
+        resample_launches=resample_launches, ce_launches=ce_launches)
+    return resample_launches
 
 
 def profile_steps(trainer):
-    """torch.profiler over one window of 3 steady steps: device time by the
-    PyTorch op that launched the kernels, ms per step, largest first."""
+    """torch.profiler over one window of 3 steady steps."""
+    trainer.fetcher.n = 3
+    profile_table("profile", trainer.step, 1, per=3)
+
+
+def profile_table(phase, fn, calls, per=None):
+    """torch.profiler over `calls` calls of `fn`: device time by the PyTorch
+    op that launched the kernels, ms per unit (`per` units in all; one per
+    call by default), largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    trainer.fetcher.n = 3
+    per = per or calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.step()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     # host-side op events only: each carries the device time of the kernels
     # it launched (the kernels' own events would count that time twice)
-    rows = sorted(((e.self_device_time_total / 3e3, e.count // 3, e.key[:60])
+    rows = sorted(((e.self_device_time_total / (1e3 * per), e.count // per,
+                    e.key[:60])
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU
                    and e.self_device_time_total > 0), reverse=True)
     total = sum(r[0] for r in rows)
-    log("profile", device_ms_per_step=total,
+    log(phase, device_ms_per_step=total,
         by_op=[{"op": k, "ms_per_step": round(ms, 3), "calls_per_step": n}
                for ms, n, k in rows[:25]])
 
@@ -605,8 +911,8 @@ def profile_steps(trainer):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also print a torch.profiler table of the "
-                             "train step by op")
+                        help="also print torch.profiler tables, by op, of "
+                             "the train step and of the augmentation")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -623,10 +929,15 @@ def main():
         build.load_kernel_library(name)
         return time.perf_counter() - t0
 
-    names = ("upsample_argmax", "softmax_ce")
+    names = ("upsample_argmax", "softmax_ce", "banded_resample")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, seconds in zip(names, pool.map(build_one, names)):
+            ptxas = build.BUILD_LOGS.get(name, "")  # what ptxas -v printed
             log("build", kernel=name, seconds=seconds,
+                registers=[int(n) for n in
+                           re.findall(r"Used (\d+) registers", ptxas)],
+                spill_bytes=sum(int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", ptxas)),
                 flags=" ".join(build.NVCC_FLAGS))
 
     path = kernel_case("path_bf16", (BATCH, 129, 129, NUM_CLASSES),
@@ -648,10 +959,19 @@ def main():
     ce_case("ce_c81_f32", (2, 33, 33, 81), (129, 129), torch.float32, True,
             device)
 
+    # 4 batches' worth of u8 images and labels in host memory
+    dataset = MemoryDataset(4 * TRAIN_BATCH, np.random.default_rng(SEED + 6))
+    resample_path = resample_cases(device, dataset)
+
     small_model_check(device)
     small_train_check(device)
+    small_augment_check(device)
     launches = serve_phase(device)
-    ce_launches, ce_strides = train_phase(device, profile=args.profile)
+    ce_launches, ce_strides, train_rate = train_phase(device,
+                                                      profile=args.profile)
+    resample_launches = augment_phase(device, dataset, train_rate,
+                                      resample_path.pop("pass_ms"),
+                                      profile=args.profile)
     # the kernels' line reports the case in the layout the train step used
     ce_path = [p for p in ce_paths if p["strides"] == ce_strides]
     if len(ce_path) != 1:
@@ -673,7 +993,13 @@ def main():
          **ce_path["fwd"]},
         {"name": "softmax_ce_bwd", "route": "cuda", "source": ce_source,
          "replaces": ce_replaces, "launches": ce_launches["bwd"],
-         **ce_path["bwd"]}]}), flush=True)
+         **ce_path["bwd"]},
+        # ms, plain_ms and bound_ms: per launch, the mean of the two passes
+        {"name": "banded_resample", "route": "cuda",
+         "source": "pytorch_segmentation_tpu_torch/csrc/banded_resample.cu",
+         "replaces":
+             "pytorch_segmentation_tpu/ops/pallas/banded_resample.py:60",
+         "launches": resample_launches, **resample_path}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,8 @@
 """Dataset constants (from pytorch_segmentation_tpu/data/datasets.py). The
-datasets themselves come with the train slice."""
+dataset classes themselves read JPEG and COCO files through OpenCV and are
+not ported yet (ROADMAP: Trainer rest and CLIs); `data/loader.DataLoader`
+takes any object with `__len__` and `__getitem__ -> (image u8 [H, W, 3],
+labels u8 [H, W])`."""
 
 from __future__ import annotations
 

@@ -24,13 +24,18 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_kernel_library", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["load_kernel_library", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
+           "BUILD_LOGS"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# name -> what nvcc printed when this process built the source (ptxas -v:
+# registers, shared memory and spills of each kernel); absent for a library
+# that was already on disk
+BUILD_LOGS: dict[str, str] = {}
 
 _registry_lock = threading.Lock()
 _locks: dict[str, threading.Lock] = {}
@@ -75,6 +80,7 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
                                    f"(exit {proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, lib_path)
+            BUILD_LOGS[name] = proc.stdout + proc.stderr
         lib = ctypes.CDLL(str(lib_path))
         _loaded[name] = lib
         return lib

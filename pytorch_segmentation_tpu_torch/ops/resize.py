@@ -61,6 +61,27 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return idx
 
 
+@functools.lru_cache(maxsize=256)
+def _device_weights(in_size: int, out_size: int, align_corners: bool,
+                    compute_dtype, device) -> torch.Tensor:
+    """`_interp_weights` on `device`, rounded to `compute_dtype` and held as
+    f32: copied there once and shared (never written to), since a copy from
+    pageable host memory waits for all the work queued on the stream. Made
+    outside inference mode, so that a matrix first used while serving can
+    take part in a later training graph."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_weights(
+            in_size, out_size, align_corners)).to(
+                device=device, dtype=compute_dtype).float()
+
+
+@functools.lru_cache(maxsize=256)
+def _device_nearest_indices(in_size: int, out_size: int, device):
+    with torch.inference_mode(False):
+        return torch.tensor(_nearest_indices(in_size, out_size),
+                            device=device)
+
+
 def resize_bilinear(x: torch.Tensor, out_hw,
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear-resize NHWC (or HWC) `x` to `out_hw=(H, W)`.
@@ -79,10 +100,8 @@ def resize_bilinear(x: torch.Tensor, out_hw,
     orig_dtype = x.dtype
     compute_dtype = (torch.float32 if x.dtype in (torch.float32, torch.float64)
                      else torch.bfloat16)
-    mh = torch.from_numpy(_interp_weights(h, oh, align_corners)).to(
-        device=x.device, dtype=compute_dtype).float()
-    mw = torch.from_numpy(_interp_weights(w, ow, align_corners)).to(
-        device=x.device, dtype=compute_dtype).float()
+    mh = _device_weights(h, oh, bool(align_corners), compute_dtype, x.device)
+    mw = _device_weights(w, ow, bool(align_corners), compute_dtype, x.device)
     y = x.to(compute_dtype).float()
     # [oh,h] x [b,h,w,c] -> [b,oh,w,c]; then [ow,w] x [b,oh,w,c] -> [b,oh,ow,c]
     y = torch.einsum("oh,bhwc->bowc", mh, y).to(compute_dtype).float()
@@ -99,7 +118,7 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == (h, w):
         return x
-    hi = torch.tensor(_nearest_indices(h, oh), device=x.device)
-    wi = torch.tensor(_nearest_indices(w, ow), device=x.device)
+    hi = _device_nearest_indices(h, oh, x.device)
+    wi = _device_nearest_indices(w, ow, x.device)
     x = torch.index_select(x, spatial_offset, hi)
     return torch.index_select(x, spatial_offset + 1, wi)

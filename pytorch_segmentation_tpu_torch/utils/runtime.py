@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["require_cuda"]
+__all__ = ["require_cuda", "device_constant"]
 
 
 def require_cuda() -> torch.device:
@@ -18,3 +20,20 @@ def require_cuda() -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(values, dtype, device) -> torch.Tensor:
+    # outside inference mode, so that a tensor made during serving can take
+    # part in a later training graph
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A small constant tensor (nested tuples of numbers) on `device`, copied
+    there once and shared by every caller: never write to it. A fresh
+    `torch.tensor(..., device="cuda")` per call is a copy from pageable host
+    memory, which waits for all the work queued on the stream; a thread that
+    prepares batches next to a training loop must not do that."""
+    return _constant(values, dtype, torch.device(device))

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the hand-written kernels (upsample+argmax;
-upsample+cross-entropy forward and backward) against their plain PyTorch
-versions at edge shapes, and the small model against the CPU. Skips without
+upsample+cross-entropy forward and backward; the augmentation warp's row
+resampler) against their plain PyTorch versions at edge shapes, and the
+small model against the CPU. Skips without
 a CUDA device. On the card (no jax there, so without the
 JAX-side conftest):
 
@@ -15,6 +16,7 @@ from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
 from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
@@ -251,3 +253,76 @@ def test_small_train_steps_on_card_match_cpu(device, tmp_path):
         if v.dtype.is_floating_point:
             assert float((gpu_sd[k].cpu() - v).abs().max()) <= 2e-3 * float(
                 v.abs().max()), k
+
+
+def _resample_inputs(b, r, w, c, device, seed=0):
+    """bf16 planes (label ids in plane 3), f32 coordinates over the whole of
+    [0, C-1] with both ends present, and a mixed use_bil."""
+    rng = np.random.default_rng(seed)
+    planes = rng.uniform(0, 255, (b, 4, r, c)).astype(np.float32)
+    planes[:, 3] = rng.integers(0, 21, (b, r, c))
+    coords = rng.uniform(0, c - 1, (b, r, w)).astype(np.float32)
+    coords[:, :, 0] = 0.0
+    coords[:, :, -1] = c - 1.0
+    return (torch.from_numpy(planes).to(device=device, dtype=torch.bfloat16),
+            torch.from_numpy(coords).to(device),
+            torch.from_numpy(np.arange(b) % 2 == 0).to(device))
+
+
+def _resample_check(planes, coords, use_bil, out_dtype):
+    """The kernel equals the plain version bit for bit: two exact products
+    and one f32 sum on both sides."""
+    before = br.launch_count()
+    got = br.banded_resample_rows(planes, coords, use_bil,
+                                  out_dtype=out_dtype)
+    assert br.launch_count() == before + 1
+    want = br.banded_resample_reference(planes, coords, use_bil, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("shape,w,out_dtype", [
+    ((32, 4, 513, 513), 513, torch.bfloat16),   # the augmentation's shape
+    ((2, 4, 37, 211), 150, torch.float32),      # ragged, non-square
+    ((1, 4, 1, 1), 1, torch.float32),           # one source column
+    ((3, 4, 5, 2), 300, torch.bfloat16),        # upsampling a pair
+])
+def test_resample_kernel_equals_plain(device, shape, w, out_dtype):
+    b, _, r, c = shape
+    _resample_check(*_resample_inputs(b, r, w, c, device), out_dtype)
+
+
+def test_resample_kernel_reads_strides_and_is_reproducible(device):
+    planes, coords, use_bil = _resample_inputs(4, 65, 65, 65, device, seed=1)
+    view = planes.transpose(2, 3)                  # strided, no copy
+    assert not view.is_contiguous()
+    first = _resample_check(view, coords, use_bil, torch.bfloat16)
+    assert torch.equal(first, br.banded_resample_rows(
+        view.contiguous(), coords, use_bil, out_dtype=torch.bfloat16))
+    for _ in range(3):
+        assert torch.equal(first, br.banded_resample_rows(
+            view, coords, use_bil, out_dtype=torch.bfloat16))
+    _resample_check(planes[:, :, ::2, 3:], coords[:, ::2], use_bil,
+                    torch.float32)                 # sliced, offset view
+
+
+def test_resample_wrapper_rejects_what_the_kernel_does_not_take(device):
+    planes, coords, use_bil = _resample_inputs(2, 8, 8, 8, device)
+    with pytest.raises(TypeError):
+        br.banded_resample_rows(planes.float(), coords, use_bil)
+    with pytest.raises(TypeError):
+        br.banded_resample_rows(planes, coords.double(), use_bil)
+    with pytest.raises(TypeError):
+        br.banded_resample_rows(planes, coords, use_bil.int())
+    with pytest.raises(TypeError):
+        br.banded_resample_rows(planes, coords, use_bil,
+                                out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        br.banded_resample_rows(planes, coords.cpu(), use_bil)
+    before = br.launch_count()
+    with pytest.raises(ValueError):
+        br.banded_resample_rows(planes[:, :3], coords, use_bil)
+    assert br.launch_count() == before
