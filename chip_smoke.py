@@ -5,17 +5,23 @@ PyTorch version, serves full-width DeepLabV3+ (ResNet-50, 21 classes,
 513x513, bf16, batch 8, weights made from a seed) through the port's
 MaskServer, trains the same model (batch 32, SGD with momentum) through the
 port's Trainer on one fixed batch, serves masks from the checkpoint it saved,
-and then trains it end to end from u8 host batches: an in-memory dataset ->
+evaluates it (`engine.test`: 80 images at batch 32 through the eval step,
+whose loss and confusion counts come from the upsample+CE and
+upsample+argmax+confusion kernels; train -> eval -> save(best) -> reload ->
+the same counts; then each option of the eval step once: flip and
+multi-scale TTA, sliding-window tiles, ignore_index, Boundary IoU), and then
+trains it end to end from u8 host batches: an in-memory dataset ->
 DataLoader -> Fetcher -> PostFetch (the default augmentation policy on the
 card, whose warp runs the row-resample kernel twice per batch) -> Trainer.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
-                                     # the step and of the augmentation
+                                     # the train step, the eval step and
+                                     # the augmentation
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
-main-path run (serving, training, or training end to end), its error
+main-path run (serving, training, evaluation, or training end to end), its error
 against the plain version,
 its time, the plain version's and the card's bound for the same work; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -25,6 +31,8 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import os
 import re
@@ -43,14 +51,24 @@ from pytorch_segmentation_tpu_torch.data import augment as taug
 from pytorch_segmentation_tpu_torch.data.loader import DataLoader, Fetcher
 from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
                                                           normalize_images)
+from pytorch_segmentation_tpu_torch.engine import test as run_eval
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
+from pytorch_segmentation_tpu_torch.engine.steps import (make_eval_step,
+                                                         nhwc_forward)
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
-from pytorch_segmentation_tpu_torch.inference import make_mask_fn
+from pytorch_segmentation_tpu_torch.inference import (_tile_offsets,
+                                                      make_mask_fn,
+                                                      make_tiled_mask_fn)
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.ops.boundary import (boundary_confusion,
+                                                         boundary_pixels)
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
 from pytorch_segmentation_tpu_torch.ops.kernels import build
+from pytorch_segmentation_tpu_torch.ops.kernels import eval_confusion as ec
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
+from pytorch_segmentation_tpu_torch.ops.metrics import (confusion_update,
+                                                        sample_valid_mask)
 from pytorch_segmentation_tpu_torch.ops.resize import (resize_bilinear,
                                                        resize_nearest)
 from pytorch_segmentation_tpu_torch.serving import MaskServer
@@ -62,6 +80,8 @@ SEED = 0
 IMG = 513
 BATCH = 8
 TRAIN_BATCH = 32
+EVAL_BATCH = 32
+EVAL_IMAGES = 80   # 3 eval batches, valid = 32, 32, 16
 NUM_CLASSES = 21
 GAP = 1e-4       # pixels with a larger top-2 gap must agree exactly
 AGREEMENT = 0.999
@@ -385,6 +405,101 @@ def resample_cases(device, dataset):
             "pass_ms": [pass1["ms"], pass2["ms"]]}
 
 
+def eval_case(name, shape, out_hw, dtype, align, device, valid=None,
+              label_dtype=torch.int32, nchw=False, tie=None, outside_rows=0):
+    """The upsample+argmax+confusion kernel against its plain version on the
+    same tensors: integer counts, so equal exactly, and equal between two
+    launches (integer atomics commute). `valid` is a count or a bool mask
+    (default: every sample); `outside_rows` rows of sample 0 get the label
+    255, which must count for no class's tp or fn."""
+    rng = np.random.default_rng(SEED)
+    b, _, w, c = shape
+    x = rng.standard_normal(shape).astype(np.float32)
+    if tie is not None:  # class tie[1] duplicates tie[0]: tie[0] must win
+        x[..., tie[1]] = x[..., tie[0]]
+    logits = torch.from_numpy(x).to(device=device, dtype=dtype)
+    if nchw:
+        logits = logits.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    labels = rng.integers(0, c, (b,) + tuple(out_hw))
+    labels[0, :outside_rows] = 255
+    labels = torch.from_numpy(labels).to(device=device, dtype=label_dtype)
+    valid = b if valid is None else valid
+    mask = sample_valid_mask(valid, b, device)
+
+    before = ec.launch_count()
+    got = ec.fused_eval_confusion(logits, labels, valid, align_corners=align)
+    again = ec.fused_eval_confusion(logits, labels, valid,
+                                    align_corners=align)
+    if ec.launch_count() != before + 2:
+        raise AssertionError(f"{name}: the wrapper did not count its launch")
+    want = ec.eval_confusion_reference(logits, labels, valid, align)
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+    for g, r, a in zip(got, want, again):
+        if g.dtype != torch.float32 or not torch.equal(g, r):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"by {err}")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name}: two launches differ")
+    tp, fn, fp = (v.double() for v in got)
+    pixels = int(mask.sum()) * out_hw[0] * out_hw[1]
+    outside = outside_rows * out_hw[1] * int(mask[0])
+    if (float((tp + fn).sum()), float((tp + fp).sum())) != (
+            pixels - outside, pixels):
+        raise AssertionError(f"{name}: {float((tp + fn).sum())} labelled and "
+                             f"{float((tp + fp).sum())} predicted pixels "
+                             f"counted, not {pixels - outside} and {pixels}")
+    if tie is not None and float(tp[tie[1]] + fp[tie[1]]):
+        raise AssertionError(f"{name}: a tied higher class id won")
+    ms = cuda_median_ms(lambda: ec.fused_eval_confusion(
+        logits, labels, valid, align_corners=align))
+    plain_ms = cuda_median_ms(lambda: ec.eval_confusion_reference(
+        logits, labels, valid, align))
+    # the wrapper without its masked sum over the batch: the zeroed count
+    # buffer and the kernel
+    launch_ms = cuda_median_ms(lambda: ec._launch(logits, labels, align))
+    # logits and labels read once, 3 x C counts written; per output pixel
+    # and class the separable interpolation and one compare
+    all_pixels = b * out_hw[0] * out_hw[1]
+    least = bound(logits.numel() * logits.element_size()
+                  + labels.numel() * labels.element_size() + 3 * c * 4,
+                  (interp_flops(w, out_hw[1]) + 1) * all_pixels * c)
+    log("kernel", case=name, kernel="eval_confusion", shape=list(shape),
+        out_hw=list(out_hw), dtype=str(dtype).replace("torch.", ""),
+        label_dtype=str(label_dtype).replace("torch.", ""),
+        logits_strides=list(logits.stride()), align_corners=align,
+        valid_samples=int(mask.sum()), pixels_counted=pixels,
+        labels_outside=outside, max_abs_err=err, equal=True,
+        two_launches_bit_equal=True, ms=ms, launch_only_ms=launch_ms,
+        plain_ms=plain_ms, **least)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
+            "library_ms": None}
+
+
+def eval_cases(device):
+    """The path shape (what `test()` hands the kernel at batch 32) with every
+    sample valid, with a count of 20, with a mask that has holes, in f32 and
+    from NCHW memory; a ragged 150-class shape with align_corners=False,
+    int64 labels, a planted tie and labels of 255; 81 classes."""
+    shape, out_hw = (EVAL_BATCH, 129, 129, NUM_CLASSES), (IMG, IMG)
+    path = eval_case("eval_path_bf16", shape, out_hw, torch.bfloat16, True,
+                     device)
+    eval_case("eval_path_bf16_valid20", shape, out_hw, torch.bfloat16, True,
+              device, valid=20)
+    holes = torch.arange(EVAL_BATCH, device=device) % 3 != 1
+    eval_case("eval_path_bf16_mask_with_holes", shape, out_hw, torch.bfloat16,
+              True, device, valid=holes)
+    eval_case("eval_path_f32", shape, out_hw, torch.float32, True, device)
+    eval_case("eval_path_bf16_nchw", shape, out_hw, torch.bfloat16, True,
+              device, nchw=True)
+    eval_case("eval_ragged_c150", (2, 65, 97, 150), (257, 385),
+              torch.bfloat16, False, device, label_dtype=torch.int64,
+              tie=(3, 7), outside_rows=5)
+    eval_case("eval_c81_f32", (2, 33, 33, 81), (129, 129), torch.float32,
+              True, device)
+    return path
+
+
 def small_model_check(device):
     """The f32 model at small size on the card (kernel) against the CPU
     (plain version), same seeded weights and images, TF32 off. A pixel can
@@ -466,6 +581,48 @@ def small_train_check(device):
                              f"{loss_err}, tensors by {param_err}")
     log("small_train", losses=gpu_losses, loss_max_rel_diff=loss_err,
         tensor_max_rel_diff=param_err)
+
+
+def small_eval_check(device):
+    """`test()` with the small f32 model over an in-memory dataset whose last
+    batch is padded (6 images at batch 4), on the card (both kernels)
+    against the CPU (their plain versions), TF32 off: counts equal, loss
+    within 1e-5, mIoU within 1e-6."""
+    rng = np.random.default_rng(SEED + 7)
+    dataset = MemoryDataset(6, rng, hw=65, num_classes=5)
+
+    def run(dev, tmp):
+        model = build_model("deeplabv3plus", 5, backbone_layers=(1, 1, 1, 1),
+                            dtype=torch.float32, full_res_output=True)
+        model = load_model_bundle(model, None, dev, seed=SEED)
+        fetcher = Fetcher(DataLoader(dataset, 4, num_workers=1),
+                          PostFetch(device=dev))
+        path = os.path.join(tmp, f"{torch.device(dev).type}.json")
+        miou = run_eval(model, fetcher, show_first_batch=False, log=False,
+                        report_path=path, device=dev)
+        with open(path) as f:
+            return miou, json.load(f)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_miou, cpu = run("cpu", tmp)
+        before = (ec.launch_count(), ce.launch_count()["fwd"])
+        gpu_miou, gpu = run(device, tmp)
+        launched = (ec.launch_count() - before[0],
+                    ce.launch_count()["fwd"] - before[1])
+    if launched != (2, 2):
+        raise AssertionError(f"small eval on the card launched {launched} "
+                             f"confusion and CE kernels, not (2, 2)")
+    counts = [[c[k] for c in r["per_class"] for k in ("tp", "fn", "fp")]
+              for r in (gpu, cpu)]
+    loss_err = abs(gpu["val_loss"] - cpu["val_loss"]) / cpu["val_loss"]
+    if (counts[0] != counts[1] or loss_err > 1e-5
+            or abs(gpu_miou - cpu_miou) > 1e-6):
+        raise AssertionError(f"small eval: counts equal "
+                             f"{counts[0] == counts[1]}, loss {loss_err}, "
+                             f"mIoU {gpu_miou} vs {cpu_miou}")
+    log("small_eval", miou=gpu_miou, miou_cpu=cpu_miou,
+        loss_rel_diff=loss_err, counts_equal=True,
+        pixels_counted=sum(c["tp"] + c["fn"] for c in gpu["per_class"]))
 
 
 def to_device(obj, device):
@@ -653,13 +810,28 @@ class RepeatFetcher:
         return (self.batch for _ in range(self.n))
 
 
-def train_phase(device, profile=False):
+def eval_report(model, dataset, device, tmp, **options):
+    """`test()` over `dataset` at batch 32 (bf16 images, no augmentation, the
+    last batch padded): the mIoU and the parsed report."""
+    fetcher = Fetcher(DataLoader(dataset, EVAL_BATCH),
+                      PostFetch(dtype=torch.bfloat16, device=device))
+    path = os.path.join(tmp, "report.json")
+    miou = run_eval(model, fetcher, log=False, report_path=path,
+                    device=device, **options)
+    with open(path) as f:
+        return miou, json.load(f)
+
+
+def train_phase(device, eval_set, profile=False):
     """Full-width DeepLabV3+ R50 through the port's Trainer: a
     full_res_output=True model, so the Trainer's deferred upsample is what
     routes the loss through the upsample+CE kernels. One fixed batch of 32
     at 513x513, bf16 compute over f32 parameters, SGD 1e-3 with momentum
     0.9: 3 warm-up steps, then 3 synchronised windows of 5 steps. Then
-    save -> load_model_bundle -> make_mask_fn on 8 of the images."""
+    save -> load_model_bundle -> make_mask_fn on 8 of the images, and what a
+    training script does after an epoch: evaluate the live model, keep its
+    mIoU, save(best), and find the same counts in the reloaded best.pt.
+    Returns that reloaded model beside the train step's figures."""
     rng = np.random.default_rng(SEED + 4)
     imgs_u8 = np.stack([smooth_image(rng, IMG, IMG)
                         for _ in range(TRAIN_BATCH)])
@@ -686,7 +858,7 @@ def train_phase(device, profile=False):
         # the strides of the NHWC view of the logits that the step hands
         # the loss: they follow the layout cls_conv's output came in
         strides = set()
-        trainer._train_module.register_forward_hook(
+        strides_hook = trainer._train_module.register_forward_hook(
             lambda mod, args, out: strides.add(
                 tuple(out.permute(0, 2, 3, 1).stride())))
         torch.cuda.synchronize()
@@ -730,6 +902,26 @@ def train_phase(device, profile=False):
                              dtype=torch.bfloat16, full_res_output=False)
         served = load_model_bundle(served, os.path.join(tmp, "w", "last.pt"),
                                    device)
+
+        # train -> eval -> save(best) -> reload -> the same evaluation
+        strides_hook.remove()
+        trainer.metrics, live = eval_report(trainer.model, eval_set, device,
+                                            tmp, show_first_batch=False)
+        trainer.save(best=True)
+        best = os.path.join(tmp, "w", "best.pt")
+        trained = load_model_bundle(
+            build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=True), best, device)
+        miou, reloaded = eval_report(trained, eval_set, device, tmp,
+                                     show_first_batch=False)
+        kept = torch.load(best, weights_only=True)["best_miou"]
+    if not (reloaded == live and miou == trainer.metrics == kept):
+        raise AssertionError(f"best.pt evaluates to mIoU {miou} (kept "
+                             f"{kept}), the live model to {trainer.metrics}")
+    if not (np.isfinite(live["val_loss"]) and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"eval after training: {live}")
+    log("train_eval_save_best", miou=miou, val_loss=live["val_loss"],
+        reloaded_report_equal=True)
     masks = make_mask_fn(served, out_hw=(IMG, IMG))(imgs_u8[:8])
     classes = len(torch.unique(masks))
     if masks.shape != (8, IMG, IMG) or masks.dtype != torch.int32:
@@ -745,19 +937,288 @@ def train_phase(device, profile=False):
         peak_memory_gb=peak_gb, launches=launches,
         logits_strides=list(*strides),
         served_classes_after_training=classes)
-    return launches, strides.pop(), images_per_s
+    return launches, strides.pop(), images_per_s, trained
+
+
+class FixedLogits(torch.nn.Module):
+    """A stand-in model that answers with logits captured earlier: the eval
+    step's tail runs on exactly the tensor another route saw."""
+
+    def __init__(self, logits_nchw):
+        super().__init__()
+        self.logits = logits_nchw
+
+    def forward(self, x):
+        return self.logits
+
+
+def assert_results_equal(name, got, want, loss_rtol=0.0):
+    """Eval-step results: the loss within `loss_rtol` (relative), the count
+    vectors equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} results against "
+                             f"{len(want)}")
+    loss, ref = float(got[0]), float(want[0])
+    if not (np.isfinite(loss) and abs(loss - ref) <= loss_rtol * abs(ref)):
+        raise AssertionError(f"{name}: loss {loss} against {ref}")
+    for g, w in zip(got[1:], want[1:]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: counts differ by "
+                                 f"{float((g - w).abs().max())}")
+    return abs(loss - ref) / abs(ref)
+
+
+def eval_phase(device, model, eval_set, profile=False):
+    """The evaluation path at full width: `test()` over 80 images at batch
+    32 (bf16, the stride-4 twin of the trained full_res_output model), so 3
+    eval steps with 32, 32 and 16 real samples, each through the upsample+CE
+    forward kernel and the upsample+argmax+confusion kernel; the first
+    batch's picture goes through the upsample+argmax kernel. Then each
+    option of the eval step once on one batch of 8, held against a
+    composition by hand of the same forwards."""
+    fetcher = Fetcher(DataLoader(eval_set, EVAL_BATCH),
+                      PostFetch(dtype=torch.bfloat16, device=device))
+    captured, batches = [], []
+    # `test()` evaluates a shallow copy of the model, which shares its hooks
+    hook = model.register_forward_hook(
+        lambda mod, args, out: captured.append(out))
+
+    class Recording:
+        loader = fetcher.loader
+
+        def __len__(self):
+            return len(fetcher)
+
+        def __iter__(self):
+            for batch in fetcher:
+                batches.append(batch)
+                yield batch
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ec.reset_launch_count()
+        ce.reset_launch_count()
+        ua.reset_launch_count()
+        miou = run_eval(model, Recording(), log=False,
+                        report_path="report.json", device=device)
+        launches = {"eval_confusion": ec.launch_count(),
+                    "softmax_ce_fwd": ce.launch_count()["fwd"],
+                    "upsample_argmax": ua.launch_count()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hook.remove()
+        with open("report.json") as f:
+            report = json.load(f)
+        picture = decode_png(open("batch.png", "rb").read())
+    valid_counts = [min(EVAL_BATCH, EVAL_IMAGES - i)
+                    for i in range(0, EVAL_IMAGES, EVAL_BATCH)]
+    steps = len(valid_counts)
+    if launches != {"eval_confusion": steps, "softmax_ce_fwd": steps,
+                    "upsample_argmax": 1}:
+        raise AssertionError(f"the eval run launched {launches}")
+    if picture.shape != (min(8, EVAL_BATCH) * IMG, 2 * IMG, 3):
+        raise AssertionError(f"first-batch picture {picture.shape}")
+    if [b[2] for b in batches] != valid_counts:
+        raise AssertionError(f"valid counts {[b[2] for b in batches]}")
+    counted = sum(c["tp"] + c["fn"] for c in report["per_class"])
+    if counted != EVAL_IMAGES * IMG * IMG or not (
+            np.isfinite(report["val_loss"]) and 0.0 <= miou <= 1.0
+            and report["miou"] == miou):
+        raise AssertionError(f"eval report: {counted} pixels counted, "
+                             f"loss {report['val_loss']}, mIoU {miou}")
+
+    # per batch, the fused route against the plain tail on the logits the
+    # run produced (bf16 logits depend on the batch: never a second forward)
+    # (the second forward of the run made the first batch's picture)
+    logits = captured[:1] + captured[2:]
+    if (len(logits) != steps or captured[1].shape[0] != min(8, EVAL_BATCH)
+            or any(tuple(c.shape) != (EVAL_BATCH, NUM_CLASSES, 129, 129)
+                   for c in logits)):
+        raise AssertionError(f"captured {[tuple(c.shape) for c in captured]}")
+    fused_step = make_eval_step(NUM_CLASSES)
+    plain_step = make_eval_step(NUM_CLASSES, use_kernels=False)
+    totals, loss_diff = None, 0.0
+    for lg, (images, segs, valid) in zip(logits, batches):
+        fixed = FixedLogits(lg).eval()
+        fused = fused_step(fixed, images, segs, valid)
+        plain = plain_step(fixed, images, segs, valid)
+        loss_diff = max(loss_diff, assert_results_equal(
+            "fused route against the plain tail", fused, plain, LOSS_RTOL))
+        fused = [f.double() for f in fused]  # a sum may pass 2^24
+        totals = fused if totals is None else [
+            t + f for t, f in zip(totals, fused)]
+    for row, key in zip(totals[1:], ("tp", "fn", "fp")):
+        if row.tolist() != [c[key] for c in report["per_class"]]:
+            raise AssertionError(f"the report's {key} is not the sum of the "
+                                 f"steps' results")
+    if abs(float(totals[0]) / steps - report["val_loss"]) > 1e-6 * report[
+            "val_loss"]:
+        raise AssertionError("the report's loss is not the steps' mean")
+
+    # rate: whole passes of test(), host clock, synchronised at both ends
+    pass_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_eval(model, fetcher, show_first_batch=False, log=False,
+                 device=device)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+    # the step alone on a batch already on the card, and its forward alone
+    twin = copy.copy(model)
+    twin.full_res_output = False
+    images, segs, _ = batches[0]
+    fwd = nhwc_forward(twin)
+    with torch.inference_mode():
+        step_ms = cuda_median_ms(
+            lambda: fused_step(twin, images, segs, EVAL_BATCH), reps=10)
+        forward_ms = cuda_median_ms(lambda: fwd(images), reps=10)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fused_step(twin, images, segs, EVAL_BATCH)
+        enqueue_ms = 1e3 * (time.perf_counter() - t0) / 5
+        torch.cuda.synchronize()
+        if profile:
+            profile_table("profile_eval", lambda: fused_step(
+                twin, images, segs, EVAL_BATCH), 3)
+    log("eval", images=EVAL_IMAGES, batch=EVAL_BATCH, steps=steps, miou=miou,
+        val_loss=report["val_loss"], launches=launches,
+        pixels_counted=counted, fused_vs_plain_tail_counts_equal=True,
+        fused_vs_plain_tail_loss_max_rel_diff=loss_diff,
+        images_per_s=EVAL_IMAGES / min(pass_s),
+        ms_per_pass=[1e3 * t for t in pass_s],
+        ms_per_step_cuda_events=step_ms, forward_ms_cuda_events=forward_ms,
+        forward_share=forward_ms / step_ms,
+        step_host_enqueue_ms=enqueue_ms, peak_memory_gb=peak_gb)
+    eval_options(device, twin, images[:BATCH], segs[:BATCH], eval_set)
+    return launches
+
+
+def eval_options(device, twin, images, segs, eval_set):
+    """Each option of the eval step once, on one batch of 8 at full width,
+    against a composition by hand of the same forwards (a repeat of the same
+    forward on the card is bit-exact, so counts must be equal)."""
+    fwd = nhwc_forward(twin)
+    align = True
+
+    def on(logits_nhwc, x, y, **options):
+        """The plain or fused step on logits made by hand."""
+        return make_eval_step(NUM_CLASSES, **options)(
+            FixedLogits(logits_nhwc.permute(0, 3, 1, 2)).eval(), x, y, BATCH)
+
+    def flipped(x):
+        return (fwd(x) + fwd(x.flip(2)).flip(2)) * 0.5
+
+    checked = {}
+    with torch.inference_mode():
+        got = make_eval_step(NUM_CLASSES, tta_flip=True)(twin, images, segs,
+                                                         BATCH)
+        checked["tta_flip"] = assert_results_equal(
+            "tta_flip", got, on(flipped(images), images, segs), LOSS_RTOL)
+
+        got = make_eval_step(NUM_CLASSES, tta_scales=(0.75, 1.25))(
+            twin, images, segs, BATCH)
+        base = fwd(images)
+        acc = base.float()
+        for size in ((384, 384), (640, 640)):
+            scaled = resize_bilinear(images.float(), size,
+                                     align_corners=align).to(images.dtype)
+            acc = acc + resize_bilinear(fwd(scaled).float(), (129, 129),
+                                        align_corners=align)
+        checked["tta_scales"] = assert_results_equal(
+            "tta_scales", got, on((acc / 3).to(base.dtype), images, segs),
+            LOSS_RTOL)
+
+        # sliding window: 513 tiles over a 769 batch, offsets (0, 256) twice
+        big = resize_bilinear(images, (769, 769), align_corners=True)
+        big_segs = resize_nearest(segs, (769, 769))
+        got = make_eval_step(NUM_CLASSES, tile=(IMG, IMG))(twin, big,
+                                                           big_segs, BATCH)
+        offsets = _tile_offsets(769, IMG, 1 / 3)
+        canvas = torch.zeros((BATCH, 769, 769, NUM_CLASSES), device=device)
+        count = torch.zeros((1, 769, 769, 1), device=device)
+        for y0 in offsets:
+            for x0 in offsets:
+                canvas[:, y0:y0 + IMG, x0:x0 + IMG] += resize_bilinear(
+                    fwd(big[:, y0:y0 + IMG, x0:x0 + IMG]).float(),
+                    (IMG, IMG), align_corners=align)
+                count[:, y0:y0 + IMG, x0:x0 + IMG] += 1.0
+        if offsets != (0, 256) or float(count.max()) != 4.0:
+            raise AssertionError(f"tile offsets {offsets}")
+        checked["tile"] = assert_results_equal(
+            "tile", got, on(canvas / count, big, big_segs, use_kernels=False),
+            LOSS_RTOL)
+        tiled_masks = make_tiled_mask_fn(twin, tile_hw=(IMG, IMG),
+                                         overlap=1 / 3)(
+            torch.from_numpy(np.stack([smooth_image(
+                np.random.default_rng(SEED + 8), 769, 769)] * 2)))
+        del canvas, count, big, big_segs
+        if (tiled_masks.shape != (2, 769, 769)
+                or tiled_masks.dtype != torch.int32
+                or int(tiled_masks.max()) >= NUM_CLASSES
+                or len(torch.unique(tiled_masks)) < 2):
+            raise AssertionError("make_tiled_mask_fn: bad masks")
+
+        # ignore_index: torch's own cross_entropy per sample, and counts
+        # over the pixels that are left
+        ignored = segs.clone()
+        ignored[:, :40] = 255
+        ignored[0] = 255
+        got = make_eval_step(NUM_CLASSES, ignore_index=255)(
+            twin, images, ignored, BATCH)
+        up = resize_bilinear(base.float(), (IMG, IMG), align_corners=align)
+        per_sample = torch.stack([torch.nan_to_num(
+            torch.nn.functional.cross_entropy(
+                up[i].reshape(-1, NUM_CLASSES), ignored[i].reshape(-1).long(),
+                ignore_index=255)) for i in range(BATCH)])
+        keep = ignored != 255
+        pred = up.argmax(-1)
+        want = (per_sample.mean(), *confusion_update(pred[keep],
+                                                     ignored[keep],
+                                                     NUM_CLASSES))
+        checked["ignore_index"] = assert_results_equal(
+            "ignore_index", got, want, 1e-5)
+
+        d = boundary_pixels(IMG, IMG, 0.02)
+        got = make_eval_step(NUM_CLASSES, boundary_ratio=0.02)(
+            twin, images, segs, BATCH)
+        want = (*on(base, images, segs, use_kernels=False),
+                *boundary_confusion(pred, segs, NUM_CLASSES, d))
+        checked["boundary_ratio"] = assert_results_equal(
+            "boundary_ratio", got, want, LOSS_RTOL)
+        if d != 15 or not 0 < float(got[4].sum()) <= float(got[5].sum()):
+            raise AssertionError(f"boundary sums {got[4]}, {got[5]} at d={d}")
+
+        # serving with flip TTA: the same average, then the argmax kernel
+        u8 = torch.from_numpy(eval_set.images[:BATCH]).to(device)
+        before = ua.launch_count()
+        masks = make_mask_fn(twin, tta_flip=True)(u8)
+        want = ua.fused_upsample_argmax(flipped(normalize_images(u8)),
+                                        (IMG, IMG), align_corners=align)
+        if ua.launch_count() != before + 2 or not torch.equal(masks, want):
+            raise AssertionError("make_mask_fn(tta_flip=True) differs from "
+                                 "the average by hand")
+    torch.cuda.synchronize()
+    log("eval_options", loss_rel_diff=checked, counts_equal=True,
+        boundary_band_px=d, tiled_mask_classes=len(torch.unique(tiled_masks)))
 
 
 class MemoryDataset:
     """Seeded u8 images and labels held in host memory: smooth images and,
     as labels, a 9x9 grid of classes per image, nearest-upsampled."""
 
-    def __init__(self, n, rng):
-        self.images = np.stack([smooth_image(rng, IMG, IMG)
-                                for _ in range(n)])
-        grid = torch.from_numpy(rng.integers(0, NUM_CLASSES,
+    def __init__(self, n, rng, hw=IMG, num_classes=NUM_CLASSES):
+        self.classes = [f"class{i}" for i in range(num_classes)]
+        self.images = np.stack([smooth_image(rng, hw, hw) for _ in range(n)])
+        grid = torch.from_numpy(rng.integers(0, num_classes,
                                              (n, 9, 9)).astype(np.uint8))
-        self.segs = resize_nearest(grid, (IMG, IMG)).numpy()
+        self.segs = resize_nearest(grid, (hw, hw)).numpy()
+
+    def first(self, n):
+        """The same dataset cut to its first `n` samples (no copy)."""
+        cut = copy.copy(self)
+        cut.images, cut.segs = self.images[:n], self.segs[:n]
+        return cut
 
     def __len__(self):
         return len(self.images)
@@ -912,7 +1373,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler tables, by op, of "
-                             "the train step and of the augmentation")
+                             "the train step, the eval step and the "
+                             "augmentation")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -929,7 +1391,8 @@ def main():
         build.load_kernel_library(name)
         return time.perf_counter() - t0
 
-    names = ("upsample_argmax", "softmax_ce", "banded_resample")
+    names = ("upsample_argmax", "softmax_ce", "banded_resample",
+             "eval_confusion")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, seconds in zip(names, pool.map(build_one, names)):
             ptxas = build.BUILD_LOGS.get(name, "")  # what ptxas -v printed
@@ -962,13 +1425,19 @@ def main():
     # 4 batches' worth of u8 images and labels in host memory
     dataset = MemoryDataset(4 * TRAIN_BATCH, np.random.default_rng(SEED + 6))
     resample_path = resample_cases(device, dataset)
+    eval_path = eval_cases(device)
 
     small_model_check(device)
     small_train_check(device)
+    small_eval_check(device)
     small_augment_check(device)
     launches = serve_phase(device)
-    ce_launches, ce_strides, train_rate = train_phase(device,
-                                                      profile=args.profile)
+    eval_set = dataset.first(EVAL_IMAGES)
+    ce_launches, ce_strides, train_rate, trained = train_phase(
+        device, eval_set, profile=args.profile)
+    eval_launches = eval_phase(device, trained, eval_set,
+                               profile=args.profile)
+    del trained
     resample_launches = augment_phase(device, dataset, train_rate,
                                       resample_path.pop("pass_ms"),
                                       profile=args.profile)
@@ -999,7 +1468,13 @@ def main():
          "source": "pytorch_segmentation_tpu_torch/csrc/banded_resample.cu",
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/banded_resample.py:60",
-         "launches": resample_launches, **resample_path}]}), flush=True)
+         "launches": resample_launches, **resample_path},
+        {"name": "eval_confusion", "route": "cuda",
+         "source": "pytorch_segmentation_tpu_torch/csrc/eval_confusion.cu",
+         "replaces":
+             "pytorch_segmentation_tpu/ops/pallas/eval_confusion.py:29",
+         "launches": eval_launches["eval_confusion"], **eval_path}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

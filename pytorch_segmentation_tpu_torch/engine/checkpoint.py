@@ -44,19 +44,35 @@ def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
 
 
 def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
-                      device: torch.device | str,
-                      seed: int = 0) -> torch.nn.Module:
+                      device: torch.device | str, seed: int = 0,
+                      use_ema: bool = False) -> torch.nn.Module:
     """Load weights into `model` and return it in eval mode on `device`.
 
     weights_path: a `.pt` checkpoint (loaded with strict=True), or
     None / '' for weights made from `seed` (utils/weights.seeded_state_dict).
+    use_ema=True then loads the checkpoint's `'ema'` entry (the trainer's
+    EMA-averaged parameters) over the parameters; BN running statistics stay
+    the checkpoint's own, which already are a moving average. It raises for
+    a checkpoint that holds none.
     4-D parameters are stored channels_last, the layout the card's bf16
     convolutions are fastest in; the serving path feeds NHWC images the
     same way."""
+    if use_ema and not weights_path:
+        raise ValueError("use_ema=True needs a checkpoint")
     if weights_path:
         sd = load_state(weights_path)
     else:
         sd = seeded_state_dict(model, seed)
     model.load_state_dict(sd, strict=True)
+    if use_ema:
+        ema = torch.load(weights_path, map_location="cpu",
+                         weights_only=True).get("ema")
+        if ema is None:
+            raise ValueError(f"{weights_path} holds no EMA parameters "
+                             "(trained without ema_decay)")
+        extra = model.load_state_dict(ema, strict=False).unexpected_keys
+        if extra:
+            raise ValueError(f"{weights_path}: EMA entries the model lacks: "
+                             f"{extra}")
     model = model.to(torch.device(device), memory_format=torch.channels_last)
     return model.eval()

@@ -1,5 +1,7 @@
-"""The train step (port of `TrainState`, `create_train_state` and
-`make_train_step` in pytorch_segmentation_tpu/engine/steps.py).
+"""The train, eval and predict steps (port of `TrainState`,
+`create_train_state`, `make_train_step`, `sample_valid_mask`, `tiled_logits`,
+`make_eval_step` and `make_predict_step` in
+pytorch_segmentation_tpu/engine/steps.py).
 
 One call runs forward and backward on one loader batch and, every
 `accumulate`-th call, one optimizer update. With accumulate=k the gradients
@@ -14,6 +16,12 @@ back as a 0-d tensor on the model's device.
 Unlike the JAX state, a `TrainState` is mutable: the model's parameters, the
 optimizer state, the accumulator and the EMA weights are updated in place,
 and the step returns the same object.
+
+The eval and predict steps take the eval-mode module itself where the JAX
+ones take a state. They run under `torch.inference_mode()`, make no host
+sync and return tensors on the model's device. Eval masks padded samples
+(eval batches have a fixed size; see data/loader.py) out of the loss and the
+confusion counts.
 """
 
 from __future__ import annotations
@@ -22,10 +30,21 @@ import dataclasses
 from collections.abc import Callable
 
 import torch
+import torch.nn.functional as F
 
+from ..ops.boundary import boundary_confusion, boundary_pixels
+from ..ops.kernels.eval_confusion import fused_eval_confusion
+from ..ops.kernels.softmax_ce import fused_upsample_ce_per_sample
+from ..ops.kernels.upsample_argmax import (fused_upsample_argmax,
+                                           upsample_argmax_reference)
 from ..ops.loss import compute_loss
+from ..ops.metrics import sample_valid_mask
+from ..ops.resize import resize_bilinear
+from ..ops.tta import normalize_tta_scales, tta_logits
 
-__all__ = ["TrainState", "create_train_state", "make_train_step"]
+__all__ = ["TrainState", "create_train_state", "make_train_step",
+           "sample_valid_mask", "nhwc_forward", "tiled_logits",
+           "make_eval_step", "make_predict_step"]
 
 
 @dataclasses.dataclass
@@ -134,3 +153,185 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
         return state, loss
 
     return step
+
+
+def nhwc_forward(model: torch.nn.Module):
+    """`fwd(images [B, H, W, 3]) -> logits [B, h, w, C]` around a module that
+    takes and returns NCHW: the one place the eval and serving paths permute.
+    Both permutes are views (NHWC memory is the channels_last layout of the
+    NCHW view), so nothing is copied."""
+    def fwd(x):
+        logits = model(x.permute(0, 3, 1, 2))
+        if isinstance(logits, (tuple, list)):
+            raise NotImplementedError(
+                "auxiliary heads are not ported yet (ROADMAP: other model "
+                "families)")
+        return logits.permute(0, 2, 3, 1)
+    return fwd
+
+
+def tiled_logits(fwd_tile, images: torch.Tensor, tile_hw, overlap: float,
+                 edge_pad: float = 0.0) -> torch.Tensor:
+    """Sliding-window logits at the INPUT's resolution: run `fwd_tile`
+    (normalized tile [B, th, tw, 3] -> logits [B, th, tw, C]) over a static
+    grid of overlapping tile_hw windows, average overlapping logits on a
+    canvas, and return [B, H, W, C] f32.
+
+    The mmseg "slide" inference mode: when the eval resolution exceeds the
+    training resolution, whole-image forwards are out of distribution for
+    heads with a fixed receptive field (the ASPP pool branch), so the
+    standard protocol evaluates training-resolution windows instead. Inputs
+    smaller than a tile are padded with `edge_pad` (0 = the ImageNet mean of
+    normalized images) and cropped back."""
+    from ..inference import sum_tile_logits
+    h, w = images.shape[1:3]
+    th, tw = int(tile_hw[0]), int(tile_hw[1])
+    x = F.pad(images, (0, 0, 0, max(w, tw) - w, 0, max(h, th) - h),
+              value=edge_pad)
+    canvas, count = sum_tile_logits(fwd_tile, x, (th, tw), overlap)
+    return canvas[:, :h, :w] / count[:, :h, :w]
+
+
+def make_eval_step(num_classes: int, align_corners: bool = True,
+                   use_kernels: bool = True, quant: bool = False,
+                   tta_flip: bool = False, tta_scales: tuple = (),
+                   ignore_index: int | None = None,
+                   tile: tuple | None = None, tile_overlap: float = 1 / 3,
+                   boundary_ratio: float | None = None):
+    """Returns `(model, images, segs, valid) -> (loss, tp, fn, fp)` with
+    padded samples masked out of the loss and the confusion counts. model: an
+    eval-mode module whose logits may be smaller than the labels (the
+    stride-4 twin of a `full_res_output` model); images [B, H, W, 3]
+    normalized float and segs [B, H, W] int on the model's device; `valid`
+    the count of real samples (the first `valid` of the batch) or a
+    per-sample bool mask [B]. loss is a 0-d f32 tensor, the counts f32 [C].
+
+    Two routes, chosen by the options alone. With logits smaller than the
+    labels and none of `ignore_index`, `tile`, `boundary_ratio` set, the
+    loss is the masked mean of `fused_upsample_ce_per_sample` and the counts
+    come from `fused_eval_confusion`: on the card two hand-written kernels
+    that never write full-resolution logits. Otherwise the plain tail: f32
+    upsample, logsumexp, per-sample mean, argmax, one bincount.
+    `use_kernels=False` forces the plain tail (for holding one route against
+    the other). The routes differ on a label outside [0, C) with no
+    `ignore_index`: the fused route counts it as a false positive of the
+    predicted class and its true logit as 0; the plain tail drops the pixel
+    from the counts and its loss is NaN, as in the JAX package for a label
+    >= C (a negative label wraps around there and is not held to it).
+
+    tta_flip / tta_scales: test-time augmentation (ops/tta.py), averaged
+    logits flow through either route. ignore_index: those pixels leave both
+    the loss (per-sample mean over the valid pixels) and the counts. tile=(H,
+    W): mmseg "slide" evaluation, `tiled_logits` with `tile_overlap`; TTA
+    composes per tile. boundary_ratio=R: the step also returns per-class
+    Boundary IoU intersection and union sums (ops/boundary.py), six values
+    in all. Each of the three forces the plain tail.
+
+    Not ported yet: `quant` and a `quant_stats` argument of the step
+    (ROADMAP: quant.py)."""
+    if quant:
+        raise NotImplementedError("int8 evaluation is not ported yet "
+                                  "(ROADMAP: quant.py)")
+    tta_scales = normalize_tta_scales(tta_scales)
+    if tile is not None:
+        tile = (int(tile[0]), int(tile[1]))
+    fused = (use_kernels and ignore_index is None and tile is None
+             and boundary_ratio is None)
+
+    @torch.inference_mode()
+    def step(model: torch.nn.Module, images: torch.Tensor,
+             segs: torch.Tensor, valid, quant_stats=None):
+        if quant_stats is not None:
+            raise NotImplementedError("calibrated int8 evaluation is not "
+                                      "ported yet (ROADMAP: quant.py)")
+        if model.training:
+            raise ValueError("the eval step needs an eval-mode module "
+                             "(BatchNorm would normalize by the batch)")
+        fwd = nhwc_forward(model)
+
+        def averaged(x):
+            return tta_logits(fwd, x, scales=tta_scales, flip=tta_flip,
+                              align_corners=align_corners)
+
+        if tile is not None:
+            def fwd_tile(x):
+                return resize_bilinear(averaged(x).float(), tile,
+                                       align_corners=align_corners)
+            logits = tiled_logits(fwd_tile, images, tile, tile_overlap)
+        else:
+            logits = averaged(images)
+        b, th, tw = segs.shape
+        mask = sample_valid_mask(valid, b, logits.device)
+        mask_f = mask.float()
+        if fused and tuple(logits.shape[1:3]) != (th, tw):
+            per_sample = fused_upsample_ce_per_sample(
+                logits, segs, align_corners=align_corners)
+            loss = (per_sample * mask_f).sum() / mask_f.sum().clamp(min=1.0)
+            return (loss, *fused_eval_confusion(
+                logits, segs, mask, align_corners=align_corners))
+
+        up = resize_bilinear(logits.float(), (th, tw),
+                             align_corners=align_corners)
+        lse = torch.logsumexp(up, dim=-1)
+        labels = segs.long()
+        pix = mask[:, None, None]  # pixels of real samples, not ignored
+        if ignore_index is not None:
+            pix_valid = segs != ignore_index
+            labels = torch.where(pix_valid, labels, torch.zeros_like(labels))
+            pix = pix & pix_valid
+        inside = (labels >= 0) & (labels < num_classes)
+        true_logit = up.gather(
+            -1, labels.clamp(0, num_classes - 1).unsqueeze(-1)).squeeze(-1)
+        pixel_loss = lse - torch.where(
+            inside, true_logit, torch.full_like(true_logit, float("nan")))
+        if ignore_index is not None:
+            # per-sample mean over the VALID pixels only (torch
+            # cross_entropy(ignore_index=) semantics per sample)
+            pv = pix_valid.float()
+            per_sample = (pixel_loss * pv).sum(dim=(1, 2)) / pv.sum(
+                dim=(1, 2)).clamp(min=1.0)
+        else:
+            per_sample = pixel_loss.mean(dim=(1, 2))
+        loss = (per_sample * mask_f).sum() / mask_f.sum().clamp(min=1.0)
+        pred = torch.argmax(up, dim=-1)
+        # one bincount over (C+1)^2: padded samples, ignored pixels and
+        # labels outside [0, C) go to the extra bucket, which is cropped
+        nc1 = num_classes + 1
+        counted = pix & inside
+        bucket = torch.full_like(pred, num_classes)
+        keys = (torch.where(counted, labels, bucket) * nc1
+                + torch.where(counted, pred, bucket))
+        cm = torch.bincount(keys.reshape(-1), minlength=nc1 * nc1).reshape(
+            nc1, nc1)[:num_classes, :num_classes]
+        tp = cm.diagonal()
+        out = (loss, tp.float(), (cm.sum(dim=1) - tp).float(),
+               (cm.sum(dim=0) - tp).float())
+        if boundary_ratio is not None:
+            out += boundary_confusion(
+                pred, segs, num_classes,
+                boundary_pixels(th, tw, boundary_ratio), valid=pix)
+        return out
+
+    return step
+
+
+def make_predict_step(align_corners: bool = True, use_kernels: bool = True):
+    """`(model, images [B, H, W, 3], out_hw) -> int32 argmax mask
+    [B, *out_hw]` (serving and the eval loop's first-batch picture). Logits
+    smaller than `out_hw` go through `fused_upsample_argmax`, on the card one
+    kernel that never writes the full-resolution logits;
+    `use_kernels=False` takes its plain version."""
+    argmax = (fused_upsample_argmax if use_kernels
+              else upsample_argmax_reference)
+
+    @torch.inference_mode()
+    def predict(model: torch.nn.Module, images: torch.Tensor, out_hw):
+        if model.training:
+            raise ValueError("the predict step needs an eval-mode module")
+        logits = nhwc_forward(model)(images)
+        out_hw = (int(out_hw[0]), int(out_hw[1]))
+        if tuple(logits.shape[1:3]) == out_hw:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return argmax(logits, out_hw, align_corners=align_corners)
+
+    return predict

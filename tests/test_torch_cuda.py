@@ -1,8 +1,8 @@
 """PyTorch port on the card: the hand-written kernels (upsample+argmax;
 upsample+cross-entropy forward and backward; the augmentation warp's row
-resampler) against their plain PyTorch versions at edge shapes, and the
-small model against the CPU. Skips without
-a CUDA device. On the card (no jax there, so without the
+resampler; upsample+argmax+confusion counts) against their plain PyTorch
+versions at edge shapes, and the small model (served, trained, evaluated)
+against the CPU. Skips without a CUDA device. On the card (no jax there, so without the
 JAX-side conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -17,6 +17,7 @@ from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import build_model
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
+from pytorch_segmentation_tpu_torch.ops.kernels import eval_confusion as ec
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
 from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
@@ -326,3 +327,149 @@ def test_resample_wrapper_rejects_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError):
         br.banded_resample_rows(planes[:, :3], coords, use_bil)
     assert br.launch_count() == before
+
+
+def _eval_inputs(shape, out_hw, dtype, device, label_dtype=torch.int32,
+                 seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, shape[-1], (shape[0],) + out_hw))
+    return (x.to(device=device, dtype=dtype),
+            y.to(device=device, dtype=label_dtype))
+
+
+def _eval_check(x, y, valid, align):
+    """The kernel's counts equal the plain version's exactly (integers; the
+    two interpolate in the same f32 order, H then W), a second launch gives
+    the same bits, and every counted pixel is counted once."""
+    before = ec.launch_count()
+    got = ec.fused_eval_confusion(x, y, valid, align_corners=align)
+    assert ec.launch_count() == before + 1
+    want = ec.eval_confusion_reference(x, y, valid, align)
+    again = ec.fused_eval_confusion(x, y, valid, align_corners=align)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == torch.float32 and g.shape == (x.shape[-1],)
+        assert torch.equal(g, w) and torch.equal(g, a)
+    return got
+
+
+@pytest.mark.parametrize("shape,out_hw,align,dtype,label_dtype", [
+    ((32, 129, 129, 21), (513, 513), True, torch.bfloat16, torch.int32),
+    ((4, 129, 129, 21), (513, 513), True, torch.float32, torch.int64),
+    ((2, 65, 97, 150), (257, 385), False, torch.bfloat16, torch.int64),
+    ((2, 33, 33, 81), (129, 129), True, torch.float32, torch.int32),
+    ((1, 1, 1, 1), (1, 1), True, torch.float32, torch.int32),
+    ((1, 1, 1, 3), (5, 7), False, torch.bfloat16, torch.uint8),
+    ((3, 4, 5, 2), (4, 5), True, torch.float32, torch.int64),   # same size
+    ((1, 20, 30, 21), (7, 9), True, torch.float32, torch.int32),  # downsample
+    ((1, 5, 5, 4096), (9, 9), True, torch.bfloat16, torch.int32),  # the limit
+])
+def test_eval_kernel_equals_plain(device, shape, out_hw, align, dtype,
+                                  label_dtype):
+    x, y = _eval_inputs(shape, out_hw, dtype, device, label_dtype)
+    b = shape[0]
+    tp, fn, fp = _eval_check(x, y, b, align)
+    pixels = b * out_hw[0] * out_hw[1]
+    assert float((tp + fn).sum()) == pixels == float((tp + fp).sum())
+
+
+def test_eval_kernel_masks_samples_and_labels_outside(device):
+    x, y = _eval_inputs((6, 17, 19, 5), (65, 73), torch.bfloat16, device)
+    y[0, :4] = 255
+    y[1, 5:7] = -1
+    y[5, 0, 0] = 5
+    full = _eval_check(x, y, 6, True)
+    outside = 4 * 73 + 2 * 73 + 1
+    assert float((full[0] + full[1]).sum()) == 6 * 65 * 73 - outside
+    assert float((full[0] + full[2]).sum()) == 6 * 65 * 73
+    first4 = _eval_check(x, y, 4, True)
+    mask = torch.tensor([True, True, False, True, True, False], device=device)
+    holes = _eval_check(x, y, mask, True)
+    assert float((holes[0] + holes[2]).sum()) == 4 * 65 * 73
+    direct = ec.fused_eval_confusion(x[mask], y[mask], 4)
+    for a, b in zip(holes, direct):
+        assert torch.equal(a, b)
+    assert not torch.equal(first4[0], holes[0])
+    none = _eval_check(x, y, 0, True)
+    assert all(float(v.sum()) == 0 for v in none)
+
+
+def test_eval_kernel_reads_strides_and_ties(device):
+    x = torch.randn(2, 6, 17, 19, device=device)   # NCHW memory
+    x[:, 5] = x[:, 2]                              # class 2 must beat 5
+    nhwc = x.permute(0, 2, 3, 1)                   # strided NHWC view
+    y = torch.randint(0, 6, (2, 40, 50), device=device)
+    got = _eval_check(nhwc, y, 2, True)
+    for a, b in zip(got, ec.fused_eval_confusion(nhwc.contiguous(), y, 2)):
+        assert torch.equal(a, b)
+    assert float(got[0][5]) == 0 and float(got[2][5]) == 0
+    _eval_check(nhwc[:, ::2, 1:], y[:, :31, :37], 2, False)  # sliced view
+    # the counts are those of the argmax kernel's mask
+    mask = ua.fused_upsample_argmax(nhwc, (40, 50))
+    from pytorch_segmentation_tpu_torch.ops.metrics import confusion_update
+    for a, b in zip(got, confusion_update(mask, y, 6)):
+        assert torch.equal(a, b)
+
+
+def test_eval_wrapper_rejects_what_the_kernel_does_not_take(device):
+    x, y = _eval_inputs((1, 4, 4, 3), (8, 8), torch.float32, device)
+    with pytest.raises(TypeError):
+        ec.fused_eval_confusion(x.half(), y, 1)
+    with pytest.raises(TypeError):
+        ec.fused_eval_confusion(x, y.float(), 1)
+    with pytest.raises(ValueError):
+        ec.fused_eval_confusion(x, y.cpu(), 1)
+    before = ec.launch_count()
+    wide = torch.zeros((1, 2, 2, ec.MAX_CLASSES + 1), device=device)
+    with pytest.raises(ValueError, match="at most 4096"):
+        ec.fused_eval_confusion(wide, y, 1)
+    assert ec.launch_count() == before
+
+
+def test_small_eval_on_card_matches_cpu(device, tmp_path, monkeypatch):
+    """`test()` over an in-memory dataset with a padded last batch: the
+    fused route on the card (both kernels) against the CPU (their plain
+    versions), small f32 model, TF32 off. Counts may differ only by pixels
+    whose top-2 gap is below twice the logit difference between the
+    devices: none at this seed."""
+    import json
+
+    from pytorch_segmentation_tpu_torch.data import (DataLoader, Fetcher,
+                                                     PostFetch)
+    from pytorch_segmentation_tpu_torch.engine import test as run_test
+    monkeypatch.chdir(tmp_path)
+
+    class Dataset:
+        classes = [f"c{i}" for i in range(5)]
+
+        def __init__(self):
+            rng = np.random.default_rng(3)
+            self.x = rng.integers(0, 256, (6, 65, 65, 3), dtype=np.uint8)
+            self.y = rng.integers(0, 5, (6, 65, 65)).astype(np.uint8)
+
+        def __len__(self):
+            return 6
+
+        def __getitem__(self, i):
+            return self.x[i], self.y[i]
+
+    def run(dev):
+        m = build_model("deeplabv3plus", 5, backbone_layers=(1, 1, 1, 1),
+                        dtype=torch.float32, full_res_output=True)
+        m = load_model_bundle(m, None, dev, seed=0)
+        fetcher = Fetcher(DataLoader(Dataset(), 4, num_workers=1),
+                          PostFetch(device=dev))
+        path = str(tmp_path / f"{torch.device(dev).type}.json")
+        miou = run_test(m, fetcher, log=False, report_path=path, device=dev)
+        return miou, json.load(open(path))
+
+    cpu_miou, cpu = run("cpu")
+    before = (ec.launch_count(), ce.launch_count()["fwd"], ua.launch_count())
+    gpu_miou, gpu = run(device)
+    after = (ec.launch_count(), ce.launch_count()["fwd"], ua.launch_count())
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 1)
+    assert abs(gpu_miou - cpu_miou) <= 1e-6
+    assert abs(gpu["val_loss"] - cpu["val_loss"]) <= 1e-5 * cpu["val_loss"]
+    for g, c in zip(gpu["per_class"], cpu["per_class"]):
+        assert (g["tp"], g["fn"], g["fp"]) == (c["tp"], c["fn"], c["fp"])

@@ -4,6 +4,7 @@ on the CPU. Sizes are cut for the test budget: ResNet layers (1,1,1,1),
 5 classes, 65x65 images, f32 (and bf16 for the forward)."""
 
 import json
+import re
 import subprocess
 import sys
 import urllib.error
@@ -246,10 +247,14 @@ def test_mask_server_round_trip(weights, images):
     assert not srv._dispatcher.is_alive()
 
 
-def test_unported_options_raise(weights):
+def test_unported_options_raise(weights, images):
     model = _port_model(weights[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mask_fn(model, tta_flip=True)
+    # test-time augmentation is ported: both options give masks
+    plain = make_mask_fn(model)(images)
+    for kw in (dict(tta_flip=True), dict(tta_scales=(0.75, 1.25))):
+        mask = make_mask_fn(model, **kw)(images)
+        assert mask.dtype == torch.int32 and mask.shape == plain.shape
+        assert 0.5 < float((mask == plain).float().mean()) < 1.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_mask_fn(model, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -265,17 +270,25 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pytorch_segmentation_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'cv2', 'pytorch_segmentation_tpu'))\n"
         "assert not bad, bad\n"
         "new = ['ops.loss', 'ops.kernels.softmax_ce', 'engine.steps', "
-        "'engine.trainer']\n"
+        "'engine.trainer', 'ops.metrics', 'ops.kernels.eval_confusion', "
+        "'ops.tta', 'ops.boundary', 'utils.visualize', 'engine.evaluate']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in new), names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 24
+    assert int(out.stdout.strip()) >= 30
+    # torch imports tqdm where it is installed, so sys.modules cannot show
+    # that the port does not: read its sources and the smoke script
+    root = Path(__file__).resolve().parents[1]
+    sources = list((root / "pytorch_segmentation_tpu_torch").rglob("*.py"))
+    for src in sources + [root / "chip_smoke.py"]:
+        assert not re.search(r"^\s*(import|from)\s+(tqdm|cv2|jax|flax)\b",
+                             src.read_text(), re.M), src
 
 
 def test_serve_cli_needs_cuda(weights):
