@@ -9,23 +9,29 @@ evaluates it (`engine.test`: 80 images at batch 32 through the eval step,
 whose loss and confusion counts come from the upsample+CE and
 upsample+argmax+confusion kernels; train -> eval -> save(best) -> reload ->
 the same counts; then each option of the eval step once: flip and
-multi-scale TTA, sliding-window tiles, ignore_index, Boundary IoU), and then
-trains it end to end from u8 host batches: an in-memory dataset ->
-DataLoader -> Fetcher -> PostFetch (the default augmentation policy on the
-card, whose warp runs the row-resample kernel twice per batch) -> Trainer.
+multi-scale TTA, sliding-window tiles, ignore_index, Boundary IoU), trains
+it end to end from u8 host batches (an in-memory dataset -> DataLoader ->
+Fetcher -> PostFetch, the default augmentation policy on the card, whose
+warp runs the row-resample kernel twice per batch -> Trainer), and then
+trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
+conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
+product + BN-statistics forward, dx and dW kernels, 32 launches of each per
+step) beside the figures of the same run with the switch off. The layout
+benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
-                                     # the train step, the eval step and
-                                     # the augmentation
+                                     # the train step (switch off and on),
+                                     # the eval step and the augmentation
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
-main-path run (serving, training, evaluation, or training end to end), its error
-against the plain version,
-its time, the plain version's and the card's bound for the same work; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
-non-zero and prints no result.
+main-path run (serving, training, evaluation, training end to end, training
+with the fused 1x1 switch on, or the layout benchmark), its error against
+the plain version, its time, the plain version's, one library call's where
+there is one, and the card's bound for the same work; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -60,11 +66,14 @@ from pytorch_segmentation_tpu_torch.inference import (_tile_offsets,
                                                       make_mask_fn,
                                                       make_tiled_mask_fn)
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.nn import blocks
 from pytorch_segmentation_tpu_torch.ops.boundary import (boundary_confusion,
                                                          boundary_pixels)
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
 from pytorch_segmentation_tpu_torch.ops.kernels import build
+from pytorch_segmentation_tpu_torch.ops.kernels import cmajor_matmul as cm
 from pytorch_segmentation_tpu_torch.ops.kernels import eval_confusion as ec
+from pytorch_segmentation_tpu_torch.ops.kernels import fused_matmul_bn as fm
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
 from pytorch_segmentation_tpu_torch.ops.metrics import (confusion_update,
@@ -72,6 +81,7 @@ from pytorch_segmentation_tpu_torch.ops.metrics import (confusion_update,
 from pytorch_segmentation_tpu_torch.ops.resize import (resize_bilinear,
                                                        resize_nearest)
 from pytorch_segmentation_tpu_torch.serving import MaskServer
+from pytorch_segmentation_tpu_torch.tools import bench_cmajor
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
 from pytorch_segmentation_tpu_torch.utils.weights import seeded_state_dict
@@ -110,10 +120,28 @@ SMALL_TRAIN_TOL = 2e-3
 AUG_LABEL_SHARE = 1e-3
 AUG_IMAGE_SHARE = 1e-2
 AUG_IMAGE_MEAN = 0.01
-# the card's published peaks (H100 SXM): HBM bytes/s and f32 FLOP/s outside
-# the tensor cores, which is where these kernels' arithmetic runs
+# the card's published peaks (H100 SXM): HBM bytes/s, f32 FLOP/s outside
+# the tensor cores (where the gather kernels' arithmetic runs) and dense
+# bf16 FLOP/s in them (where the fused 1x1 products belong)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
+# fused 1x1 kernels against their plain versions on the same tensors. Both
+# sum the same exact products in f32 in another order and round once, so y
+# and dy_tot land within one ulp of the operand type (bf16: 2^-7 relative;
+# f32: nothing beyond the floor), dx (one more product and rounding on top
+# of dy_tot) within two; FUSED_FLOOR of the tensor's largest entry is the
+# floor for entries near zero, where the f32 sums' own difference shows
+# (dx has a second floor, what one flipped dy_tot entry moves: fused_case).
+# Vectors and dW (f32 sums over up to 532,512 rows; dW and dscale also
+# inherit dy_tot's one-ulp flips) to FUSED_SUM_TOL of their largest entry.
+FUSED_FLOOR = 1e-5
+FUSED_SUM_TOL = 1e-3
+# step 1 of the full-width bf16 model with the fused 1x1 switch on against
+# off, same weights and batch: the folded path takes its BN statistics from
+# the f32 sums, the plain path from the rounded bf16 output, and the two
+# products sum in another order, so activations part by bf16 ulps per layer
+FUSED_LOSS_RTOL = 2e-2
 
 
 def log(phase: str, **fields):
@@ -153,11 +181,12 @@ def cuda_median_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, flops=F32_FLOPS):
     """The least time the card could take, ms: the larger of the bytes that
-    must move over the memory rate and the operations over the f32 rate."""
+    must move over the memory rate and the operations over the peak rate
+    for their type (f32 outside the tensor cores unless told otherwise)."""
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * n_ops / F32_FLOPS
+    by_ops = 1e3 * n_ops / flops
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -500,6 +529,222 @@ def eval_cases(device):
     return path
 
 
+def within(got, want, ulps, dtype, extra_floor=0.0):
+    """Whether `got` lies within `ulps` ulps of `dtype` (bf16: 2^-7
+    relative each; f32: none) of `want`, plus a floor of FUSED_FLOOR of
+    want's largest entry and `extra_floor`. Returns (ok, largest difference,
+    largest entry, a description of the worst entry)."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    diff = (got - want).abs()
+    rel = ulps * 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    over = diff - (rel * want.abs() + FUSED_FLOOR * top + extra_floor)
+    worst = int(over.argmax())
+    detail = (f"worst excess {float(over.flatten()[worst])} at flat index "
+              f"{worst}: {float(got.flatten()[worst])} against "
+              f"{float(want.flatten()[worst])}; {int((over > 0).sum())} "
+              f"entries over")
+    return bool((over <= 0).all()), float(diff.max()), top, detail
+
+
+def fused_case(name, n, k, m, dtype, act, device, nchw=False):
+    """The three fused 1x1 kernels against the plain forward and the plain
+    backward on the same tensors, with cotangents on y, col_sum and
+    col_sumsq; two launches of each bit-equal; then their times beside the
+    plain versions', one `torch.matmul` of the same product each, and the
+    card's bound. `nchw=True` hands x over as the [N, K] view of memory in
+    which the rows are not contiguous (what an NCHW-contiguous activation
+    is): the wrapper must make one counted copy."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape, std=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=device) * std
+                ).to(dt)
+
+    x = randn(n, k, dt=dtype)
+    if nchw:
+        x = x.t().contiguous().t()
+    scale = (0.5 + torch.rand(k, generator=gen, device=device))
+    shift = randn(k, std=0.2)
+    w = randn(k, m, std=0.1)
+    gy = randn(n, m, dt=dtype)
+    gs, gss = randn(m, std=0.01), randn(m, std=0.001)
+    leaves = [t.requires_grad_(True) for t in (x, scale, shift, w)]
+
+    def run():
+        out = fm.fused_bn_act_matmul(x, scale, shift, w, act=act)
+        return out, torch.autograd.grad(out, leaves, (gy, gs, gss))
+
+    before, copies = fm.launch_count(), fm.layout_copy_count()
+    (y, s, ss), grads = run()
+    (y2, s2, ss2), grads2 = run()
+    after = fm.launch_count()
+    if any(after[key] != before[key] + 2 for key in before):
+        raise AssertionError(f"{name}: launch counts {before} -> {after}")
+    copies = fm.layout_copy_count() - copies
+    if copies != (2 if nchw else 0):
+        raise AssertionError(f"{name}: {copies} layout copies")
+    for a, b in zip((y, s, ss, *grads), (y2, s2, ss2, *grads2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two launches differ")
+    del y2, s2, ss2, grads2
+
+    with torch.no_grad():
+        xd, wd = x.detach().contiguous(), w.detach()
+        ry, rs, rss = fm.bn_act_matmul_reference(xd, scale, shift, wd, act)
+        rdx, rdscale, rdshift, rdy_tot = fm.bn_act_matmul_dx_reference(
+            xd, scale, shift, wd, gy, gs, gss, act)
+        rdw = fm.bn_act_matmul_dw_reference(xd, scale, shift, rdy_tot, act)
+        mask = fm._act_grad_mask(xd.float() * scale + shift, act)
+        torch.cuda.synchronize()
+        errors, largest = {}, {}
+        wc = w.detach().to(dtype)
+        dy_tot = fm._launch_bwd_dx(xd, scale, shift, wc, gy, gs, gss, act)[3]
+        # a bf16 dy_tot entry that rounds the other way (one ulp) moves
+        # every dx of its row by up to that ulp times |w * scale|: the floor
+        # of dx, which shows on entries near zero
+        inherited = 0.0
+        if dtype == torch.bfloat16:
+            inherited = (2.0 ** -7 * float(rdy_tot.abs().max())
+                         * float(wc.abs().max()) * float(scale.abs().max()))
+        checks = [("y", y, ry, 1, 0.0), ("dy_tot", dy_tot, rdy_tot, 1, 0.0),
+                  ("dx", grads[0], rdx, 2, inherited)]
+        for key, got, want, ulps, floor in checks:
+            ok, err, top, detail = within(got, want, ulps, dtype, floor)
+            errors[key], largest[key] = err, top
+            if got.dtype != dtype or got.shape != want.shape or not ok:
+                raise AssertionError(f"{name}: {key} differs from the plain "
+                                     f"version by {err} (largest {top}; "
+                                     f"{detail})")
+        del dy_tot
+        for key, got, want in (("col_sum", s, rs), ("col_sumsq", ss, rss),
+                               ("dscale", grads[1], rdscale),
+                               ("dshift", grads[2], rdshift),
+                               ("dw", grads[3], rdw)):
+            top = float(want.abs().max())
+            err = float((got - want).abs().max())
+            errors[key], largest[key] = err, top
+            if (got.dtype != torch.float32 or got.shape != want.shape
+                    or not err <= FUSED_SUM_TOL * top):
+                raise AssertionError(f"{name}: {key} differs from the plain "
+                                     f"version by {err} (largest {top})")
+        # the activation's mask, exactly: no gradient at all where the plain
+        # version's f32 pre says none; where it says one, a wrongly masked
+        # entry would be a zero against a value, which the bound on dx above
+        # catches. (The zero patterns themselves may differ: sums of exact
+        # bf16 products do cancel to 0.0 in one summation order and not in
+        # another, once in 1e8 entries.)
+        stray = int((grads[0][~mask] != 0).sum())
+        one_sided = int(((grads[0] != 0) != (rdx != 0)).sum())
+        if stray:
+            raise AssertionError(f"{name}: {stray} gradients where the "
+                                 f"plain version's mask is off")
+        del ry, rs, rss, rdx, rdscale, rdshift, rdw, mask
+
+        # times: the forward wrapper; the backward kernels through their
+        # launchers on the operands the wrapper hands them
+        fwd_ms = cuda_median_ms(lambda: fm.fused_bn_act_matmul(
+            xd, scale, shift, wd, act=act))
+        dx_ms = cuda_median_ms(lambda: fm._launch_bwd_dx(
+            xd, scale, shift, wc, gy, gs, gss, act))
+        dw_ms = cuda_median_ms(lambda: fm._launch_bwd_dw(
+            xd, scale, shift, rdy_tot, act))
+        plain = {
+            "fwd": cuda_median_ms(lambda: fm.bn_act_matmul_reference(
+                xd, scale, shift, wd, act), reps=5),
+            "bwd_dx": cuda_median_ms(lambda: fm.bn_act_matmul_dx_reference(
+                xd, scale, shift, wd, gy, gs, gss, act), reps=5),
+            "bwd_dw": cuda_median_ms(lambda: fm.bn_act_matmul_dw_reference(
+                xd, scale, shift, rdy_tot, act), reps=5)}
+        # one library product of the same size each, as a yardstick only:
+        # no prologue, no statistics, no mask
+        wct = wc.t().contiguous()
+        library = {
+            "fwd": cuda_median_ms(lambda: torch.matmul(xd, wc)),
+            "bwd_dx": cuda_median_ms(lambda: torch.matmul(gy, wct)),
+            "bwd_dw": cuda_median_ms(lambda: torch.matmul(xd.t(), gy))}
+    # each input read once, each output written once; 2 N K M operations per
+    # product (what the function needs, not what the backward recomputes),
+    # at the tensor cores' bf16 rate or, for f32, the CUDA cores'
+    e = x.element_size()
+    rate = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    ops = 2.0 * n * k * m
+    bounds = {
+        "fwd": bound(e * (n * k + k * m + n * m) + 8 * (k + m),
+                     ops + 3.0 * n * (k + m), rate),
+        "bwd_dx": bound(e * (2 * n * k + k * m + n * m) + 16 * (k + m),
+                        ops + 8.0 * n * k, rate),
+        "bwd_dw": bound(e * (n * k + n * m) + 4 * k * m + 8 * k,
+                        ops + 2.0 * n * k, rate)}
+    ms = {"fwd": fwd_ms, "bwd_dx": dx_ms, "bwd_dw": dw_ms}
+    log("kernel", case=name, kernel="fused_matmul_bn", n=n, k=k, m=m,
+        dtype=str(dtype).replace("torch.", ""), act=act,
+        rows_contiguous=not nchw, layout_copies=copies,
+        max_abs_err=errors, largest_entry=largest, mask_equal=True,
+        dx_zero_on_one_side_only=one_sided, two_launches_bit_equal=True, ms=ms, plain_ms=plain,
+        library_ms=library, tflops={key: ops / v / 1e9
+                                    for key, v in ms.items()},
+        bound_ms={key: b["bound_ms"] for key, b in bounds.items()},
+        bound_by={key: b["bound_by"] for key, b in bounds.items()},
+        dw_split=list(fm.dw_split(n, k, m)))
+    worst = {"fwd": errors["y"], "bwd_dx": errors["dx"],
+             "bwd_dw": errors["dw"]}
+    return {key: {"max_abs_err": worst[key], "ms": ms[key],
+                  "plain_ms": plain[key], **bounds[key],
+                  "library_ms": library[key], "shape": [n, k, m]}
+            for key in ms}
+
+
+def fused_cases(device):
+    """The extreme shapes of the fused train step's path (ResNet-50 at batch
+    32, 513x513: stage 1 at 532,512 rows, stage 4 at 34,848), bf16; then
+    f32, the ragged MobileNetV2 widths with the other two prologues, and an
+    input whose rows are not contiguous. Returns the first and the third
+    case's figures for the kernels' line."""
+    bf16 = torch.bfloat16
+    first = fused_case("fused_532512_256_64", 532512, 256, 64, bf16, "relu",
+                       device)
+    fused_case("fused_532512_64_256", 532512, 64, 256, bf16, "relu", device)
+    second = fused_case("fused_34848_2048_512", 34848, 2048, 512, bf16,
+                        "relu", device)
+    fused_case("fused_34848_512_2048", 34848, 512, 2048, bf16, "relu", device)
+    fused_case("fused_f32_3000_64_256", 3000, 64, 256, torch.float32, "relu",
+               device)
+    fused_case("fused_ragged_1237_24_144_relu6", 1237, 24, 144, bf16, "relu6",
+               device)
+    fused_case("fused_ragged_1237_144_24_none", 1237, 144, 24, bf16, "none",
+               device)
+    fused_case("fused_nchw_memory_4096_64_256", 4096, 64, 256, bf16, "relu",
+               device, nchw=True)
+    return {key: {**first[key], "second_shape": second[key]}
+            for key in first}
+
+
+def cmajor_phase(device):
+    """The layout benchmark's own run on the card: it holds the
+    channels-major kernel against its plain version at its three shapes
+    (and two launches against each other), then times it beside its
+    yardsticks. Returns the kernel's launches and the 256 -> 64 figures."""
+    cm.reset_launch_count()
+    rows = bench_cmajor.main(device)
+    launches = cm.launch_count()
+    first = rows[0]
+    least = bound(first["bytes"], first["flops"], BF16_TENSOR_FLOPS)
+    log("cmajor", launches=launches, shapes=[
+        {key: row[key] for key in ("ci", "co", "pix", "max_abs_err",
+                                   "largest", "kernel_channels_major",
+                                   "plain_channels_major",
+                                   "matmul_channels_major",
+                                   "matmul_pixels_major",
+                                   "conv2d_channels_last")}
+        for row in rows], **least)
+    return launches, {"max_abs_err": first["max_abs_err"],
+                      "ms": first["kernel_channels_major"],
+                      "plain_ms": first["plain_channels_major"], **least,
+                      "library_ms": first["matmul_channels_major"],
+                      "shape": [first["co"], first["ci"], first["pix"]]}
+
+
 def small_model_check(device):
     """The f32 model at small size on the card (kernel) against the CPU
     (plain version), same seeded weights and images, TF32 off. A pixel can
@@ -530,12 +775,14 @@ def small_model_check(device):
     log("small_model", logits_max_abs_diff=logit_diff, agreement=agreement)
 
 
-def small_train_check(device):
+def small_train_check(device, fused=False):
     """3 SGD steps of the small f32 model through the Trainer's deferred
     upsample, on the card (kernels) against the CPU (plain version), from
     the same seeded weights on the same numpy batch, TF32 off: per-step
     losses within 1e-4 relative, final tensors within SMALL_TRAIN_TOL of
-    their largest entry. The weights come from a `.pt`: seeded, with
+    their largest entry. With `fused` both runs have the fused 1x1 switch
+    on: the four bottlenecks' conv1 and conv3 go through the f32 fused
+    kernels on the card and their plain versions on the CPU. The weights come from a `.pt`: seeded, with
     non-trivial BN affines, so that every tensor has entries of order 0.1 to
     hold the updates against, and with uniform conv kernels (see
     `seeded_state_dict`: under the He kernels the f32 gradient at this size
@@ -563,13 +810,23 @@ def small_train_check(device):
                     {k: v.detach().cpu() for k, v in
                      model.state_dict().items()})
 
-        cpu_losses, cpu_sd = run("cpu")
-        before = ce.launch_count()
-        gpu_losses, gpu_sd = run(device)
-        after = ce.launch_count()
+        blocks.set_force_fused_1x1("on" if fused else None)
+        try:
+            cpu_losses, cpu_sd = run("cpu")
+            before, fused_before = ce.launch_count(), fm.launch_count()
+            gpu_losses, gpu_sd = run(device)
+            after, fused_after = ce.launch_count(), fm.launch_count()
+        finally:
+            blocks.set_force_fused_1x1(None)
     if (after["fwd"] - before["fwd"], after["bwd"] - before["bwd"]) != (3, 3):
         raise AssertionError(f"small train steps launched {before} -> "
                              f"{after}, not 3 forward and 3 backward")
+    # 4 bottlenecks x (conv1, conv3) x 3 steps, or none with the switch off
+    fused_launches = {key: fused_after[key] - fused_before[key]
+                      for key in fused_after}
+    if set(fused_launches.values()) != {24 if fused else 0}:
+        raise AssertionError(f"small train steps launched the fused 1x1 "
+                             f"kernels {fused_launches} times")
     loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_losses,
                                                        cpu_losses))
     param_err = max(
@@ -579,8 +836,12 @@ def small_train_check(device):
         raise AssertionError(f"small train steps: losses {gpu_losses} vs "
                              f"{cpu_losses} on the CPU differ by "
                              f"{loss_err}, tensors by {param_err}")
-    log("small_train", losses=gpu_losses, loss_max_rel_diff=loss_err,
-        tensor_max_rel_diff=param_err)
+    if fused:
+        log("small_fused", losses=gpu_losses, loss_max_rel_diff=loss_err,
+            tensor_max_rel_diff=param_err, launches=fused_launches)
+    else:
+        log("small_train", losses=gpu_losses, loss_max_rel_diff=loss_err,
+            tensor_max_rel_diff=param_err)
 
 
 def small_eval_check(device):
@@ -822,6 +1083,23 @@ def eval_report(model, dataset, device, tmp, **options):
         return miou, json.load(f)
 
 
+def train_batch(device):
+    """The train phases' fixed batch: 32 smooth u8 images at 513x513 and, as
+    labels, a 9x9 grid of classes per image, nearest-upsampled. Returns the
+    u8 images (host) and the (images, segs, valid) batch on the card:
+    loading is not part of the train-step slices."""
+    rng = np.random.default_rng(SEED + 4)
+    imgs_u8 = np.stack([smooth_image(rng, IMG, IMG)
+                        for _ in range(TRAIN_BATCH)])
+    grid = torch.from_numpy(rng.integers(0, NUM_CLASSES,
+                                         (TRAIN_BATCH, 9, 9)).astype(np.int32))
+    segs = resize_nearest(grid, (IMG, IMG))
+    if len(torch.unique(segs)) < 3:
+        raise AssertionError("labels have fewer than 3 classes")
+    return imgs_u8, (normalize_images(torch.from_numpy(imgs_u8).to(device)),
+                     segs.to(device), TRAIN_BATCH)
+
+
 def train_phase(device, eval_set, profile=False):
     """Full-width DeepLabV3+ R50 through the port's Trainer: a
     full_res_output=True model, so the Trainer's deferred upsample is what
@@ -832,18 +1110,7 @@ def train_phase(device, eval_set, profile=False):
     training script does after an epoch: evaluate the live model, keep its
     mIoU, save(best), and find the same counts in the reloaded best.pt.
     Returns that reloaded model beside the train step's figures."""
-    rng = np.random.default_rng(SEED + 4)
-    imgs_u8 = np.stack([smooth_image(rng, IMG, IMG)
-                        for _ in range(TRAIN_BATCH)])
-    # labels in regions: a 9x9 grid of classes per image, nearest-upsampled
-    grid = torch.from_numpy(rng.integers(0, NUM_CLASSES,
-                                         (TRAIN_BATCH, 9, 9)).astype(np.int32))
-    segs = resize_nearest(grid, (IMG, IMG))
-    if len(torch.unique(segs)) < 3:
-        raise AssertionError("labels have fewer than 3 classes")
-    # the batch sits on the card: loading is not part of this slice
-    batch = (normalize_images(torch.from_numpy(imgs_u8).to(device)),
-             segs.to(device), TRAIN_BATCH)
+    imgs_u8, batch = train_batch(device)
 
     model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
                         full_res_output=True)
@@ -937,7 +1204,119 @@ def train_phase(device, eval_set, profile=False):
         peak_memory_gb=peak_gb, launches=launches,
         logits_strides=list(*strides),
         served_classes_after_training=classes)
-    return launches, strides.pop(), images_per_s, trained
+    figures = {"first_loss": losses[0], "images_per_s": images_per_s,
+               "ms_per_step_wall": wall_ms, "ms_per_step_cuda_events": event_ms,
+               "peak_memory_gb": peak_gb}
+    return launches, strides.pop(), figures, trained
+
+
+def train_fused_phase(device, plain, profile=False):
+    """The train phase's model, batch and optimizer with the fused 1x1
+    switch on (`nn.blocks.set_force_fused_1x1("on")`): every bottleneck's
+    conv1 and conv3 go through the fused forward, dx and dW kernels, 32 of
+    each per step on ResNet-50. 3 warm-up steps, then 3 synchronised windows
+    of 5, beside the figures `plain` of the same run's train phase (switch
+    off, same weights and batch). Then one eval-mode forward with the switch
+    on against the same forward with it off. Returns the fused kernels'
+    launches."""
+    imgs_u8, batch = train_batch(device)
+    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=True)
+    blocks.set_force_fused_1x1("on")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fetcher = RepeatFetcher(batch, 1)
+            trainer = Trainer(model, fetcher, workdir=os.path.join(tmp, "w"),
+                              lr=1e-3, momentum=0.9, seed=SEED, log=False,
+                              log_dir=os.path.join(tmp, "runs"),
+                              device=device)
+            folded_bn = model.backbone.layer1_block0.conv1.bn
+            before = (folded_bn.running_mean.clone(),
+                      int(folded_bn.num_batches_tracked))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fm.reset_launch_count()
+            fm.reset_layout_copy_count()
+            ce.reset_launch_count()
+            losses = [trainer.step() for _ in range(3)]
+            fetcher.n = 5
+            wall_ms, event_ms = [], []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                losses.append(trainer.step())
+                end.record()
+                torch.cuda.synchronize()
+                wall_ms.append(1e3 * (time.perf_counter() - t0) / 5)
+                event_ms.append(start.elapsed_time(end) / 5)
+            launches, copies = fm.launch_count(), fm.layout_copy_count()
+            ce_launches = ce.launch_count()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            steps = trainer.state.step
+            moved = (not torch.equal(folded_bn.running_mean, before[0]),
+                     int(folded_bn.num_batches_tracked) - before[1])
+            if profile:
+                profile_steps(trainer, phase="profile_fused")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"fused train losses {losses}")
+        if steps != 18 or set(launches.values()) != {32 * steps}:
+            raise AssertionError(f"{steps} fused steps launched {launches}, "
+                                 f"not 32 of each kernel per step")
+        if ce_launches != {"fwd": steps, "bwd": steps}:
+            raise AssertionError(f"{steps} steps launched {ce_launches}")
+        if moved != (True, steps):
+            raise AssertionError("a folded BN's running statistics did not "
+                                 "move once per step")
+        loss_diff = abs(losses[0] - plain["first_loss"]) / plain["first_loss"]
+        if not loss_diff <= FUSED_LOSS_RTOL:
+            raise AssertionError(f"step 1's loss {losses[0]} with the switch "
+                                 f"on, {plain['first_loss']} with it off")
+
+        # one eval-mode forward of the stride-4 twin, switch on against off,
+        # on the same 8 images at the same batch positions
+        twin = copy.copy(trainer.model)
+        twin.full_res_output = False
+        images = batch[0][:BATCH]
+        fwd = nhwc_forward(twin)
+        with torch.inference_mode():
+            fm.reset_launch_count()
+            on = fwd(images).float()
+            eval_launches = fm.launch_count()
+            blocks.set_force_fused_1x1("off")
+            off = fwd(images).float()
+            blocks.set_force_fused_1x1("on")
+            if eval_launches != {"fwd": 32, "bwd_dx": 0, "bwd_dw": 0}:
+                raise AssertionError(f"the eval forward launched "
+                                     f"{eval_launches}")
+            logit_diff = float((on - off).abs().max())
+            up = resize_bilinear(off, (IMG, IMG), align_corners=True)
+            up_on = resize_bilinear(on, (IMG, IMG), align_corners=True)
+            agreement, _ = mask_check(up_on.argmax(-1), up.argmax(-1), up,
+                                      gap=max(GAP, 2 * logit_diff + 1e-6))
+            logit_top = float(off.abs().max())
+    finally:
+        blocks.set_force_fused_1x1(None)
+    images_per_s = 1e3 * TRAIN_BATCH / min(wall_ms)
+    log("train_fused", batch=TRAIN_BATCH, steps=steps, first_loss=losses[0],
+        first_loss_switch_off=plain["first_loss"],
+        first_loss_rel_diff=loss_diff, window_mean_losses=losses[3:],
+        images_per_s=images_per_s,
+        images_per_s_switch_off=plain["images_per_s"],
+        ms_per_step_wall=wall_ms,
+        ms_per_step_wall_switch_off=plain["ms_per_step_wall"],
+        ms_per_step_cuda_events=event_ms,
+        ms_per_step_cuda_events_switch_off=plain["ms_per_step_cuda_events"],
+        peak_memory_gb=peak_gb,
+        peak_memory_gb_switch_off=plain["peak_memory_gb"],
+        launches=launches, launches_per_step=32, ce_launches=ce_launches,
+        layout_copies=copies, layout_copies_per_step=copies / steps,
+        eval_forward_launches=eval_launches,
+        eval_logits_max_abs_diff=logit_diff, eval_logits_largest=logit_top,
+        eval_mask_agreement=agreement)
+    return launches
 
 
 class FixedLogits(torch.nn.Module):
@@ -1338,10 +1717,10 @@ def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
     return resample_launches
 
 
-def profile_steps(trainer):
+def profile_steps(trainer, phase="profile"):
     """torch.profiler over one window of 3 steady steps."""
     trainer.fetcher.n = 3
-    profile_table("profile", trainer.step, 1, per=3)
+    profile_table(phase, trainer.step, 1, per=3)
 
 
 def profile_table(phase, fn, calls, per=None):
@@ -1373,8 +1752,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler tables, by op, of "
-                             "the train step, the eval step and the "
-                             "augmentation")
+                             "the train step (fused 1x1 switch off and on), "
+                             "the eval step and the augmentation")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -1392,7 +1771,7 @@ def main():
         return time.perf_counter() - t0
 
     names = ("upsample_argmax", "softmax_ce", "banded_resample",
-             "eval_confusion")
+             "eval_confusion", "fused_matmul_bn")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, seconds in zip(names, pool.map(build_one, names)):
             ptxas = build.BUILD_LOGS.get(name, "")  # what ptxas -v printed
@@ -1426,21 +1805,27 @@ def main():
     dataset = MemoryDataset(4 * TRAIN_BATCH, np.random.default_rng(SEED + 6))
     resample_path = resample_cases(device, dataset)
     eval_path = eval_cases(device)
+    fused_path = fused_cases(device)
+    cmajor_launches, cmajor_path = cmajor_phase(device)
 
     small_model_check(device)
     small_train_check(device)
     small_eval_check(device)
     small_augment_check(device)
+    small_train_check(device, fused=True)
     launches = serve_phase(device)
     eval_set = dataset.first(EVAL_IMAGES)
-    ce_launches, ce_strides, train_rate, trained = train_phase(
+    ce_launches, ce_strides, train_figures, trained = train_phase(
         device, eval_set, profile=args.profile)
     eval_launches = eval_phase(device, trained, eval_set,
                                profile=args.profile)
     del trained
-    resample_launches = augment_phase(device, dataset, train_rate,
+    resample_launches = augment_phase(device, dataset,
+                                      train_figures["images_per_s"],
                                       resample_path.pop("pass_ms"),
                                       profile=args.profile)
+    fused_launches = train_fused_phase(device, train_figures,
+                                       profile=args.profile)
     # the kernels' line reports the case in the layout the train step used
     ce_path = [p for p in ce_paths if p["strides"] == ce_strides]
     if len(ce_path) != 1:
@@ -1449,6 +1834,8 @@ def main():
     ce_path = ce_path[0]
 
     ce_source = "pytorch_segmentation_tpu_torch/csrc/softmax_ce.cu"
+    fused_source = "pytorch_segmentation_tpu_torch/csrc/fused_matmul_bn.cu"
+    fused_replaces = "pytorch_segmentation_tpu/ops/pallas/fused_matmul_bn.py:"
     ce_replaces = ("pytorch_segmentation_tpu/ops/pallas/softmax_ce.py:"
                    "83,114,153,188")
     print(json.dumps({"kernels": [
@@ -1473,7 +1860,21 @@ def main():
          "source": "pytorch_segmentation_tpu_torch/csrc/eval_confusion.cu",
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/eval_confusion.py:29",
-         "launches": eval_launches["eval_confusion"], **eval_path}]}),
+         "launches": eval_launches["eval_confusion"], **eval_path},
+        # ms, plain_ms, bound_ms, library_ms at (N, K, M) = `shape`, a
+        # stage-1 shape of the step; `second_shape` has a stage-4 shape's
+        {"name": "fused_matmul_bn_fwd", "route": "cuda",
+         "source": fused_source, "replaces": fused_replaces + "91",
+         "launches": fused_launches["fwd"], **fused_path["fwd"]},
+        {"name": "fused_matmul_bn_bwd_dx", "route": "cuda",
+         "source": fused_source, "replaces": fused_replaces + "117",
+         "launches": fused_launches["bwd_dx"], **fused_path["bwd_dx"]},
+        {"name": "fused_matmul_bn_bwd_dw", "route": "cuda",
+         "source": fused_source, "replaces": fused_replaces + "156",
+         "launches": fused_launches["bwd_dw"], **fused_path["bwd_dw"]},
+        {"name": "cmajor_matmul", "route": "cuda", "source": fused_source,
+         "replaces": "tools/bench_cmajor.py:64",
+         "launches": cmajor_launches, **cmajor_path}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

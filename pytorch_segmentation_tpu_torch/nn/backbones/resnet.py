@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..blocks import ConvNormAct
+from ..blocks import ConvNormAct, apply_fold, fused_1x1_available
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck"]
 
@@ -44,7 +44,14 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride, dilation) -> 1x1 x4, with the residual add."""
+    """1x1 -> 3x3 (stride, dilation) -> 1x1 x4, with the residual add.
+
+    With `nn.blocks.set_force_fused_1x1("on")` the block takes the folded
+    chain (`ConvNormAct.folded`): raw convolution outputs travel with their
+    folded BN (scale, shift), `conv1` and `conv3` run as one fused pass each
+    (the previous BN-apply + ReLU in the product's prologue, this BN's
+    statistics in its epilogue) and `conv2` applies its input's fold
+    explicitly. Same math, same parameters and buffers."""
 
     expansion = 4
 
@@ -62,9 +69,23 @@ class Bottleneck(nn.Module):
                                        stride=stride, activate=None,
                                        dtype=dtype)
                            if downsample else None)
+        # the block's input is a ReLU's output, so relu(x * 1 + 0) is exact:
+        # conv1's prologue gets this unit fold. Not in the state_dict; moved
+        # with the module, never built from host data per call
+        self.register_buffer("_unit_scale", torch.ones(in_channels),
+                             persistent=False)
+        self.register_buffer("_unit_shift", torch.zeros(in_channels),
+                             persistent=False)
 
     def forward(self, x):
-        y = self.conv3(self.conv2(self.conv1(x)))
+        if fused_1x1_available():
+            y1, sc1, sh1 = self.conv1.folded(x, self._unit_scale,
+                                             self._unit_shift)
+            y2, sc2, sh2 = self.conv2.folded(y1, sc1, sh1)
+            y3, sc3, sh3 = self.conv3.folded(y2, sc2, sh2)
+            y = apply_fold(y3, sc3, sh3, self.conv3.dtype)
+        else:
+            y = self.conv3(self.conv2(self.conv1(x)))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
 

@@ -11,8 +11,15 @@ casts sit where the JAX modules put them, written out instead of
     in the compute dtype.
 
 Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The int8,
-quantization-aware, fused-1x1 and dot-1x1 branches of the JAX module are not
-ported yet.
+quantization-aware and dot-1x1 branches of the JAX module are not ported
+yet.
+
+The folded path (opt-in, `set_force_fused_1x1("on")`; the JAX package's
+`BatchNormFolded` and `ConvStatsFolded`) lives on the same modules and the
+same state_dict: `BatchNorm2d.fold` turns column sums into the per-channel
+(scale, shift) for the CONSUMER to apply, and `ConvNormAct.folded` carries a
+raw convolution output plus that fold from layer to layer, so a model flips
+between the two paths on the same weights.
 """
 
 from __future__ import annotations
@@ -23,9 +30,41 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm2d", "ConvNormAct", "conv2d", "BN_MOMENTUM"]
+from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
+
+__all__ = ["BatchNorm2d", "ConvNormAct", "conv2d", "BN_MOMENTUM",
+           "set_force_fused_1x1", "fused_1x1_available", "apply_fold"]
 
 BN_MOMENTUM = 0.1  # torch convention
+
+_FORCE_FUSED_1X1 = None  # 'on' | 'off' | None = default (off)
+
+
+def set_force_fused_1x1(mode) -> None:
+    """None (the default: off) | 'off' | 'on' (opt-in). Read at forward time:
+    ResNet bottlenecks then route their 1x1 convolutions through
+    `ops/kernels/fused_matmul_bn.py` (the CUDA kernels on the card, their
+    plain versions on the CPU). The JAX package's 'interpret' mode (its
+    Pallas kernels on the CPU) has no meaning here."""
+    global _FORCE_FUSED_1X1
+    if mode not in (None, "off", "on"):
+        raise ValueError(f"set_force_fused_1x1 takes None, 'off' or 'on', "
+                         f"not {mode!r}")
+    _FORCE_FUSED_1X1 = mode
+
+
+def fused_1x1_available() -> bool:
+    """Whether ResNet blocks take the folded chain. Off by default."""
+    return _FORCE_FUSED_1X1 == "on"
+
+
+def apply_fold(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The explicit BN-apply of a fold on an NCHW tensor, in `dtype`: the
+    same multiply and add as `BatchNorm2d.forward`."""
+    shape = (1, -1, 1, 1)
+    return (x.to(dtype) * scale.to(dtype).view(shape)
+            + shift.to(dtype).view(shape))
 
 
 def _pad(kernel_size: int, dilation: int) -> int:
@@ -56,15 +95,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=BN_MOMENTUM)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _fold_moments(self, mean, ex2, n: int):
+        """(scale, shift) in f32 from the batch's E[x] and E[x^2] over `n`
+        values per channel (train mode, with the running update) or from the
+        running statistics (eval mode; `mean` and `ex2` may then be None)."""
         if self.training:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            ex2 = (xf * xf).mean(dim=(0, 2, 3))
             var = (ex2 - mean * mean).clamp(min=0.0)
             with torch.no_grad():
-                n = float(x.numel() // x.shape[1])
-                bessel = n / max(n - 1.0, 1.0)
+                bessel = float(n) / max(float(n) - 1.0, 1.0)
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean
                                         + m * mean)
@@ -75,11 +113,27 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean = self.running_mean.float()
             var = self.running_var.float()
         inv = torch.rsqrt(var + self.eps) * self.weight
-        shift = self.bias - mean * inv
-        dt = self.compute_dtype
-        shape = (1, -1, 1, 1)
-        return (x.to(dt) * inv.to(dt).view(shape)
-                + shift.to(dt).view(shape))
+        return inv, self.bias - mean * inv
+
+    def fold(self, col_sum: torch.Tensor, col_sumsq: torch.Tensor, n: int):
+        """BatchNorm whose batch statistics arrive as per-channel sums and
+        sums of squares over `n` values (from a fused convolution's
+        epilogue) instead of being reduced from the activation. Returns the
+        folded (scale, shift) in f32 for the CONSUMER to apply: the
+        normalize itself fuses into the next layer's prologue. Same
+        parameters, buffers and running update as `forward`."""
+        if self.training:
+            return self._fold_moments(col_sum / n, col_sumsq / n, n)
+        return self._fold_moments(None, None, n)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = ex2 = None
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            ex2 = (xf * xf).mean(dim=(0, 2, 3))
+        inv, shift = self._fold_moments(mean, ex2, x.numel() // x.shape[1])
+        return apply_fold(x, inv, shift, self.compute_dtype)
 
 
 class ConvNormAct(nn.Module):
@@ -104,3 +158,44 @@ class ConvNormAct(nn.Module):
         if self.activate is not None:
             x = self.activate(x)
         return x
+
+    def folded(self, x_raw: torch.Tensor, in_scale: torch.Tensor,
+               in_shift: torch.Tensor, act_in: str = "relu"):
+        """The folded path (the JAX package's `ConvStatsFolded`): consumes
+        the PREVIOUS layer's raw output [B, K, H, W] with its fold
+        (in_scale, in_shift) [K] f32 and nonlinearity `act_in` ('relu' |
+        'relu6' | 'none'); returns this convolution's RAW output and this
+        layer's folded BN (scale, shift) for the consumer. `activate` is not
+        applied: it is the consumer's `act_in`.
+
+        1x1, stride 1, groups 1: one fused pass (BN-apply + activation
+        prologue, product, statistics epilogue), the hand-written kernels on
+        the card. Anything else: explicit BN-apply and activation in the
+        compute dtype, the convolution, and the f32 column sums by plain
+        ops."""
+        conv, dt = self.conv, self.dtype
+        if (conv.kernel_size == (1, 1) and conv.stride == (1, 1)
+                and conv.groups == 1):
+            b, k, h, w = x_raw.shape
+            # NHWC views: rows are contiguous when x_raw is channels_last
+            y, s, ss = fused_bn_act_matmul(
+                x_raw.to(dt).permute(0, 2, 3, 1), in_scale, in_shift,
+                conv.weight.view(conv.out_channels, k).t(), act=act_in)
+            y_raw = y.permute(0, 3, 1, 2)
+            n = b * h * w
+        else:
+            z = apply_fold(x_raw, in_scale, in_shift, dt)
+            if act_in == "relu":
+                z = F.relu(z)
+            elif act_in == "relu6":
+                z = z.clamp(0.0, 6.0)
+            elif act_in != "none":
+                raise ValueError(f"act_in must be 'relu', 'relu6' or "
+                                 f"'none', not {act_in!r}")
+            y_raw = conv2d(conv, z, dt)
+            yf = y_raw.float()
+            s = yf.sum(dim=(0, 2, 3))
+            ss = (yf * yf).sum(dim=(0, 2, 3))
+            n = y_raw.numel() // y_raw.shape[1]
+        out_scale, out_shift = self.bn.fold(s, ss, n)
+        return y_raw, out_scale, out_shift

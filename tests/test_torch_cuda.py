@@ -1,6 +1,7 @@
 """PyTorch port on the card: the hand-written kernels (upsample+argmax;
 upsample+cross-entropy forward and backward; the augmentation warp's row
-resampler; upsample+argmax+confusion counts) against their plain PyTorch
+resampler; upsample+argmax+confusion counts; the fused 1x1 forward, dx and
+dW; the channels-major product) against their plain PyTorch
 versions at edge shapes, and the small model (served, trained, evaluated)
 against the CPU. Skips without a CUDA device. On the card (no jax there, so without the
 JAX-side conftest):
@@ -16,8 +17,12 @@ from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.nn import blocks
+from pytorch_segmentation_tpu_torch.nn.backbones.resnet import Bottleneck
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
+from pytorch_segmentation_tpu_torch.ops.kernels import cmajor_matmul as cm
 from pytorch_segmentation_tpu_torch.ops.kernels import eval_confusion as ec
+from pytorch_segmentation_tpu_torch.ops.kernels import fused_matmul_bn as fm
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
 from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
@@ -473,3 +478,159 @@ def test_small_eval_on_card_matches_cpu(device, tmp_path, monkeypatch):
     assert abs(gpu["val_loss"] - cpu["val_loss"]) <= 1e-5 * cpu["val_loss"]
     for g, c in zip(gpu["per_class"], cpu["per_class"]):
         assert (g["tp"], g["fn"], g["fp"]) == (c["tp"], c["fn"], c["fp"])
+
+
+# ---------------------------------------------------------------- fused 1x1
+
+def _fused_check(n, k, m, dtype, act, device, seed=0):
+    """Kernels against the plain forward and backward on the same tensors,
+    cotangents on all three outputs. bf16: y within one ulp, dx within two
+    plus what one flipped dy_tot entry moves; vectors and dW to 1e-3 of
+    their largest entry (chip_smoke.fused_case has the reasons)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = rand(n, k).to(dtype).requires_grad_(True)
+    scale = (0.5 + torch.rand(k, generator=gen, device=device)
+             ).requires_grad_(True)
+    shift = (0.2 * rand(k)).requires_grad_(True)
+    w = (0.1 * rand(k, m)).requires_grad_(True)
+    cts = (rand(n, m).to(dtype), 0.01 * rand(m), 0.001 * rand(m))
+    before = fm.launch_count()
+    out = fm.fused_bn_act_matmul(x, scale, shift, w, act=act)
+    grads = torch.autograd.grad(out, (x, scale, shift, w), cts)
+    assert fm.launch_count() == {key: v + 1 for key, v in before.items()}
+    with torch.no_grad():
+        ref = fm.bn_act_matmul_reference(x, scale, shift, w, act)
+        ref_grads = fm.bn_act_matmul_backward_reference(x, scale, shift, w,
+                                                        *cts, act)
+        mask = fm._act_grad_mask(x.float() * scale + shift, act)
+    torch.cuda.synchronize()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for got, want, ulps, extra in (
+            (out[0], ref[0], 1, 0.0),
+            (grads[0], ref_grads[0], 2,
+             ulp * float(cts[0].abs().max() + 1) * float(w.abs().max())
+             * float(scale.abs().max()))):
+        assert got.dtype == dtype and got.shape == want.shape
+        got, want = got.float(), want.float()
+        allowed = (ulps * ulp * want.abs() + 1e-5 * float(want.abs().max())
+                   + extra)
+        assert bool(((got - want).abs() <= allowed).all())
+    for got, want in zip((*out[1:], *grads[1:]), (*ref[1:], *ref_grads[1:])):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-3 * float(
+            want.abs().max())
+    assert not bool((grads[0][~mask] != 0).any())
+
+
+@pytest.mark.parametrize("n,k,m,dtype,act", [
+    (1, 8, 8, torch.float32, "relu"),           # one row, the narrowest
+    (127, 8, 8, torch.bfloat16, "none"),        # one short of a row tile
+    (129, 24, 144, torch.bfloat16, "relu6"),    # one over; ragged K, M tiles
+    (300, 144, 24, torch.float32, "relu6"),
+    (1000, 136, 72, torch.bfloat16, "relu"),    # K, M one vector over a tile
+    (4161, 64, 256, torch.bfloat16, "relu"),
+    (513, 256, 64, torch.float32, "none"),
+    (700, 2048, 512, torch.bfloat16, "relu"),   # the path's deepest product
+])
+def test_fused_kernels_match_plain(device, n, k, m, dtype, act):
+    _fused_check(n, k, m, dtype, act, device)
+
+
+def test_fused_kernels_are_reproducible_and_count_copies(device):
+    gen = torch.Generator(device=device).manual_seed(1)
+    nchw = torch.randn(2, 64, 9, 11, generator=gen, device=device
+                       ).bfloat16()
+    x = nchw.permute(0, 2, 3, 1)                  # rows not contiguous
+    scale = torch.rand(64, generator=gen, device=device) + 0.5
+    shift = torch.randn(64, generator=gen, device=device) * 0.2
+    w = (torch.randn(64, 128, generator=gen, device=device) * 0.1
+         ).requires_grad_(True)
+    fm.reset_layout_copy_count()
+    runs = []
+    for _ in range(2):
+        xr = x.detach().requires_grad_(True)
+        out = fm.fused_bn_act_matmul(xr, scale, shift, w)
+        cts = (torch.ones_like(out[0]), torch.ones_like(out[1]),
+               torch.ones_like(out[2]))
+        runs.append((*out, *torch.autograd.grad(out, (xr, w), cts)))
+    assert fm.layout_copy_count() == 2
+    assert runs[0][0].shape == (2, 9, 11, 128)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    # the same values from channels_last memory, without a copy
+    cl = nchw.contiguous(memory_format=torch.channels_last)
+    y, s, ss = fm.fused_bn_act_matmul(cl.permute(0, 2, 3, 1), scale, shift, w)
+    assert fm.layout_copy_count() == 2
+    assert torch.equal(y, runs[0][0]) and torch.equal(s, runs[0][1])
+
+
+def test_fused_wrapper_rejects_what_the_kernels_do_not_take(device):
+    ok = (torch.ones(16, device=device), torch.zeros(16, device=device),
+          torch.zeros(16, 8, device=device))
+    before = fm.launch_count()
+    with pytest.raises(TypeError):
+        fm.fused_bn_act_matmul(torch.zeros(4, 16, device=device).half(), *ok)
+    with pytest.raises(TypeError):   # f64 only on the CPU (gradient checks)
+        fm.fused_bn_act_matmul(torch.zeros(4, 16, device=device).double(),
+                               *ok)
+    with pytest.raises(ValueError):
+        fm.fused_bn_act_matmul(torch.zeros(4, 16, device=device), ok[0].cpu(),
+                               *ok[1:])
+    with pytest.raises(ValueError):
+        fm.fused_bn_act_matmul(torch.zeros(4, 20, device=device),
+                               torch.ones(20, device=device),
+                               torch.zeros(20, device=device),
+                               torch.zeros(20, 8, device=device))
+    assert fm.launch_count() == before
+
+
+def test_fused_bottleneck_on_card_matches_cpu(device):
+    """The folded Bottleneck, f32, on the card (kernels) against the CPU
+    (plain versions) from the same weights: output, gradients, buffers."""
+    import copy
+    torch.manual_seed(0)
+    block = Bottleneck(32, 16, downsample=True, dtype=torch.float32)
+    x = torch.relu(torch.randn(2, 32, 9, 9))
+    blocks.set_force_fused_1x1("on")
+    try:
+        results = []
+        for dev in ("cpu", device):
+            m = copy.deepcopy(block).to(dev,
+                                        memory_format=torch.channels_last)
+            before = fm.launch_count()
+            y = m.train()(x.to(dev).contiguous(
+                memory_format=torch.channels_last))
+            grads = torch.autograd.grad((y ** 2).sum(), list(m.parameters()))
+            used = {k: v - before[k] for k, v in fm.launch_count().items()}
+            assert set(used.values()) == {0 if dev == "cpu" else 2}
+            results.append(([y.detach().cpu()] + [g.cpu() for g in grads],
+                            {k: v.cpu() for k, v in m.state_dict().items()}))
+    finally:
+        blocks.set_force_fused_1x1(None)
+    for a, b in zip(*(r[0] for r in results)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max()) + 1e-5
+    for name, v in results[0][1].items():
+        assert torch.allclose(results[1][1][name].float(), v.float(),
+                              rtol=1e-4, atol=1e-5), name
+
+
+# ----------------------------------------------------------- channels-major
+
+@pytest.mark.parametrize("co,ci,pix", [
+    (64, 256, 4096), (256, 64, 4104), (24, 8, 8), (130, 40, 1000),
+])
+def test_cmajor_kernel_matches_plain(device, co, ci, pix):
+    gen = torch.Generator(device=device).manual_seed(0)
+    w = torch.randn(co, ci, generator=gen, device=device).bfloat16()
+    x = torch.randn(ci, pix, generator=gen, device=device).bfloat16()
+    before = cm.launch_count()
+    got = cm.cmajor_matmul(w, x)
+    assert cm.launch_count() == before + 1
+    want = cm.cmajor_matmul_reference(w, x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (co, pix)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, cm.cmajor_matmul(w, x))
+    with pytest.raises(ValueError):
+        cm.cmajor_matmul(w, x.t().contiguous().t())   # pixels not contiguous

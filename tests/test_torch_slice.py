@@ -274,7 +274,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "new = ['ops.loss', 'ops.kernels.softmax_ce', 'engine.steps', "
         "'engine.trainer', 'ops.metrics', 'ops.kernels.eval_confusion', "
-        "'ops.tta', 'ops.boundary', 'utils.visualize', 'engine.evaluate']\n"
+        "'ops.tta', 'ops.boundary', 'utils.visualize', 'engine.evaluate', "
+        "'ops.kernels.fused_matmul_bn', 'ops.kernels.cmajor_matmul', "
+        "'tools.bench_cmajor', 'tools.bench_fused_matmul']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in new), names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
