@@ -599,7 +599,9 @@ def fused_case(name, n, k, m, dtype, act, device, nchw=False):
         torch.cuda.synchronize()
         errors, largest = {}, {}
         wc = w.detach().to(dtype)
-        dy_tot = fm._launch_bwd_dx(xd, scale, shift, wc, gy, gs, gss, act)[3]
+        wt = wc.t().contiguous()
+        dy_tot = fm._launch_bwd_dx(xd, scale, shift, wc, gy, gs, gss, act,
+                                   wt)[3]
         # a bf16 dy_tot entry that rounds the other way (one ulp) moves
         # every dx of its row by up to that ulp times |w * scale|: the floor
         # of dx, which shows on entries near zero
@@ -646,7 +648,7 @@ def fused_case(name, n, k, m, dtype, act, device, nchw=False):
         fwd_ms = cuda_median_ms(lambda: fm.fused_bn_act_matmul(
             xd, scale, shift, wd, act=act))
         dx_ms = cuda_median_ms(lambda: fm._launch_bwd_dx(
-            xd, scale, shift, wc, gy, gs, gss, act))
+            xd, scale, shift, wc, gy, gs, gss, act, wt))
         dw_ms = cuda_median_ms(lambda: fm._launch_bwd_dw(
             xd, scale, shift, rdy_tot, act))
         plain = {
@@ -686,6 +688,7 @@ def fused_case(name, n, k, m, dtype, act, device, nchw=False):
                                     for key, v in ms.items()},
         bound_ms={key: b["bound_ms"] for key, b in bounds.items()},
         bound_by={key: b["bound_by"] for key, b in bounds.items()},
+        wgmma_tiles=fm.wgmma_tiles(k, m),
         dw_split=list(fm.dw_split(n, k, m)))
     worst = {"fwd": errors["y"], "bwd_dx": errors["dx"],
              "bwd_dw": errors["dw"]}
@@ -716,6 +719,11 @@ def fused_cases(device):
                device)
     fused_case("fused_nchw_memory_4096_64_256", 4096, 64, 256, bf16, "relu",
                device, nchw=True)
+    # dx's two grids at a wide shape whose rows end inside a tile, and a
+    # call with fewer rows than one tile
+    fused_case("fused_ragged_34849_1024_256", 34849, 1024, 256, bf16, "relu",
+               device)
+    fused_case("fused_short_77_64_256", 77, 64, 256, bf16, "relu", device)
     return {key: {**first[key], "second_shape": second[key]}
             for key in first}
 
@@ -1210,6 +1218,41 @@ def train_phase(device, eval_set, profile=False):
     return launches, strides.pop(), figures, trained
 
 
+def step_windows(trainer, windows, losses):
+    """Wall and CUDA-event ms per step over `windows` synchronised calls of
+    `trainer.step()` (an epoch of the trainer's fetcher each, 5 steps);
+    appends each epoch's mean loss to `losses`."""
+    wall_ms, event_ms = [], []
+    steps = len(trainer.fetcher)
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        losses.append(trainer.step())
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0) / steps)
+        event_ms.append(start.elapsed_time(end) / steps)
+    return wall_ms, event_ms
+
+
+def step_enqueue_ms(trainer, batch):
+    """Host ms to enqueue one train step (the step function alone, its loss
+    not read) on an idle stream; the median of 3. A full launch queue makes
+    the host wait for the card, so this is at least the host's own time."""
+    images, segs, _ = batch
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, _ = trainer._train_step(trainer.state, images, segs)
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def train_fused_phase(device, plain, profile=False):
     """The train phase's model, batch and optimizer with the fused 1x1
     switch on (`nn.blocks.set_force_fused_1x1("on")`): every bottleneck's
@@ -1240,24 +1283,15 @@ def train_fused_phase(device, plain, profile=False):
             ce.reset_launch_count()
             losses = [trainer.step() for _ in range(3)]
             fetcher.n = 5
-            wall_ms, event_ms = [], []
-            for _ in range(3):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                start.record()
-                losses.append(trainer.step())
-                end.record()
-                torch.cuda.synchronize()
-                wall_ms.append(1e3 * (time.perf_counter() - t0) / 5)
-                event_ms.append(start.elapsed_time(end) / 5)
+            wall_ms, event_ms = step_windows(trainer, 3, losses)
             launches, copies = fm.launch_count(), fm.layout_copy_count()
             ce_launches = ce.launch_count()
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             steps = trainer.state.step
             moved = (not torch.equal(folded_bn.running_mean, before[0]),
                      int(folded_bn.num_batches_tracked) - before[1])
+            # the host's share: one step enqueued on an idle stream
+            enqueue_ms = step_enqueue_ms(trainer, batch)
             if profile:
                 profile_steps(trainer, phase="profile_fused")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -1309,6 +1343,7 @@ def train_fused_phase(device, plain, profile=False):
         ms_per_step_wall_switch_off=plain["ms_per_step_wall"],
         ms_per_step_cuda_events=event_ms,
         ms_per_step_cuda_events_switch_off=plain["ms_per_step_cuda_events"],
+        host_enqueue_ms_per_step=enqueue_ms,
         peak_memory_gb=peak_gb,
         peak_memory_gb_switch_off=plain["peak_memory_gb"],
         launches=launches, launches_per_step=32, ce_launches=ce_launches,
@@ -1748,6 +1783,34 @@ def profile_table(phase, fn, calls, per=None):
                for ms, n, k in rows[:25]])
 
 
+def hopper_build_figures(ptxas):
+    """Registers and spilled bytes of each Hopper kernel of
+    fused_matmul_bn.cu (from ptxas -v, entry by entry) and the dynamic
+    shared memory it asks for at the R50 step's widest and narrowest
+    shapes."""
+    if not ptxas:
+        return {"note": "library already on disk: no ptxas output"}
+    figures, entry = {}, None
+    for line in ptxas.splitlines():
+        found = re.search(r"Compiling entry function '\w*?hop\d+"
+                          r"([a-z_]+_wgmma_kernel)ILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            entry = (f"{found.group(1)}<{found.group(2)}>" if found
+                     else None)
+            if entry:
+                figures[entry] = {"spill_bytes": 0}
+        elif entry and "spill" in line:
+            figures[entry]["spill_bytes"] = sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif entry and "Used" in line:
+            figures[entry]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    shapes = ((2048, 512), (512, 2048), (256, 64), (64, 256))
+    figures["dynamic_smem_bytes"] = {f"{k}->{m}": fm.wgmma_shared_bytes(k, m)
+                                     for k, m in shapes}
+    return figures
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1775,12 +1838,15 @@ def main():
     with ThreadPoolExecutor(len(names)) as pool:
         for name, seconds in zip(names, pool.map(build_one, names)):
             ptxas = build.BUILD_LOGS.get(name, "")  # what ptxas -v printed
+            extra = {}
+            if name == "fused_matmul_bn":
+                extra["hopper_kernels"] = hopper_build_figures(ptxas)
             log("build", kernel=name, seconds=seconds,
                 registers=[int(n) for n in
                            re.findall(r"Used (\d+) registers", ptxas)],
                 spill_bytes=sum(int(n) for n in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", ptxas)),
-                flags=" ".join(build.NVCC_FLAGS))
+                flags=" ".join(build.NVCC_FLAGS + build.LINK_FLAGS), **extra)
 
     path = kernel_case("path_bf16", (BATCH, 129, 129, NUM_CLASSES),
                        (IMG, IMG), torch.bfloat16, True, device)

@@ -28,39 +28,58 @@
 // (1, 8, lane) statistic tiles and the 512-wide column split are not carried
 // over.
 //
-// One tile loop serves all four kernels: 256 threads (8 warps) own a C tile
-// of 128 x 64 and each warp a 32 x 32 corner of it (2 x 2 accumulators of
-// 16 x 16). Operands are staged 32 deep through two buffers in shared
-// memory: the 16-byte global loads of step i + 1 are issued into registers
-// before the products of step i and stored (the prologue applied on the
-// way) after them, so one barrier per step suffices and the loads' latency
-// hides behind the products. For bf16 the products are nvcuda::wmma
-// m16n16k16 tensor-core instructions with f32 accumulators and the prologue
-// runs on packed bf16 pairs (mul.rn then add.rn, which round exactly where
-// the plain version does); the f32 instantiation is a plain FFMA loop in
-// full f32 (no TF32): it exists so that a small f32 model on the card can
-// be held against the CPU. Ragged edges are masked while a tile is staged
-// (zeros), never padded in device memory.
+// Two main loops. The Hopper loop (namespace hop below: TMA into a ring of
+// shared-memory stages, wgmma into f32 accumulators in registers, one
+// producer warp and two consumer warpgroups, 128 x 64 or 128 x 128 tiles)
+// runs every bf16 forward (fwd_wgmma_kernel) and bf16 dx, as two full grids
+// (dx_dy_tot_wgmma_kernel, then dx_dz_wgmma_kernel). The older loop runs
+// the rest: the f32 forward and dx, the dW kernel and the channels-major
+// kernel.
 //
-// The dx kernel owns a 128-row tile and works in two phases. Phase 1 repeats
-// the forward's loop per 64 columns of M and writes dy_tot [N, M] in x's
-// type to a scratch buffer in device memory; phase 2 reads it back (the same
-// block wrote it, so it comes from the L2) and forms dz 64 columns of K at a
-// time, so a [128, K] f32 dz never has to fit in registers or shared memory.
-// The dW kernel then reads the same dy_tot instead of recomputing y32 per
-// (K tile, M tile), which would repeat the forward's product K/128 times;
-// the price is one more write and read of an [N, M] array (as large as dy).
-// y32 is recomputed exactly once per backward (phase 1). N is split over
-// blocks in the dW kernel (the wrapper picks the split from N, K, M so that
-// the card is full while the [splits, K, M] partials stay small).
+// The older loop: 256 threads (8 warps) own a C tile of 128 x 64 and each
+// warp a 32 x 32 corner of it (2 x 2 accumulators of 16 x 16). Operands are
+// staged 32 deep through two buffers in shared memory: the 16-byte global
+// loads of step i + 1 are issued into registers before the products of step
+// i and stored (the prologue applied on the way) after them, so one barrier
+// per step suffices. For bf16 (dW, channels-major) the products are
+// nvcuda::wmma m16n16k16 tensor-core instructions with f32 accumulators and
+// the prologue runs on packed bf16 pairs (mul.rn then add.rn, which round
+// exactly where the plain version does); the f32 instantiation is a plain
+// FFMA loop in full f32 (no TF32): it exists so that a small f32 model on
+// the card can be held against the CPU. Ragged edges are masked while a tile
+// is staged (zeros), never padded in device memory.
 //
-// What bounds them on an H100: at the ResNet-50 shapes of the train step
-// (N = 532,512 down to 34,848; K, M = 64..2048) the wide layers are bound by
-// operations (2 N K M at 989 TFLOP/s in bf16) and the 64..256-channel layers
-// of stage 1 by bytes (x read once, y written once at 3.35 TB/s). A wmma loop
-// through register-staged double buffers reaches a fraction of the tensor
-// cores' rate; wgmma, TMA and a deeper ring of tiles are the later steps.
+// dx, whichever loop: y32 is recomputed exactly once per backward and
+// dy_tot [N, M] is written in x's type, because the dW kernel reads it
+// instead of recomputing y32 per (K tile, M tile), which would repeat the
+// forward's product K/128 times; the price is one more write and read of an
+// [N, M] array (as large as dy). The f32 dx owns a 128-row tile: phase 1
+// repeats the forward's loop per 64 columns of M and writes dy_tot, phase 2
+// reads it back (from the L2) and forms dz 64 columns of K at a time. The
+// bf16 dx gives each product a full grid, because one block per row tile
+// leaves most of the card idle at the deep stages (N = 34,848: 272 row
+// tiles, each doing both products one after the other): (a) the forward's
+// loop over (row tile, M tile) with a dy_tot epilogue, (b) dz = dy_tot @ W^T
+// over (row tile, K tile) with W read K-major, whose epilogue reads the
+// block's x tile, forms pre in f32, the mask and dx, and writes its dscale /
+// dshift partials into a slot of its own. N is split over blocks in the dW
+// kernel (the wrapper picks the split from N, K, M so that the card is full
+// while the [splits, K, M] partials stay small).
+//
+// What bounds the Hopper kernels at the ResNet-50 step's shapes (PERF.md
+// section 6 has the bound and the time of each): stage 1 (N = 532,512,
+// 64..256 channels) and stage 2 (N = 135,200) are bound by bytes, stages 3-4
+// (N = 34,848) by bytes up to 1024 channels and by operations at 512 <->
+// 2048. Against the operations, the loop issues m64nBNk16 wgmma from
+// 128-byte-swizzled shared memory that TMA fills three or four stages
+// ahead, with two blocks an SM so that one block's epilogue overlaps the
+// other's loads. Against the bytes, the forward streams x once and writes y
+// once; dx's two grids read x twice and write and read back dy_tot, which
+// the narrow stage-1 shapes feel most. The dx epilogues issue their 16-byte
+// loads kBatch at a time before the stores they feed, so that the loads
+// overlap one another instead of each waiting for the store before it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -112,11 +131,9 @@ static_assert(Tile<__nv_bfloat16>::kABytes % 128 == 0 &&
               Tile<__nv_bfloat16>::kBBytes % 128 == 0 &&
               Tile<float>::kABytes % 128 == 0 &&
               Tile<float>::kBBytes % 128 == 0, "regions stay 128-byte aligned");
-static_assert(Tile<__nv_bfloat16>::kStageBytes >=
-                  sizeof(float) * 2 * Tile<__nv_bfloat16>::kRowLanes * kBN &&
-              Tile<float>::kStageBytes >=
+static_assert(Tile<float>::kStageBytes >=
                   sizeof(float) * 2 * Tile<float>::kRowLanes * kBN,
-              "the dx reduction fits the staging buffers");
+              "the f32 dx reduction fits the staging buffers");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -483,8 +500,9 @@ __device__ __forceinline__ void reduce_parts(float* red, int c, int part,
   __syncthreads();
 }
 
-// grid: row_tiles * col_tiles blocks, the column tile fastest, so the blocks
-// that share a row tile of x run together. partials: [row_tiles, 2, M].
+// The f32 forward (bf16 runs fwd_wgmma_kernel). grid: row_tiles * col_tiles
+// blocks, the column tile fastest, so the blocks that share a row tile of x
+// run together. partials: [row_tiles, 2, M].
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(
     const T* x, const float* scale, const float* shift, const T* w, T* y,
@@ -528,7 +546,8 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(
   }
 }
 
-// grid: one block per 128-row tile. dy_tot [N, M] is written in phase 1 and
+// The f32 dx (bf16 runs the two dx_*_wgmma_kernel grids). grid: one block
+// per 128-row tile. dy_tot [N, M] is written in phase 1 and
 // read back in phase 2 by the same block (after a barrier; read through
 // plain loads, never the read-only path). partials: [row_tiles, 2, K].
 template <typename T>
@@ -736,6 +755,682 @@ constexpr int kRowStep = 64;
 static_assert(kRowStep % Tile<__nv_bfloat16>::kBK == 0 &&
               kRowStep % Tile<float>::kBK == 0, "row step");
 
+
+// ---------------------------------------------------------------------------
+// The Hopper main loop (bf16 only): TMA loads into a ring of shared-memory
+// stages, wgmma from shared memory into f32 accumulators in registers.
+//
+// A block owns a 128 x BN tile of C = A @ B^T, where A [rows, depth] and
+// B [cols, depth] are both row-major with the depth contiguous ("K-major"),
+// so every product here is the same wgmma with no transposed operand: the
+// forward and dx's first grid take A = x and B = W^T [M, K] (the wrapper
+// keeps that copy of the weight beside W [K, M]); dx's second grid takes
+// A = dy_tot [N, M] and B = W [K, M]. 288 threads: warpgroups 0 and 1
+// consume (rows 0-63 and 64-127 of the tile, m64nBNk16 wgmma), the lane 0 of
+// warp 8 produces: it waits for a stage to be released, arms its "full"
+// barrier with the stage's byte count and issues the two TMA loads (64 deep,
+// 128-byte swizzle: one 128-byte row per tile row). A consumer warpgroup
+// releases stage i - 1 once its wgmma group of stage i has been issued and
+// that of i - 1 has completed, so one group stays in flight.
+//
+// The prologue reaches the A operand in shared memory: each consumer
+// warpgroup rewrites its own 64 rows of the x tile in place, z = act(x *
+// scale + shift) on packed bf16 pairs (the same mul.rn / add.rn as Fold
+// above), rows at or beyond N set to exact zeros (TMA fills them with
+// zeros, but act(0 * scale + shift) is not zero), then fences the generic
+// writes against the async proxy that wgmma reads through. That is the
+// simpler of the two routes to a prologue on Hopper (the other keeps A in
+// registers, the RS form of wgmma): the x tile is read from shared memory
+// once more and written back, but the loop stays one SS wgmma for every
+// product, and the tile costs 32 KB of shared memory bandwidth per 64 deep
+// step against the 2 x 64 x BN x 64 multiply-adds the step issues. The
+// fold (scale and shift rounded to bf16) is cached in shared memory once
+// per block, zero beyond K, so padded columns give z = 0 and never NaN.
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+constexpr int kBM = 128;                   // rows of a C tile
+constexpr int kBK = 64;                    // depth of a stage: one 128-byte row
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kRowBytes = kBK * 2;         // 128, the swizzle span
+constexpr int kABytes = kBM * kRowBytes;   // 16 KB
+constexpr int kGroupRows = 64;             // rows of a consumer warpgroup
+constexpr int kBatch = 4;  // 16-byte loads a dx epilogue issues together
+
+template <int BN>
+struct Cfg {
+  // 96 KB of ring either way, so that two blocks fit an SM
+  static constexpr int kStages = BN == 64 ? 4 : 3;
+  static constexpr int kBBytes = BN * kRowBytes;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kLdc = BN + 4;  // the f32 C tile, laid over the ring
+  static constexpr int kCFloats = kBM * kLdc;
+  // dx's epilogues: a thread owns 8 columns and every kRowLanes-th row
+  static constexpr int kColGroups = BN / 8;
+  static constexpr int kRowLanes = kConsumers / kColGroups;
+  static_assert(4 * (kCFloats + 2 * kRowLanes * BN) <= kRingBytes,
+                "the epilogues fit the ring");
+  static_assert(kABytes % 1024 == 0 && kBBytes % 1024 == 0,
+                "every tile starts on a swizzle period");
+  static_assert(kBM % (kBatch * kRowLanes) == 0,
+                "the dx epilogues' batches cover the tile");
+  // dynamic shared memory: alignment slack, the ring, the fold
+  static size_t bytes(int fold_cols) {
+    return 1024 + kRingBytes + (size_t)4 * fold_cols;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Until the phase of parity `parity` of the barrier has completed. A phase
+// that never completes (a lost arrival or a transaction count that does not
+// add up) traps after 4 s: the launch fails with an error instead of holding
+// the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > 4000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// a box of the 2-D tensor map at (inner, outer) into shared memory; the
+// barrier's transaction count falls by the box's bytes when it has landed
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner),
+      "r"(outer)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a K-major operand tile with the 128-byte swizzle: rows of 128 bytes, 8
+// rows (1024 bytes) between one core matrix and the next along the rows
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  uint64_t desc = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  desc |= (uint64_t)1 << 16;           // leading offset: unused when swizzled
+  desc |= (uint64_t)(1024 >> 4) << 32;  // stride offset: 8 rows
+  desc |= (uint64_t)1 << 62;           // 128-byte swizzle
+  return desc;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64(d, da, db);
+  } else {
+    wgmma_m64n128(d, da, db);
+  }
+}
+
+// The block's shared state. The barriers are static; the ring and the fold
+// are dynamic, from the first 1024-byte boundary (the swizzle's period).
+template <int BN>
+struct Ring {
+  unsigned char* base;
+  __nv_bfloat162* fold_scale;  // [fold_cols / 2]
+  __nv_bfloat162* fold_shift;
+  __device__ __forceinline__ Ring(unsigned char* raw, int fold_cols) {
+    const uint32_t addr = smem_u32(raw);
+    base = raw + ((1024 - (addr & 1023)) & 1023);
+    fold_scale = reinterpret_cast<__nv_bfloat162*>(base + Cfg<BN>::kRingBytes);
+    fold_shift = fold_scale + fold_cols / 2;
+  }
+  __device__ __forceinline__ unsigned char* a(int s) const {
+    return base + s * Cfg<BN>::kStageBytes;
+  }
+  __device__ __forceinline__ unsigned char* b(int s) const {
+    return base + s * Cfg<BN>::kStageBytes + kABytes;
+  }
+  __device__ __forceinline__ float* c() const {
+    return reinterpret_cast<float*>(base);
+  }
+};
+
+// Set up the barriers and (with a prologue) the fold cache: every thread of
+// the block, before the roles part.
+template <int BN>
+__device__ __forceinline__ void setup(const Ring<BN>& ring, uint64_t* full,
+                                      uint64_t* empty, const float* scale,
+                                      const float* shift, int k,
+                                      int fold_cols) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg<BN>::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one elected thread per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int p = threadIdx.x; p < fold_cols / 2; p += kThreads) {
+    const int c = 2 * p;  // K is a multiple of 8: a pair lies wholly inside
+    const bool in = c < k;
+    ring.fold_scale[p] = __floats2bfloat162_rn(in ? scale[c] : 0.0f,
+                                               in ? scale[c + 1] : 0.0f);
+    ring.fold_shift[p] = __floats2bfloat162_rn(in ? shift[c] : 0.0f,
+                                               in ? shift[c + 1] : 0.0f);
+  }
+  __syncthreads();
+}
+
+// The producer: lane 0 of warp 8 keeps the ring full. Step i loads A's box
+// at (i * 64, a_row) and B's at (i * 64, b_row).
+template <int BN>
+__device__ __forceinline__ void produce(const Ring<BN>& ring, uint64_t* full,
+                                        uint64_t* empty, const CUtensorMap* ta,
+                                        const CUtensorMap* tb, int a_row,
+                                        int b_row, int steps) {
+  constexpr int S = Cfg<BN>::kStages;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % S;
+    if (i >= S) mbar_wait(&empty[s], ((i / S) - 1) & 1);
+    mbar_expect_tx(&full[s], Cfg<BN>::kStageBytes);
+    tma_load(ring.a(s), ta, &full[s], i * kBK, a_row);
+    tma_load(ring.b(s), tb, &full[s], i * kBK, b_row);
+  }
+}
+
+// A consumer warpgroup: acc (its 64 x BN rows of the tile) = the sum over
+// the steps of A_s @ B_s^T; with kPrologue, A's rows go through z = act(x *
+// scale + shift) in place first, and rows at or beyond `rows_left` (of this
+// warpgroup's 64) become zeros.
+template <int BN, bool kPrologue>
+__device__ __forceinline__ void consume(float (&acc)[BN / 2],
+                                        const Ring<BN>& ring, uint64_t* full,
+                                        uint64_t* empty, int steps,
+                                        int64_t rows_left, int act) {
+  constexpr int S = Cfg<BN>::kStages;
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % S;
+    mbar_wait(&full[s], (i / S) & 1);
+    unsigned char* a = ring.a(s) + wg * kGroupRows * kRowBytes;
+    if constexpr (kPrologue) {
+      // 16-byte chunk p of row r holds the step's columns 8 (p ^ (r & 7))
+      // onwards; this thread's rows r0 + 16 j share r & 7, so one fold
+      const int p = t & 7, r0 = t >> 3;
+      const int col = i * kBK + 8 * (p ^ (r0 & 7));
+      Fold<__nv_bfloat16> fold;
+      const uint4 sv =
+          *reinterpret_cast<const uint4*>(ring.fold_scale + col / 2);
+      const uint4 bv =
+          *reinterpret_cast<const uint4*>(ring.fold_shift + col / 2);
+      const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
+      const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        fold.scale[q] = *reinterpret_cast<const __nv_bfloat162*>(&sw[q]);
+        fold.shift[q] = *reinterpret_cast<const __nv_bfloat162*>(&bw[q]);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroupRows / 16; ++j) {
+        const int r = r0 + 16 * j;
+        uint4* at = reinterpret_cast<uint4*>(a + r * kRowBytes + p * 16);
+        uint4 v = *at;
+        if (r < rows_left) {
+          fold.apply(v, act);
+        } else {
+          v = make_uint4(0u, 0u, 0u, 0u);
+        }
+        *at = v;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(2 + wg, 128);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wgmma_tile<BN>(acc, smem_desc(a + kk * 32),
+                     smem_desc(ring.b(s) + kk * 32));
+    }
+    wgmma_commit();
+    if (i > 0) {
+      wgmma_wait<1>();
+      if (t == 0) mbar_arrive(&empty[(i - 1) % S]);
+    }
+  }
+  wgmma_wait<0>();
+}
+
+// Both warpgroups' accumulators into the f32 C tile [128][kLdc] laid over
+// the ring, once neither reads the ring any more. Fragment layout of
+// m64nNk16: warp w of the group holds rows 16 w + lane / 4 (+ 8), and
+// columns 8 j + 2 (lane % 4) (+ 1) of every 8-column group j.
+template <int BN>
+__device__ __forceinline__ void store_c(const float (&acc)[BN / 2],
+                                        const Ring<BN>& ring) {
+  constexpr int kLdc = Cfg<BN>::kLdc;
+  named_sync(1, kConsumers);
+  float* cs = ring.c();
+  const int lane = threadIdx.x & 31;
+  const int row = (threadIdx.x >> 7) * kGroupRows +
+                  ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(cs + row * kLdc + col) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(cs + (row + 8) * kLdc + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  named_sync(1, kConsumers);
+}
+
+using bf16 = __nv_bfloat16;
+
+// grid: row_tiles * col_tiles, the column tile fastest. ta: x [N, K] in
+// boxes of 64 x 128; tb: W^T [M, K] in boxes of 64 x BN. partials:
+// [row_tiles, 2, M], as fwd_kernel's.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2) fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, const float* scale,
+    const float* shift, bf16* y, float* partials, int64_t n, int k, int m,
+    int act, int col_tiles, int fold_cols) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cfg<BN>::kStages];
+  __shared__ __align__(8) uint64_t empty[Cfg<BN>::kStages];
+  const Ring<BN> ring(smem_raw, fold_cols);
+  const int64_t row_tile = blockIdx.x / col_tiles;
+  const int col0 = (int)(blockIdx.x % col_tiles) * BN;
+  const int64_t row0 = row_tile * kBM;
+  const int steps = (k + kBK - 1) / kBK;
+  setup<BN>(ring, full, empty, scale, shift, k, fold_cols);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      produce<BN>(ring, full, empty, &ta, &tb, (int)row0, col0, steps);
+    }
+    return;
+  }
+  float acc[BN / 2];
+  consume<BN, true>(acc, ring, full, empty, steps,
+                    n - row0 - (threadIdx.x >> 7) * kGroupRows, act);
+  store_c<BN>(acc, ring);
+
+  constexpr int kLdc = Cfg<BN>::kLdc;
+  const float* cs = ring.c();
+  // y: the f32 sums rounded once, 16 bytes a store
+  for (int v = threadIdx.x; v < kBM * (BN / 8); v += kConsumers) {
+    const int r = v / (BN / 8);
+    const int c = (v - r * (BN / 8)) * 8;
+    if (row0 + r < n && col0 + c < m) {
+      __align__(16) bf16 e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        e[i] = __float2bfloat16_rn(cs[r * kLdc + c + i]);
+      }
+      *reinterpret_cast<uint4*>(y + (row0 + r) * m + col0 + c) =
+          *reinterpret_cast<const uint4*>(e);
+    }
+  }
+  // the statistics from the f32 sums (rows at or beyond n are exact zeros),
+  // summed over the row parts in a fixed order
+  constexpr int kParts = kConsumers / BN;
+  float* red = ring.c() + Cfg<BN>::kCFloats;
+  const int c = threadIdx.x % BN, part = threadIdx.x / BN;
+  float s = 0.0f, ss = 0.0f;
+  for (int r = part * (kBM / kParts); r < (part + 1) * (kBM / kParts); ++r) {
+    const float v = cs[r * kLdc + c];
+    s += v;
+    ss = fmaf(v, v, ss);
+  }
+  red[part * BN + c] = s;
+  red[(kParts + part) * BN + c] = ss;
+  named_sync(1, kConsumers);
+  if (part == 0 && col0 + c < m) {
+    for (int p = 1; p < kParts; ++p) {
+      s += red[p * BN + c];
+      ss += red[(kParts + p) * BN + c];
+    }
+    partials[(row_tile * 2 + 0) * m + col0 + c] = s;
+    partials[(row_tile * 2 + 1) * m + col0 + c] = ss;
+  }
+}
+
+// dx, first grid: the forward's loop over (row tile, M tile), then dy_tot =
+// dy + dsum + 2 y32 dsumsq with each f32 operation rounded on its own,
+// rounded to bf16.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2) dx_dy_tot_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, const float* scale,
+    const float* shift, const bf16* dy, const float* dsum,
+    const float* dsumsq, bf16* dy_tot, int64_t n, int k, int m, int act,
+    int col_tiles, int fold_cols) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cfg<BN>::kStages];
+  __shared__ __align__(8) uint64_t empty[Cfg<BN>::kStages];
+  const Ring<BN> ring(smem_raw, fold_cols);
+  const int64_t row_tile = blockIdx.x / col_tiles;
+  const int col0 = (int)(blockIdx.x % col_tiles) * BN;
+  const int64_t row0 = row_tile * kBM;
+  const int steps = (k + kBK - 1) / kBK;
+  setup<BN>(ring, full, empty, scale, shift, k, fold_cols);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      produce<BN>(ring, full, empty, &ta, &tb, (int)row0, col0, steps);
+    }
+    return;
+  }
+  float acc[BN / 2];
+  consume<BN, true>(acc, ring, full, empty, steps,
+                    n - row0 - (threadIdx.x >> 7) * kGroupRows, act);
+  store_c<BN>(acc, ring);
+
+  // A thread owns the same 8 columns in each of its vectors (the consumers
+  // are a multiple of BN / 8). Its loads of dy are issued kBatch at a time
+  // before the stores of dy_tot they feed: loads and stores interleaved one
+  // by one would wait for one another (the compiler cannot tell the arrays
+  // apart), and a whole tile's loads at once would spill at 128 columns.
+  constexpr int kLdc = Cfg<BN>::kLdc;
+  constexpr int kRowLanes = Cfg<BN>::kRowLanes;  // rows between vectors
+  const float* cs = ring.c();
+  const int c = (threadIdx.x % Cfg<BN>::kColGroups) * 8;
+  const int r0 = threadIdx.x / Cfg<BN>::kColGroups;
+  const bool col_in = col0 + c < m;
+  float ds[8], dss[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ds[i] = col_in ? dsum[col0 + c + i] : 0.0f;
+    dss[i] = col_in ? dsumsq[col0 + c + i] : 0.0f;
+  }
+#pragma unroll
+  for (int b = 0; b < kBM / (kBatch * kRowLanes); ++b) {
+    const int j0 = r0 + b * kBatch * kRowLanes;
+    uint4 dyv[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int64_t row = row0 + j0 + j * kRowLanes;
+      if (row < n && col_in) {
+        dyv[j] = *reinterpret_cast<const uint4*>(dy + row * m + col0 + c);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int r = j0 + j * kRowLanes;
+      if (row0 + r < n && col_in) {
+        const bf16* e = reinterpret_cast<const bf16*>(&dyv[j]);
+        __align__(16) bf16 out[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float y32 = cs[r * kLdc + c + i];
+          const float t = __fadd_rn(__fadd_rn(__bfloat162float(e[i]), ds[i]),
+                                    __fmul_rn(2.0f * y32, dss[i]));
+          out[i] = __float2bfloat16_rn(t);
+        }
+        *reinterpret_cast<uint4*>(dy_tot + (row0 + r) * m + col0 + c) =
+            *reinterpret_cast<const uint4*>(out);
+      }
+    }
+  }
+}
+
+// dx, second grid: dz = dy_tot @ W^T over (row tile, K tile). ta: dy_tot
+// [N, M] in boxes of 64 x 128; tb: W [K, M] in boxes of 64 x BN. The
+// epilogue forms pre in f32 from x, the mask, dx = dz * scale, and this
+// tile's dscale / dshift into its own slot of partials [row_tiles, 2, K].
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2) dx_dz_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, const bf16* x,
+    const float* scale, const float* shift, bf16* dx, float* partials,
+    int64_t n, int k, int m, int act, int col_tiles) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cfg<BN>::kStages];
+  __shared__ __align__(8) uint64_t empty[Cfg<BN>::kStages];
+  const Ring<BN> ring(smem_raw, 0);
+  const int64_t row_tile = blockIdx.x / col_tiles;
+  const int kc = (int)(blockIdx.x % col_tiles) * BN;
+  const int64_t row0 = row_tile * kBM;
+  const int steps = (m + kBK - 1) / kBK;
+  setup<BN>(ring, full, empty, nullptr, nullptr, 0, 0);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      produce<BN>(ring, full, empty, &ta, &tb, (int)row0, kc, steps);
+    }
+    return;
+  }
+  float acc[BN / 2];
+  consume<BN, false>(acc, ring, full, empty, steps, 0, 0);
+  store_c<BN>(acc, ring);
+
+  constexpr int kLdc = Cfg<BN>::kLdc;
+  constexpr int kRowLanes = Cfg<BN>::kRowLanes;
+  const float* cs = ring.c();
+  float* red = ring.c() + Cfg<BN>::kCFloats;  // [2][kRowLanes][BN]
+  const int group = threadIdx.x % Cfg<BN>::kColGroups;
+  const int row_lane = threadIdx.x / Cfg<BN>::kColGroups;
+  const int c = group * 8;
+  const int gk = kc + c;
+  float dsc[8], dsh[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dsc[i] = dsh[i] = 0.0f;
+  if (gk < k) {
+    // loads of x kBatch at a time before the stores of dx, as in the first
+    // grid; the rows in ascending order, so the sums' order is fixed
+    float sc[8], sh[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sc[i] = scale[gk + i];
+      sh[i] = shift[gk + i];
+    }
+#pragma unroll
+    for (int b = 0; b < kBM / (kBatch * kRowLanes); ++b) {
+      const int j0 = row_lane + b * kBatch * kRowLanes;
+      uint4 xv[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int64_t row = row0 + j0 + j * kRowLanes;
+        if (row < n) xv[j] = *reinterpret_cast<const uint4*>(x + row * k + gk);
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int r = j0 + j * kRowLanes;
+        if (row0 + r < n) {
+          const bf16* e = reinterpret_cast<const bf16*>(&xv[j]);
+          __align__(16) bf16 out[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float xf = __bfloat162float(e[i]);
+            const float pre = __fadd_rn(__fmul_rn(xf, sc[i]), sh[i]);
+            const float dz =
+                act_grad_mask(pre, act) ? cs[r * kLdc + c + i] : 0.0f;
+            out[i] = __float2bfloat16_rn(__fmul_rn(dz, sc[i]));
+            dsc[i] += __fmul_rn(dz, xf);
+            dsh[i] += dz;
+          }
+          *reinterpret_cast<uint4*>(dx + (row0 + r) * k + gk) =
+              *reinterpret_cast<const uint4*>(out);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    red[row_lane * BN + c + i] = dsc[i];
+    red[(kRowLanes + row_lane) * BN + c + i] = dsh[i];
+  }
+  named_sync(1, kConsumers);
+  for (int o = threadIdx.x; o < 2 * BN; o += kConsumers) {
+    const int which = o / BN, col = o % BN;
+    float total = 0.0f;
+    for (int l = 0; l < kRowLanes; ++l) {
+      total += red[(which * kRowLanes + l) * BN + col];
+    }
+    if (kc + col < k) partials[(row_tile * 2 + which) * k + kc + col] = total;
+  }
+}
+
+// A 2-D tensor map of a row-major bf16 matrix [outer, inner] read in boxes
+// of 64 x box_outer with the 128-byte swizzle; 0 or the CUresult of a
+// refusal.
+int encode(CUtensorMap* map, const void* p, int64_t inner, int64_t outer,
+           int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Dynamic shared memory of a kernel of `bn` columns whose fold covers k
+// columns (0 for none), or -1 when there is no such kernel or it would not
+// fit the 227 KB a block may have.
+int shared_bytes(int bn, int k) {
+  const int fold_cols = (k + kBK - 1) / kBK * kBK;
+  size_t bytes = 0;
+  if (bn == 64) {
+    bytes = Cfg<64>::bytes(fold_cols);
+  } else if (bn == 128) {
+    bytes = Cfg<128>::bytes(fold_cols);
+  } else {
+    return -1;
+  }
+  return bytes <= 232448 ? (int)bytes : -1;
+}
+
+// A refused descriptor comes back as 10000 + its CUresult, apart from the
+// runtime's own errors.
+constexpr int kTensorMapError = 10000;
+
+// The cu* calls of libcuda need a context current on the calling thread, which a
+// thread that has only made runtime calls (an autograd worker) may lack:
+// cudaFree(0) binds the runtime's context of the current device.
+int bind_context() {
+  CUcontext ctx = nullptr;
+  if (cuCtxGetCurrent(&ctx) == CUDA_SUCCESS && ctx != nullptr) return 0;
+  return (int)cudaFree(nullptr);
+}
+
+}  // namespace hop
+
 }  // namespace
 
 // Plain C entry points for ctypes. dtype: 0 = float32, 1 = bfloat16; act:
@@ -744,11 +1439,12 @@ static_assert(kRowStep % Tile<__nv_bfloat16>::kBK == 0 &&
 // dsumsq are f32. Each returns cudaGetLastError() after its launch
 // (0 = success) and neither allocates nor synchronises.
 
-// y [N, M] in x's type; partials f32 [ceil(N / 128), 2, M]: each row tile's
-// column sums and sums of squares.
+// The f32 forward (bf16 takes pseg_fused_matmul_bn_fwd_wgmma): y [N, M] f32;
+// partials f32 [ceil(N / 128), 2, M]: each row tile's column sums and sums
+// of squares.
 extern "C" int pseg_fused_matmul_bn_fwd(
     const void* x, const void* scale, const void* shift, const void* w,
-    void* y, void* partials, int dtype, int act, int64_t n, int k, int m,
+    void* y, void* partials, int act, int64_t n, int k, int m,
     void* stream) {
   if (bad_shape(n, k, m) || act < 0 || act > 2) {
     return (int)cudaErrorInvalidValue;
@@ -756,57 +1452,38 @@ extern "C" int pseg_fused_matmul_bn_fwd(
   const int64_t col_tiles = ceil_div(m, kBN);
   const int64_t blocks = ceil_div(n, kBM) * col_tiles;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define PSEG_LAUNCH(T)                                                        \
-  do {                                                                        \
-    const int err = allow_shared(fwd_kernel<T>, Tile<T>::kBytes);             \
-    if (err != 0) return err;                                                 \
-    fwd_kernel<T><<<(unsigned)blocks, kThreads, Tile<T>::kBytes, s>>>(        \
-        (const T*)x, (const float*)scale, (const float*)shift, (const T*)w,   \
-        (T*)y, (float*)partials, n, k, m, act, (int)col_tiles);               \
-  } while (0)
-  if (dtype == 0) {
-    PSEG_LAUNCH(float);
-  } else if (dtype == 1) {
-    PSEG_LAUNCH(__nv_bfloat16);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef PSEG_LAUNCH
+  const int err = allow_shared(fwd_kernel<float>, Tile<float>::kBytes);
+  if (err != 0) return err;
+  fwd_kernel<float><<<(unsigned)blocks, kThreads, Tile<float>::kBytes,
+                      (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (const float*)shift,
+      (const float*)w, (float*)y, (float*)partials, n, k, m, act,
+      (int)col_tiles);
   return (int)cudaGetLastError();
 }
 
-// dy [N, M] and dx [N, K] in x's type; dy_tot [N, M] in x's type is written
-// here and read by pseg_fused_matmul_bn_bwd_dw; partials f32
-// [ceil(N / 128), 2, K]: each row tile's share of dscale and dshift.
+// The f32 dx (bf16 takes pseg_fused_matmul_bn_bwd_dx_wgmma): dy [N, M] and
+// dx [N, K] f32; dy_tot [N, M] f32 is written here and read by
+// pseg_fused_matmul_bn_bwd_dw; partials f32 [ceil(N / 128), 2, K]: each row
+// tile's share of dscale and dshift.
 extern "C" int pseg_fused_matmul_bn_bwd_dx(
     const void* x, const void* scale, const void* shift, const void* w,
     const void* dy, const void* dsum, const void* dsumsq, void* dy_tot,
-    void* dx, void* partials, int dtype, int act, int64_t n, int k, int m,
+    void* dx, void* partials, int act, int64_t n, int k, int m,
     void* stream) {
   if (bad_shape(n, k, m) || act < 0 || act > 2) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t blocks = ceil_div(n, kBM);
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define PSEG_LAUNCH(T)                                                        \
-  do {                                                                        \
-    const int err = allow_shared(bwd_dx_kernel<T>, Tile<T>::kBytes);          \
-    if (err != 0) return err;                                                 \
-    bwd_dx_kernel<T><<<(unsigned)blocks, kThreads, Tile<T>::kBytes, s>>>(     \
-        (const T*)x, (const float*)scale, (const float*)shift, (const T*)w,   \
-        (const T*)dy, (const float*)dsum, (const float*)dsumsq, (T*)dy_tot,   \
-        (T*)dx, (float*)partials, n, k, m, act);                              \
-  } while (0)
-  if (dtype == 0) {
-    PSEG_LAUNCH(float);
-  } else if (dtype == 1) {
-    PSEG_LAUNCH(__nv_bfloat16);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef PSEG_LAUNCH
+  const int err = allow_shared(bwd_dx_kernel<float>, Tile<float>::kBytes);
+  if (err != 0) return err;
+  bwd_dx_kernel<float><<<(unsigned)blocks, kThreads, Tile<float>::kBytes,
+                         (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (const float*)shift,
+      (const float*)w, (const float*)dy, (const float*)dsum,
+      (const float*)dsumsq, (float*)dy_tot, (float*)dx, (float*)partials, n,
+      k, m, act);
   return (int)cudaGetLastError();
 }
 
@@ -843,6 +1520,124 @@ extern "C" int pseg_fused_matmul_bn_bwd_dw(
   }
 #undef PSEG_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// The Hopper kernels (bf16 only). wt = W^T [M, K] and w = W [K, M], both
+// dense bf16; the rest as above. Each encodes its TMA descriptors on the
+// host and returns 10000 + the CUresult if one is refused.
+
+// y [N, M]; partials f32 [ceil(N / 128), 2, M], as pseg_fused_matmul_bn_fwd.
+extern "C" int pseg_fused_matmul_bn_fwd_wgmma(
+    const void* x, const void* scale, const void* shift, const void* wt,
+    void* y, void* partials, int act, int64_t n, int k, int m, int bn,
+    void* stream) {
+  if (bad_shape(n, k, m) || act < 0 || act > 2 || n > 2147483647LL ||
+      hop::shared_bytes(bn, k) < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap ta, tb;
+  int err = hop::bind_context();
+  if (err != 0) return err;
+  err = hop::encode(&ta, x, k, n, hop::kBM);
+  if (err == 0) err = hop::encode(&tb, wt, k, m, bn);
+  if (err != 0) return hop::kTensorMapError + err;
+  const int fold_cols = (int)ceil_div(k, hop::kBK) * hop::kBK;
+  const int64_t col_tiles = ceil_div(m, bn);
+  const int64_t blocks = ceil_div(n, hop::kBM) * col_tiles;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define PSEG_LAUNCH(BN)                                                       \
+  do {                                                                        \
+    const size_t bytes = hop::Cfg<BN>::bytes(fold_cols);                      \
+    err = allow_shared(hop::fwd_wgmma_kernel<BN>, bytes);                     \
+    if (err != 0) return err;                                                 \
+    hop::fwd_wgmma_kernel<BN><<<(unsigned)blocks, hop::kThreads, bytes, s>>>( \
+        ta, tb, (const float*)scale, (const float*)shift,                     \
+        (__nv_bfloat16*)y, (float*)partials, n, k, m, act, (int)col_tiles,    \
+        fold_cols);                                                           \
+  } while (0)
+  if (bn == 64) {
+    PSEG_LAUNCH(64);
+  } else {
+    PSEG_LAUNCH(128);
+  }
+#undef PSEG_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// dx as two grids on the stream, one call: (a) dy_tot over (row tile,
+// M tile), (b) dz, dx and the dscale / dshift partials over (row tile,
+// K tile). dy_tot [N, M] and partials [ceil(N / 128), 2, K] as in
+// pseg_fused_matmul_bn_bwd_dx.
+extern "C" int pseg_fused_matmul_bn_bwd_dx_wgmma(
+    const void* x, const void* scale, const void* shift, const void* w,
+    const void* wt, const void* dy, const void* dsum, const void* dsumsq,
+    void* dy_tot, void* dx, void* partials, int act, int64_t n, int k, int m,
+    int bn_m, int bn_k, void* stream) {
+  if (bad_shape(n, k, m) || act < 0 || act > 2 || n > 2147483647LL ||
+      hop::shared_bytes(bn_m, k) < 0 || hop::shared_bytes(bn_k, 0) < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap tx, twt, tdy, tw;
+  int err = hop::bind_context();
+  if (err != 0) return err;
+  err = hop::encode(&tx, x, k, n, hop::kBM);
+  if (err == 0) err = hop::encode(&twt, wt, k, m, bn_m);
+  if (err == 0) err = hop::encode(&tdy, dy_tot, m, n, hop::kBM);
+  if (err == 0) err = hop::encode(&tw, w, m, k, bn_k);
+  if (err != 0) return hop::kTensorMapError + err;
+  const int fold_cols = (int)ceil_div(k, hop::kBK) * hop::kBK;
+  const int64_t row_tiles = ceil_div(n, hop::kBM);
+  const int64_t m_tiles = ceil_div(m, bn_m), k_tiles = ceil_div(k, bn_k);
+  if (row_tiles * (m_tiles > k_tiles ? m_tiles : k_tiles) > 2147483647LL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+#define PSEG_LAUNCH_A(BN)                                                     \
+  do {                                                                        \
+    const size_t bytes = hop::Cfg<BN>::bytes(fold_cols);                      \
+    err = allow_shared(hop::dx_dy_tot_wgmma_kernel<BN>, bytes);               \
+    if (err != 0) return err;                                                 \
+    hop::dx_dy_tot_wgmma_kernel<BN>                                           \
+        <<<(unsigned)(row_tiles * m_tiles), hop::kThreads, bytes, s>>>(       \
+            tx, twt, (const float*)scale, (const float*)shift,                \
+            (const __nv_bfloat16*)dy, (const float*)dsum,                     \
+            (const float*)dsumsq, (__nv_bfloat16*)dy_tot, n, k, m, act,       \
+            (int)m_tiles, fold_cols);                                         \
+  } while (0)
+#define PSEG_LAUNCH_B(BN)                                                     \
+  do {                                                                        \
+    const size_t bytes = hop::Cfg<BN>::bytes(0);                              \
+    err = allow_shared(hop::dx_dz_wgmma_kernel<BN>, bytes);                   \
+    if (err != 0) return err;                                                 \
+    hop::dx_dz_wgmma_kernel<BN>                                               \
+        <<<(unsigned)(row_tiles * k_tiles), hop::kThreads, bytes, s>>>(       \
+            tdy, tw, (const __nv_bfloat16*)x, (const float*)scale,            \
+            (const float*)shift, (__nv_bfloat16*)dx, (float*)partials, n, k,  \
+            m, act, (int)k_tiles);                                            \
+  } while (0)
+  if (bn_m == 64) {
+    PSEG_LAUNCH_A(64);
+  } else {
+    PSEG_LAUNCH_A(128);
+  }
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if (bn_k == 64) {
+    PSEG_LAUNCH_B(64);
+  } else {
+    PSEG_LAUNCH_B(128);
+  }
+#undef PSEG_LAUNCH_A
+#undef PSEG_LAUNCH_B
+  return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory a Hopper kernel of `tile` columns asks for, with
+// the fold of `k` columns (0: the dz grid, which has none); -1 for a tile it
+// does not have or a fold that does not fit.
+extern "C" int pseg_fused_matmul_bn_wgmma_smem(int tile, int k) {
+  return hop::shared_bytes(tile, k);
 }
 
 // w [co, ci] and x [ci, pix] bf16, y [co, pix] f32; ci and pix multiples

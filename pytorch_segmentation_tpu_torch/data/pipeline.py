@@ -20,7 +20,7 @@ import random as _pyrandom
 import torch
 
 from ..ops.resize import resize_nearest
-from ..utils.runtime import device_constant, require_cuda
+from ..utils.runtime import device_constant, host_to_device, require_cuda
 from .datasets import IMAGENET_MEAN, IMAGENET_STD
 from .loader import Batch
 from .resize_host import multi_scale_sizes
@@ -83,14 +83,9 @@ class PostFetch:
         self._step = 0
 
     def _to_device(self, array) -> torch.Tensor:
-        """The host array on the device. For the card it goes through
-        pinned memory and an asynchronous copy: a copy from pageable memory
-        would hold the calling thread until all the work queued on the
-        stream is done, the consumer's train step included."""
-        tensor = torch.as_tensor(array)
-        if self.device.type != "cuda" or tensor.device.type != "cpu":
-            return tensor.to(self.device)
-        return tensor.pin_memory().to(self.device, non_blocking=True)
+        """The host array on the device (`utils.runtime.host_to_device`:
+        through pinned memory and an asynchronous copy for the card)."""
+        return host_to_device(array, self.device)
 
     def generators(self, step: int):
         """The device and the host generator of batch `step`."""

@@ -24,7 +24,7 @@ from collections.abc import Callable
 import torch
 
 from ..ops.loss import compute_loss, make_loss_fn
-from ..utils.runtime import require_cuda
+from ..utils.runtime import host_to_device, require_cuda
 from ..utils.weights import load_state, seeded_state_dict
 from .checkpoint import save_checkpoint
 from .steps import create_train_state, make_train_step
@@ -150,6 +150,13 @@ class Trainer:
     `device` is explicit: None means the first CUDA device and raises when
     there is none; the CPU is used only when asked for. Without `weights`
     the model starts from `seeded_state_dict(model, seed, init="train")`.
+
+    Taken as the JAX Trainer takes them, so that the train CLI's call
+    works: `mixed_precision` (ignored: the model's `dtype` decides the
+    compute dtype, as in the JAX package), `aux_weight`, `distill_weight`
+    and `distill_temp` (inert until auxiliary heads and distillation are
+    ported; without a `distill_fn` the JAX Trainer ignores the last two as
+    well).
     """
 
     def __init__(self, model: torch.nn.Module, fetcher,
@@ -160,7 +167,9 @@ class Trainer:
                  seed: int = 0, log: bool = True, log_dir: str = "runs",
                  defer_upsample: bool = True, lr_schedule: str = "constant",
                  warmup_steps: int = 0, total_steps: int | None = None,
-                 ema_decay: float = 0.0, device=None, **unported):
+                 ema_decay: float = 0.0, mixed_precision: bool = False,
+                 aux_weight: float = 0.4, distill_weight: float = 0.0,
+                 distill_temp: float = 2.0, device=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Trainer got an unknown option {name!r}")
@@ -238,7 +247,7 @@ class Trainer:
         return twin.eval()
 
     def _to_device(self, array):
-        return torch.as_tensor(array).to(self.device, non_blocking=True)
+        return host_to_device(array, self.device)
 
     def step(self) -> float:
         """Run one training epoch; returns its mean loss."""

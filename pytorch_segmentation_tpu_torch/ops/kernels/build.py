@@ -25,13 +25,16 @@ import threading
 from pathlib import Path
 
 __all__ = ["load_kernel_library", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
-           "BUILD_LOGS"]
+           "LINK_FLAGS", "BUILD_LOGS"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source on the link line: libcuda, for
+# cuTensorMapEncodeTiled (the TMA descriptors of fused_matmul_bn.cu)
+LINK_FLAGS = ("-lcuda",)
 # name -> what nvcc printed when this process built the source (ptxas -v:
 # registers, shared memory and spills of each kernel); absent for a library
 # that was already on disk
@@ -64,14 +67,14 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
+                                + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
                                 ).hexdigest()[:16]
         lib_path = BUILD_DIR / f"{name}-{digest}.so"
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src), *LINK_FLAGS]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=600)
             if proc.returncode != 0:

@@ -16,7 +16,9 @@ function's gradients.
 scale, shift and w and cotangents for all three outputs. On a CUDA tensor its
 forward and backward launch the hand-written kernels of
 `csrc/fused_matmul_bn.cu` (forward; dx with dscale and dshift; dW: see the
-note there for their design and what bounds them), on a CPU tensor
+note there for their design and what bounds them; a bf16 forward and dx run
+on the Hopper `wgmma` + TMA loop, f32 and dW on the older loop), on a CPU
+tensor
 `bn_act_matmul_reference` and `bn_act_matmul_backward_reference`, the plain
 PyTorch versions that the tests hold against the JAX package. There is no
 fallback from one to the other: a CUDA tensor gets the kernels or an
@@ -46,7 +48,8 @@ from .build import load_kernel_library
 
 __all__ = ["fused_bn_act_matmul", "bn_act_matmul_reference",
            "bn_act_matmul_backward_reference", "bn_act_matmul_dx_reference",
-           "bn_act_matmul_dw_reference", "dw_split", "launch_count",
+           "bn_act_matmul_dw_reference", "dw_split", "wgmma_tiles",
+           "launch_count",
            "reset_launch_count", "layout_copy_count",
            "reset_layout_copy_count"]
 
@@ -193,17 +196,49 @@ def _kernel_fns():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fwd = lib.pseg_fused_matmul_bn_fwd
     fwd.restype = ctypes.c_int
-    fwd.argtypes = [ptr] * 6 + [i32, i32, i64, i32, i32, ptr]
+    fwd.argtypes = [ptr] * 6 + [i32, i64, i32, i32, ptr]
     bwd_dx = lib.pseg_fused_matmul_bn_bwd_dx
     bwd_dx.restype = ctypes.c_int
-    bwd_dx.argtypes = [ptr] * 10 + [i32, i32, i64, i32, i32, ptr]
+    bwd_dx.argtypes = [ptr] * 10 + [i32, i64, i32, i32, ptr]
     bwd_dw = lib.pseg_fused_matmul_bn_bwd_dw
     bwd_dw.restype = ctypes.c_int
     bwd_dw.argtypes = [ptr] * 5 + [i32, i32, i64, i32, i32, i32, i64, ptr]
-    return fwd, bwd_dx, bwd_dw
+    fwd_wgmma = lib.pseg_fused_matmul_bn_fwd_wgmma
+    fwd_wgmma.restype = ctypes.c_int
+    fwd_wgmma.argtypes = [ptr] * 6 + [i32, i64, i32, i32, i32, ptr]
+    dx_wgmma = lib.pseg_fused_matmul_bn_bwd_dx_wgmma
+    dx_wgmma.restype = ctypes.c_int
+    dx_wgmma.argtypes = [ptr] * 11 + [i32, i64, i32, i32, i32, i32, ptr]
+    smem = lib.pseg_fused_matmul_bn_wgmma_smem
+    smem.restype = ctypes.c_int
+    smem.argtypes = [i32, i32]
+    return fwd, bwd_dx, bwd_dw, fwd_wgmma, dx_wgmma, smem
+
+
+def wgmma_tiles(k: int, m: int) -> dict:
+    """The column widths of the Hopper kernels' tiles at (K, M) (rows are
+    always 128): {'fwd': width over M, 'dx_dy_tot': width over M, 'dx_dz':
+    width over K}. 64 for a narrow matrix, else 128."""
+    def width(cols):
+        return 64 if cols <= 64 else 128
+    return {"fwd": width(m), "dx_dy_tot": width(m), "dx_dz": width(k)}
+
+
+def wgmma_shared_bytes(k: int, m: int) -> dict:
+    """The dynamic shared memory each Hopper kernel asks for at (K, M):
+    {'fwd', 'dx_dy_tot', 'dx_dz'} -> bytes (builds the library: card
+    only)."""
+    tiles = wgmma_tiles(k, m)
+    fn = _kernel_fns()[5]
+    return {"fwd": fn(tiles["fwd"], k),
+            "dx_dy_tot": fn(tiles["dx_dy_tot"], k),
+            "dx_dz": fn(tiles["dx_dz"], 0)}
 
 
 def _raise_on(err: int, what: str) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"fused_matmul_bn {what}: a TMA descriptor was "
+                           f"refused (CUresult {err - 10000})")
     if err != 0:
         raise RuntimeError(f"fused_matmul_bn {what} kernel launch failed: "
                            f"CUDA error {err}")
@@ -213,21 +248,29 @@ def _f32_vector(v: torch.Tensor) -> torch.Tensor:
     return v.detach().to(torch.float32).contiguous()
 
 
-def _launch_fwd(x, scale, shift, wc, act):
+def _launch_fwd(x, scale, shift, wc, act, wt):
     """x [N, K] dense, scale and shift f32 [K], wc [K, M] dense in x's dtype
-    -> (y, col_sum, col_sumsq)."""
-    fwd, _, _ = _kernel_fns()
+    and its transpose wt [M, K] (dense) -> (y, col_sum, col_sumsq). bf16
+    runs the Hopper kernel, which reads wt; f32 the older loop, which reads
+    wc."""
     n, k = x.shape
     m = wc.shape[1]
+    fwd, _, _, fwd_wgmma, _, _ = _kernel_fns()
     dev = x.device
     y = torch.empty((n, m), dtype=x.dtype, device=dev)
     partials = torch.empty((-(-n // _ROW_TILE), 2, m), dtype=torch.float32,
                            device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fwd(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                  wc.data_ptr(), y.data_ptr(), partials.data_ptr(),
-                  _DTYPE_CODE[x.dtype], _ACT_CODE[act], n, k, m, stream)
+        if x.dtype == torch.bfloat16:
+            tiles = wgmma_tiles(k, m)
+            err = fwd_wgmma(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                            wt.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                            _ACT_CODE[act], n, k, m, tiles["fwd"], stream)
+        else:
+            err = fwd(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                      wc.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                      _ACT_CODE[act], n, k, m, stream)
     _raise_on(err, "forward")
     _launches["fwd"] += 1
     # one slot per row tile, summed in a fixed order: runs are bit-equal
@@ -235,12 +278,14 @@ def _launch_fwd(x, scale, shift, wc, act):
     return y, sums[0], sums[1]
 
 
-def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act):
-    """-> (dx, dscale, dshift, dy_tot); dy_tot [N, M] in x's dtype is what
-    the dW kernel reads."""
-    _, bwd_dx, _ = _kernel_fns()
+def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act, wt):
+    """-> (dx, dscale, dshift, dy_tot) (operands as `_launch_fwd`'s); dy_tot
+    [N, M] in x's dtype is what the dW kernel reads. bf16 runs the Hopper
+    kernels, two grids on the stream counted as one launch; f32 the older
+    loop, one block per row tile."""
     n, k = x.shape
     m = wc.shape[1]
+    _, bwd_dx, _, _, dx_wgmma, _ = _kernel_fns()
     dev = x.device
     dy_tot = torch.empty((n, m), dtype=x.dtype, device=dev)
     dx = torch.empty((n, k), dtype=x.dtype, device=dev)
@@ -248,11 +293,20 @@ def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act):
                            device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = bwd_dx(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                     wc.data_ptr(), dy.data_ptr(), dsum.data_ptr(),
-                     dsumsq.data_ptr(), dy_tot.data_ptr(), dx.data_ptr(),
-                     partials.data_ptr(), _DTYPE_CODE[x.dtype],
-                     _ACT_CODE[act], n, k, m, stream)
+        if x.dtype == torch.bfloat16:
+            tiles = wgmma_tiles(k, m)
+            err = dx_wgmma(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                           wc.data_ptr(), wt.data_ptr(), dy.data_ptr(),
+                           dsum.data_ptr(), dsumsq.data_ptr(),
+                           dy_tot.data_ptr(), dx.data_ptr(),
+                           partials.data_ptr(), _ACT_CODE[act], n, k, m,
+                           tiles["dx_dy_tot"], tiles["dx_dz"], stream)
+        else:
+            err = bwd_dx(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                         wc.data_ptr(), dy.data_ptr(), dsum.data_ptr(),
+                         dsumsq.data_ptr(), dy_tot.data_ptr(), dx.data_ptr(),
+                         partials.data_ptr(), _ACT_CODE[act], n, k, m,
+                         stream)
     _raise_on(err, "dx")
     _launches["bwd_dx"] += 1
     sums = partials.sum(0)
@@ -261,7 +315,7 @@ def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act):
 
 def _launch_bwd_dw(x, scale, shift, dy_tot, act):
     """-> dw f32 [K, M] = z^T @ dy_tot."""
-    _, _, bwd_dw = _kernel_fns()
+    bwd_dw = _kernel_fns()[2]
     n, k = x.shape
     m = dy_tot.shape[1]
     dev = x.device
@@ -288,26 +342,30 @@ class _FusedBnActMatmul(torch.autograd.Function):
         ctx.act = act
         ctx.w_dtype = w.dtype
         if x.device.type == "cuda":
-            # one pass: the cast and the [M, K] -> [K, M] transpose of a
-            # convolution weight's view
+            # one pass each: the cast and the [M, K] -> [K, M] transpose of a
+            # convolution weight's view, and (for the wgmma kernels, which
+            # read both) the weight as [M, K]
             wc = torch.empty(w.shape, dtype=x.dtype,
                              device=x.device).copy_(w.detach())
+            wt = (torch.empty(w.shape[::-1], dtype=x.dtype, device=x.device)
+                  .copy_(w.detach().t()) if x.dtype == torch.bfloat16
+                  else wc)
             scale32, shift32 = _f32_vector(scale), _f32_vector(shift)
-            out = _launch_fwd(x, scale32, shift32, wc, act)
-            ctx.save_for_backward(x, scale32, shift32, wc)
+            out = _launch_fwd(x, scale32, shift32, wc, act, wt)
+            ctx.save_for_backward(x, scale32, shift32, wc, wt)
         else:
             out = bn_act_matmul_reference(x, scale, shift, w, act)
-            ctx.save_for_backward(x, scale, shift, w)
+            ctx.save_for_backward(x, scale, shift, w, w)
         ctx.vector_dtypes = (scale.dtype, shift.dtype)
         return out
 
     @staticmethod
     def backward(ctx, dy, dsum, dsumsq):
-        x, scale, shift, w = ctx.saved_tensors
+        x, scale, shift, w, wt = ctx.saved_tensors
         if x.device.type == "cuda":
             dx, dscale, dshift, dy_tot = _launch_bwd_dx(
                 x, scale, shift, w, _dense_rows(dy), _f32_vector(dsum),
-                _f32_vector(dsumsq), ctx.act)
+                _f32_vector(dsumsq), ctx.act, wt)
             dw = (_launch_bwd_dw(x, scale, shift, dy_tot, ctx.act)
                   if ctx.needs_input_grad[3] else None)
         else:

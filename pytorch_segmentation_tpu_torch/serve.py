@@ -6,8 +6,9 @@
     curl -s localhost:8500/healthz
 
 --weights is required: a `{'model': state_dict}` `.pt` file, such as
-`port_weights.py --reverse` writes from a JAX checkpoint. Requests are PNG
-images.
+`port_weights.py --reverse` writes from a JAX checkpoint (`--ema` serves its
+`'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
+multi-scale test-time augmentation. Requests are PNG images.
 """
 
 from __future__ import annotations
@@ -15,10 +16,14 @@ from __future__ import annotations
 import argparse
 import os
 
-from .models import MODEL_REGISTRY
+import torch
+
+from .engine.checkpoint import load_model_bundle
+from .models import MODEL_REGISTRY, build_model
+from .serving import MaskServer
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", type=str, default="deeplabv3plus",
                         choices=sorted(MODEL_REGISTRY))
@@ -36,25 +41,39 @@ def main(argv=None):
                         help="how long to wait coalescing concurrent "
                              "requests into one batch")
     parser.add_argument("--legacy-preproc", action="store_true")
+    parser.add_argument("--ema", action="store_true",
+                        help="serve the EMA-averaged weights")
+    parser.add_argument("--tta", action="store_true",
+                        help="flip TTA (~2x cost per request)")
+    parser.add_argument("--tta-scales", type=float, nargs="+", default=[],
+                        metavar="S", help="multi-scale TTA")
     opt = parser.parse_args(argv)
     if not os.path.isfile(opt.weights):
         parser.error(f"--weights {opt.weights!r} is not a file")
+    return opt
 
-    import torch
 
-    from .engine.checkpoint import load_model_bundle
-    from .models import build_model
-    from .serving import MaskServer
+def build_server(opt: argparse.Namespace, device) -> MaskServer:
+    """The model the options name, with the checkpoint's weights (its EMA
+    parameters with --ema) on `device`, behind a MaskServer with the
+    options' batching, preprocessing and TTA. Not started."""
+    model = build_model(opt.model, num_classes=opt.num_classes,
+                        dtype=torch.bfloat16, full_res_output=False)
+    model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
+    return MaskServer(model, img_size=tuple(opt.img_size),
+                      max_batch=opt.max_batch,
+                      batch_window_ms=opt.batch_window_ms,
+                      legacy_preproc=opt.legacy_preproc, tta_flip=opt.tta,
+                      tta_scales=tuple(opt.tta_scales))
+
+
+def main(argv=None):
+    opt = parse_args(argv)
+
     from .utils.runtime import require_cuda
 
     device = require_cuda()
-    model = build_model(opt.model, num_classes=opt.num_classes,
-                        dtype=torch.bfloat16, full_res_output=False)
-    model = load_model_bundle(model, opt.weights, device)
-    server = MaskServer(model, img_size=tuple(opt.img_size),
-                        max_batch=opt.max_batch,
-                        batch_window_ms=opt.batch_window_ms,
-                        legacy_preproc=opt.legacy_preproc)
+    server = build_server(opt, device)
     host, port = server.start(opt.host, opt.port)[:2]
     print(f"serving {opt.model} ({opt.num_classes} classes, "
           f"{opt.img_size[0]}x{opt.img_size[1]}) on "

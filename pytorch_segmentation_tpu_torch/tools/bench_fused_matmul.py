@@ -5,16 +5,23 @@ card (port of tools/bench_fused_matmul.py).
 DeepLabV3+ on a dilated ResNet-50 at batch 32, 513x513, routes conv1 and
 conv3 of its 16 bottlenecks through `fused_bn_act_matmul` when
 `nn.blocks.set_force_fused_1x1("on")`: 32 calls per forward at 12 distinct
-shapes (N rows, K -> M channels). For each shape this prints the forward,
-dx and dW kernels' ms (CUDA events, median of 10 after 3 warm-ups) beside
-one `torch.matmul` of the same product (a yardstick: no prologue, no
-statistics, no mask; the port never calls it), then the sums over one train
-step, weighted by how often the step runs each shape.
+shapes (N rows, K -> M channels). For each shape this prints the ms (CUDA
+events, median of 10 after 3 warm-ups) of the forward, dx and dW kernels
+and of one `torch.matmul` of the same product each (a yardstick: no
+prologue, no statistics, no mask; the port never calls it), then the sums
+over one train step, weighted by how often the step runs each shape.
+
+Last, the host's time per call of the forward and dx launchers
+(`host_us`): bf16, whose Hopper kernels encode their TMA descriptors on the
+host at every call, beside f32, whose older loop takes none, at one shape of
+the step.
 
     python -m pytorch_segmentation_tpu_torch.tools.bench_fused_matmul
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -32,10 +39,10 @@ SHAPES = (
     (N3, 256, 1024, 6), (N3, 1024, 256, 5), (N3, 1024, 512, 1),
     (N3, 512, 2048, 3), (N3, 2048, 512, 2),
 )
+HOST_SHAPE = (N3, 1024, 256)  # the step's most frequent stage-3 shape
 
 
-def bench_shape(n: int, k: int, m: int, device, dtype=torch.bfloat16,
-                seed: int = 0) -> dict:
+def _operands(n, k, m, device, dtype, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(n, k, generator=gen, device=device).to(dtype)
     scale = torch.rand(k, generator=gen, device=device) + 0.5
@@ -44,20 +51,52 @@ def bench_shape(n: int, k: int, m: int, device, dtype=torch.bfloat16,
     dy = torch.randn(n, m, generator=gen, device=device).to(dtype)
     dsum = torch.randn(m, generator=gen, device=device) * 0.01
     dsumsq = torch.randn(m, generator=gen, device=device) * 0.001
-    wt = w.t().contiguous()
+    return x, scale, shift, w, w.t().contiguous(), dy, dsum, dsumsq
+
+
+def bench_shape(n: int, k: int, m: int, device, dtype=torch.bfloat16,
+                seed: int = 0) -> dict:
+    x, scale, shift, w, wt, dy, dsum, dsumsq = _operands(n, k, m, device,
+                                                         dtype, seed)
     with torch.no_grad():
         dy_tot = fm._launch_bwd_dx(x, scale, shift, w, dy, dsum, dsumsq,
-                                   "relu")[3]
+                                   "relu", wt)[3]
         return {
             "fwd": timed_ms(lambda: fm._launch_fwd(x, scale, shift, w,
-                                                   "relu")),
+                                                   "relu", wt)),
             "bwd_dx": timed_ms(lambda: fm._launch_bwd_dx(
-                x, scale, shift, w, dy, dsum, dsumsq, "relu")),
+                x, scale, shift, w, dy, dsum, dsumsq, "relu", wt)),
             "bwd_dw": timed_ms(lambda: fm._launch_bwd_dw(x, scale, shift,
                                                          dy_tot, "relu")),
             "matmul_fwd": timed_ms(lambda: torch.matmul(x, w)),
             "matmul_dx": timed_ms(lambda: torch.matmul(dy, wt)),
             "matmul_dw": timed_ms(lambda: torch.matmul(x.t(), dy))}
+
+
+def host_us(n: int, k: int, m: int, device, dtype=torch.bfloat16,
+            calls: int = 64) -> dict:
+    """Mean host microseconds per call of `_launch_fwd` and
+    `_launch_bwd_dx`: `calls` calls issued back to back without a sync onto
+    an idle stream (a few hundred kernels: the launch queue does not fill,
+    so the host never waits for the card), after 3 warm-ups."""
+    ops = _operands(n, k, m, device, dtype)
+    x, scale, shift, w, wt, dy, dsum, dsumsq = ops
+    launchers = {
+        "fwd": lambda: fm._launch_fwd(x, scale, shift, w, "relu", wt),
+        "bwd_dx": lambda: fm._launch_bwd_dx(x, scale, shift, w, dy, dsum,
+                                            dsumsq, "relu", wt)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in launchers.items():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            out[name] = 1e6 * (time.perf_counter() - t0) / calls
+            torch.cuda.synchronize()
+    return out
 
 
 def main(device=None, shapes=SHAPES):
@@ -68,13 +107,19 @@ def main(device=None, shapes=SHAPES):
         ms = bench_shape(n, k, m, device)
         flops = 2.0 * n * k * m
         print(f"fused N={n} {k}->{m} x{calls}: " + "  ".join(
-            f"{name} {t:.3f} ms ({flops / t / 1e9:.0f} TFLOP/s)"
+            f"{name} {t:.4f} ms ({flops / t / 1e9:.0f} TFLOP/s)"
             for name, t in ms.items()), flush=True)
         for name, t in ms.items():
             totals[name] = totals.get(name, 0.0) + calls * t
     print("per train step (32 calls of each): " + "  ".join(
-        f"{name} {t:.2f} ms" for name, t in totals.items()), flush=True)
-    return totals
+        f"{name} {t:.3f} ms" for name, t in totals.items()), flush=True)
+    n, k, m = HOST_SHAPE
+    host = {str(dtype).replace("torch.", ""): host_us(n, k, m, device, dtype)
+            for dtype in (torch.bfloat16, torch.float32)}
+    print(f"host us per launcher call, N={n} {k}->{m}: " + "  ".join(
+        f"{dt} {name} {t:.1f}" for dt, row in host.items()
+        for name, t in row.items()), flush=True)
+    return totals, host
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ import functools
 
 import torch
 
-__all__ = ["require_cuda", "device_constant"]
+__all__ = ["require_cuda", "device_constant", "host_to_device"]
 
 
 def require_cuda() -> torch.device:
@@ -37,3 +37,16 @@ def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
     memory, which waits for all the work queued on the stream; a thread that
     prepares batches next to a training loop must not do that."""
     return _constant(values, dtype, torch.device(device))
+
+
+def host_to_device(array, device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on `device`; a tensor already
+    there is returned as it is. For the card the copy goes through pinned
+    memory and is asynchronous: a copy from pageable memory would hold the
+    calling thread until all the work queued on the stream is done (a
+    producer thread would stand behind the train step)."""
+    device = torch.device(device)
+    tensor = torch.as_tensor(array)
+    if device.type != "cuda" or tensor.device.type != "cpu":
+        return tensor.to(device)
+    return tensor.pin_memory().to(device, non_blocking=True)

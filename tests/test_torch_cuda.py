@@ -537,6 +537,63 @@ def test_fused_kernels_match_plain(device, n, k, m, dtype, act):
     _fused_check(n, k, m, dtype, act, device)
 
 
+@pytest.mark.parametrize("n,k,m,act", [
+    (4097, 1024, 256, "relu"),    # a wide shape, rows ending inside a tile
+    (2000, 64, 256, "relu6"),     # a narrow stage-1 shape, 64-wide tiles
+    (77, 24, 144, "none"),        # fewer rows than a tile, ragged K and M
+    # both tile widths of the Hopper kernels (`wgmma_tiles`: 64 for a
+    # matrix 64 wide or less, else 128) at widths that are multiples of
+    # neither, in each of the three kernels
+    (1000, 328, 264, "relu"), (1000, 328, 56, "relu"),
+    (1000, 56, 264, "relu"),
+])
+def test_hopper_launchers_match_plain(device, n, k, m, act):
+    """The bf16 forward and dx launchers (the Hopper kernels; dx as its two
+    grids) against the plain versions: y and dy_tot within one bf16 ulp, dx
+    within two plus the inherited floor, the sums to 1e-3 of their largest
+    entry, no gradient where the mask is off; two launches bit-equal."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = rand(n, k).bfloat16()
+    scale = 0.5 + torch.rand(k, generator=gen, device=device)
+    shift = 0.2 * rand(k)
+    wc = (0.1 * rand(k, m)).bfloat16()
+    wt = wc.t().contiguous()
+    dy, dsum, dsumsq = rand(n, m).bfloat16(), 0.01 * rand(m), 0.001 * rand(m)
+    with torch.no_grad():
+        ry, rs, rss = fm.bn_act_matmul_reference(x, scale, shift, wc, act)
+        rdx, rdsc, rdsh, rdy_tot = fm.bn_act_matmul_dx_reference(
+            x, scale, shift, wc, dy, dsum, dsumsq, act)
+        mask = fm._act_grad_mask(x.float() * scale + shift, act)
+        runs = [(fm._launch_fwd(x, scale, shift, wc, act, wt),
+                 fm._launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq,
+                                   act, wt))
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip((*runs[0][0], *runs[0][1]), (*runs[1][0], *runs[1][1])):
+        assert torch.equal(a, b)
+    (y, s, ss), (g, dsc, dsh, dy_tot) = runs[0]
+    ulp = 2.0 ** -7
+    floor = ulp * float(rdy_tot.abs().max()) * float(wc.abs().max()) * float(
+        scale.abs().max())
+
+    def close(got, want, ulps, extra=0.0):
+        got, want = got.float(), want.float()
+        allowed = (ulps * ulp * want.abs() + 1e-5 * float(want.abs().max())
+                   + extra)
+        return bool(((got - want).abs() <= allowed).all())
+
+    def sums_close(got, want):
+        return float((got - want).abs().max()) <= 1e-3 * float(
+            want.abs().max())
+
+    assert y.dtype == torch.bfloat16 and close(y, ry, 1)
+    assert sums_close(s, rs) and sums_close(ss, rss)
+    assert close(dy_tot, rdy_tot, 1) and close(g, rdx, 2, floor)
+    assert sums_close(dsc, rdsc) and sums_close(dsh, rdsh)
+    assert not bool((g[~mask] != 0).any())
+
+
 def test_fused_kernels_are_reproducible_and_count_copies(device):
     gen = torch.Generator(device=device).manual_seed(1)
     nchw = torch.randn(2, 64, 9, 11, generator=gen, device=device

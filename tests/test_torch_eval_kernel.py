@@ -55,7 +55,7 @@ def _assert_counts_equal(got, want):
     ((3, 16, 16, 5), (64, 64), True, 3),
     ((3, 16, 16, 5), (64, 64), True, 2),
     ((1, 11, 13, 3), (50, 52), False, 1),     # ragged rows
-    ((2, 8, 8, 81), (16, 16), True, 2),       # 81 classes
+    ((2, 8, 8, 65), (16, 16), True, 2),       # 65..128 classes (COCO-81)
 ])
 def test_reference_matches_jax_kernel(shape, out_hw, align, valid):
     logits, labels = _inputs(shape, out_hw)

@@ -7,8 +7,10 @@ kernels in interpret mode and `bn_act_matmul_reference`, as
 tests/test_fused_matmul_bn.py does. Sizes are small: a Bottleneck on the
 JAX side, DeepLabV3+ with ResNet layers (1,1,1,1) at 65x65 in the port."""
 
+import contextlib
 import functools
 import importlib.util
+import types
 from pathlib import Path
 
 import jax
@@ -298,6 +300,74 @@ def test_dw_split_covers_the_rows(n, k, m):
     assert splits * k * m * 4 <= 64 << 20
 
 
+# the channel widths of the R50 step's 12 shapes
+# (tools/bench_fused_matmul.SHAPES) and the ragged MobileNetV2 widths
+@pytest.mark.parametrize("k,m", [
+    (64, 64), (64, 256), (256, 64), (256, 128), (128, 512), (512, 128),
+    (512, 256), (256, 1024), (1024, 256), (1024, 512), (512, 2048),
+    (2048, 512), (24, 144), (144, 24)])
+def test_wgmma_tiles_by_shape(k, m):
+    """The Hopper kernels' column tiles are 64 wide over a matrix 64 wide
+    or less, else 128: the forward's and dx's first grid over M, dx's
+    second grid over K."""
+    assert fm.wgmma_tiles(k, m) == {"fwd": 64 if m <= 64 else 128,
+                                    "dx_dy_tot": 64 if m <= 64 else 128,
+                                    "dx_dz": 64 if k <= 64 else 128}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launchers_choose_the_loop_by_dtype(dtype, monkeypatch):
+    """bf16 goes to the Hopper entry points (W^T for the forward, W and W^T
+    for dx, the `wgmma_tiles` widths), f32 to the older loop's (W); each
+    launcher counts one launch, and a refused TMA descriptor raises. The
+    library and the stream are stand-ins: nothing is built here."""
+    calls = []
+
+    def entry(name, err=0):
+        def fn(*args):
+            calls.append((name, args))
+            return err
+        return fn
+
+    fns = [entry(name) for name in ("fwd", "bwd_dx", "bwd_dw", "fwd_wgmma",
+                                    "dx_wgmma", "smem")]
+    monkeypatch.setattr(fm, "_kernel_fns", lambda: fns)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    n, k, m = 300, 56, 264
+    x, dy = torch.zeros(n, k, dtype=dtype), torch.zeros(n, m, dtype=dtype)
+    vec, wc = torch.zeros(k), torch.zeros(k, m, dtype=dtype)
+    wt = wc.t().contiguous()
+    before = fm.launch_count()
+    y, s, ss = fm._launch_fwd(x, vec, vec, wc, "relu6", wt)
+    dx, dsc, dsh, dy_tot = fm._launch_bwd_dx(x, vec, vec, wc, dy,
+                                             torch.zeros(m), torch.zeros(m),
+                                             "relu6", wt)
+    after = fm.launch_count()
+    assert {key: after[key] - before[key] for key in after} == {
+        "fwd": 1, "bwd_dx": 1, "bwd_dw": 0}
+    assert (y.shape, s.shape, dx.shape, dsc.shape, dy_tot.shape) == (
+        (n, m), (m,), (n, k), (k,), (n, m))
+    (fwd_name, fwd_args), (dx_name, dx_args) = calls
+    if dtype == torch.bfloat16:
+        assert (fwd_name, dx_name) == ("fwd_wgmma", "dx_wgmma")
+        assert fwd_args[3] == wt.data_ptr()
+        assert fwd_args[6:] == (2, n, k, m, 128, 7)
+        assert dx_args[3:5] == (wc.data_ptr(), wt.data_ptr())
+        assert dx_args[11:] == (2, n, k, m, 128, 64, 7)
+        fns[3] = entry("fwd_wgmma", 10001)
+        with pytest.raises(RuntimeError, match="TMA descriptor"):
+            fm._launch_fwd(x, vec, vec, wc, "relu6", wt)
+    else:
+        assert (fwd_name, dx_name) == ("fwd", "bwd_dx")
+        assert fwd_args[3] == wc.data_ptr()
+        assert fwd_args[6:] == (2, n, k, m, 7)
+        assert dx_args[3] == wc.data_ptr()
+        assert dx_args[10:] == (2, n, k, m, 7)
+
+
 # ------------------------------------------------------------ BatchNorm fold
 
 def _fold_pair(c, rng):
@@ -416,7 +486,9 @@ def _bottleneck_pair():
     x = np.maximum(rng.standard_normal((2, 8, 8, 32)), 0).astype(np.float32)
     jm = JaxBottleneck(16, stride=1, downsample=True, dtype=jnp.float32)
     jblocks.set_force_fused_1x1("interpret")
-    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    # jitted: one compile of the interpreted kernels instead of one per op
+    variables = jax.jit(lambda key, v: jm.init(key, v, train=False))(
+        jax.random.PRNGKey(0), jnp.asarray(x))
     params = _numpy_tree(variables["params"])
     stats = _numpy_tree(variables["batch_stats"])
     tm = Bottleneck(32, 16, downsample=True, dtype=torch.float32)
@@ -448,8 +520,8 @@ def test_fused_bottleneck_matches_jax():
     tblocks.set_force_fused_1x1("on")
     fm.reset_launch_count()
 
-    jy = jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
-                  train=False)
+    jy = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x))
     with torch.no_grad():
         ty = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(ty.permute(0, 2, 3, 1).numpy(), np.asarray(jy),
@@ -460,8 +532,8 @@ def test_fused_bottleneck_matches_jax():
                           train=True, mutable=["batch_stats"])
         return jnp.sum(y ** 2), (y, mut["batch_stats"])
 
-    (_, (jy, jstats)), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
-        params)
+    (_, (jy, jstats)), jgrads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
     ty, tgrads, tstate = _port_bottleneck_train(tm, x)
     np.testing.assert_allclose(ty, np.asarray(jy), rtol=1e-4, atol=1e-4)
     want = state_dict_from_jax(_numpy_tree(jgrads), {})
@@ -676,4 +748,12 @@ def test_new_kernel_source_has_a_plain_c_interface():
     for name in ("pseg_fused_matmul_bn_fwd", "pseg_fused_matmul_bn_bwd_dx",
                  "pseg_fused_matmul_bn_bwd_dw", "pseg_cmajor_matmul"):
         assert f'extern "C" int {name}(' in src
+    for name in ("pseg_fused_matmul_bn_fwd_wgmma",
+                 "pseg_fused_matmul_bn_bwd_dx_wgmma"):
+        assert f'extern "C" int {name}(' in src
     assert "wmma::mma_sync" in src and "atomicAdd" not in src
+    # the Hopper loop: TMA into an mbarrier ring, wgmma from shared memory
+    for op in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+               "wgmma.mma_async", "cuTensorMapEncodeTiled"):
+        assert op in src, op
+    assert "-lcuda" in build.LINK_FLAGS

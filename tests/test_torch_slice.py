@@ -309,3 +309,69 @@ def test_serve_cli_needs_weights(tmp_path, capsys):
             main(argv + ["--port", "0"])
         assert err.value.code == 2
     assert "missing.pt" in capsys.readouterr().err
+
+
+def test_serve_cli_wires_tta_and_ema(tmp_path, monkeypatch):
+    """--tta, --tta-scales and --ema reach MaskServer and load_model_bundle
+    (the server is built on the CPU, around the checkpoint's EMA
+    weights); without them, no TTA and the live weights."""
+    from pytorch_segmentation_tpu_torch import serve
+    from pytorch_segmentation_tpu_torch.engine.checkpoint import (
+        save_checkpoint)
+    from pytorch_segmentation_tpu_torch.utils.weights import (
+        seeded_state_dict)
+
+    class Tiny(torch.nn.Module):  # the wiring is the point, not the model
+        def __init__(self, num_classes, **_):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, num_classes, 1)
+            self.bn = torch.nn.BatchNorm2d(num_classes)
+
+        def forward(self, x):
+            return self.bn(self.conv(x))
+
+    def small(name, num_classes, **kw):
+        assert name == "deeplabv3plus" and kw["dtype"] == torch.bfloat16
+        return Tiny(num_classes)
+
+    model = Tiny(NC)
+    live = seeded_state_dict(model, seed=1)
+    ema = {k: v + 1.0 for k, v in live.items()
+           if k in dict(model.named_parameters())}
+    path = str(tmp_path / "ema.pt")
+    save_checkpoint(path, model_state=live, ema=ema)
+
+    calls = {}
+
+    def recording(name, real):
+        def call(*args, **kwargs):
+            calls[name] = (kwargs, real(*args, **kwargs))
+            return calls[name][1]
+        return call
+
+    monkeypatch.setattr(serve, "build_model", small)
+    monkeypatch.setattr(serve, "load_model_bundle",
+                        recording("bundle", serve.load_model_bundle))
+    monkeypatch.setattr(serve, "MaskServer",
+                        recording("server", serve.MaskServer))
+    size = ["-nc", str(NC), "-s", str(HW), str(HW)]
+    opt = serve.parse_args(["--weights", path, "--tta", "--tta-scales",
+                            "0.75", "1.25", "--ema", *size])
+    assert (opt.tta, opt.tta_scales, opt.ema) == (True, [0.75, 1.25], True)
+    server = serve.build_server(opt, "cpu")
+    assert server is calls["server"][1]
+    assert calls["bundle"][0]["use_ema"] is True
+    assert calls["server"][0]["tta_flip"] is True
+    assert calls["server"][0]["tta_scales"] == (0.75, 1.25)
+    params = dict(calls["bundle"][1].named_parameters())
+    for key, value in ema.items():
+        torch.testing.assert_close(params[key].float(), value.float())
+
+    calls.clear()
+    serve.build_server(serve.parse_args(["--weights", path, *size]), "cpu")
+    assert calls["bundle"][0]["use_ema"] is False
+    assert (calls["server"][0]["tta_flip"],
+            calls["server"][0]["tta_scales"]) == (False, ())
+    params = dict(calls["bundle"][1].named_parameters())
+    for key in ema:
+        torch.testing.assert_close(params[key].float(), live[key].float())

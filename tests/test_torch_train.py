@@ -626,3 +626,54 @@ def test_trainer_needs_cuda_unless_asked_for_the_cpu():
         pytest.skip("a CUDA device is present; this checks the CPU refusal")
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrainer.Trainer(_TorchTiny(), _Fetcher([]))
+
+
+def test_trainer_takes_the_train_cli_options(tmp_path):
+    """The options the train CLI always passes construct and step a
+    Trainer: mixed_precision is ignored (the model's dtype decides),
+    aux_weight / distill_weight / distill_temp are inert, also at a
+    distill_weight without a distill_fn, as in the JAX Trainer; a name
+    neither package knows still raises."""
+    losses = []
+    for distill_weight in (0.0, 0.5):
+        trainer = ttrainer.Trainer(
+            _TorchTiny(), _Fetcher(_batches(2, seed=11, hw=16)),
+            mixed_precision=True, aux_weight=0.4,
+            distill_weight=distill_weight, distill_temp=2.0, device="cpu",
+            log_dir=str(tmp_path), log=False, seed=3)
+        losses.append(trainer.step())
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    with pytest.raises(TypeError, match="unknown option"):
+        ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
+                         mixed_precison=True)
+
+
+def test_trainer_copies_host_batches_through_pinned_memory(monkeypatch):
+    """numpy batches arrive equal; a tensor already on the device passes
+    through untouched; for the card a host array is pinned first and copied
+    without blocking (the copy of pageable memory would wait for the whole
+    stream). The card's half is checked by recording the two calls."""
+    trainer = ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu")
+    x, y = _batches(1, seed=12, hw=16)[0]
+    for array in (x, y):
+        got = trainer._to_device(array)
+        assert got.device.type == "cpu"
+        assert np.array_equal(got.numpy(), array)
+    on_device = torch.from_numpy(x)
+    assert trainer._to_device(on_device) is on_device
+
+    seen = []
+
+    def pin_memory(self):
+        seen.append("pin")
+        return self
+
+    def to(self, device, non_blocking=False):
+        seen.append((torch.device(device).type, non_blocking))
+        return self
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", pin_memory)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    trainer.device = torch.device("cuda")
+    assert np.array_equal(trainer._to_device(x).numpy(), x)
+    assert seen == ["pin", ("cuda", True)]
