@@ -679,6 +679,7 @@ def fused_case(name, n, k, m, dtype, act, device, nchw=False):
         "bwd_dw": bound(e * (n * k + n * m) + 4 * k * m + 8 * k,
                         ops + 2.0 * n * k, rate)}
     ms = {"fwd": fwd_ms, "bwd_dx": dx_ms, "bwd_dw": dw_ms}
+    splits, rows = fm.dw_split(n, k, m)
     log("kernel", case=name, kernel="fused_matmul_bn", n=n, k=k, m=m,
         dtype=str(dtype).replace("torch.", ""), act=act,
         rows_contiguous=not nchw, layout_copies=copies,
@@ -689,7 +690,7 @@ def fused_case(name, n, k, m, dtype, act, device, nchw=False):
         bound_ms={key: b["bound_ms"] for key, b in bounds.items()},
         bound_by={key: b["bound_by"] for key, b in bounds.items()},
         wgmma_tiles=fm.wgmma_tiles(k, m),
-        dw_split=list(fm.dw_split(n, k, m)))
+        dw_split=[splits, rows], dw_last_split_rows=n - (splits - 1) * rows)
     worst = {"fwd": errors["y"], "bwd_dx": errors["dx"],
              "bwd_dw": errors["dw"]}
     return {key: {"max_abs_err": worst[key], "ms": ms[key],
@@ -724,28 +725,40 @@ def fused_cases(device):
     fused_case("fused_ragged_34849_1024_256", 34849, 1024, 256, bf16, "relu",
                device)
     fused_case("fused_short_77_64_256", 77, 64, 256, bf16, "relu", device)
+    # dW over a split of N whose last run of rows is shorter than the
+    # others and ends inside a stage, at K below one 64-column box
+    n, k, m = 4133, 56, 72
+    splits, rows = fm.dw_split(n, k, m)
+    last = n - (splits - 1) * rows
+    if not (splits > 1 and last < rows and last % 64 and k < 64):
+        raise AssertionError(f"dw_split{(n, k, m)} = {(splits, rows)} has "
+                             f"no partial last split")
+    fused_case("fused_dw_partial_split_4133_56_72", n, k, m, bf16, "relu6",
+               device)
     return {key: {**first[key], "second_shape": second[key]}
             for key in first}
 
 
 def cmajor_phase(device):
     """The layout benchmark's own run on the card: it holds the
-    channels-major kernel against its plain version at its three shapes
-    (and two launches against each other), then times it beside its
-    yardsticks. Returns the kernel's launches and the 256 -> 64 figures."""
+    channels-major kernel against its plain version at two ragged shapes
+    and its three timed shapes (and two launches against each other), then
+    times it beside its yardsticks. Returns the kernel's launches and the
+    256 -> 64 figures."""
     cm.reset_launch_count()
-    rows = bench_cmajor.main(device)
+    rows, ragged = bench_cmajor.main(device)
     launches = cm.launch_count()
     first = rows[0]
     least = bound(first["bytes"], first["flops"], BF16_TENSOR_FLOPS)
-    log("cmajor", launches=launches, shapes=[
-        {key: row[key] for key in ("ci", "co", "pix", "max_abs_err",
-                                   "largest", "kernel_channels_major",
-                                   "plain_channels_major",
-                                   "matmul_channels_major",
-                                   "matmul_pixels_major",
-                                   "conv2d_channels_last")}
-        for row in rows], **least)
+    log("cmajor", launches=launches, tolerance=bench_cmajor.TOLERANCE,
+        ragged=ragged, shapes=[
+            {**{key: row[key] for key in (
+                "ci", "co", "pix", "max_abs_err", "largest",
+                "kernel_channels_major", "plain_channels_major",
+                "matmul_channels_major", "matmul_pixels_major",
+                "conv2d_channels_last")},
+             **bound(row["bytes"], row["flops"], BF16_TENSOR_FLOPS)}
+            for row in rows], **least)
     return launches, {"max_abs_err": first["max_abs_err"],
                       "ms": first["kernel_channels_major"],
                       "plain_ms": first["plain_channels_major"], **least,
@@ -1792,11 +1805,14 @@ def hopper_build_figures(ptxas):
         return {"note": "library already on disk: no ptxas output"}
     figures, entry = {}, None
     for line in ptxas.splitlines():
+        # a template's arguments mangle as I L<type><value>E ... E
         found = re.search(r"Compiling entry function '\w*?hop\d+"
-                          r"([a-z_]+_wgmma_kernel)ILi(\d+)E", line)
+                          r"([a-z_]+_wgmma_kernel)I((?:L[a-z]+\d+E)+)E",
+                          line)
         if "Compiling entry function" in line:
-            entry = (f"{found.group(1)}<{found.group(2)}>" if found
-                     else None)
+            entry = (f"{found.group(1)}<"
+                     + ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2)))
+                     + ">" if found else None)
             if entry:
                 figures[entry] = {"spill_bytes": 0}
         elif entry and "spill" in line:
@@ -1806,6 +1822,8 @@ def hopper_build_figures(ptxas):
             figures[entry]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     shapes = ((2048, 512), (512, 2048), (256, 64), (64, 256))
+    # the channels-major product: the 128-column ring, no fold
+    figures["cmajor_dynamic_smem_bytes"] = fm._kernel_fns()["smem"](128, 0)
     figures["dynamic_smem_bytes"] = {f"{k}->{m}": fm.wgmma_shared_bytes(k, m)
                                      for k, m in shapes}
     return figures
@@ -1931,15 +1949,25 @@ def main():
         # stage-1 shape of the step; `second_shape` has a stage-4 shape's
         {"name": "fused_matmul_bn_fwd", "route": "cuda",
          "source": fused_source, "replaces": fused_replaces + "91",
+         "design": "hop::fwd_wgmma_kernel: TMA ring + wgmma, A = x K-major "
+                   "through the prologue in shared memory",
          "launches": fused_launches["fwd"], **fused_path["fwd"]},
         {"name": "fused_matmul_bn_bwd_dx", "route": "cuda",
          "source": fused_source, "replaces": fused_replaces + "117",
+         "design": "hop::dx_dy_tot_wgmma_kernel + hop::dx_dz_wgmma_kernel: "
+                   "two full grids, K-major operands",
          "launches": fused_launches["bwd_dx"], **fused_path["bwd_dx"]},
         {"name": "fused_matmul_bn_bwd_dw", "route": "cuda",
          "source": fused_source, "replaces": fused_replaces + "156",
+         "design": "hop::dw_wgmma_kernel: TMA ring + wgmma, A = z^T and "
+                   "B = dy_tot MN-major, N split over blocks (dw_split), "
+                   "f32 partials summed by partials.sum(0)",
          "launches": fused_launches["bwd_dw"], **fused_path["bwd_dw"]},
         {"name": "cmajor_matmul", "route": "cuda", "source": fused_source,
          "replaces": "tools/bench_cmajor.py:64",
+         "design": "hop::cmajor_wgmma_kernel: TMA ring + wgmma, W K-major, "
+                   "X MN-major, 64-row tiles split over the pixels where "
+                   "co <= 64, f32 epilogue of 16-byte stores",
          "launches": cmajor_launches, **cmajor_path}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,23 +31,20 @@
 // Two main loops. The Hopper loop (namespace hop below: TMA into a ring of
 // shared-memory stages, wgmma into f32 accumulators in registers, one
 // producer warp and two consumer warpgroups, 128 x 64 or 128 x 128 tiles)
-// runs every bf16 forward (fwd_wgmma_kernel) and bf16 dx, as two full grids
-// (dx_dy_tot_wgmma_kernel, then dx_dz_wgmma_kernel). The older loop runs
-// the rest: the f32 forward and dx, the dW kernel and the channels-major
-// kernel.
+// runs every bf16 product: the forward (fwd_wgmma_kernel), dx as two full
+// grids (dx_dy_tot_wgmma_kernel, then dx_dz_wgmma_kernel), dW
+// (dw_wgmma_kernel) and the channels-major product (cmajor_wgmma_kernel).
+// The older loop runs the f32 forward, dx and dW.
 //
 // The older loop: 256 threads (8 warps) own a C tile of 128 x 64 and each
-// warp a 32 x 32 corner of it (2 x 2 accumulators of 16 x 16). Operands are
-// staged 32 deep through two buffers in shared memory: the 16-byte global
-// loads of step i + 1 are issued into registers before the products of step
-// i and stored (the prologue applied on the way) after them, so one barrier
-// per step suffices. For bf16 (dW, channels-major) the products are
-// nvcuda::wmma m16n16k16 tensor-core instructions with f32 accumulators and
-// the prologue runs on packed bf16 pairs (mul.rn then add.rn, which round
-// exactly where the plain version does); the f32 instantiation is a plain
-// FFMA loop in full f32 (no TF32): it exists so that a small f32 model on
-// the card can be held against the CPU. Ragged edges are masked while a tile
-// is staged (zeros), never padded in device memory.
+// warp a 32 x 32 corner of it. Operands are staged 32 deep through two
+// buffers in shared memory: the 16-byte global loads of step i + 1 are
+// issued into registers before the products of step i and stored (the
+// prologue applied on the way) after them, so one barrier per step
+// suffices. The products are a plain FFMA loop in full f32 (no TF32): the
+// loop exists so that a small f32 model on the card can be held against the
+// CPU. Ragged edges are masked while a tile is staged (zeros), never padded
+// in device memory.
 //
 // dx, whichever loop: y32 is recomputed exactly once per backward and
 // dy_tot [N, M] is written in x's type, because the dW kernel reads it
@@ -62,9 +59,16 @@
 // loop over (row tile, M tile) with a dy_tot epilogue, (b) dz = dy_tot @ W^T
 // over (row tile, K tile) with W read K-major, whose epilogue reads the
 // block's x tile, forms pre in f32, the mask and dx, and writes its dscale /
-// dshift partials into a slot of its own. N is split over blocks in the dW
-// kernel (the wrapper picks the split from N, K, M so that the card is full
-// while the [splits, K, M] partials stay small).
+// dshift partials into a slot of its own.
+//
+// dW reduces over the N rows, and no shape of the ResNet-50 step has more
+// than 64 output tiles of 128 x 128 (132 SMs): N is split over blocks, each
+// split a whole number of 64-row stages, so that the (K tile, M tile,
+// split) grid fills the card (the wrapper picks the split, dw_split); each
+// block writes its f32 partial sums into a slot [split, K, M] of its own.
+// Both of its operands hold the reduction outermost (x [N, K], dy_tot
+// [N, M]), so the Hopper kernel reads both MN-major: wgmma's transposed
+// forms of A = z^T and B = dy_tot, straight from the TMA boxes.
 //
 // What bounds the Hopper kernels at the ResNet-50 step's shapes (PERF.md
 // section 6 has the bound and the time of each): stage 1 (N = 532,512,
@@ -77,19 +81,19 @@
 // once; dx's two grids read x twice and write and read back dy_tot, which
 // the narrow stage-1 shapes feel most. The dx epilogues issue their 16-byte
 // loads kBatch at a time before the stores they feed, so that the loads
-// overlap one another instead of each waiting for the store before it.
+// overlap one another instead of each waiting for the store before it. The
+// channels-major product is bound by bytes at every shape of its tool
+// (mostly its f32 output): its epilogue stores 16 bytes a thread, a warp's
+// stores covering 512 contiguous bytes of a row.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 128;       // rows of a C tile
@@ -101,9 +105,7 @@ template <typename T>
 struct Tile {
   static constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte access
   static constexpr int kPad = kVec;                 // shifts rows across banks
-  // depth of one staged step; 64 for bf16 was no faster on an H100 (128
-  // registers in every kernel, the same times)
-  static constexpr int kBK = 32;
+  static constexpr int kBK = 32;  // depth of one staged step
   static constexpr int kLdA = kBK + kPad;    // [kBM][kBK], row-major
   static constexpr int kLdAT = kBM + kPad;   // [kBK][kBM], the transposed use
   static constexpr int kLdB = kBN + kPad;    // [kBK][kBN], row-major
@@ -123,26 +125,16 @@ struct Tile {
   static constexpr int kRowLanes = kThreads / kColGroups;
 };
 
-static_assert(Tile<__nv_bfloat16>::kAElems >= Tile<__nv_bfloat16>::kBK * Tile<__nv_bfloat16>::kLdAT, "A");
-static_assert(Tile<__nv_bfloat16>::kBElems >= Tile<__nv_bfloat16>::kBK * Tile<__nv_bfloat16>::kLdB, "B");
 static_assert(Tile<float>::kAElems >= Tile<float>::kBK * Tile<float>::kLdAT, "A");
 static_assert(Tile<float>::kBElems >= Tile<float>::kBK * Tile<float>::kLdB, "B");
-static_assert(Tile<__nv_bfloat16>::kABytes % 128 == 0 &&
-              Tile<__nv_bfloat16>::kBBytes % 128 == 0 &&
-              Tile<float>::kABytes % 128 == 0 &&
+static_assert(Tile<float>::kABytes % 128 == 0 &&
               Tile<float>::kBBytes % 128 == 0, "regions stay 128-byte aligned");
 static_assert(Tile<float>::kStageBytes >=
                   sizeof(float) * 2 * Tile<float>::kRowLanes * kBN,
               "the f32 dx reduction fits the staging buffers");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(v);
-}
 
 // act: 0 = none, 1 = relu, 2 = relu6
 __device__ __forceinline__ bool act_grad_mask(float pre, int act) {
@@ -284,71 +276,10 @@ struct Stage {
 // rows 32 (warp >> 1), columns 32 (warp & 1), as 2 x 2 sub-tiles of 16 x 16.
 // mma() adds A[rows, kBK] @ B[kBK, 64] from shared memory. A(r, k) is
 // As[r * lda + k], or As[k * lda + r] when kAT; B(k, c) is Bs[k * ldb + c],
-// or Bs[c * ldb + k] when kBT. Sub-tiles at or beyond `rows` are skipped
-// (their rows are zeros).
+// or Bs[c * ldb + k] when kBT. Warps whose rows lie at or beyond `rows` are
+// skipped (their rows are zeros).
 template <typename T>
 struct Acc;
-
-template <>
-struct Acc<__nv_bfloat16> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-    }
-  }
-
-  template <bool kAT, bool kBT>
-  __device__ __forceinline__ void mma(const __nv_bfloat16* As, int lda,
-                                      const __nv_bfloat16* Bs, int ldb,
-                                      int rows) {
-    using ALayout = typename std::conditional<kAT, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<kBT, wmma::col_major,
-                                              wmma::row_major>::type;
-    constexpr int kBK = Tile<__nv_bfloat16>::kBK;
-    const int warp = threadIdx.x >> 5;
-    const int r0 = (warp >> 1) * 32, c0 = (warp & 1) * 32;
-    if (r0 >= rows) return;  // uniform over the warp
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int cc = c0 + 16 * j;
-        wmma::load_matrix_sync(
-            b[j], kBT ? Bs + cc * ldb + kk : Bs + kk * ldb + cc, ldb);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int rr = r0 + 16 * i;
-        if (rr < rows) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a;
-          wmma::load_matrix_sync(
-              a, kAT ? As + kk * lda + rr : As + rr * lda + kk, lda);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a, b[j], c[i][j]);
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* Cs) {
-    const int warp = threadIdx.x >> 5;
-    const int r0 = (warp >> 1) * 32, c0 = (warp & 1) * 32;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(Cs + (r0 + 16 * i) * kLdc + c0 + 16 * j,
-                                c[i][j], kLdc, wmma::mem_row_major);
-      }
-    }
-  }
-};
 
 // Full f32 on the CUDA cores: a lane owns row (lane >> 1) and 8 columns of
 // each 16x16 sub-tile.
@@ -664,7 +595,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx_kernel(
   }
 }
 
-// grid: splits * k_tiles * m_tiles blocks. Block (split, kt, mt) sums
+// The f32 dW (bf16 runs dw_wgmma_kernel). grid: splits * k_tiles * m_tiles
+// blocks. Block (split, kt, mt) sums
 // z^T @ dy_tot over its rows [split * rows_per_split, ...) into
 // partials[split, kt * 128 .., mt * 64 ..]; partials: [splits, K, M] f32.
 template <typename T>
@@ -707,37 +639,6 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dw_kernel(
   }
 }
 
-// grid: pix_tiles * co_tiles blocks, the co tile fastest, so the blocks that
-// share a pixel tile of X run together.
-__global__ void __launch_bounds__(kThreads, 2) cmajor_kernel(
-    const __nv_bfloat16* w, const __nv_bfloat16* x, float* y, int co, int ci,
-    int64_t pix, int co_tiles) {
-  using T = __nv_bfloat16;
-  constexpr int kBK = Tile<T>::kBK;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem<T> sm(smem_raw);
-  const int row0 = (int)(blockIdx.x % co_tiles) * kBM;
-  const int64_t col0 = (int64_t)(blockIdx.x / co_tiles) * kBN;
-  const int rows = co - row0 < kBM ? co - row0 : kBM;
-
-  Acc<T> acc;
-  const Src<T> a = {w, ci, row0, 0, 0, kBK, co, ci};
-  const Src<T> b = {x, pix, 0, col0, kBK, 0, ci, pix};
-  tile_loop<T, kBM, kBK, false, false, kBK, kBN, false>(
-      acc, sm, a, b, (ci + kBK - 1) / kBK, Tile<T>::kLdA, Tile<T>::kLdB, rows,
-      nullptr, nullptr, 0);
-  acc.store(sm.c);
-  __syncthreads();
-  for (int v = threadIdx.x; v < kBM * (kBN / 4); v += kThreads) {
-    const int r = v / (kBN / 4);
-    const int c = (v - r * (kBN / 4)) * 4;
-    if (row0 + r < co && col0 + c < pix) {
-      *reinterpret_cast<float4*>(y + (int64_t)(row0 + r) * pix + col0 + c) =
-          *reinterpret_cast<const float4*>(sm.c + r * kLdc + c);
-    }
-  }
-}
-
 template <typename K>
 int allow_shared(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -750,42 +651,61 @@ bool bad_shape(int64_t n, int k, int m) {
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// the dW kernel's splits are whole staged steps of either type
+// the dW kernels' splits are whole staged steps of either loop
 constexpr int kRowStep = 64;
-static_assert(kRowStep % Tile<__nv_bfloat16>::kBK == 0 &&
-              kRowStep % Tile<float>::kBK == 0, "row step");
+static_assert(kRowStep % Tile<float>::kBK == 0, "row step");
+
+// A split of N over the dW kernels' blocks: whole row steps, every row in
+// exactly one split, no split empty.
+bool bad_split(int64_t n, int splits, int64_t rows_per_split) {
+  return splits < 1 || rows_per_split < kRowStep ||
+         rows_per_split % kRowStep != 0 || rows_per_split > 2147483647LL ||
+         rows_per_split * splits < n || rows_per_split * (splits - 1) >= n;
+}
 
 
 // ---------------------------------------------------------------------------
 // The Hopper main loop (bf16 only): TMA loads into a ring of shared-memory
 // stages, wgmma from shared memory into f32 accumulators in registers.
 //
-// A block owns a 128 x BN tile of C = A @ B^T, where A [rows, depth] and
-// B [cols, depth] are both row-major with the depth contiguous ("K-major"),
-// so every product here is the same wgmma with no transposed operand: the
-// forward and dx's first grid take A = x and B = W^T [M, K] (the wrapper
-// keeps that copy of the weight beside W [K, M]); dx's second grid takes
-// A = dy_tot [N, M] and B = W [K, M]. 288 threads: warpgroups 0 and 1
-// consume (rows 0-63 and 64-127 of the tile, m64nBNk16 wgmma), the lane 0 of
-// warp 8 produces: it waits for a stage to be released, arms its "full"
-// barrier with the stage's byte count and issues the two TMA loads (64 deep,
-// 128-byte swizzle: one 128-byte row per tile row). A consumer warpgroup
-// releases stage i - 1 once its wgmma group of stage i has been issued and
-// that of i - 1 has completed, so one group stays in flight.
+// A block owns a 128 x BN tile of C = A @ B, summed over a depth in stages
+// of 64. An operand's stage tile sits in shared memory as TMA writes it with
+// the 128-byte swizzle (rows of 128 bytes, 8 rows to a swizzle period), in
+// one of two forms; wgmma's transpose flags say which (legal for 16-bit
+// types only):
+//   K-major, the depth contiguous: a row per row of A (column of B), 64
+//     deep, one TMA box of 64 x rows. The forward and dx's first grid take
+//     A = x [N, K] and B = W^T [M, K] (the wrapper keeps that copy of the
+//     weight beside W [K, M]); dx's second grid A = dy_tot [N, M] and
+//     B = W [K, M]; the channels-major product A = W [co, ci].
+//   MN-major, the rows of A (columns of B) contiguous: a row per step of the
+//     depth, 64 wide, one box of 64 x 64 (8 KB) per 64 rows of A (columns of
+//     B). dW takes A = z^T from x [N, K] and B = dy_tot [N, M]; the
+//     channels-major product B = X [ci, pix].
+// 288 threads: warpgroups 0 and 1 consume (rows 0-63 and 64-127 of the
+// tile, m64nBNk16 wgmma; or, in a product of 64 rows at most, the same 64
+// rows and a half of the columns each), the lane 0 of warp 8 produces: it
+// waits for a stage to be released, arms its "full" barrier with the
+// stage's byte count and issues the TMA loads (a box wholly outside the
+// matrix is not loaded; its rows of C are not stored). A consumer
+// warpgroup releases stage i - 1 once its wgmma group of stage i has been
+// issued and that of i - 1 has completed, so one group stays in flight.
 //
 // The prologue reaches the A operand in shared memory: each consumer
-// warpgroup rewrites its own 64 rows of the x tile in place, z = act(x *
-// scale + shift) on packed bf16 pairs (the same mul.rn / add.rn as Fold
+// warpgroup rewrites its own 64 rows of 128 bytes of x in place, z = act(x
+// * scale + shift) on packed bf16 pairs (the same mul.rn / add.rn as Fold
 // above), rows at or beyond N set to exact zeros (TMA fills them with
 // zeros, but act(0 * scale + shift) is not zero), then fences the generic
-// writes against the async proxy that wgmma reads through. That is the
-// simpler of the two routes to a prologue on Hopper (the other keeps A in
-// registers, the RS form of wgmma): the x tile is read from shared memory
-// once more and written back, but the loop stays one SS wgmma for every
-// product, and the tile costs 32 KB of shared memory bandwidth per 64 deep
-// step against the 2 x 64 x BN x 64 multiply-adds the step issues. The
-// fold (scale and shift rounded to bf16) is cached in shared memory once
-// per block, zero beyond K, so padded columns give z = 0 and never NaN.
+// writes against the async proxy that wgmma reads through. A row of the
+// forward's K-major x tile and a row of dW's MN-major x box are both a row
+// of x, so one rewrite serves both; the forward's fold follows the stage's
+// columns, dW's is fixed for the block. That is the simpler of the two
+// routes to a prologue on Hopper (the other keeps A in registers, the RS
+// form of wgmma, which has no MN-major A): the x tile is read from shared
+// memory once more and written back, but the loop stays one SS wgmma for
+// every product. The fold (scale and shift rounded to bf16) is cached in
+// shared memory once per block, zero beyond K, so padded columns give z = 0
+// and never NaN.
 // ---------------------------------------------------------------------------
 
 namespace hop {
@@ -797,6 +717,7 @@ constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kRowBytes = kBK * 2;         // 128, the swizzle span
 constexpr int kABytes = kBM * kRowBytes;   // 16 KB
 constexpr int kGroupRows = 64;             // rows of a consumer warpgroup
+constexpr int kBoxBytes = kGroupRows * kRowBytes;  // 8 KB: 64 rows of 128 B
 constexpr int kBatch = 4;  // 16-byte loads a dx epilogue issues together
 
 template <int BN>
@@ -895,14 +816,27 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// a K-major operand tile with the 128-byte swizzle: rows of 128 bytes, 8
-// rows (1024 bytes) between one core matrix and the next along the rows
+// The wgmma descriptor of an operand tile at p with the 128-byte swizzle
+// (the fields of cute's GmmaDescriptor, cute/arch/mma_sm90_desc.hpp, as
+// make_gmma_desc in cute/atom/mma_traits_sm90_gmma.hpp fills them; CUTLASS
+// itself is not included). The stride offset steps 8 rows (1024 bytes) in
+// both forms: along M or N in a K-major tile, along the depth in an
+// MN-major one. The leading offset is unused in a K-major tile (a k16
+// step's depth lies within one 128-byte row); in an MN-major one it steps
+// from one 64-wide box to the next along M or N.
+template <bool kMN>
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
   uint64_t desc = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
-  desc |= (uint64_t)1 << 16;           // leading offset: unused when swizzled
-  desc |= (uint64_t)(1024 >> 4) << 32;  // stride offset: 8 rows
-  desc |= (uint64_t)1 << 62;           // 128-byte swizzle
+  desc |= (uint64_t)(kMN ? kBoxBytes >> 4 : 1) << 16;  // leading offset
+  desc |= (uint64_t)(1024 >> 4) << 32;                  // stride offset
+  desc |= (uint64_t)1 << 62;                            // 128-byte swizzle
   return desc;
+}
+
+// How far a k16 step moves an operand's start: 32 bytes along the rows
+// (K-major) or 16 rows down (MN-major).
+__host__ __device__ constexpr int k16_bytes(bool mn) {
+  return mn ? 16 * kRowBytes : 32;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -917,8 +851,11 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory");
 }
 
+// d += A @ B, one k16 step of a warpgroup; kTA / kTB: A / B MN-major (the
+// transpose immediates)
+template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
-                                              uint64_t db) {
+                                             uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -926,7 +863,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -935,10 +872,11 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1)
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB)
       : "memory");
 }
 
+template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
                                               uint64_t db) {
   asm volatile(
@@ -952,7 +890,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -969,18 +907,17 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1)
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB)
       : "memory");
 }
 
-
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+template <int WN, bool kAMN, bool kBMN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[WN / 2], uint64_t da,
                                            uint64_t db) {
-  if constexpr (BN == 64) {
-    wgmma_m64n64(d, da, db);
+  if constexpr (WN == 64) {
+    wgmma_m64n64<kAMN, kBMN>(d, da, db);
   } else {
-    wgmma_m64n128(d, da, db);
+    wgmma_m64n128<kAMN, kBMN>(d, da, db);
   }
 }
 
@@ -1008,13 +945,14 @@ struct Ring {
   }
 };
 
-// Set up the barriers and (with a prologue) the fold cache: every thread of
-// the block, before the roles part.
+// Set up the barriers and (with a prologue) the fold cache of the columns
+// fold_col0 .. fold_col0 + fold_cols: every thread of the block, before the
+// roles part.
 template <int BN>
 __device__ __forceinline__ void setup(const Ring<BN>& ring, uint64_t* full,
                                       uint64_t* empty, const float* scale,
                                       const float* shift, int k,
-                                      int fold_cols) {
+                                      int fold_col0, int fold_cols) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < Cfg<BN>::kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -1023,7 +961,8 @@ __device__ __forceinline__ void setup(const Ring<BN>& ring, uint64_t* full,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int p = threadIdx.x; p < fold_cols / 2; p += kThreads) {
-    const int c = 2 * p;  // K is a multiple of 8: a pair lies wholly inside
+    // K is a multiple of 8: a pair lies wholly inside or outside
+    const int c = fold_col0 + 2 * p;
     const bool in = c < k;
     ring.fold_scale[p] = __floats2bfloat162_rn(in ? scale[c] : 0.0f,
                                                in ? scale[c + 1] : 0.0f);
@@ -1033,78 +972,77 @@ __device__ __forceinline__ void setup(const Ring<BN>& ring, uint64_t* full,
   __syncthreads();
 }
 
-// The producer: lane 0 of warp 8 keeps the ring full. Step i loads A's box
-// at (i * 64, a_row) and B's at (i * 64, b_row).
-template <int BN>
+// Where a stage's tile of one operand comes from: step i loads the box at
+// (depth0 + 64 i, pos) when K-major, or `boxes` boxes side by side
+// (kBoxBytes apart) at (pos + 64 j, depth0 + 64 i) when MN-major; `bytes`
+// is what they land (a box counts whole, out-of-bounds fill included).
+struct Operand {
+  const CUtensorMap* map;
+  int pos, depth0, boxes, bytes;
+};
+
+// How many of the 64-wide boxes of [pos, pos + width) hold part of a
+// matrix `extent` wide (pos < extent).
+__host__ __device__ __forceinline__ int box_count(int64_t extent,
+                                                  int64_t pos, int width) {
+  const int64_t left = (extent - pos + kGroupRows - 1) / kGroupRows;
+  return left < width / kGroupRows ? (int)left : width / kGroupRows;
+}
+
+template <bool kMN>
+__device__ __forceinline__ void load(unsigned char* dst, const Operand& o,
+                                     uint64_t* bar, int i) {
+  if constexpr (kMN) {
+    for (int j = 0; j < o.boxes; ++j) {
+      tma_load(dst + j * kBoxBytes, o.map, bar, o.pos + kGroupRows * j,
+               o.depth0 + i * kBK);
+    }
+  } else {
+    tma_load(dst, o.map, bar, o.depth0 + i * kBK, o.pos);
+  }
+}
+
+// The producer: lane 0 of warp 8 keeps the ring full.
+template <int BN, bool kAMN, bool kBMN>
 __device__ __forceinline__ void produce(const Ring<BN>& ring, uint64_t* full,
-                                        uint64_t* empty, const CUtensorMap* ta,
-                                        const CUtensorMap* tb, int a_row,
-                                        int b_row, int steps) {
+                                        uint64_t* empty, const Operand& a,
+                                        const Operand& b, int steps) {
   constexpr int S = Cfg<BN>::kStages;
   for (int i = 0; i < steps; ++i) {
     const int s = i % S;
     if (i >= S) mbar_wait(&empty[s], ((i / S) - 1) & 1);
-    mbar_expect_tx(&full[s], Cfg<BN>::kStageBytes);
-    tma_load(ring.a(s), ta, &full[s], i * kBK, a_row);
-    tma_load(ring.b(s), tb, &full[s], i * kBK, b_row);
+    mbar_expect_tx(&full[s], a.bytes + b.bytes);
+    load<kAMN>(ring.a(s), a, &full[s], i);
+    load<kBMN>(ring.b(s), b, &full[s], i);
   }
 }
 
-// A consumer warpgroup: acc (its 64 x BN rows of the tile) = the sum over
-// the steps of A_s @ B_s^T; with kPrologue, A's rows go through z = act(x *
-// scale + shift) in place first, and rows at or beyond `rows_left` (of this
-// warpgroup's 64) become zeros.
-template <int BN, bool kPrologue>
-__device__ __forceinline__ void consume(float (&acc)[BN / 2],
+// A consumer warpgroup: acc (64 x WN) = the sum over the steps of A_s @ B_s,
+// its A rows from a_off in the stage's A tile, its B columns from b_off in
+// the B tile. prologue(a, i) may rewrite A in place before step i's
+// products (apply_fold).
+template <int BN, int WN, bool kAMN, bool kBMN, class Prologue>
+__device__ __forceinline__ void consume(float (&acc)[WN / 2],
                                         const Ring<BN>& ring, uint64_t* full,
                                         uint64_t* empty, int steps,
-                                        int64_t rows_left, int act) {
+                                        int a_off, int b_off,
+                                        const Prologue& prologue) {
   constexpr int S = Cfg<BN>::kStages;
-  const int wg = threadIdx.x >> 7;
   const int t = threadIdx.x & 127;
 #pragma unroll
-  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < WN / 2; ++j) acc[j] = 0.0f;
   for (int i = 0; i < steps; ++i) {
     const int s = i % S;
     mbar_wait(&full[s], (i / S) & 1);
-    unsigned char* a = ring.a(s) + wg * kGroupRows * kRowBytes;
-    if constexpr (kPrologue) {
-      // 16-byte chunk p of row r holds the step's columns 8 (p ^ (r & 7))
-      // onwards; this thread's rows r0 + 16 j share r & 7, so one fold
-      const int p = t & 7, r0 = t >> 3;
-      const int col = i * kBK + 8 * (p ^ (r0 & 7));
-      Fold<__nv_bfloat16> fold;
-      const uint4 sv =
-          *reinterpret_cast<const uint4*>(ring.fold_scale + col / 2);
-      const uint4 bv =
-          *reinterpret_cast<const uint4*>(ring.fold_shift + col / 2);
-      const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
-      const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        fold.scale[q] = *reinterpret_cast<const __nv_bfloat162*>(&sw[q]);
-        fold.shift[q] = *reinterpret_cast<const __nv_bfloat162*>(&bw[q]);
-      }
-#pragma unroll
-      for (int j = 0; j < kGroupRows / 16; ++j) {
-        const int r = r0 + 16 * j;
-        uint4* at = reinterpret_cast<uint4*>(a + r * kRowBytes + p * 16);
-        uint4 v = *at;
-        if (r < rows_left) {
-          fold.apply(v, act);
-        } else {
-          v = make_uint4(0u, 0u, 0u, 0u);
-        }
-        *at = v;
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      named_sync(2 + wg, 128);
-    }
+    unsigned char* a = ring.a(s) + a_off;
+    const unsigned char* b = ring.b(s) + b_off;
+    prologue(a, i);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      wgmma_tile<BN>(acc, smem_desc(a + kk * 32),
-                     smem_desc(ring.b(s) + kk * 32));
+      wgmma_tile<WN, kAMN, kBMN>(acc,
+                                 smem_desc<kAMN>(a + kk * k16_bytes(kAMN)),
+                                 smem_desc<kBMN>(b + kk * k16_bytes(kBMN)));
     }
     wgmma_commit();
     if (i > 0) {
@@ -1115,22 +1053,75 @@ __device__ __forceinline__ void consume(float (&acc)[BN / 2],
   wgmma_wait<0>();
 }
 
-// Both warpgroups' accumulators into the f32 C tile [128][kLdc] laid over
-// the ring, once neither reads the ring any more. Fragment layout of
-// m64nNk16: warp w of the group holds rows 16 w + lane / 4 (+ 8), and
-// columns 8 j + 2 (lane % 4) (+ 1) of every 8-column group j.
+using bf16 = __nv_bfloat16;
+
+// The column, from the start of a 64-column x box, of the 8 that this
+// thread's chunk in apply_fold holds: the swizzle puts chunk p of row r at
+// columns 8 (p ^ (r & 7)), and the thread's rows share r & 7.
+__device__ __forceinline__ int fold_column() {
+  const int t = threadIdx.x & 127;
+  return 8 * ((t & 7) ^ ((t >> 3) & 7));
+}
+
+// The fold of the 8 columns from `col` of the block's cache.
 template <int BN>
-__device__ __forceinline__ void store_c(const float (&acc)[BN / 2],
-                                        const Ring<BN>& ring) {
+__device__ __forceinline__ Fold<bf16> cached_fold(const Ring<BN>& ring,
+                                                  int col) {
+  Fold<bf16> fold;
+  const uint4 sv = *reinterpret_cast<const uint4*>(ring.fold_scale + col / 2);
+  const uint4 bv = *reinterpret_cast<const uint4*>(ring.fold_shift + col / 2);
+  const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
+  const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    fold.scale[q] = *reinterpret_cast<const __nv_bfloat162*>(&sw[q]);
+    fold.shift[q] = *reinterpret_cast<const __nv_bfloat162*>(&bw[q]);
+  }
+  return fold;
+}
+
+// z = act(x * scale + shift) in place on a consumer warpgroup's 64 rows of
+// x at `a`: this thread's 16-byte chunk t % 8 of rows t / 8 + 16 j; rows at
+// or beyond rows_left become zeros. Then the generic writes are fenced
+// against the async proxy and the warpgroup waits for all of them.
+__device__ __forceinline__ void apply_fold(unsigned char* a,
+                                           const Fold<bf16>& fold,
+                                           int64_t rows_left, int act) {
+  const int t = threadIdx.x & 127;
+  const int p = t & 7, r0 = t >> 3;
+#pragma unroll
+  for (int j = 0; j < kGroupRows / 16; ++j) {
+    const int r = r0 + 16 * j;
+    uint4* at = reinterpret_cast<uint4*>(a + r * kRowBytes + p * 16);
+    uint4 v = *at;
+    if (r < rows_left) {
+      fold.apply(v, act);
+    } else {
+      v = make_uint4(0u, 0u, 0u, 0u);
+    }
+    *at = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(2 + (threadIdx.x >> 7), 128);
+}
+
+// A consumer warpgroup's accumulators (64 x WN) into the f32 C tile
+// [128][kLdc] laid over the ring at (row0, col0), once neither warpgroup
+// reads the ring any more. Fragment layout of m64nNk16: warp w of the group
+// holds rows 16 w + lane / 4 (+ 8), and columns 8 j + 2 (lane % 4) (+ 1)
+// of every 8-column group j.
+template <int BN, int WN>
+__device__ __forceinline__ void store_c(const float (&acc)[WN / 2],
+                                        const Ring<BN>& ring, int row0,
+                                        int col0) {
   constexpr int kLdc = Cfg<BN>::kLdc;
   named_sync(1, kConsumers);
   float* cs = ring.c();
   const int lane = threadIdx.x & 31;
-  const int row = (threadIdx.x >> 7) * kGroupRows +
-                  ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int row = row0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
+  for (int j = 0; j < WN / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * (lane & 3);
     *reinterpret_cast<float2*>(cs + row * kLdc + col) =
         make_float2(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<float2*>(cs + (row + 8) * kLdc + col) =
@@ -1139,7 +1130,26 @@ __device__ __forceinline__ void store_c(const float (&acc)[BN / 2],
   named_sync(1, kConsumers);
 }
 
-using bf16 = __nv_bfloat16;
+// The first `rows` rows of the f32 C tile into out [.., ld] at (row0,
+// col0), 16 bytes a thread (a warp's stores cover 512 contiguous bytes of a
+// 128-column row); nothing at or beyond (row_limit, col_limit), col_limit a
+// multiple of 4.
+template <int BN>
+__device__ __forceinline__ void write_c(const Ring<BN>& ring, int rows,
+                                        float* out, int64_t ld, int64_t row0,
+                                        int64_t col0, int64_t row_limit,
+                                        int64_t col_limit) {
+  constexpr int kLdc = Cfg<BN>::kLdc;
+  const float* cs = ring.c();
+  for (int v = threadIdx.x; v < rows * (BN / 4); v += kConsumers) {
+    const int r = v / (BN / 4);
+    const int c = (v - r * (BN / 4)) * 4;
+    if (row0 + r < row_limit && col0 + c < col_limit) {
+      *reinterpret_cast<float4*>(out + (row0 + r) * ld + col0 + c) =
+          *reinterpret_cast<const float4*>(cs + r * kLdc + c);
+    }
+  }
+}
 
 // grid: row_tiles * col_tiles, the column tile fastest. ta: x [N, K] in
 // boxes of 64 x 128; tb: W^T [M, K] in boxes of 64 x BN. partials:
@@ -1158,17 +1168,25 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_wgmma_kernel(
   const int col0 = (int)(blockIdx.x % col_tiles) * BN;
   const int64_t row0 = row_tile * kBM;
   const int steps = (k + kBK - 1) / kBK;
-  setup<BN>(ring, full, empty, scale, shift, k, fold_cols);
+  setup<BN>(ring, full, empty, scale, shift, k, 0, fold_cols);
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
-      produce<BN>(ring, full, empty, &ta, &tb, (int)row0, col0, steps);
+      produce<BN, false, false>(
+          ring, full, empty, Operand{&ta, (int)row0, 0, 1, kABytes},
+          Operand{&tb, col0, 0, 1, Cfg<BN>::kBBytes}, steps);
     }
     return;
   }
+  const int wg = threadIdx.x >> 7;
+  const int64_t rows_left = n - row0 - wg * kGroupRows;
+  const int fcol = fold_column();
   float acc[BN / 2];
-  consume<BN, true>(acc, ring, full, empty, steps,
-                    n - row0 - (threadIdx.x >> 7) * kGroupRows, act);
-  store_c<BN>(acc, ring);
+  consume<BN, BN, false, false>(
+      acc, ring, full, empty, steps, wg * kBoxBytes, 0,
+      [&](unsigned char* a, int i) {
+        apply_fold(a, cached_fold(ring, i * kBK + fcol), rows_left, act);
+      });
+  store_c<BN, BN>(acc, ring, wg * kGroupRows, 0);
 
   constexpr int kLdc = Cfg<BN>::kLdc;
   const float* cs = ring.c();
@@ -1228,17 +1246,25 @@ __global__ void __launch_bounds__(kThreads, 2) dx_dy_tot_wgmma_kernel(
   const int col0 = (int)(blockIdx.x % col_tiles) * BN;
   const int64_t row0 = row_tile * kBM;
   const int steps = (k + kBK - 1) / kBK;
-  setup<BN>(ring, full, empty, scale, shift, k, fold_cols);
+  setup<BN>(ring, full, empty, scale, shift, k, 0, fold_cols);
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
-      produce<BN>(ring, full, empty, &ta, &tb, (int)row0, col0, steps);
+      produce<BN, false, false>(
+          ring, full, empty, Operand{&ta, (int)row0, 0, 1, kABytes},
+          Operand{&tb, col0, 0, 1, Cfg<BN>::kBBytes}, steps);
     }
     return;
   }
+  const int wg = threadIdx.x >> 7;
+  const int64_t rows_left = n - row0 - wg * kGroupRows;
+  const int fcol = fold_column();
   float acc[BN / 2];
-  consume<BN, true>(acc, ring, full, empty, steps,
-                    n - row0 - (threadIdx.x >> 7) * kGroupRows, act);
-  store_c<BN>(acc, ring);
+  consume<BN, BN, false, false>(
+      acc, ring, full, empty, steps, wg * kBoxBytes, 0,
+      [&](unsigned char* a, int i) {
+        apply_fold(a, cached_fold(ring, i * kBK + fcol), rows_left, act);
+      });
+  store_c<BN, BN>(acc, ring, wg * kGroupRows, 0);
 
   // A thread owns the same 8 columns in each of its vectors (the consumers
   // are a multiple of BN / 8). Its loads of dy are issued kBatch at a time
@@ -1306,16 +1332,20 @@ __global__ void __launch_bounds__(kThreads, 2) dx_dz_wgmma_kernel(
   const int kc = (int)(blockIdx.x % col_tiles) * BN;
   const int64_t row0 = row_tile * kBM;
   const int steps = (m + kBK - 1) / kBK;
-  setup<BN>(ring, full, empty, nullptr, nullptr, 0, 0);
+  setup<BN>(ring, full, empty, nullptr, nullptr, 0, 0, 0);
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
-      produce<BN>(ring, full, empty, &ta, &tb, (int)row0, kc, steps);
+      produce<BN, false, false>(
+          ring, full, empty, Operand{&ta, (int)row0, 0, 1, kABytes},
+          Operand{&tb, kc, 0, 1, Cfg<BN>::kBBytes}, steps);
     }
     return;
   }
   float acc[BN / 2];
-  consume<BN, false>(acc, ring, full, empty, steps, 0, 0);
-  store_c<BN>(acc, ring);
+  consume<BN, BN, false, false>(acc, ring, full, empty, steps,
+                                (threadIdx.x >> 7) * kBoxBytes, 0,
+                                [](unsigned char*, int) {});
+  store_c<BN, BN>(acc, ring, (threadIdx.x >> 7) * kGroupRows, 0);
 
   constexpr int kLdc = Cfg<BN>::kLdc;
   constexpr int kRowLanes = Cfg<BN>::kRowLanes;
@@ -1384,6 +1414,109 @@ __global__ void __launch_bounds__(kThreads, 2) dx_dz_wgmma_kernel(
   }
 }
 
+// dW: grid splits * tiles, the tile fastest (M tile, then K tile), so the
+// blocks that read the same rows run together. Block (split, tile) sums
+// z^T @ dy_tot over rows [split * rows_per_split, min(n, ...)) into its slot
+// of partials [splits, K, M] f32. tx: x [N, K] and tdy: dy_tot [N, M], both
+// in boxes of 64 x 64 read MN-major (the rows of N are the depth). A split
+// is whole 64-row stages, so a stage never reaches into the next split;
+// only the last split's last stage runs past N.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2) dw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tx,
+    const __grid_constant__ CUtensorMap tdy, const float* scale,
+    const float* shift, float* partials, int n, int k, int m, int act,
+    int m_tiles, int tiles, int rows_per_split) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cfg<BN>::kStages];
+  __shared__ __align__(8) uint64_t empty[Cfg<BN>::kStages];
+  const Ring<BN> ring(smem_raw, kBM);
+  const int split = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int k0 = (tile / m_tiles) * kBM;
+  const int col0 = (tile % m_tiles) * BN;
+  const int r_begin = split * rows_per_split;
+  const int rows = min(n - r_begin, rows_per_split);
+  const int steps = (rows + kBK - 1) / kBK;
+  const int a_boxes = box_count(k, k0, kBM);
+  setup<BN>(ring, full, empty, scale, shift, k, k0, kBM);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      const int b_boxes = box_count(m, col0, BN);
+      produce<BN, true, true>(
+          ring, full, empty,
+          Operand{&tx, k0, r_begin, a_boxes, a_boxes * kBoxBytes},
+          Operand{&tdy, col0, r_begin, b_boxes, b_boxes * kBoxBytes}, steps);
+    }
+    return;
+  }
+  // a warpgroup whose box was not loaded (its columns of x lie past K)
+  // multiplies whatever the ring holds into rows of dW that are not stored
+  const int wg = threadIdx.x >> 7;
+  const bool loaded = wg < a_boxes;
+  const Fold<bf16> fold = cached_fold(ring, wg * kGroupRows + fold_column());
+  float acc[BN / 2];
+  consume<BN, BN, true, true>(
+      acc, ring, full, empty, steps, wg * kBoxBytes, 0,
+      [&](unsigned char* a, int i) {
+        if (loaded) apply_fold(a, fold, rows - i * kBK, act);
+      });
+  store_c<BN, BN>(acc, ring, wg * kGroupRows, 0);
+  write_c<BN>(ring, kBM, partials + (int64_t)split * k * m, m, k0, col0, k,
+              m);
+}
+
+// C [rows, cols] f32 = A @ B, one 128-column tile per block; grid:
+// col_tiles * row_tiles, the row tile fastest (the blocks that read the
+// same columns of B run together). ta: A [rows, depth] in boxes of 64 deep
+// x the tile's rows, or with kAMN [depth, rows] in boxes of 64 x 64; tb:
+// B [depth, cols] in boxes of 64 x 64 (kBMN), or [cols, depth] in boxes of
+// 64 deep x 128. kShareA: a tile of 64 rows whose warpgroups share A and
+// take 64 columns each (a tile of 128 rows over 64 rows of C would leave a
+// warpgroup idle). The channels-major product is <false, true, *> with
+// A = W [co, ci], B = X [ci, pix]; the other major-nesses exist for the
+// test that holds the descriptors of all four against known products.
+template <bool kAMN, bool kBMN, bool kShareA>
+__global__ void __launch_bounds__(kThreads, 2) cmajor_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, float* c, int rows,
+    int64_t cols, int depth, int row_tiles) {
+  constexpr int BN = 128;                          // the tile's columns
+  constexpr int WN = kShareA ? BN / 2 : BN;        // a warpgroup's
+  constexpr int TM = kShareA ? kGroupRows : kBM;   // the tile's rows
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cfg<BN>::kStages];
+  __shared__ __align__(8) uint64_t empty[Cfg<BN>::kStages];
+  const Ring<BN> ring(smem_raw, 0);
+  const int row0 = (int)(blockIdx.x % row_tiles) * TM;
+  const int64_t col0 = (int64_t)(blockIdx.x / row_tiles) * BN;
+  const int steps = (depth + kBK - 1) / kBK;
+  setup<BN>(ring, full, empty, nullptr, nullptr, 0, 0, 0);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      const int a_boxes = kAMN ? box_count(rows, row0, TM) : 1;
+      const int b_boxes = kBMN ? box_count(cols, col0, BN) : 1;
+      produce<BN, kAMN, kBMN>(
+          ring, full, empty,
+          Operand{&ta, row0, 0, a_boxes,
+                  kAMN ? a_boxes * kBoxBytes : TM * kRowBytes},
+          Operand{&tb, (int)col0, 0, b_boxes,
+                  kBMN ? b_boxes * kBoxBytes : BN * kRowBytes},
+          steps);
+    }
+    return;
+  }
+  const int wg = threadIdx.x >> 7;
+  float acc[WN / 2];
+  consume<BN, WN, kAMN, kBMN>(acc, ring, full, empty, steps,
+                              kShareA ? 0 : wg * kBoxBytes,
+                              kShareA ? wg * kBoxBytes : 0,
+                              [](unsigned char*, int) {});
+  store_c<BN, WN>(acc, ring, kShareA ? 0 : wg * kGroupRows,
+                  kShareA ? wg * WN : 0);
+  write_c<BN>(ring, TM, c, cols, row0, col0, rows, cols);
+}
+
 // A 2-D tensor map of a row-major bf16 matrix [outer, inner] read in boxes
 // of 64 x box_outer with the 128-byte swizzle; 0 or the CUresult of a
 // refusal.
@@ -1429,12 +1562,39 @@ int bind_context() {
   return (int)cudaFree(nullptr);
 }
 
+// One launch of cmajor_wgmma_kernel: C [rows, cols] f32 = A @ B, operands
+// as it reads them; every extent a multiple of 8 and below 2^31.
+template <bool kAMN, bool kBMN, bool kShareA>
+int launch_product(const void* a, const void* b, void* c, int rows,
+                   int64_t cols, int depth, void* stream) {
+  constexpr int TM = kShareA ? kGroupRows : kBM;
+  CUtensorMap ta, tb;
+  int err = bind_context();
+  if (err != 0) return err;
+  err = kAMN ? encode(&ta, a, rows, depth, kGroupRows)
+             : encode(&ta, a, depth, rows, TM);
+  if (err == 0) {
+    err = kBMN ? encode(&tb, b, cols, depth, kGroupRows)
+               : encode(&tb, b, depth, cols, 128);
+  }
+  if (err != 0) return kTensorMapError + err;
+  const int64_t row_tiles = ceil_div(rows, TM);
+  const int64_t blocks = row_tiles * ceil_div(cols, 128);
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t bytes = Cfg<128>::bytes(0);
+  err = allow_shared(cmajor_wgmma_kernel<kAMN, kBMN, kShareA>, bytes);
+  if (err != 0) return err;
+  cmajor_wgmma_kernel<kAMN, kBMN, kShareA>
+      <<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+          ta, tb, (float*)c, rows, cols, depth, (int)row_tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace hop
 
 }  // namespace
 
-// Plain C entry points for ctypes. dtype: 0 = float32, 1 = bfloat16; act:
-// 0 = none, 1 = relu, 2 = relu6. Every matrix is row-major and dense, every
+// Plain C entry points for ctypes. act: 0 = none, 1 = relu, 2 = relu6. Every matrix is row-major and dense, every
 // pointer 16-byte aligned, K and M multiples of 8; scale, shift, dsum and
 // dsumsq are f32. Each returns cudaGetLastError() after its launch
 // (0 = success) and neither allocates nor synchronises.
@@ -1487,38 +1647,27 @@ extern "C" int pseg_fused_matmul_bn_bwd_dx(
   return (int)cudaGetLastError();
 }
 
-// partials f32 [splits, K, M]: split s sums rows [s * rows_per_split,
-// min(N, (s + 1) * rows_per_split)); rows_per_split is a multiple of 64.
+// The f32 dW (bf16 takes pseg_fused_matmul_bn_bwd_dw_wgmma): x and dy_tot
+// f32; partials f32 [splits, K, M]: split s sums rows [s * rows_per_split,
+// min(N, (s + 1) * rows_per_split)).
 extern "C" int pseg_fused_matmul_bn_bwd_dw(
     const void* x, const void* scale, const void* shift, const void* dy_tot,
-    void* partials, int dtype, int act, int64_t n, int k, int m, int splits,
+    void* partials, int act, int64_t n, int k, int m, int splits,
     int64_t rows_per_split, void* stream) {
-  if (bad_shape(n, k, m) || act < 0 || act > 2 || splits < 1 ||
-      rows_per_split < kRowStep || rows_per_split % kRowStep != 0 ||
-      rows_per_split * splits < n) {
+  if (bad_shape(n, k, m) || act < 0 || act > 2 ||
+      bad_split(n, splits, rows_per_split)) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t k_tiles = ceil_div(k, kBM), m_tiles = ceil_div(m, kBN);
   const int64_t blocks = k_tiles * m_tiles * splits;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define PSEG_LAUNCH(T)                                                        \
-  do {                                                                        \
-    const int err = allow_shared(bwd_dw_kernel<T>, Tile<T>::kBytes);          \
-    if (err != 0) return err;                                                 \
-    bwd_dw_kernel<T><<<(unsigned)blocks, kThreads, Tile<T>::kBytes, s>>>(     \
-        (const T*)x, (const float*)scale, (const float*)shift,                \
-        (const T*)dy_tot, (float*)partials, n, k, m, act, (int)k_tiles,       \
-        (int)m_tiles, rows_per_split);                                        \
-  } while (0)
-  if (dtype == 0) {
-    PSEG_LAUNCH(float);
-  } else if (dtype == 1) {
-    PSEG_LAUNCH(__nv_bfloat16);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef PSEG_LAUNCH
+  const int err = allow_shared(bwd_dw_kernel<float>, Tile<float>::kBytes);
+  if (err != 0) return err;
+  bwd_dw_kernel<float><<<(unsigned)blocks, kThreads, Tile<float>::kBytes,
+                         (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (const float*)shift,
+      (const float*)dy_tot, (float*)partials, n, k, m, act, (int)k_tiles,
+      (int)m_tiles, rows_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -1633,28 +1782,95 @@ extern "C" int pseg_fused_matmul_bn_bwd_dx_wgmma(
   return (int)cudaGetLastError();
 }
 
+// dW: partials f32 [splits, K, M] as pseg_fused_matmul_bn_bwd_dw's, from x
+// and dy_tot bf16; bn: the M tile, 64 or 128 (the K tile is 128).
+extern "C" int pseg_fused_matmul_bn_bwd_dw_wgmma(
+    const void* x, const void* scale, const void* shift, const void* dy_tot,
+    void* partials, int act, int64_t n, int k, int m, int bn, int splits,
+    int64_t rows_per_split, void* stream) {
+  if (bad_shape(n, k, m) || act < 0 || act > 2 || n > 2147483647LL ||
+      (bn != 64 && bn != 128) || bad_split(n, splits, rows_per_split)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap tx, tdy;
+  int err = hop::bind_context();
+  if (err != 0) return err;
+  err = hop::encode(&tx, x, k, n, hop::kGroupRows);
+  if (err == 0) err = hop::encode(&tdy, dy_tot, m, n, hop::kGroupRows);
+  if (err != 0) return hop::kTensorMapError + err;
+  const int64_t m_tiles = ceil_div(m, bn);
+  const int64_t tiles = ceil_div(k, hop::kBM) * m_tiles;
+  if (tiles * splits > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define PSEG_LAUNCH(BN)                                                       \
+  do {                                                                        \
+    const size_t bytes = hop::Cfg<BN>::bytes(hop::kBM);                       \
+    err = allow_shared(hop::dw_wgmma_kernel<BN>, bytes);                      \
+    if (err != 0) return err;                                                 \
+    hop::dw_wgmma_kernel<BN>                                                  \
+        <<<(unsigned)(tiles * splits), hop::kThreads, bytes, s>>>(            \
+            tx, tdy, (const float*)scale, (const float*)shift,                \
+            (float*)partials, (int)n, k, m, act, (int)m_tiles, (int)tiles,    \
+            (int)rows_per_split);                                             \
+  } while (0)
+  if (bn == 64) {
+    PSEG_LAUNCH(64);
+  } else {
+    PSEG_LAUNCH(128);
+  }
+#undef PSEG_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 // The dynamic shared memory a Hopper kernel of `tile` columns asks for, with
-// the fold of `k` columns (0: the dz grid, which has none); -1 for a tile it
+// the fold of `k` columns (0: the dz grid and the channels-major product,
+// which have none; 128: dW, whose fold covers its K tile); -1 for a tile it
 // does not have or a fold that does not fit.
 extern "C" int pseg_fused_matmul_bn_wgmma_smem(int tile, int k) {
   return hop::shared_bytes(tile, k);
 }
 
-// w [co, ci] and x [ci, pix] bf16, y [co, pix] f32; ci and pix multiples
-// of 8.
+// The channels-major product: w [co, ci] and x [ci, pix] bf16, y [co, pix]
+// f32; ci and pix multiples of 8. Tiles of 128 co x 128 pix, or of 64 x 128
+// with the pixels split between the warpgroups where co <= 64.
 extern "C" int pseg_cmajor_matmul(const void* w, const void* x, void* y,
                                   int co, int ci, int64_t pix, void* stream) {
-  using T = __nv_bfloat16;
-  if (co < 1 || ci < 8 || pix < 8 || ci % 8 != 0 || pix % 8 != 0) {
+  if (co < 1 || ci < 8 || pix < 8 || ci % 8 != 0 || pix % 8 != 0 ||
+      pix > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t co_tiles = ceil_div(co, kBM);
-  const int64_t blocks = ceil_div(pix, kBN) * co_tiles;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const int err = allow_shared(cmajor_kernel, Tile<T>::kBytes);
-  if (err != 0) return err;
-  cmajor_kernel<<<(unsigned)blocks, kThreads, Tile<T>::kBytes,
-                  (cudaStream_t)stream>>>((const T*)w, (const T*)x, (float*)y,
-                                          co, ci, pix, (int)co_tiles);
-  return (int)cudaGetLastError();
+  if (co <= hop::kGroupRows) {
+    return hop::launch_product<false, true, true>(w, x, y, co, pix, ci,
+                                                  stream);
+  }
+  return hop::launch_product<false, true, false>(w, x, y, co, pix, ci,
+                                                 stream);
+}
+
+// The same loop with each operand in either major-ness, for the test that
+// holds the wgmma descriptors against known products: c [rows, cols] f32 =
+// A @ B, where a holds A [rows, depth] (a_mn 0) or A^T [depth, rows] (1)
+// and b holds B^T [cols, depth] (b_mn 0) or B [depth, cols] (1), bf16;
+// every extent a multiple of 8.
+extern "C" int pseg_wgmma_product(const void* a, const void* b, void* c,
+                                  int rows, int cols, int depth, int a_mn,
+                                  int b_mn, void* stream) {
+  if (rows < 8 || cols < 8 || depth < 8 || rows % 8 != 0 || cols % 8 != 0 ||
+      depth % 8 != 0 || (a_mn != 0 && a_mn != 1) || (b_mn != 0 && b_mn != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a_mn == 0 && b_mn == 0) {
+    return hop::launch_product<false, false, false>(a, b, c, rows, cols,
+                                                    depth, stream);
+  }
+  if (a_mn == 0) {
+    return hop::launch_product<false, true, false>(a, b, c, rows, cols,
+                                                   depth, stream);
+  }
+  if (b_mn == 0) {
+    return hop::launch_product<true, false, false>(a, b, c, rows, cols,
+                                                   depth, stream);
+  }
+  return hop::launch_product<true, true, false>(a, b, c, rows, cols, depth,
+                                                stream);
 }

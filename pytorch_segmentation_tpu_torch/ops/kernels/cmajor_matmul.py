@@ -4,10 +4,13 @@ Y (port of `pallas_cmajor` / `_mm_kernel` in tools/bench_cmajor.py). bf16
 operands, f32 sums, f32 output.
 
 On a CUDA tensor `cmajor_matmul` launches the hand-written kernel
-`pseg_cmajor_matmul` of `csrc/fused_matmul_bn.cu`: the tile loop of the
-fused 1x1 forward without prologue and epilogue, with the operands the other
-way round. On a CPU tensor it runs `cmajor_matmul_reference`, the plain
-PyTorch version. A CUDA tensor gets the kernel or an exception. Only
+`hop::cmajor_wgmma_kernel` of `csrc/fused_matmul_bn.cu` (entry point
+`pseg_cmajor_matmul`): the fused 1x1 kernels' Hopper loop (TMA + `wgmma`)
+without prologue, W read K-major and X MN-major (the pixels contiguous),
+128 x 128 tiles, or 64 x 128 with the pixels split between the two
+warpgroups where co <= 64, and an f32 epilogue of 16-byte stores. On a CPU
+tensor it runs `cmajor_matmul_reference`, the plain PyTorch version. A CUDA
+tensor gets the kernel or an exception. Only
 `tools/bench_cmajor.py` calls it: the question it answers is whether the
 small-channel products of ResNet's first stage run better with the pixels,
 not the channels, across a tile's columns.
@@ -22,8 +25,8 @@ import torch
 
 from .build import load_kernel_library
 
-__all__ = ["cmajor_matmul", "cmajor_matmul_reference", "launch_count",
-           "reset_launch_count"]
+__all__ = ["cmajor_matmul", "cmajor_matmul_reference", "wgmma_product",
+           "launch_count", "reset_launch_count"]
 
 _launches = 0
 
@@ -45,13 +48,31 @@ def cmajor_matmul_reference(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=1)
-def _kernel_fn():
-    fn = load_kernel_library("fused_matmul_bn").pseg_cmajor_matmul
-    ptr = ctypes.c_void_p
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                   ptr]
-    return fn
+def _kernel_fns():
+    lib = load_kernel_library("fused_matmul_bn")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    cmajor = lib.pseg_cmajor_matmul
+    cmajor.restype = ctypes.c_int
+    cmajor.argtypes = [ptr, ptr, ptr, i32, i32, ctypes.c_int64, ptr]
+    product = lib.pseg_wgmma_product
+    product.restype = ctypes.c_int
+    product.argtypes = [ptr, ptr, ptr] + [i32] * 5 + [ptr]
+    return cmajor, product
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"{what}: a TMA descriptor was refused "
+                           f"(CUresult {err - 10000})")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _dense_on_card(*tensors) -> None:
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError("the kernel needs contiguous, 16-byte aligned "
+                         "operands")
 
 
 def cmajor_matmul(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -75,17 +96,40 @@ def cmajor_matmul(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return cmajor_matmul_reference(w, x)
     if x.device.type != "cuda":
         raise ValueError(f"cmajor_matmul: no path for device {x.device}")
-    if not (w.is_contiguous() and x.is_contiguous()
-            and w.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0):
-        raise ValueError("cmajor_matmul needs contiguous, 16-byte aligned "
-                         "operands")
+    _dense_on_card(w, x)
     y = torch.empty((co, pix), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _kernel_fn()(w.data_ptr(), x.data_ptr(), y.data_ptr(), co, ci,
-                           pix, stream)
-    if err != 0:
-        raise RuntimeError(f"cmajor_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        err = _kernel_fns()[0](w.data_ptr(), x.data_ptr(), y.data_ptr(), co,
+                               ci, pix, stream)
+    _raise_on(err, "cmajor_matmul")
     _launches += 1
     return y
+
+
+def wgmma_product(a: torch.Tensor, b: torch.Tensor, a_mn: bool,
+                  b_mn: bool) -> torch.Tensor:
+    """C = A @ B in f32 through the same kernel with each operand in either
+    major-ness, for the card test of the loop's shared-memory descriptors
+    (not counted: no path of the port calls it). `a` holds A [rows, depth],
+    or with a_mn its transpose [depth, rows]; `b` holds B [depth, cols]
+    with b_mn, else its transpose [cols, depth]. bf16 CUDA tensors, every
+    extent a multiple of 8."""
+    rows, depth = a.shape[::-1] if a_mn else a.shape
+    cols = b.shape[1] if b_mn else b.shape[0]
+    if (a.dtype, b.dtype) != (torch.bfloat16, torch.bfloat16) or (
+            (b.shape[0] if b_mn else b.shape[1]) != depth):
+        raise ValueError(f"bf16 operands of one depth, got {a.dtype} "
+                         f"{tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"operands on one CUDA device, got {a.device} and "
+                         f"{b.device}")
+    _dense_on_card(a, b)
+    c = torch.empty((rows, cols), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = _kernel_fns()[1](a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                               rows, cols, depth, int(a_mn), int(b_mn),
+                               stream)
+    _raise_on(err, "wgmma_product")
+    return c

@@ -16,9 +16,8 @@ function's gradients.
 scale, shift and w and cotangents for all three outputs. On a CUDA tensor its
 forward and backward launch the hand-written kernels of
 `csrc/fused_matmul_bn.cu` (forward; dx with dscale and dshift; dW: see the
-note there for their design and what bounds them; a bf16 forward and dx run
-on the Hopper `wgmma` + TMA loop, f32 and dW on the older loop), on a CPU
-tensor
+note there for their design and what bounds them; bf16 runs all three on the
+Hopper `wgmma` + TMA loop, f32 on the older FFMA loop), on a CPU tensor
 `bn_act_matmul_reference` and `bn_act_matmul_backward_reference`, the plain
 PyTorch versions that the tests hold against the JAX package. There is no
 fallback from one to the other: a CUDA tensor gets the kernels or an
@@ -56,11 +55,12 @@ __all__ = ["fused_bn_act_matmul", "bn_act_matmul_reference",
 _ACT_CODE = {"none": 0, "relu": 1, "relu6": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROW_TILE = 128       # rows of a block's tile in the forward and dx kernels
-_DW_TILE = (128, 64)  # the dW kernel's (K, M) tile
-_DW_ROW_STEP = 64     # a split is whole staged steps of the dW kernel
-# the dW kernel splits N over blocks: enough blocks for two waves of two
-# blocks on each of an H100's 132 SMs, at least 256 rows each
-_DW_TARGET_BLOCKS = 528
+_DW_K_TILE = 128      # the Hopper dW kernel's K tile (its M tile: wgmma_tiles)
+_DW_ROW_STEP = 64     # a split is whole staged steps of the dW kernels
+# the dW kernels split N over blocks: as many (K tile, M tile, split)
+# blocks as one wave of two blocks on each of an H100's 132 SMs holds, at
+# least 256 rows each
+_DW_SLOTS = 2 * 132
 _DW_MIN_ROWS = 256
 _launches = {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}
 _layout_copies = 0
@@ -179,60 +179,68 @@ def bn_act_matmul_backward_reference(x, scale, shift, w, dy, dsum, dsumsq,
 
 
 def dw_split(n: int, k: int, m: int) -> tuple[int, int]:
-    """(splits, rows per split) of the dW kernel: N is cut into `splits`
-    runs of rows, each a multiple of the kernel's row step, so that the
-    (K tile, M tile, split) blocks fill the card while the f32 partials
-    [splits, K, M] stay small."""
-    tiles = -(-k // _DW_TILE[0]) * -(-m // _DW_TILE[1])
-    splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles),
-                        -(-n // _DW_MIN_ROWS)))
+    """(splits, rows per split) of the dW kernels: N is cut into `splits`
+    runs of rows, each a multiple of the kernels' row step, so that the
+    Hopper kernel's (K tile, M tile, split) blocks fill one wave of the card
+    (no more, so that no second wave runs a few blocks alone), with at least
+    256 rows a split; only the last run may be shorter. The f32 loop takes
+    the same split."""
+    tiles = -(-k // _DW_K_TILE) * -(-m // wgmma_tiles(k, m)["dw"])
+    splits = max(1, min(_DW_SLOTS // tiles, -(-n // _DW_MIN_ROWS)))
     rows = -(-(-(-n // splits)) // _DW_ROW_STEP) * _DW_ROW_STEP
     return -(-n // rows), rows
 
 
 @functools.lru_cache(maxsize=1)
-def _kernel_fns():
+def _kernel_fns() -> dict:
+    """The library's entry points by name (builds it: card only)."""
     lib = load_kernel_library("fused_matmul_bn")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fwd = lib.pseg_fused_matmul_bn_fwd
-    fwd.restype = ctypes.c_int
-    fwd.argtypes = [ptr] * 6 + [i32, i64, i32, i32, ptr]
-    bwd_dx = lib.pseg_fused_matmul_bn_bwd_dx
-    bwd_dx.restype = ctypes.c_int
-    bwd_dx.argtypes = [ptr] * 10 + [i32, i64, i32, i32, ptr]
-    bwd_dw = lib.pseg_fused_matmul_bn_bwd_dw
-    bwd_dw.restype = ctypes.c_int
-    bwd_dw.argtypes = [ptr] * 5 + [i32, i32, i64, i32, i32, i32, i64, ptr]
-    fwd_wgmma = lib.pseg_fused_matmul_bn_fwd_wgmma
-    fwd_wgmma.restype = ctypes.c_int
-    fwd_wgmma.argtypes = [ptr] * 6 + [i32, i64, i32, i32, i32, ptr]
-    dx_wgmma = lib.pseg_fused_matmul_bn_bwd_dx_wgmma
-    dx_wgmma.restype = ctypes.c_int
-    dx_wgmma.argtypes = [ptr] * 11 + [i32, i64, i32, i32, i32, i32, ptr]
-    smem = lib.pseg_fused_matmul_bn_wgmma_smem
-    smem.restype = ctypes.c_int
-    smem.argtypes = [i32, i32]
-    return fwd, bwd_dx, bwd_dw, fwd_wgmma, dx_wgmma, smem
+    signatures = {
+        "fwd": ("pseg_fused_matmul_bn_fwd", [ptr] * 6 + [i32, i64, i32, i32,
+                                                         ptr]),
+        "bwd_dx": ("pseg_fused_matmul_bn_bwd_dx",
+                   [ptr] * 10 + [i32, i64, i32, i32, ptr]),
+        "bwd_dw": ("pseg_fused_matmul_bn_bwd_dw",
+                   [ptr] * 5 + [i32, i64, i32, i32, i32, i64, ptr]),
+        "fwd_wgmma": ("pseg_fused_matmul_bn_fwd_wgmma",
+                      [ptr] * 6 + [i32, i64, i32, i32, i32, ptr]),
+        "dx_wgmma": ("pseg_fused_matmul_bn_bwd_dx_wgmma",
+                     [ptr] * 11 + [i32, i64, i32, i32, i32, i32, ptr]),
+        "dw_wgmma": ("pseg_fused_matmul_bn_bwd_dw_wgmma",
+                     [ptr] * 5 + [i32, i64, i32, i32, i32, i32, i64, ptr]),
+        "smem": ("pseg_fused_matmul_bn_wgmma_smem", [i32, i32]),
+    }
+    fns = {}
+    for key, (name, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fns[key] = fn
+    return fns
 
 
 def wgmma_tiles(k: int, m: int) -> dict:
     """The column widths of the Hopper kernels' tiles at (K, M) (rows are
     always 128): {'fwd': width over M, 'dx_dy_tot': width over M, 'dx_dz':
-    width over K}. 64 for a narrow matrix, else 128."""
+    width over K, 'dw': width over M (its rows are 128 of K)}. 64 for a
+    narrow matrix, else 128."""
     def width(cols):
         return 64 if cols <= 64 else 128
-    return {"fwd": width(m), "dx_dy_tot": width(m), "dx_dz": width(k)}
+    return {"fwd": width(m), "dx_dy_tot": width(m), "dx_dz": width(k),
+            "dw": width(m)}
 
 
 def wgmma_shared_bytes(k: int, m: int) -> dict:
     """The dynamic shared memory each Hopper kernel asks for at (K, M):
-    {'fwd', 'dx_dy_tot', 'dx_dz'} -> bytes (builds the library: card
+    {'fwd', 'dx_dy_tot', 'dx_dz', 'dw'} -> bytes (builds the library: card
     only)."""
     tiles = wgmma_tiles(k, m)
-    fn = _kernel_fns()[5]
+    fn = _kernel_fns()["smem"]
     return {"fwd": fn(tiles["fwd"], k),
             "dx_dy_tot": fn(tiles["dx_dy_tot"], k),
-            "dx_dz": fn(tiles["dx_dz"], 0)}
+            "dx_dz": fn(tiles["dx_dz"], 0),
+            "dw": fn(tiles["dw"], _DW_K_TILE)}
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -255,7 +263,7 @@ def _launch_fwd(x, scale, shift, wc, act, wt):
     wc."""
     n, k = x.shape
     m = wc.shape[1]
-    fwd, _, _, fwd_wgmma, _, _ = _kernel_fns()
+    fns = _kernel_fns()
     dev = x.device
     y = torch.empty((n, m), dtype=x.dtype, device=dev)
     partials = torch.empty((-(-n // _ROW_TILE), 2, m), dtype=torch.float32,
@@ -264,13 +272,15 @@ def _launch_fwd(x, scale, shift, wc, act, wt):
     with torch.cuda.device(dev):
         if x.dtype == torch.bfloat16:
             tiles = wgmma_tiles(k, m)
-            err = fwd_wgmma(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                            wt.data_ptr(), y.data_ptr(), partials.data_ptr(),
-                            _ACT_CODE[act], n, k, m, tiles["fwd"], stream)
+            err = fns["fwd_wgmma"](
+                x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                wt.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                _ACT_CODE[act], n, k, m, tiles["fwd"], stream)
         else:
-            err = fwd(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                      wc.data_ptr(), y.data_ptr(), partials.data_ptr(),
-                      _ACT_CODE[act], n, k, m, stream)
+            err = fns["fwd"](x.data_ptr(), scale.data_ptr(),
+                             shift.data_ptr(), wc.data_ptr(), y.data_ptr(),
+                             partials.data_ptr(), _ACT_CODE[act], n, k, m,
+                             stream)
     _raise_on(err, "forward")
     _launches["fwd"] += 1
     # one slot per row tile, summed in a fixed order: runs are bit-equal
@@ -285,7 +295,7 @@ def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act, wt):
     loop, one block per row tile."""
     n, k = x.shape
     m = wc.shape[1]
-    _, bwd_dx, _, _, dx_wgmma, _ = _kernel_fns()
+    fns = _kernel_fns()
     dev = x.device
     dy_tot = torch.empty((n, m), dtype=x.dtype, device=dev)
     dx = torch.empty((n, k), dtype=x.dtype, device=dev)
@@ -295,18 +305,18 @@ def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act, wt):
     with torch.cuda.device(dev):
         if x.dtype == torch.bfloat16:
             tiles = wgmma_tiles(k, m)
-            err = dx_wgmma(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                           wc.data_ptr(), wt.data_ptr(), dy.data_ptr(),
-                           dsum.data_ptr(), dsumsq.data_ptr(),
-                           dy_tot.data_ptr(), dx.data_ptr(),
-                           partials.data_ptr(), _ACT_CODE[act], n, k, m,
-                           tiles["dx_dy_tot"], tiles["dx_dz"], stream)
+            err = fns["dx_wgmma"](
+                x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                wc.data_ptr(), wt.data_ptr(), dy.data_ptr(), dsum.data_ptr(),
+                dsumsq.data_ptr(), dy_tot.data_ptr(), dx.data_ptr(),
+                partials.data_ptr(), _ACT_CODE[act], n, k, m,
+                tiles["dx_dy_tot"], tiles["dx_dz"], stream)
         else:
-            err = bwd_dx(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                         wc.data_ptr(), dy.data_ptr(), dsum.data_ptr(),
-                         dsumsq.data_ptr(), dy_tot.data_ptr(), dx.data_ptr(),
-                         partials.data_ptr(), _ACT_CODE[act], n, k, m,
-                         stream)
+            err = fns["bwd_dx"](
+                x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                wc.data_ptr(), dy.data_ptr(), dsum.data_ptr(),
+                dsumsq.data_ptr(), dy_tot.data_ptr(), dx.data_ptr(),
+                partials.data_ptr(), _ACT_CODE[act], n, k, m, stream)
     _raise_on(err, "dx")
     _launches["bwd_dx"] += 1
     sums = partials.sum(0)
@@ -314,19 +324,25 @@ def _launch_bwd_dx(x, scale, shift, wc, dy, dsum, dsumsq, act, wt):
 
 
 def _launch_bwd_dw(x, scale, shift, dy_tot, act):
-    """-> dw f32 [K, M] = z^T @ dy_tot."""
-    bwd_dw = _kernel_fns()[2]
+    """-> dw f32 [K, M] = z^T @ dy_tot, N split over blocks (`dw_split`):
+    each split's f32 partial sums in a slot of their own, summed by
+    `partials.sum(0)` (no atomics: launches are bit-equal). bf16 runs the
+    Hopper kernel, f32 the older loop."""
     n, k = x.shape
     m = dy_tot.shape[1]
+    fns = _kernel_fns()
     dev = x.device
     splits, rows = dw_split(n, k, m)
     partials = torch.empty((splits, k, m), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            dy_tot.data_ptr(), partials.data_ptr(), _ACT_CODE[act], n, k, m)
     with torch.cuda.device(dev):
-        err = bwd_dw(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                     dy_tot.data_ptr(), partials.data_ptr(),
-                     _DTYPE_CODE[x.dtype], _ACT_CODE[act], n, k, m, splits,
-                     rows, stream)
+        if x.dtype == torch.bfloat16:
+            err = fns["dw_wgmma"](*args, wgmma_tiles(k, m)["dw"], splits,
+                                  rows, stream)
+        else:
+            err = fns["bwd_dw"](*args, splits, rows, stream)
     _raise_on(err, "dW")
     _launches["bwd_dw"] += 1
     return partials[0] if splits == 1 else partials.sum(0)

@@ -13,7 +13,9 @@ channels-major kernel (`ops/kernels/cmajor_matmul.py`), at ci -> co of
 256 -> 64, 64 -> 256 and 576 -> 64 (a 3x3 convolution's 9 x 64 taps as one
 product) over 524,288 pixels (batch 32 of 128 x 128), bf16 operands. The
 kernel writes f32, the yardsticks bf16. One line per measurement: ms (CUDA
-events, median of 10 after 3 warm-ups) and TFLOP/s.
+events, median of 10 after 3 warm-ups) and TFLOP/s. First it holds the
+kernel against its plain version at ragged shapes (co not a multiple of 64,
+pixels not a multiple of 128), one line each.
 
     python -m pytorch_segmentation_tpu_torch.tools.bench_cmajor
 """
@@ -31,6 +33,10 @@ from ..utils.runtime import require_cuda
 
 SHAPES = ((256, 64), (64, 256), (576, 64))  # (ci, co)
 BATCH, SIDE = 32, 128                       # pix = 524,288
+# (ci, co, pix): both tile forms of the kernel (co <= 64: 64-row tiles whose
+# warpgroups split the pixels), each with a ragged last tile in co, in pix
+# and in the depth
+RAGGED = ((200, 40, 10000), (72, 200, 9992))
 # the kernel against its plain version: the same exact products summed in
 # f32 in another order, relative to the output's largest entry
 TOLERANCE = 1e-5
@@ -51,16 +57,20 @@ def timed_ms(fn, warmup: int = 3, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bench_shape(ci: int, co: int, device, batch: int = BATCH,
-                side: int = SIDE, seed: int = 0) -> dict:
-    """One ci -> co shape: the kernel held against its plain version, then
-    the four timings. Returns the numbers it printed."""
-    pix = batch * side * side
+def operands(ci: int, co: int, pix: int, device, seed: int = 0):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((ci, pix)).astype(np.float32)
                          ).to(device, torch.bfloat16)
     w = torch.from_numpy(rng.standard_normal((co, ci)).astype(np.float32)
                          ).to(device, torch.bfloat16)
+    return w, x
+
+
+def check(w: torch.Tensor, x: torch.Tensor) -> tuple[float, float]:
+    """The kernel against its plain version (to TOLERANCE of the largest
+    entry) and two launches against each other (bit-equal): (largest
+    difference, largest entry)."""
+    (co, ci), pix = w.shape, x.shape[1]
     got = cmajor_matmul(w, x)
     again = cmajor_matmul(w, x)
     want = cmajor_matmul_reference(w, x)
@@ -68,11 +78,31 @@ def bench_shape(ci: int, co: int, device, batch: int = BATCH,
     err = float((got - want).abs().max())
     top = float(want.abs().max())
     if got.dtype != torch.float32 or not err <= TOLERANCE * top:
-        raise AssertionError(f"cmajor {ci}->{co}: kernel and plain version "
-                             f"differ by {err} (largest entry {top})")
+        raise AssertionError(f"cmajor {ci}->{co} pix={pix}: kernel and "
+                             f"plain version differ by {err} (largest entry "
+                             f"{top})")
     if not torch.equal(got, again):
-        raise AssertionError(f"cmajor {ci}->{co}: two launches differ")
-    del got, again, want
+        raise AssertionError(f"cmajor {ci}->{co} pix={pix}: two launches "
+                             f"differ")
+    return err, top
+
+
+def check_ragged(ci: int, co: int, pix: int, device) -> dict:
+    w, x = operands(ci, co, pix, device)
+    err, top = check(w, x)
+    print(f"cmajor {ci}->{co} pix={pix}: max abs err {err:.3g} (largest "
+          f"{top:.3g}), two launches bit-equal", flush=True)
+    return {"ci": ci, "co": co, "pix": pix, "max_abs_err": err,
+            "largest": top}
+
+
+def bench_shape(ci: int, co: int, device, batch: int = BATCH,
+                side: int = SIDE, seed: int = 0) -> dict:
+    """One ci -> co shape: the kernel held against its plain version, then
+    the four timings. Returns the numbers it printed."""
+    pix = batch * side * side
+    w, x = operands(ci, co, pix, device, seed)
+    err, top = check(w, x)
 
     x_pm = x.t().contiguous()                      # [pix, ci]
     w_pm = w.t().contiguous()                      # [ci, co]
@@ -96,10 +126,14 @@ def bench_shape(ci: int, co: int, device, batch: int = BATCH,
             "bytes": 2 * (ci * pix + co * ci) + 4 * co * pix, **ms}
 
 
-def main(device=None, shapes=SHAPES, batch: int = BATCH, side: int = SIDE):
+def main(device=None, shapes=SHAPES, batch: int = BATCH, side: int = SIDE,
+         ragged=RAGGED):
+    """-> (the timed shapes' rows, the ragged checks' rows)."""
     device = require_cuda() if device is None else torch.device(device)
     print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
-    return [bench_shape(ci, co, device, batch, side) for ci, co in shapes]
+    checked = [check_ragged(ci, co, pix, device) for ci, co, pix in ragged]
+    return ([bench_shape(ci, co, device, batch, side) for ci, co in shapes],
+            checked)
 
 
 if __name__ == "__main__":

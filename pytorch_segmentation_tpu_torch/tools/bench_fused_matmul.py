@@ -8,8 +8,10 @@ conv3 of its 16 bottlenecks through `fused_bn_act_matmul` when
 shapes (N rows, K -> M channels). For each shape this prints the ms (CUDA
 events, median of 10 after 3 warm-ups) of the forward, dx and dW kernels
 and of one `torch.matmul` of the same product each (a yardstick: no
-prologue, no statistics, no mask; the port never calls it), then the sums
-over one train step, weighted by how often the step runs each shape.
+prologue, no statistics, no mask; the port never calls it), the share of dW
+that sums its split partials (`partials.sum(0)`, included in dW's time),
+then the sums over one train step, weighted by how often the step runs each
+shape.
 
 Last, the host's time per call of the forward and dx launchers
 (`host_us`): bf16, whose Hopper kernels encode their TMA descriptors on the
@@ -61,6 +63,8 @@ def bench_shape(n: int, k: int, m: int, device, dtype=torch.bfloat16,
     with torch.no_grad():
         dy_tot = fm._launch_bwd_dx(x, scale, shift, w, dy, dsum, dsumsq,
                                    "relu", wt)[3]
+        partials = torch.empty((fm.dw_split(n, k, m)[0], k, m),
+                               dtype=torch.float32, device=device)
         return {
             "fwd": timed_ms(lambda: fm._launch_fwd(x, scale, shift, w,
                                                    "relu", wt)),
@@ -70,7 +74,8 @@ def bench_shape(n: int, k: int, m: int, device, dtype=torch.bfloat16,
                                                          dy_tot, "relu")),
             "matmul_fwd": timed_ms(lambda: torch.matmul(x, w)),
             "matmul_dx": timed_ms(lambda: torch.matmul(dy, wt)),
-            "matmul_dw": timed_ms(lambda: torch.matmul(x.t(), dy))}
+            "matmul_dw": timed_ms(lambda: torch.matmul(x.t(), dy)),
+            "dw_partials_sum": timed_ms(lambda: partials.sum(0))}
 
 
 def host_us(n: int, k: int, m: int, device, dtype=torch.bfloat16,

@@ -1,8 +1,8 @@
 """PyTorch port on the card: the hand-written kernels (upsample+argmax;
 upsample+cross-entropy forward and backward; the augmentation warp's row
 resampler; upsample+argmax+confusion counts; the fused 1x1 forward, dx and
-dW; the channels-major product) against their plain PyTorch
-versions at edge shapes, and the small model (served, trained, evaluated)
+dW; the channels-major product; the Hopper loop's product with each operand
+K-major or MN-major) against their plain PyTorch versions at edge shapes, and the small model (served, trained, evaluated)
 against the CPU. Skips without a CUDA device. On the card (no jax there, so without the
 JAX-side conftest):
 
@@ -672,10 +672,76 @@ def test_fused_bottleneck_on_card_matches_cpu(device):
                               rtol=1e-4, atol=1e-5), name
 
 
+@pytest.mark.parametrize("n,k,m,act", [
+    (1237, 24, 144, "relu6"),   # K < 64; the last split 213 of 256 rows
+    (2000, 136, 64, "relu"),    # 64-wide M tile; the second K tile's
+                                # second box lies past K (not loaded)
+    (4133, 200, 264, "none"),   # ragged K and M tiles; a box of dy_tot past M
+    (34849, 512, 200, "relu"),  # wide; the last split 33 of 1088 rows
+    (5000, 1024, 512, "relu"),  # 32 tiles of 128 x 128, 8 splits
+])
+def test_dw_kernel_matches_plain(device, n, k, m, act):
+    """The bf16 dW launcher (the Hopper kernel over its split of N, the
+    partials summed) against the plain version on the same dy_tot: to 1e-3
+    of the largest entry; two launches bit-equal. Every shape here has a
+    last split shorter than the others, which ends inside a stage."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = rand(n, k).bfloat16()
+    scale = 0.5 + torch.rand(k, generator=gen, device=device)
+    shift = 0.2 * rand(k)
+    dy_tot = rand(n, m).bfloat16()
+    splits, rows = fm.dw_split(n, k, m)
+    last = n - (splits - 1) * rows
+    assert splits > 1 and last < rows and last % 64
+    before = fm.launch_count()["bwd_dw"]
+    with torch.no_grad():
+        got = fm._launch_bwd_dw(x, scale, shift, dy_tot, act)
+        again = fm._launch_bwd_dw(x, scale, shift, dy_tot, act)
+        want = fm.bn_act_matmul_dw_reference(x, scale, shift, dy_tot, act)
+    torch.cuda.synchronize()
+    assert fm.launch_count()["bwd_dw"] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (k, m)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert torch.equal(got, again)
+
+
 # ----------------------------------------------------------- channels-major
+
+def _small_ints(rows, cols, seed):
+    """Integers in [-4, 4]: exact in bf16, and their products' sums over a
+    few hundred terms exact in f32."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(-4, 5, (rows, cols), generator=gen).float()
+
+
+@pytest.mark.parametrize("rows,cols,depth", [(128, 128, 128),
+                                             (200, 136, 72)])
+@pytest.mark.parametrize("a_mn,b_mn", [(False, False), (False, True),
+                                       (True, False), (True, True)])
+def test_wgmma_majorness_products(device, rows, cols, depth, a_mn, b_mn):
+    """The Hopper loop's product C = A @ B with A and B each K-major (the
+    depth contiguous) or MN-major (the rows of A, the columns of B
+    contiguous): the forward and dx read (K, K), the channels-major product
+    (K, MN), dW (MN, MN). Small integers, so the product is exact: a wrong
+    shared-memory descriptor shows here as a wrong entry. 200 x 136 x 72
+    leaves ragged tiles in all three extents and a box of B wholly past its
+    columns."""
+    a, b = _small_ints(rows, depth, 0), _small_ints(depth, cols, 1)
+    want = (a.double() @ b.double()).float()
+    a_in = (a.t() if a_mn else a).contiguous().to(device, torch.bfloat16)
+    b_in = (b if b_mn else b.t()).contiguous().to(device, torch.bfloat16)
+    got = cm.wgmma_product(a_in, b_in, a_mn, b_mn)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (rows, cols)
+    assert torch.equal(got.cpu(), want)
+
 
 @pytest.mark.parametrize("co,ci,pix", [
     (64, 256, 4096), (256, 64, 4104), (24, 8, 8), (130, 40, 1000),
+    # both tile forms (co <= 64: the warpgroups split the pixels) with
+    # ragged co, pixels and depth
+    (40, 200, 1000), (200, 72, 1000),
 ])
 def test_cmajor_kernel_matches_plain(device, co, ci, pix):
     gen = torch.Generator(device=device).manual_seed(0)

@@ -286,18 +286,25 @@ def test_wrapper_rejects_mismatched_shapes():
 
 @pytest.mark.parametrize("n,k,m", [
     (532512, 64, 64), (532512, 256, 64), (532512, 64, 256),
-    (135200, 512, 128), (34848, 2048, 512), (34848, 512, 2048),
-    (1237, 24, 144), (5, 8, 8), (1, 2048, 2048),
+    (135200, 512, 128), (135200, 512, 256), (34848, 1024, 256),
+    (34848, 2048, 512), (34848, 512, 2048),
+    (1237, 24, 144), (4133, 56, 72), (5, 8, 8), (1, 2048, 2048),
 ])
 def test_dw_split_covers_the_rows(n, k, m):
-    """The dW kernel's split of N: whole row steps, every row in exactly one
-    split, no empty split, and partials that stay small."""
+    """The dW kernels' split of N: whole row steps, every row in exactly one
+    split, no empty split, at least 256 rows a split; the Hopper kernel's
+    (128 x 128 or 128 x 64 tile, split) blocks fit one wave of two blocks on
+    132 SMs and fill at least 90% of it where N has the rows; partials that
+    stay small."""
     splits, rows = fm.dw_split(n, k, m)
     assert splits >= 1 and rows % 64 == 0
     assert (splits - 1) * rows < n <= splits * rows
-    tiles = -(-k // 128) * -(-m // 64)
-    assert splits * tiles <= max(2 * 528, tiles)
-    assert splits * k * m * 4 <= 64 << 20
+    assert splits == 1 or rows >= 256
+    tiles = -(-k // 128) * -(-m // fm.wgmma_tiles(k, m)["dw"])
+    assert splits * tiles <= max(264, tiles)
+    if n >= 264 * 256:
+        assert splits * tiles >= 0.9 * (264 // tiles) * tiles
+    assert splits * k * m * 4 <= 32 << 20
 
 
 # the channel widths of the R50 step's 12 shapes
@@ -308,19 +315,21 @@ def test_dw_split_covers_the_rows(n, k, m):
     (2048, 512), (24, 144), (144, 24)])
 def test_wgmma_tiles_by_shape(k, m):
     """The Hopper kernels' column tiles are 64 wide over a matrix 64 wide
-    or less, else 128: the forward's and dx's first grid over M, dx's
-    second grid over K."""
+    or less, else 128: the forward's, dx's first grid's and dW's over M,
+    dx's second grid's over K."""
     assert fm.wgmma_tiles(k, m) == {"fwd": 64 if m <= 64 else 128,
                                     "dx_dy_tot": 64 if m <= 64 else 128,
-                                    "dx_dz": 64 if k <= 64 else 128}
+                                    "dx_dz": 64 if k <= 64 else 128,
+                                    "dw": 64 if m <= 64 else 128}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_launchers_choose_the_loop_by_dtype(dtype, monkeypatch):
     """bf16 goes to the Hopper entry points (W^T for the forward, W and W^T
-    for dx, the `wgmma_tiles` widths), f32 to the older loop's (W); each
-    launcher counts one launch, and a refused TMA descriptor raises. The
-    library and the stream are stand-ins: nothing is built here."""
+    for dx, the `wgmma_tiles` widths, dW with its M tile and `dw_split`),
+    f32 to the older loop's (W; dW with the same split); each launcher
+    counts one launch, and a refused TMA descriptor raises. The library and
+    the stream are stand-ins: nothing is built here."""
     calls = []
 
     def entry(name, err=0):
@@ -329,8 +338,9 @@ def test_launchers_choose_the_loop_by_dtype(dtype, monkeypatch):
             return err
         return fn
 
-    fns = [entry(name) for name in ("fwd", "bwd_dx", "bwd_dw", "fwd_wgmma",
-                                    "dx_wgmma", "smem")]
+    fns = {name: entry(name) for name in ("fwd", "bwd_dx", "bwd_dw",
+                                          "fwd_wgmma", "dx_wgmma",
+                                          "dw_wgmma", "smem")}
     monkeypatch.setattr(fm, "_kernel_fns", lambda: fns)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: types.SimpleNamespace(cuda_stream=7))
@@ -345,27 +355,40 @@ def test_launchers_choose_the_loop_by_dtype(dtype, monkeypatch):
     dx, dsc, dsh, dy_tot = fm._launch_bwd_dx(x, vec, vec, wc, dy,
                                              torch.zeros(m), torch.zeros(m),
                                              "relu6", wt)
+    dw = fm._launch_bwd_dw(x, vec, vec, dy_tot, "relu6")
     after = fm.launch_count()
     assert {key: after[key] - before[key] for key in after} == {
-        "fwd": 1, "bwd_dx": 1, "bwd_dw": 0}
+        "fwd": 1, "bwd_dx": 1, "bwd_dw": 1}
     assert (y.shape, s.shape, dx.shape, dsc.shape, dy_tot.shape) == (
         (n, m), (m,), (n, k), (k,), (n, m))
-    (fwd_name, fwd_args), (dx_name, dx_args) = calls
+    assert dw.shape == (k, m) and dw.dtype == torch.float32
+    (fwd_name, fwd_args), (dx_name, dx_args), (dw_name, dw_args) = calls
+    assert fm.dw_split(n, k, m) == (2, 192)
+    assert dw_args[:4] == (x.data_ptr(), vec.data_ptr(), vec.data_ptr(),
+                           dy_tot.data_ptr())
     if dtype == torch.bfloat16:
-        assert (fwd_name, dx_name) == ("fwd_wgmma", "dx_wgmma")
+        assert (fwd_name, dx_name, dw_name) == ("fwd_wgmma", "dx_wgmma",
+                                                "dw_wgmma")
         assert fwd_args[3] == wt.data_ptr()
         assert fwd_args[6:] == (2, n, k, m, 128, 7)
         assert dx_args[3:5] == (wc.data_ptr(), wt.data_ptr())
         assert dx_args[11:] == (2, n, k, m, 128, 64, 7)
-        fns[3] = entry("fwd_wgmma", 10001)
-        with pytest.raises(RuntimeError, match="TMA descriptor"):
-            fm._launch_fwd(x, vec, vec, wc, "relu6", wt)
+        assert dw_args[5:] == (2, n, k, m, 128, 2, 192, 7)
+        for name, launch in (
+                ("fwd_wgmma", lambda: fm._launch_fwd(x, vec, vec, wc,
+                                                     "relu6", wt)),
+                ("dw_wgmma", lambda: fm._launch_bwd_dw(x, vec, vec, dy_tot,
+                                                       "relu6"))):
+            fns[name] = entry(name, 10001)
+            with pytest.raises(RuntimeError, match="TMA descriptor"):
+                launch()
     else:
-        assert (fwd_name, dx_name) == ("fwd", "bwd_dx")
+        assert (fwd_name, dx_name, dw_name) == ("fwd", "bwd_dx", "bwd_dw")
         assert fwd_args[3] == wc.data_ptr()
         assert fwd_args[6:] == (2, n, k, m, 7)
         assert dx_args[3] == wc.data_ptr()
         assert dx_args[10:] == (2, n, k, m, 7)
+        assert dw_args[5:] == (2, n, k, m, 2, 192, 7)
 
 
 # ------------------------------------------------------------ BatchNorm fold
@@ -737,21 +760,38 @@ def test_cmajor_rejects(w_shape, x_shape, dtype, error):
                          torch.zeros(x_shape, dtype=dtype))
 
 
+@pytest.mark.parametrize("a_shape,b_shape,dtype", [
+    ((16, 24), (24, 32), torch.bfloat16),   # on the CPU: no kernel there
+    ((16, 24), (24, 32), torch.float32),    # f32 operands
+    ((16, 24), (16, 32), torch.bfloat16),   # depths differ
+])
+def test_wgmma_product_rejects_before_the_kernel(a_shape, b_shape, dtype):
+    """The layout test's product checks its operands before any pointer
+    reaches the library (nothing is built here)."""
+    with pytest.raises(ValueError):
+        cm.wgmma_product(torch.zeros(a_shape, dtype=dtype),
+                         torch.zeros(b_shape, dtype=dtype), False, True)
+
+
 # ------------------------------------------------------------------- build
 
 def test_new_kernel_source_has_a_plain_c_interface():
     """Both new wrappers load `csrc/fused_matmul_bn.cu`, a source with a
-    plain C interface like the others: no PyTorch header, four entry
-    points, tensor-core products in the bf16 instantiation."""
+    plain C interface like the others: no PyTorch header, the f32 loop's
+    three entry points and the Hopper loop's five, every bf16 product on
+    `wgmma` (the older `wmma` loop is gone), no atomics."""
     src = (build.CSRC_DIR / "fused_matmul_bn.cu").read_text()
     assert "torch/" not in src and "ATen" not in src
     for name in ("pseg_fused_matmul_bn_fwd", "pseg_fused_matmul_bn_bwd_dx",
                  "pseg_fused_matmul_bn_bwd_dw", "pseg_cmajor_matmul"):
         assert f'extern "C" int {name}(' in src
     for name in ("pseg_fused_matmul_bn_fwd_wgmma",
-                 "pseg_fused_matmul_bn_bwd_dx_wgmma"):
+                 "pseg_fused_matmul_bn_bwd_dx_wgmma",
+                 "pseg_fused_matmul_bn_bwd_dw_wgmma", "pseg_wgmma_product"):
         assert f'extern "C" int {name}(' in src
-    assert "wmma::mma_sync" in src and "atomicAdd" not in src
+    assert "wmma::" not in src and "atomicAdd" not in src
+    for kernel in ("dw_wgmma_kernel", "cmajor_wgmma_kernel"):
+        assert f"{kernel}(" in src, kernel
     # the Hopper loop: TMA into an mbarrier ring, wgmma from shared memory
     for op in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
                "wgmma.mma_async", "cuTensorMapEncodeTiled"):
