@@ -288,6 +288,12 @@ def ce_case(name, shape, out_hw, dtype, align, device,
         x, y, align_corners=align))
     bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(
         loss, x, retain_graph=True))
+    # the backward kernel alone, on what the forward saves for it
+    _, lse, y_kernel = ce._launch_fwd(x.detach(), y, align, want_lse=True)
+    one = torch.ones((), device=device)
+    bwd_kernel_ms = cuda_median_ms(lambda: ce._launch_bwd(
+        x.detach(), y_kernel, lse, one, align))
+    del lse, y_kernel
     with torch.no_grad():
         plain_fwd_ms = cuda_median_ms(lambda: ce.upsample_ce_reference(
             x, y, align))
@@ -322,7 +328,8 @@ def ce_case(name, shape, out_hw, dtype, align, device,
         logits_strides=list(x.stride()), align_corners=align,
         loss=loss_value, loss_abs_err=loss_err,
         dlogits_max_abs_err=grad_err, dlogits_largest=top, fwd_ms=fwd_ms,
-        bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+        bwd_ms=bwd_ms, bwd_kernel_ms=bwd_kernel_ms,
+        plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
         plain_fwd_bwd_ms=plain_both_ms, fwd_bound_ms=fwd["bound_ms"],
         fwd_bound_by=fwd["bound_by"], bwd_bound_ms=bwd["bound_ms"],
         bwd_bound_by=bwd["bound_by"], kernel_peak_mb=kernel_mb,
@@ -331,7 +338,8 @@ def ce_case(name, shape, out_hw, dtype, align, device,
             "fwd": {"max_abs_err": loss_err, "ms": fwd_ms,
                     "plain_ms": plain_fwd_ms, **fwd, "library_ms": None},
             "bwd": {"max_abs_err": grad_err, "ms": bwd_ms,
-                    "plain_ms": plain_bwd_ms, **bwd, "library_ms": None}}
+                    "kernel_ms": bwd_kernel_ms, "plain_ms": plain_bwd_ms,
+                    **bwd, "library_ms": None}}
 
 
 def resample_case(name, planes, coords, use_bil, out_dtype):
@@ -1884,6 +1892,17 @@ def main():
             False, device, label_dtype=torch.int64)
     ce_case("ce_c81_f32", (2, 33, 33, 81), (129, 129), torch.float32, True,
             device)
+    # 45 rows in bands of 4 (the last of 1), 97 classes in chunks of
+    # 25, 25, 25, 22
+    ce_case("ce_ragged_bands_c97", (TRAIN_BATCH, 45, 37, 97), (177, 145),
+            torch.float32, False, device)
+    # 200 columns in two tiles of 100: the backward's halo columns and its
+    # cut of each tile's output columns
+    tiled = (2, 33, 200, NUM_CLASSES)
+    if len(ce.bwd_plan(*tiled, 129, 797, True, 2).tiles) < 2:
+        raise AssertionError(f"{tiled} -> 797 columns: one column tile")
+    ce_case("ce_column_tiles_w200", tiled, (129, 797), torch.bfloat16, True,
+            device)
 
     # 4 batches' worth of u8 images and labels in host memory
     dataset = MemoryDataset(4 * TRAIN_BATCH, np.random.default_rng(SEED + 6))
@@ -1931,9 +1950,16 @@ def main():
         {"name": "softmax_ce_fwd", "route": "cuda", "source": ce_source,
          "replaces": ce_replaces, "launches": ce_launches["fwd"],
          **ce_path["fwd"]},
+        # ms: the backward through autograd (the forward's: the wrapper
+        # call); kernel_ms: the kernel alone on the forward's saved tensors
         {"name": "softmax_ce_bwd", "route": "cuda", "source": ce_source,
-         "replaces": ce_replaces, "launches": ce_launches["bwd"],
-         **ce_path["bwd"]},
+         "replaces": ce_replaces,
+         "design": "ce_bwd_band_kernel: a band of source rows staged in "
+                   "shared memory (16-byte loads for channels-last logits), "
+                   "each output pixel's softmax term computed once per band "
+                   "and class, gathered in the matrix product's order, no "
+                   "atomics",
+         "launches": ce_launches["bwd"], **ce_path["bwd"]},
         # ms, plain_ms and bound_ms: per launch, the mean of the two passes
         {"name": "banded_resample", "route": "cuda",
          "source": "pytorch_segmentation_tpu_torch/csrc/banded_resample.cu",

@@ -29,13 +29,22 @@
 // No atomics: the loss is the same bits on every run. The forward also writes
 // lse [B, H, W] f32 for the backward unless the caller passes no buffer.
 //
-// Backward, gather form: one thread per (b, y, x, c) of the low-resolution
-// logits walks the output rows and columns whose taps touch (y, x), read from
-// a transposed tap table (per input index: first output index, count, and
-// the matrix column's weights), recomputes up_c there from its four taps,
-// and sums weight * (softmax - onehot): columns first, then rows, the order
-// of Mh^T (R Mw). It multiplies by g/N in f32 and casts once to the logits'
-// dtype. No atomics either, so the gradient is bit-reproducible.
+// Backward, banded (ce_bwd_band_kernel): a block takes one sample, a band
+// of source rows, a tile of source columns and a chunk of classes, sized by
+// bwd_plan in softmax_ce.py. It stages the source rows that the band's
+// output rows read, halo included, in shared memory: 16-byte loads where the
+// logits are channels-last and the chunk holds every class, through the
+// strides otherwise. A thread owns 4 source columns and 3 classes.
+// For each output row Y that reads the band, in ascending order, it
+// interpolates Y along H at its columns and their neighbours, computes the
+// softmax term of each output column X whose taps touch its columns once,
+// and adds the term's two weighted shares to its columns' sums in ascending
+// X; then it adds those sums, weighted, into source rows i0(Y) and i0(Y)+1.
+// Only the band's rows are ever stored, each once its last output row has
+// passed. The sums run in the order of the gather kernel this one replaced
+// (columns ascending within an output row, then rows ascending) with the
+// same expressions, so the gradient keeps that kernel's bits; no atomics, so
+// it is bit-reproducible.
 //
 // What bounds them on an H100: at [32,129,129,21] bf16 -> 513^2 the forward
 // must move 22 MB of logits + 34 MB of int32 labels in and 34 MB of lse out
@@ -43,13 +52,13 @@
 // separably, needs 1.4 GFLOP of f32 arithmetic (20 us at 67 TFLOP/s). The
 // backward moves 22 + 34 + 34 MB in and 22 MB out (34 us) and needs 1.9
 // GFLOP (28 us). So the bound is tens of microseconds, by bytes, with the
-// operations close behind. As written they take 0.6 and 2.1 ms: the count
-// of load instructions and exps limits them. Every output pixel's softmax term
-// is recomputed by each of the up to four source pixels it touches, and
-// every tap is a separate load that hits L1/L2. Threads run with the class
-// fastest, so the loads of a warp are contiguous for channels-last logits;
-// other layouts work through the strides, slower. Staging source rows in
-// shared memory is the open speed-up.
+// operations close behind. On an NVIDIA H100 80GB HBM3 at 700 W the forward
+// takes ~0.6 ms (four tap loads and an exp per pixel and class) and the
+// backward 0.44-0.50 ms (tools/bench_ce_bwd.py). The backward computes each
+// softmax term 1.1-1.2x (a band's halo output rows) times 1.25x (output
+// columns between two threads' columns) as often as the function needs, and
+// spends ~22 instructions on each (the accurate expf, the tap products, the
+// label compare, the two shares): instruction issue bounds it, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,15 +81,6 @@ struct Taps {
   const int* i1;
   const float* w0;
   const float* w1;
-};
-
-// Transposed taps of one axis: source index -> first output index, how many
-// consecutive outputs touch it, and their weights (row-major [in, width]).
-struct TapsT {
-  const int* start;
-  const int* count;
-  const float* weight;
-  int width;
 };
 
 // Sum over the block, valid in thread 0. blockDim.x is a multiple of 32.
@@ -156,53 +156,243 @@ __global__ void ce_sum_kernel(const float* __restrict__ partials,
   if (threadIdx.x == 0) sums[blockIdx.x] = v;
 }
 
+// A label's class within the chunk [c0, c0 + cn), or -1: compared in 32
+// bits once per pixel instead of in the label's width once per class.
+__device__ __forceinline__ int chunk_label(int32_t v, int c0, int cn) {
+  const unsigned d = (unsigned)v - (unsigned)c0;
+  return d < (unsigned)cn ? (int)d : -1;
+}
+__device__ __forceinline__ int chunk_label(int64_t v, int c0, int cn) {
+  const uint64_t d = (uint64_t)v - (uint64_t)c0;
+  return d < (uint64_t)cn ? (int)d : -1;
+}
+
+// One tile of an axis (bwd_plan's tables, int32 [n, 4]): the output
+// indices [out_lo, out_hi) that read the tile's source indices, and the
+// source indices [src_lo, src_hi] those outputs read.
+struct AxisTile {
+  int out_lo, out_hi, src_lo, src_hi;
+};
+
+// The backward kernel's largest block (bwd_plan's max_threads): with up to
+// 128 registers a thread, two blocks an SM.
+constexpr int kBwdMaxThreads = 256;
+// Source columns and classes a thread owns (BWD_RUN and
+// BWD_CLASSES_PER_THREAD in softmax_ce.py).
+constexpr int kBwdRun = 4;
+constexpr int kBwdClasses = 3;
+
+// Block: (sample, band of source rows, tile of source columns, chunk of
+// classes), decoded with the chunk fastest so that neighbouring bands, which
+// share their halo rows, run together. Thread: the RUN columns [xa, xa +
+// RUN) of the band, xa = x0 + (t / lanes) * RUN, and CPT classes of the
+// chunk, t % lanes + k * lanes for k < CPT (lanes = ceil(cn / CPT)).
+// Shared memory (bwd_plan's layout): stage_rows slots of `slot` elements,
+// `slot` a whole number of 16-byte vectors, then one int per row.
 template <typename T, typename L>
-__global__ void ce_bwd_kernel(
+__global__ void __launch_bounds__(kBwdMaxThreads, 2) ce_bwd_band_kernel(
     const T* __restrict__ logits, int64_t s_b, int64_t s_h, int64_t s_w,
     int64_t s_c, T* __restrict__ dlogits, int64_t d_b, int64_t d_h,
     int64_t d_w, int64_t d_c, int in_h, int in_w, int num_classes, int out_h,
-    int out_w, int64_t total, const L* __restrict__ labels,
-    const float* __restrict__ lse, Taps th, Taps tw, TapsT tth, TapsT ttw,
+    int out_w, const L* __restrict__ labels, const float* __restrict__ lse,
+    Taps th, const AxisTile* __restrict__ bands, int band_rows,
+    int n_bands, const AxisTile* __restrict__ tiles, int tile_cols,
+    int n_tiles, const int* __restrict__ col_first,
+    const float2* __restrict__ col_w, int chunk, int stage_rows, int slot,
     const float* __restrict__ grad_out, float inv_n) {
-  const float scale = grad_out[0] * inv_n;
-  const int64_t npix = (int64_t)out_h * out_w;
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       idx < total; idx += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % num_classes);
-    int64_t rest = idx / num_classes;
-    const int x = (int)(rest % in_w);
-    rest /= in_w;
-    const int y = (int)(rest % in_h);
-    const int64_t b = rest / in_h;
+  constexpr int RUN = kBwdRun, CPT = kBwdClasses;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_chunks = (num_classes + chunk - 1) / chunk;
+  int64_t blk = blockIdx.x;
+  const int ci = (int)(blk % n_chunks);
+  blk /= n_chunks;
+  const int ti = (int)(blk % n_tiles);
+  blk /= n_tiles;
+  const int bi = (int)(blk % n_bands);
+  const int64_t b = blk / n_bands;
+  const int c0 = ci * chunk, cn = min(chunk, num_classes - c0);
+  const int x0 = ti * tile_cols, y0 = bi * band_rows;
+  const int y_end = min(y0 + band_rows, in_h);
+  const AxisTile band = bands[bi], tile = tiles[ti];
+  const int n_rows = band.src_hi - band.src_lo + 1;
+  const int n_cols = tile.src_hi - tile.src_lo + 1;
+  const int row_len = n_cols * cn;  // a staged row: [column][class]
+  // stage_rows slots of staged rows, then one int per row: where its
+  // values start in the slots
+  T* stage = reinterpret_cast<T*>(smem);
+  int* row_base = reinterpret_cast<int*>(
+      smem + (size_t)stage_rows * slot * sizeof(T));
 
-    const T* base = logits + b * s_b + c * s_c;
-    const L* lab = labels + b * npix;
-    const float* ls = lse + b * npix;
-    const int y_start = tth.start[y], y_count = tth.count[y];
-    const int x_start = ttw.start[x], x_count = ttw.count[x];
-    const float* wy = tth.weight + (int64_t)y * tth.width;
-    const float* wx = ttw.weight + (int64_t)x * ttw.width;
-
-    float acc = 0.0f;
-    for (int ky = 0; ky < y_count; ++ky) {
-      const int yy = y_start + ky;
-      const T* r0 = base + th.i0[yy] * s_h;
-      const T* r1 = base + th.i1[yy] * s_h;
-      const float hw0 = th.w0[yy], hw1 = th.w1[yy];
-      float row_acc = 0.0f;
-      for (int kx = 0; kx < x_count; ++kx) {
-        const int xx = x_start + kx;
-        const int64_t o0 = tw.i0[xx] * s_w, o1 = tw.i1[xx] * s_w;
-        const float a0 = hw0 * to_f32(r0[o0]) + hw1 * to_f32(r1[o0]);
-        const float a1 = hw0 * to_f32(r0[o1]) + hw1 * to_f32(r1[o1]);
-        const float up = tw.w0[xx] * a0 + tw.w1[xx] * a1;
-        const int64_t q = (int64_t)yy * out_w + xx;
-        const float onehot = ((int64_t)lab[q] == c) ? 1.0f : 0.0f;
-        row_acc += wx[kx] * (expf(up - ls[q]) - onehot);
+  // 1. Stage source rows [src_lo, src_hi] of the band, columns [src_lo,
+  //    src_hi] of the tile, the chunk's classes.
+  const T* src = logits + b * s_b + (int64_t)tile.src_lo * s_w +
+                 (int64_t)c0 * s_c;
+  // one contiguous run per row: channels-last logits, all classes
+  const bool packed = s_c == 1 && s_w == num_classes && cn == num_classes;
+  const int tid = threadIdx.x;
+  for (int r = tid; r < n_rows; r += blockDim.x) {
+    int base = r * slot;
+    if (packed)
+      base += (int)((reinterpret_cast<uintptr_t>(
+                         src + (int64_t)(band.src_lo + r) * s_h) & 15) /
+                    sizeof(T));
+    row_base[r] = base;
+  }
+  __syncthreads();
+  if (n_cols > 0) {
+    if (packed) {  // 16-byte loads, the row's head and tail one by one
+      constexpr int v = 16 / (int)sizeof(T);
+      for (int r = 0; r < n_rows; ++r) {
+        const T* g = src + (int64_t)(band.src_lo + r) * s_h;
+        T* d = stage + row_base[r];
+        const int head = min(
+            row_len,
+            (int)((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) /
+                (int)sizeof(T));
+        const int n_vec = (row_len - head) / v;
+        const uint4* gv = reinterpret_cast<const uint4*>(g + head);
+        uint4* dv = reinterpret_cast<uint4*>(d + head);
+        for (int i = tid; i < n_vec; i += blockDim.x) dv[i] = __ldg(gv + i);
+        for (int i = tid; i < head; i += blockDim.x) d[i] = g[i];
+        for (int i = head + n_vec * v + tid; i < row_len; i += blockDim.x)
+          d[i] = g[i];
       }
-      acc += wy[ky] * row_acc;
+    } else {  // through the strides, the smaller of s_c and s_w fastest
+      const int total = n_rows * row_len;
+      const bool class_fastest = s_c <= s_w;
+      for (int i = tid; i < total; i += blockDim.x) {
+        int col, c;
+        if (class_fastest) {
+          c = i % cn;
+          col = (i / cn) % n_cols;
+        } else {
+          col = i % n_cols;
+          c = (i / n_cols) % cn;
+        }
+        const int r = i / row_len;
+        stage[row_base[r] + col * cn + c] =
+            src[(int64_t)(band.src_lo + r) * s_h + (int64_t)col * s_w +
+                (int64_t)c * s_c];
+      }
     }
-    store_f32(dlogits + b * d_b + y * d_h + x * d_w + c * d_c, acc * scale);
+  }
+  __syncthreads();
+
+  const int lanes = (cn + CPT - 1) / CPT;
+  const int lane = tid % lanes;
+  const int xa = x0 + (tid / lanes) * RUN;
+  if (xa >= min(x0 + tile_cols, in_w)) return;  // no barrier follows
+  // this thread's classes within the chunk; a class past the chunk reads
+  // the chunk's last one and is never stored
+  int cls[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) cls[k] = lane + k * lanes;
+
+  // Output columns whose first tap is xa - 1 + j: [xb[j], xb[j + 1]) (none
+  // for column -1), cut to the tile's outputs: the ones outside give these
+  // columns only zero weights.
+  int xb[RUN + 2];
+#pragma unroll
+  for (int j = 0; j < RUN + 2; ++j) {
+    const int col = min(max(xa - 1 + j, 0), in_w);
+    xb[j] = min(max(col_first[col], tile.out_lo), tile.out_hi);
+  }
+
+  const float scale = grad_out[0] * inv_n;
+  const L* lab_b = labels + b * (int64_t)out_h * out_w;
+  const float* lse_b = lse + b * (int64_t)out_h * out_w;
+  T* out = dlogits + b * d_b + (int64_t)c0 * d_c;
+
+  // Rows accumulate in ascending Y, as the parent order: acc0 holds row
+  // `row`, acc1 row + 1. Every output row reads source rows i0 and i0 + 1
+  // (or i0 alone at the clamped edge), and i0 does not fall as Y grows, so
+  // the rows below i0 are complete: they are stored (those of the band) and
+  // the accumulators shift up. Rows that no output reads leave as 0; the
+  // halo rows y0 - 1 and y_end are accumulated and never stored.
+  float acc0[CPT][RUN], acc1[CPT][RUN];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+#pragma unroll
+    for (int x = 0; x < RUN; ++x) acc0[k][x] = acc1[k][x] = 0.0f;
+  int row = y0 - 1;
+  for (int Y = band.out_lo;; ++Y) {
+    const bool done = Y >= band.out_hi;
+    const int i0 = done ? y_end : th.i0[Y];
+    for (; row < i0; ++row) {
+      if (row >= y0 && row < y_end) {
+#pragma unroll
+        for (int k = 0; k < CPT; ++k)
+#pragma unroll
+          for (int x = 0; x < RUN; ++x)
+            if (cls[k] < cn && xa + x < in_w)
+              store_f32(out + (int64_t)row * d_h + (int64_t)(xa + x) * d_w +
+                            (int64_t)cls[k] * d_c,
+                        acc0[k][x] * scale);
+      }
+#pragma unroll
+      for (int k = 0; k < CPT; ++k)
+#pragma unroll
+        for (int x = 0; x < RUN; ++x) {
+          acc0[k][x] = acc1[k][x];
+          acc1[k][x] = 0.0f;
+        }
+    }
+    if (done) break;
+    const int i1 = th.i1[Y];
+    const float hw0 = th.w0[Y], hw1 = th.w1[Y];
+    float g[CPT][RUN];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+#pragma unroll
+      for (int x = 0; x < RUN; ++x) g[k][x] = 0.0f;
+    // a tile that no output reads (downsampling) staged nothing and gets 0
+    if (n_cols > 0) {
+      // (a) this output row interpolated along H at columns xa - 1 ..
+      //     xa + RUN
+      const T* r0 = stage + row_base[i0 - band.src_lo];
+      const T* r1 = stage + row_base[i1 - band.src_lo];
+      float av[CPT][RUN + 2];
+#pragma unroll
+      for (int j = 0; j < RUN + 2; ++j) {
+        const int col = min(max(xa - 1 + j, tile.src_lo), tile.src_hi);
+#pragma unroll
+        for (int k = 0; k < CPT; ++k) {
+          const int o = (col - tile.src_lo) * cn + min(cls[k], cn - 1);
+          av[k][j] = hw0 * to_f32(r0[o]) + hw1 * to_f32(r1[o]);
+        }
+      }
+      // (b) + (c) each output column once: its softmax term, then its two
+      // weighted shares, each source column's in ascending X
+      const L* lab = lab_b + (int64_t)Y * out_w;
+      const float* ls = lse_b + (int64_t)Y * out_w;
+#pragma unroll
+      for (int j = 0; j <= RUN; ++j) {  // first tap xa - 1 + j
+        for (unsigned X = xb[j]; X < (unsigned)xb[j + 1]; ++X) {
+          const float2 ww = col_w[X];
+          const float lse_x = ls[X];
+          const int label = chunk_label(lab[X], c0, cn);
+#pragma unroll
+          for (int k = 0; k < CPT; ++k) {
+            const float up = ww.x * av[k][j] + ww.y * av[k][j + 1];
+            const float onehot = (label == cls[k]) ? 1.0f : 0.0f;
+            const float p = expf(up - lse_x) - onehot;
+            if (j > 0) g[k][j - 1] += ww.x * p;
+            if (j < RUN) g[k][j] += ww.y * p;
+          }
+        }
+      }
+    }
+    // (d) into the two source rows of this output row
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+#pragma unroll
+      for (int x = 0; x < RUN; ++x) acc0[k][x] += hw0 * g[k][x];
+    if (i1 != i0) {
+#pragma unroll
+      for (int k = 0; k < CPT; ++k)
+#pragma unroll
+        for (int x = 0; x < RUN; ++x) acc1[k][x] += hw1 * g[k][x];
+    }
   }
 }
 
@@ -260,39 +450,62 @@ extern "C" int pseg_softmax_ce_fwd(
   return (int)cudaGetLastError();
 }
 
+// Lets the kernel have `bytes` of dynamic shared memory: above 48 KB only
+// after this call, which is per device, so it is made at every such launch.
+template <typename T, typename L>
+cudaError_t allow_smem(int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(ce_bwd_band_kernel<T, L>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
 // dlogits has the logits' shape [B, in_h, in_w, C] and dtype, with its own
 // strides; grad_out is one f32 on the device (the cotangent of the mean
-// loss); inv_n = 1 / (B * out_h * out_w).
+// loss); inv_n = 1 / (B * out_h * out_w). The tiling comes from bwd_plan
+// (softmax_ce.py): bands / tiles int32 [n, 4] (AxisTile), col_first int32
+// [in_w + 1], col_w f32 [out_w, 2] (each output column's two tap weights),
+// the class chunk, the largest band's staged rows, the elements of a staged
+// row's slot, the dynamic shared memory in bytes and the block size.
 extern "C" int pseg_softmax_ce_bwd(
     const void* logits, int dtype, int batch, int in_h, int in_w,
     int num_classes, int64_t s_b, int64_t s_h, int64_t s_w, int64_t s_c,
     void* dlogits, int64_t d_b, int64_t d_h, int64_t d_w, int64_t d_c,
     int out_h, int out_w, const void* labels, int label_dtype,
     const void* lse, const void* h_i0, const void* h_i1, const void* h_w0,
-    const void* h_w1, const void* w_i0, const void* w_i1, const void* w_w0,
-    const void* w_w1, const void* ht_start, const void* ht_count,
-    const void* ht_weight, int ht_width, const void* wt_start,
-    const void* wt_count, const void* wt_weight, int wt_width,
-    const void* grad_out, float inv_n, void* stream) {
-  const int64_t total = (int64_t)batch * in_h * in_w * num_classes;
-  if (total == 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (int64_t)1 << 20) blocks = (int64_t)1 << 20;
+    const void* h_w1, const void* bands, int band_rows, int n_bands,
+    const void* tiles, int tile_cols, int n_tiles, const void* col_first,
+    const void* col_w, int chunk, int stage_rows, int slot, int smem_bytes,
+    int threads, const void* grad_out, float inv_n, void* stream) {
+  if (batch == 0) return 0;
+  const int elem = dtype == 0 ? 4 : 2;
+  if (chunk < 1 || band_rows < 1 || tile_cols < 1 || threads < 32 ||
+      threads > kBwdMaxThreads || threads % 32 != 0 ||
+      (int64_t)((chunk + kBwdClasses - 1) / kBwdClasses) *
+              ((tile_cols + kBwdRun - 1) / kBwdRun) >
+          threads ||
+      slot < 1 || slot * elem % 16 != 0 ||
+      (int64_t)stage_rows * (slot * elem + 4) > smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_chunks = (num_classes + chunk - 1) / chunk;
+  const int64_t blocks = (int64_t)batch * n_bands * n_tiles * n_chunks;
+  if (blocks >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Taps th = {(const int*)h_i0, (const int*)h_i1, (const float*)h_w0,
                    (const float*)h_w1};
-  const Taps tw = {(const int*)w_i0, (const int*)w_i1, (const float*)w_w0,
-                   (const float*)w_w1};
-  const TapsT tth = {(const int*)ht_start, (const int*)ht_count,
-                     (const float*)ht_weight, ht_width};
-  const TapsT ttw = {(const int*)wt_start, (const int*)wt_count,
-                     (const float*)wt_weight, wt_width};
-#define PSEG_BWD(T, L)                                                      \
-  ce_bwd_kernel<T, L><<<(unsigned)blocks, threads, 0, s>>>(                 \
-      (const T*)logits, s_b, s_h, s_w, s_c, (T*)dlogits, d_b, d_h, d_w,     \
-      d_c, in_h, in_w, num_classes, out_h, out_w, total, (const L*)labels,  \
-      (const float*)lse, th, tw, tth, ttw, (const float*)grad_out, inv_n)
+#define PSEG_BWD(T, L)                                                        \
+  do {                                                                        \
+    const cudaError_t e = allow_smem<T, L>(smem_bytes);                       \
+    if (e != cudaSuccess) return (int)e;                                      \
+    ce_bwd_band_kernel<T, L><<<(unsigned)blocks, threads, (size_t)smem_bytes, \
+                               s>>>(                                          \
+        (const T*)logits, s_b, s_h, s_w, s_c, (T*)dlogits, d_b, d_h, d_w, d_c, \
+        in_h, in_w, num_classes, out_h, out_w, (const L*)labels,              \
+        (const float*)lse, th, (const AxisTile*)bands, band_rows, n_bands,    \
+        (const AxisTile*)tiles, tile_cols, n_tiles, (const int*)col_first,    \
+        (const float2*)col_w, chunk, stage_rows, slot, (const float*)grad_out, \
+        inv_n);                                                               \
+  } while (0)
   PSEG_DISPATCH(PSEG_BWD)
 #undef PSEG_BWD
   return (int)cudaGetLastError();

@@ -6,8 +6,10 @@ ever writing `up` (port of pytorch_segmentation_tpu/ops/pallas/softmax_ce.py).
 On a CUDA tensor `fused_upsample_ce` goes through a `torch.autograd.Function`
 whose forward and backward launch the hand-written kernels in
 `csrc/softmax_ce.cu` (forward: one thread per output pixel, 2x2 tap gather,
-online logsumexp; backward: gather form over a transposed tap table, no
-atomics; see the note there for what bounds them). On a CPU tensor it runs
+online logsumexp; backward: bands of source rows staged in shared memory,
+each output pixel's softmax term computed once per band and gathered in
+the order of the matrix product, no atomics, tiled by `bwd_plan`; see the
+note there for what bounds them). On a CPU tensor it runs
 `upsample_ce_reference`, the plain PyTorch version that autograd
 differentiates and that the tests hold against the JAX package. There is no
 fallback from one to the other: a CUDA tensor gets the kernels or an
@@ -20,6 +22,7 @@ part of the fused path (nor is it in the JAX package's).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -28,11 +31,11 @@ import torch
 
 from ..resize import _interp_weights, resize_bilinear
 from .build import load_kernel_library
-from .upsample_argmax import _device_taps
+from .upsample_argmax import _device_taps, interp_taps
 
 __all__ = ["fused_upsample_ce", "fused_upsample_ce_per_sample",
-           "upsample_ce_reference", "interp_taps_transposed", "launch_count",
-           "reset_launch_count"]
+           "upsample_ce_reference", "interp_taps_transposed", "bwd_plan",
+           "launch_count", "reset_launch_count"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_CODE = {torch.int32: 0, torch.int64: 1}
@@ -94,10 +97,113 @@ def interp_taps_transposed(in_size: int, out_size: int, align_corners: bool):
     return table
 
 
+# The backward kernel's tiling (see the note in csrc/softmax_ce.cu). A block
+# covers one sample, a band of source rows, a tile of source columns and a
+# chunk of classes; a thread owns BWD_CLASSES_PER_THREAD classes of BWD_RUN
+# consecutive columns of the band.
+BWD_BAND_ROWS = 16          # the most source rows a band has
+BWD_RUN = 4                 # kBwdRun in softmax_ce.cu
+BWD_CLASSES_PER_THREAD = 3  # kBwdClasses in softmax_ce.cu
+BWD_MAX_THREADS = 256       # kBwdMaxThreads in softmax_ce.cu
+BWD_MAX_CHUNK = 32          # classes per block at most
+_SMEM_TWO_BLOCKS = 113 * 1024  # two blocks' worth of an SM's 228 KB
+# bands are halved until the grid has this many warps per SM: two waves of
+# the 16 an SM holds at the kernel's 128 registers a thread
+_FILL_WARPS_PER_SM = 32
+
+
+def _bwd_smem(stage_rows, stage_cols, chunk, elem_size):
+    """The backward block's dynamic shared memory: `stage_rows` slots of
+    `slot` elements, each whole 16-byte vectors with one spare vector (a
+    staged row starts at its source's offset modulo 16 bytes), then one int
+    per row (where its values start). -> (slot, bytes); the kernel reads
+    the layout from these two numbers."""
+    vec = 16 // elem_size
+    slot = -(-(stage_cols * chunk) // vec) * vec + vec
+    return slot, stage_rows * (slot * elem_size + 4)
+
+
+def _axis_tiles(in_size, out_size, align_corners, tile):
+    """Per tile of `tile` consecutive source indices: the output indices
+    [lo, hi) that read any of them, and the source indices [first, last]
+    that those outputs read, int32 [n, 4]; (0, 0, 0, -1) where no output
+    reads the tile (downsampling)."""
+    i0, i1, _, _ = interp_taps(in_size, out_size, align_corners)
+    start, count, _ = interp_taps_transposed(in_size, out_size, align_corners)
+    n = -(-in_size // tile)
+    table = np.zeros((n, 4), np.int32)
+    table[:, 3] = -1
+    for t in range(n):
+        part = slice(t * tile, min(in_size, (t + 1) * tile))
+        read = count[part] > 0
+        if read.any():
+            lo = int(start[part][read].min())
+            hi = int((start[part] + count[part])[read].max())
+            table[t] = (lo, hi, i0[lo:hi].min(), i1[lo:hi].max())
+    return table
+
+
+BwdPlan = collections.namedtuple("BwdPlan", [
+    "band_rows", "bands", "chunk", "tile_cols", "tiles", "col_first",
+    "col_w", "threads", "stage_rows", "slot", "smem_bytes"])
+
+
 @functools.lru_cache(maxsize=64)
-def _device_taps_transposed(in_size, out_size, align_corners, device):
-    return [torch.tensor(a, device=device)
-            for a in interp_taps_transposed(in_size, out_size, align_corners)]
+def bwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
+             band_rows=None, max_threads=BWD_MAX_THREADS,
+             max_chunk=BWD_MAX_CHUNK):
+    """How the backward kernel tiles logits [b, h, w, c] -> labels
+    [b, out_h, out_w] on a card with `sms` SMs: the row bands and column
+    tiles (`_axis_tiles`), the class chunk, `col_first` (int32 [w + 1]: the
+    first output column whose first tap is at or right of each source
+    column), `col_w` (f32 [out_w, 2]: each output column's tap weights), the
+    block size and the shared memory (`_bwd_smem`). Bands have
+    BWD_BAND_ROWS rows, halved until two blocks fit an SM and the grid
+    fills the card. Numpy tables; the kernel and the CPU model in the tests
+    both follow them. The kernel always runs the defaults; the CPU model
+    passes smaller `band_rows`, `max_threads` and `max_chunk` (a given
+    `band_rows` is only halved to fit) to reach ragged bands, tiles and
+    chunks at small shapes."""
+    chunk = c if c <= max_chunk else -(-c // -(-c // max_chunk))
+    lanes = -(-chunk // BWD_CLASSES_PER_THREAD)  # threads per run of columns
+    runs = -(-w // BWD_RUN)
+    per_block = max(1, max_threads // lanes)
+    tiles_n = -(-runs // per_block)
+    tile_cols = -(-runs // tiles_n) * BWD_RUN
+    i0_cols, _, w0_cols, w1_cols = interp_taps(w, out_w, align_corners)
+    col_first = np.searchsorted(i0_cols, np.arange(w + 1),
+                                side="left").astype(np.int32)
+    col_w = np.stack([w0_cols, w1_cols], axis=1)
+    tiles = _axis_tiles(w, out_w, align_corners, tile_cols)
+    stage_cols = max(1, int((tiles[:, 3] - tiles[:, 2] + 1).max()))
+    threads = -(-lanes * (tile_cols // BWD_RUN) // 32) * 32
+    blocks_per_band = b * len(tiles) * -(-c // chunk)
+    fill = band_rows is None
+    band_rows = band_rows or BWD_BAND_ROWS
+    while True:
+        bands = _axis_tiles(h, out_h, align_corners, band_rows)
+        stage_rows = max(1, int((bands[:, 3] - bands[:, 2] + 1).max()))
+        slot, smem = _bwd_smem(stage_rows, stage_cols, chunk, elem_size)
+        warps = blocks_per_band * len(bands) * (threads // 32)
+        if band_rows == 1 or (smem <= _SMEM_TWO_BLOCKS and not (
+                fill and warps < _FILL_WARPS_PER_SM * sms)):
+            break
+        band_rows //= 2
+    for a in (bands, tiles, col_first, col_w):
+        a.flags.writeable = False
+    return BwdPlan(band_rows, bands, chunk, tile_cols, tiles, col_first,
+                   col_w, threads, stage_rows, slot, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_bwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size,
+                     device):
+    """`bwd_plan` for `device`'s SM count and its tables on `device`, copied
+    there once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = bwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size, sms)
+    return plan, [torch.tensor(a, device=device) for a in (
+        plan.bands, plan.tiles, plan.col_first, plan.col_w)]
 
 
 @functools.lru_cache(maxsize=1)
@@ -111,8 +217,9 @@ def _kernel_fns():
     bwd = lib.pseg_softmax_ce_bwd
     bwd.restype = ctypes.c_int
     bwd.argtypes = ([ptr] + [i32] * 5 + [i64] * 4 + [ptr] + [i64] * 4
-                    + [i32, i32, ptr, i32, ptr] + [ptr] * 8
-                    + [ptr, ptr, ptr, i32] * 2 + [ptr, ctypes.c_float, ptr])
+                    + [i32, i32, ptr, i32, ptr] + [ptr] * 4
+                    + [ptr, i32, i32, ptr, i32, i32, ptr, ptr] + [i32] * 5
+                    + [ptr, ctypes.c_float, ptr])
     return fwd, bwd
 
 
@@ -189,9 +296,8 @@ def _launch_bwd(logits, labels, lse, grad_out, align_corners):
     out_h, out_w = labels.shape[1], labels.shape[2]
     dev = logits.device
     th = _device_taps(h, out_h, align_corners, dev)
-    tw = _device_taps(w, out_w, align_corners, dev)
-    tth = _device_taps_transposed(h, out_h, align_corners, dev)
-    ttw = _device_taps_transposed(w, out_w, align_corners, dev)
+    plan, (bands, tiles, col_first, col_w) = _device_bwd_plan(
+        b, h, w, c, out_h, out_w, align_corners, logits.element_size(), dev)
     dlogits = torch.empty_like(logits)  # dense logits keep their strides
     grad_out = grad_out.to(torch.float32).reshape(1).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -199,10 +305,11 @@ def _launch_bwd(logits, labels, lse, grad_out, align_corners):
         err = bwd(logits.data_ptr(), _DTYPE_CODE[logits.dtype], b, h, w, c,
                   *logits.stride(), dlogits.data_ptr(), *dlogits.stride(),
                   out_h, out_w, labels.data_ptr(), _LABEL_CODE[labels.dtype],
-                  lse.data_ptr(),
-                  *(t.data_ptr() for t in th), *(t.data_ptr() for t in tw),
-                  *(t.data_ptr() for t in tth), tth[2].shape[1],
-                  *(t.data_ptr() for t in ttw), ttw[2].shape[1],
+                  lse.data_ptr(), *(t.data_ptr() for t in th),
+                  bands.data_ptr(), plan.band_rows, len(plan.bands),
+                  tiles.data_ptr(), plan.tile_cols, len(plan.tiles),
+                  col_first.data_ptr(), col_w.data_ptr(), plan.chunk,
+                  plan.stage_rows, plan.slot, plan.smem_bytes, plan.threads,
                   grad_out.data_ptr(), 1.0 / (b * out_h * out_w), stream)
     if err != 0:
         raise RuntimeError(f"softmax_ce backward kernel launch failed: CUDA "

@@ -204,6 +204,118 @@ def test_kernel_arithmetic_matches_autograd_of_plain(shape, out_hw, align):
     torch.testing.assert_close(got_grad, want_grad, rtol=0, atol=1e-6)
 
 
+def _banded_arithmetic(logits, labels, align, **tiling):
+    """The backward kernel's arithmetic, in torch, block by block as
+    `bwd_plan` tiles it: per band of source rows (with the output rows of
+    its halo), tile of source columns and chunk of classes; per output row
+    the H-interpolated row `a`, then each output column's softmax term P,
+    then each source column's weighted share of P gathered in ascending X,
+    then only the rows inside the band. Entries no block writes stay NaN."""
+    b, h, w, c = logits.shape
+    out_h, out_w = labels.shape[1:]
+    plan = ce.bwd_plan(b, h, w, c, out_h, out_w, align, **tiling)
+    hi0, hi1, hw0, hw1 = interp_taps(h, out_h, align)
+    wi0, wi1, ww0, ww1 = (torch.from_numpy(np.array(a)).long() if k < 2
+                          else torch.from_numpy(np.array(a))
+                          for k, a in enumerate(interp_taps(w, out_w, align)))
+    x = logits.float()
+    a_all = (torch.from_numpy(np.array(hw0))[None, :, None, None]
+             * x[:, torch.from_numpy(np.array(hi0)).long()]
+             + torch.from_numpy(np.array(hw1))[None, :, None, None]
+             * x[:, torch.from_numpy(np.array(hi1)).long()])
+    up = (ww0[None, None, :, None] * a_all[:, :, wi0]
+          + ww1[None, None, :, None] * a_all[:, :, wi1])
+    lse = torch.logsumexp(up, dim=-1)
+    first = plan.col_first
+    dlogits = torch.full_like(x, float("nan"))
+    for bi, (y_lo, y_hi, _, _) in enumerate(plan.bands):
+        y0 = bi * plan.band_rows
+        y1 = min(h, y0 + plan.band_rows)
+        for ti, (x_lo, x_hi, _, _) in enumerate(plan.tiles):
+            x0 = ti * plan.tile_cols
+            x1 = min(w, x0 + plan.tile_cols)
+            if x_hi == x_lo:  # no output reads the tile
+                dlogits[:, y0:y1, x0:x1] = 0.0
+                continue
+            # per source column of the tile: its outputs in ascending X
+            # (first tap x - 1 with weight w1, then first tap x with w0),
+            # padded with weight 0
+            spans = [(max(first[max(col - 1, 0)], x_lo),
+                      min(first[col], x_hi), min(first[col + 1], x_hi))
+                     for col in range(x0, x1)]
+            width = max([1] + [hi_ - lo for lo, _, hi_ in spans])
+            idx = torch.zeros(x1 - x0, width, dtype=torch.long)
+            wt = torch.zeros(x1 - x0, width)
+            for j, (lo, mid, hi_) in enumerate(spans):
+                if x0 + j == 0:
+                    lo = max(first[0], x_lo)
+                for k, col_x in enumerate(range(lo, hi_)):
+                    idx[j, k] = col_x - x_lo
+                    wt[j, k] = ww1[col_x] if col_x < mid else ww0[col_x]
+            for c0 in range(0, c, plan.chunk):
+                cs = slice(c0, min(c, c0 + plan.chunk))
+                classes = torch.arange(c)[cs]
+                acc = torch.zeros(b, h + 1, x1 - x0, len(classes))
+                cols = torch.arange(x_lo, x_hi)
+                for yy in range(y_lo, y_hi):
+                    a = hw0[yy] * x[:, hi0[yy], :, cs] + hw1[yy] * x[
+                        :, hi1[yy], :, cs]
+                    row = (ww0[cols][None, :, None] * a[:, wi0[cols]]
+                           + ww1[cols][None, :, None] * a[:, wi1[cols]])
+                    onehot = (labels[:, yy, cols].long()[..., None]
+                              == classes).float()
+                    p = torch.exp(row - lse[:, yy, cols, None]) - onehot
+                    g = torch.zeros(b, x1 - x0, len(classes))
+                    for k in range(width):
+                        g = g + wt[None, :, k, None] * p[:, idx[:, k]]
+                    acc[:, hi0[yy]] += hw0[yy] * g
+                    if hi1[yy] != hi0[yy]:
+                        acc[:, hi1[yy]] += hw1[yy] * g
+                dlogits[:, y0:y1, x0:x1, cs] = acc[:, y0:y1]
+    return dlogits / (b * out_h * out_w)
+
+
+# name -> (logits shape, label (H, W), align_corners, bwd_plan tiling)
+BANDED_CASES = {
+    # 9 rows in bands of 4, 5 classes in chunks of 2, 11 columns in tiles
+    # of 8: none divides its axis
+    "ragged_align_true": ((2, 9, 11, 5), (33, 41), True,
+                          dict(band_rows=4, max_chunk=2, max_threads=4)),
+    "ragged_align_false": ((2, 9, 11, 5), (33, 41), False,
+                           dict(band_rows=4, max_chunk=2, max_threads=4)),
+    # chunks of one class: a thread's two other classes past the chunk
+    "one_class_a_thread": ((1, 7, 19, 7), (29, 31), False,
+                           dict(band_rows=3, max_chunk=1, max_threads=2)),
+    "downsampled_rows": ((1, 20, 9, 3), (7, 17), True,
+                         dict(band_rows=3, max_chunk=2, max_threads=4)),
+    "downsampled_both": ((1, 20, 30, 5), (7, 9), False, dict(band_rows=4)),
+    "one_source_row": ((2, 1, 6, 4), (5, 13), True,
+                       dict(band_rows=2, max_chunk=3, max_threads=8)),
+    "same_size": ((1, 6, 5, 3), (6, 5), True, dict(band_rows=4)),
+    # 60 columns down to 4 in tiles of 8: tiles 1, 3 and 6 are read by no
+    # output column
+    "tiles_no_output_reads": ((1, 3, 60, 4), (5, 4), True,
+                              dict(band_rows=2, max_chunk=4, max_threads=4)),
+    "defaults_c21": ((2, 17, 13, 21), (65, 49), True, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BANDED_CASES))
+def test_banded_arithmetic_matches_kernel_arithmetic_and_autograd(case):
+    shape, out_hw, align, tiling = BANDED_CASES[case]
+    logits, labels = _inputs(shape, out_hw, seed=9)
+    labels[0, 0, :2] = shape[-1]  # labels outside the classes
+    labels[-1, -1, -1] = -1
+    x, y = torch.from_numpy(logits), torch.from_numpy(labels)
+    got = _banded_arithmetic(x, y, align, **tiling)
+    assert not bool(got.isnan().any())  # every entry written by one block
+    _, want = _kernel_arithmetic(x, y, align)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    _, ref_grad = _torch_value_and_grad(
+        lambda v, t: ce.upsample_ce_reference(v, t, align), logits, labels)
+    torch.testing.assert_close(got, ref_grad, rtol=0, atol=1e-6)
+
+
 def test_wrapper_routes_and_checks():
     logits, labels = _inputs((2, 5, 7, 4), (17, 23))
     x = torch.from_numpy(logits).permute(0, 3, 1, 2).contiguous()

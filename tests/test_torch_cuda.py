@@ -153,6 +153,13 @@ def _ce_check(x, y, align):
     ((1, 1, 1, 3), (5, 7), False, torch.bfloat16, torch.uint8),
     ((3, 4, 5, 2), (4, 5), True, torch.float32, torch.int64),   # same size
     ((1, 20, 30, 21), (7, 9), True, torch.float32, torch.int32),  # downsample
+    # the backward's tiling: 45 rows in bands of 4 (the last of 1), 97
+    # classes in chunks of 25, 25, 25, 22
+    ((32, 45, 37, 97), (177, 145), False, torch.float32, torch.int32),
+    # rows and columns downsampled, 33 classes in chunks of 17 and 16
+    ((2, 40, 50, 33), (13, 17), True, torch.bfloat16, torch.int64),
+    # 150 classes at in_w 97 in f32 (58 KB a source row): chunks of 30
+    ((2, 33, 97, 150), (129, 385), True, torch.float32, torch.int32),
 ])
 def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
                                 label_dtype):
@@ -163,6 +170,27 @@ def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
     torch.testing.assert_close(
         per.mean(), ce.upsample_ce_reference(x.detach().float(), y, align),
         rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape,out_hw,dtype,tiled", [
+    # 200 columns in two tiles of 100: halo columns, each tile's outputs
+    ((2, 33, 200, 21), (129, 797), torch.bfloat16, "several_tiles"),
+    # 2000 columns down to 16 in 22 tiles of 92, 6 of them read by no
+    # output column (their gradient is 0, nothing staged)
+    ((1, 3, 2000, 32), (5, 16), torch.float32, "tiles_no_output_reads"),
+])
+def test_ce_backward_column_tiles_match_plain(device, shape, out_hw, dtype,
+                                              tiled):
+    x, y = _ce_inputs(shape, out_hw, dtype, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = ce.bwd_plan(*shape, *out_hw, True, x.element_size(), sms)
+    assert len(plan.tiles) > 1
+    unread = np.flatnonzero(plan.tiles[:, 3] < plan.tiles[:, 2])
+    assert (len(unread) > 0) == (tiled == "tiles_no_output_reads")
+    grad = _ce_check(x, y, True)
+    for t in unread:
+        cols = slice(t * plan.tile_cols, (t + 1) * plan.tile_cols)
+        assert not bool(grad[:, :, cols].any())
 
 
 def test_ce_labels_outside_the_classes(device):
