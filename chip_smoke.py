@@ -103,6 +103,10 @@ AGREEMENT = 0.999
 LOSS_RTOL = 1e-6
 GRAD_TOL = 1e-5
 BF16_2ULP = 2.0 ** -7
+# the forward kernel's lse against the plain f32 logsumexp of the upsampled
+# logits, absolute: both f32 with |lse| < 12 here; they differ by the online
+# recurrence against torch's and another interpolation order, a few ulps
+LSE_TOL = 1e-5
 # small_train_check, final tensors on the card against the CPU, relative to
 # each tensor's largest entry. The updates of convolutions that feed a
 # BatchNorm over 50 values per channel are sums that cancel: two f32 runs
@@ -283,9 +287,21 @@ def ce_case(name, shape, out_hw, dtype, align, device,
         raise AssertionError(f"{name}: dlogits differ by {grad_err} "
                              f"(largest entry {top})")
     del xr, ref, ref_grad, want, diff, allowed
+    # the forward kernel alone: lse against the plain per-pixel logsumexp
+    _, lse, _ = ce._launch_fwd(x.detach(), y, align, want_lse=True)
+    with torch.no_grad():
+        lse_ref = torch.logsumexp(resize_bilinear(
+            x.detach().float(), tuple(out_hw), align_corners=align), dim=-1)
+    torch.cuda.synchronize()
+    lse_err = float((lse - lse_ref).abs().max())
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"{name}: lse differs by {lse_err}")
+    del lse, lse_ref
 
     fwd_ms = cuda_median_ms(lambda: ce.fused_upsample_ce(
         x, y, align_corners=align))
+    fwd_kernel_ms = cuda_median_ms(lambda: ce._launch_fwd(
+        x.detach(), y, align, want_lse=True))
     bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(
         loss, x, retain_graph=True))
     # the backward kernel alone, on what the forward saves for it
@@ -327,7 +343,8 @@ def ce_case(name, shape, out_hw, dtype, align, device,
         out_hw=list(out_hw), dtype=str(dtype).replace("torch.", ""),
         logits_strides=list(x.stride()), align_corners=align,
         loss=loss_value, loss_abs_err=loss_err,
-        dlogits_max_abs_err=grad_err, dlogits_largest=top, fwd_ms=fwd_ms,
+        dlogits_max_abs_err=grad_err, dlogits_largest=top,
+        lse_max_abs_err=lse_err, fwd_ms=fwd_ms, fwd_kernel_ms=fwd_kernel_ms,
         bwd_ms=bwd_ms, bwd_kernel_ms=bwd_kernel_ms,
         plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
         plain_fwd_bwd_ms=plain_both_ms, fwd_bound_ms=fwd["bound_ms"],
@@ -336,6 +353,7 @@ def ce_case(name, shape, out_hw, dtype, align, device,
         plain_peak_mb=plain_mb)
     return {"strides": tuple(x.stride()),
             "fwd": {"max_abs_err": loss_err, "ms": fwd_ms,
+                    "kernel_ms": fwd_kernel_ms, "lse_max_abs_err": lse_err,
                     "plain_ms": plain_fwd_ms, **fwd, "library_ms": None},
             "bwd": {"max_abs_err": grad_err, "ms": bwd_ms,
                     "kernel_ms": bwd_kernel_ms, "plain_ms": plain_bwd_ms,
@@ -1903,6 +1921,18 @@ def main():
         raise AssertionError(f"{tiled} -> 797 columns: one column tile")
     ce_case("ce_column_tiles_w200", tiled, (129, 797), torch.bfloat16, True,
             device)
+    # the forward's bands of one row, 18 column tiles and 4 chunks of 36-38
+    # classes, the state of each pixel carried from chunk to chunk
+    chunked = (1, 4, 3000, 150)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ce.fwd_plan(*chunked, 6, 300, True, 4, sms)
+    if not (len(plan.bands) > 1 and len(plan.tiles) > 1
+            and plan.chunk < chunked[-1]):
+        raise AssertionError(f"{chunked} -> (6, 300): forward plan "
+                             f"{len(plan.bands)} bands, {len(plan.tiles)} "
+                             f"tiles, chunks of {plan.chunk}")
+    ce_case("ce_fwd_chunks_c150", chunked, (6, 300), torch.float32, True,
+            device)
 
     # 4 batches' worth of u8 images and labels in host memory
     dataset = MemoryDataset(4 * TRAIN_BATCH, np.random.default_rng(SEED + 6))
@@ -1947,11 +1977,18 @@ def main():
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/upsample_argmax.py:31",
          "launches": launches, **path},
+        # ms: the wrapper call; kernel_ms: _launch_fwd alone, with lse
         {"name": "softmax_ce_fwd", "route": "cuda", "source": ce_source,
-         "replaces": ce_replaces, "launches": ce_launches["fwd"],
-         **ce_path["fwd"]},
-        # ms: the backward through autograd (the forward's: the wrapper
-        # call); kernel_ms: the kernel alone on the forward's saved tensors
+         "replaces": ce_replaces,
+         "design": "ce_fwd_band_kernel: a band of output rows and a tile "
+                   "of output columns a block, the source rows they read "
+                   "staged in shared memory, each output row interpolated "
+                   "along H once per staged column and class, a thread per "
+                   "output column, the gather kernel's arithmetic (lse "
+                   "bit-equal), no atomics",
+         "launches": ce_launches["fwd"], **ce_path["fwd"]},
+        # ms: the backward through autograd; kernel_ms: the kernel alone on
+        # the forward's saved tensors
         {"name": "softmax_ce_bwd", "route": "cuda", "source": ce_source,
          "replaces": ce_replaces,
          "design": "ce_bwd_band_kernel: a band of source rows staged in "

@@ -19,15 +19,30 @@
 // of Mh and Mw has at most two nonzero entries, so a pixel gathers its 2x2
 // taps, and one forward and one backward kernel take any class count.
 //
-// Forward: one thread per output pixel. Per class, in f32, interpolate along
-// H in the two source columns, then along W (the order of Mh . L . Mw^T);
-// an online logsumexp walks the classes in ascending order; the label's
-// upsampled logit is picked by comparison, so a label outside [0, C) matches
-// no class and contributes a true logit of 0, as the TPU kernel's one-hot
-// compare does. Each block writes one partial sum (shuffle tree, fixed
-// order); a second small kernel adds a sample's partials in a fixed order.
-// No atomics: the loss is the same bits on every run. The forward also writes
-// lse [B, H, W] f32 for the backward unless the caller passes no buffer.
+// Forward, banded (ce_fwd_band_kernel): a block takes one sample, a band of
+// output rows and a tile of output columns, sized by fwd_plan in
+// softmax_ce.py, and a thread one output column of the tile. The block
+// stages the source rows and columns those outputs read in shared memory,
+// as the backward does (one staging routine serves both). For each output
+// row Y of the band, ascending, the block interpolates the staged rows along
+// H once per staged column and class, in f32, into a shared buffer (two of
+// them, by the parity of Y: one barrier a row). Then the thread of output
+// column X walks the classes in ascending order: interpolate along W from
+// that buffer and update an online logsumexp, without a branch (both
+// updates computed, one selected). The label's upsampled logit is computed
+// again after the loop with the same expression; a label outside [0, C)
+// matches no class and contributes a true logit of 0, as the TPU kernel's
+// one-hot compare does. Every value is the expression of the
+// one-thread-a-pixel gather kernel this one replaced, on the same operands
+// in the same order, so lse keeps its bits (and the backward, which reads
+// lse, its gradient). Where a staged row of every class does not fit, the
+// plan gives bands of one row and the block walks class chunks in
+// ascending order, restaging each and carrying each pixel's (max, sum, true
+// logit) in registers. Each block writes one partial sum (shuffle tree,
+// fixed order); a second small kernel adds a sample's partials in a fixed
+// order. No atomics: the loss is the same bits on every run. The forward
+// also writes lse [B, H, W] f32 for the backward unless the caller passes
+// no buffer.
 //
 // Backward, banded (ce_bwd_band_kernel): a block takes one sample, a band
 // of source rows, a tile of source columns and a chunk of classes, sized by
@@ -52,13 +67,19 @@
 // separably, needs 1.4 GFLOP of f32 arithmetic (20 us at 67 TFLOP/s). The
 // backward moves 22 + 34 + 34 MB in and 22 MB out (34 us) and needs 1.9
 // GFLOP (28 us). So the bound is tens of microseconds, by bytes, with the
-// operations close behind. On an NVIDIA H100 80GB HBM3 at 700 W the forward
-// takes ~0.6 ms (four tap loads and an exp per pixel and class) and the
-// backward 0.44-0.50 ms (tools/bench_ce_bwd.py). The backward computes each
-// softmax term 1.1-1.2x (a band's halo output rows) times 1.25x (output
-// columns between two threads' columns) as often as the function needs, and
-// spends ~22 instructions on each (the accurate expf, the tap products, the
-// label compare, the two shares): instruction issue bounds it, not bytes.
+// operations close behind. On an NVIDIA H100 80GB HBM3 at 700 W the
+// forward takes 0.28-0.30 ms and the backward 0.43-0.47 ms
+// (tools/bench_ce.py; PERF.md). The forward spends ~19 instructions on each
+// of the 177 M (pixel, class) terms: two shared loads, the W interpolation,
+// the accurate expf and the selects of the logsumexp step, plus ~0.26 H
+// interpolations a term (a staged column serves ~4 output columns). It runs
+// at ~60% of that issue bound; neither shared loads, nor a second pixel a
+// thread, nor idle lanes, nor the label and lse traffic moved it. The
+// backward computes each softmax term 1.1-1.2x (a band's halo output rows)
+// times 1.25x (output columns between two threads' columns) as often as the
+// function needs, and spends ~22 instructions on each (the accurate expf,
+// the tap products, the label compare, the two shares): instruction issue
+// bounds it, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,51 +121,6 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-template <typename T, typename L>
-__global__ void ce_fwd_kernel(
-    const T* __restrict__ logits, int64_t s_b, int64_t s_h, int64_t s_w,
-    int64_t s_c, int num_classes, int out_h, int out_w, int blocks_per_sample,
-    const L* __restrict__ labels, Taps th, Taps tw, float* __restrict__ lse_out,
-    float* __restrict__ partials) {
-  const int64_t b = blockIdx.x / blocks_per_sample;
-  const int chunk = blockIdx.x % blocks_per_sample;
-  const int64_t npix = (int64_t)out_h * out_w;
-  const int64_t p = (int64_t)chunk * blockDim.x + threadIdx.x;
-  float loss = 0.0f;
-  if (p < npix) {
-    const int x = (int)(p % out_w);
-    const int y = (int)(p / out_w);
-    const float hw0 = th.w0[y], hw1 = th.w1[y];
-    const float ww0 = tw.w0[x], ww1 = tw.w1[x];
-    const T* base = logits + b * s_b;
-    const T* p00 = base + th.i0[y] * s_h + tw.i0[x] * s_w;
-    const T* p01 = base + th.i0[y] * s_h + tw.i1[x] * s_w;
-    const T* p10 = base + th.i1[y] * s_h + tw.i0[x] * s_w;
-    const T* p11 = base + th.i1[y] * s_h + tw.i1[x] * s_w;
-    const int64_t label = (int64_t)labels[b * npix + p];
-
-    float m = -1e30f, s = 0.0f, true_logit = 0.0f;
-    for (int c = 0; c < num_classes; ++c) {
-      const int64_t o = c * s_c;
-      const float a0 = hw0 * to_f32(p00[o]) + hw1 * to_f32(p10[o]);
-      const float a1 = hw0 * to_f32(p01[o]) + hw1 * to_f32(p11[o]);
-      const float up = ww0 * a0 + ww1 * a1;
-      if (up > m) {  // new running max: rescale the sum
-        s = s * expf(m - up) + 1.0f;
-        m = up;
-      } else {
-        s += expf(up - m);
-      }
-      if (label == c) true_logit = up;
-    }
-    const float lse = m + logf(s);
-    if (lse_out != nullptr) lse_out[b * npix + p] = lse;
-    loss = lse - true_logit;
-  }
-  const float total = block_sum(loss);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
-}
-
 // sums[b] = sum of partials[b, :], one block per sample, fixed order.
 __global__ void ce_sum_kernel(const float* __restrict__ partials,
                               int blocks_per_sample,
@@ -167,12 +143,206 @@ __device__ __forceinline__ int chunk_label(int64_t v, int c0, int cn) {
   return d < (uint64_t)cn ? (int)d : -1;
 }
 
-// One tile of an axis (bwd_plan's tables, int32 [n, 4]): the output
-// indices [out_lo, out_hi) that read the tile's source indices, and the
-// source indices [src_lo, src_hi] those outputs read.
+// One tile of an axis (the plans' tables, int32 [n, 4]): output indices
+// [out_lo, out_hi) and the source indices [src_lo, src_hi] those outputs
+// read. bwd_plan tiles the source (the outputs are those that read the
+// tile's source indices), fwd_plan the output.
 struct AxisTile {
   int out_lo, out_hi, src_lo, src_hi;
 };
+
+// Stages rows [row_lo, row_lo + n_rows) of `src` (the logits of one sample,
+// already offset to the first staged column and class), columns [0,
+// n_cols), classes [0, cn), in shared memory: row r at stage + row_base[r],
+// [column][class]. A row's slot holds `slot` elements, a whole number of
+// 16-byte vectors (the plans' _stage_smem layout). Where a row is one
+// contiguous run (channels-last logits, every class staged) it is read in
+// 16-byte loads and placed at its source's offset modulo 16 bytes;
+// otherwise through the strides, the smaller of s_c and s_w fastest.
+// Called by every thread of the block; ends with a barrier.
+template <typename T>
+__device__ __forceinline__ void stage_band(
+    const T* __restrict__ src, int64_t s_h, int64_t s_w, int64_t s_c,
+    int num_classes, int row_lo, int n_rows, int n_cols, int cn, int slot,
+    T* stage, int* row_base) {
+  const bool packed = s_c == 1 && s_w == num_classes && cn == num_classes;
+  const int row_len = n_cols * cn;  // a staged row: [column][class]
+  const int tid = threadIdx.x;
+  for (int r = tid; r < n_rows; r += blockDim.x) {
+    int base = r * slot;
+    if (packed)
+      base += (int)((reinterpret_cast<uintptr_t>(
+                         src + (int64_t)(row_lo + r) * s_h) & 15) /
+                    sizeof(T));
+    row_base[r] = base;
+  }
+  __syncthreads();
+  if (n_cols > 0) {
+    if (packed) {  // 16-byte loads, the row's head and tail one by one
+      constexpr int v = 16 / (int)sizeof(T);
+      for (int r = 0; r < n_rows; ++r) {
+        const T* g = src + (int64_t)(row_lo + r) * s_h;
+        T* d = stage + row_base[r];
+        const int head = min(
+            row_len,
+            (int)((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) /
+                (int)sizeof(T));
+        const int n_vec = (row_len - head) / v;
+        const uint4* gv = reinterpret_cast<const uint4*>(g + head);
+        uint4* dv = reinterpret_cast<uint4*>(d + head);
+        for (int i = tid; i < n_vec; i += blockDim.x) dv[i] = __ldg(gv + i);
+        for (int i = tid; i < head; i += blockDim.x) d[i] = g[i];
+        for (int i = head + n_vec * v + tid; i < row_len; i += blockDim.x)
+          d[i] = g[i];
+      }
+    } else {  // through the strides, the smaller of s_c and s_w fastest
+      const int total = n_rows * row_len;
+      const bool class_fastest = s_c <= s_w;
+      for (int i = tid; i < total; i += blockDim.x) {
+        int col, c;
+        if (class_fastest) {
+          c = i % cn;
+          col = (i / cn) % n_cols;
+        } else {
+          col = i % n_cols;
+          c = (i / n_cols) % cn;
+        }
+        const int r = i / row_len;
+        stage[row_base[r] + col * cn + c] =
+            src[(int64_t)(row_lo + r) * s_h + (int64_t)col * s_w +
+                (int64_t)c * s_c];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The forward kernel's largest block (fwd_plan's threads): one thread for
+// each output column of a tile.
+constexpr int kFwdMaxThreads = 256;
+
+// One step of the online logsumexp: a new running max rescales the sum;
+// another class adds to it. Both sides are computed and one is selected, so
+// a warp's pixels do not diverge. The exp's operand is that of the
+// branching form `up > m ? s * expf(m - up) + 1 : s + expf(up - m)`:
+// fl(m - up) = -fl(up - m), and up > m exactly when up - m > 0.
+__device__ __forceinline__ void lse_step(float up, float& m, float& s) {
+  const bool new_max = up > m;
+  const float e = expf(-fabsf(up - m));
+  s = new_max ? s * e + 1.0f : s + e;
+  m = new_max ? up : m;
+}
+
+// Block: (sample, band of output rows, tile of output columns), decoded with
+// the tile fastest. Thread: output column tile.out_lo + threadIdx.x (the plan
+// gives no tile more columns than threads). Shared memory (fwd_plan's
+// layout): the staged rows as stage_band lays them out (stage_rows slots of
+// `slot` elements, then one int per row), then two f32 buffers of n_cols x
+// a_stride: an output row interpolated along H at every staged column and
+// class of the chunk, by the parity of Y. a_stride is odd, so a warp's
+// neighbouring pixels, which read ~9 neighbouring columns at one class, read
+// distinct banks or the same word.
+template <typename T, typename L>
+__global__ void __launch_bounds__(kFwdMaxThreads) ce_fwd_band_kernel(
+    const T* __restrict__ logits, int64_t s_b, int64_t s_h, int64_t s_w,
+    int64_t s_c, int num_classes, int out_h, int out_w,
+    const L* __restrict__ labels, Taps th, Taps tw,
+    const AxisTile* __restrict__ bands, int n_bands,
+    const AxisTile* __restrict__ tiles, int n_tiles, int chunk,
+    int stage_rows, int slot, int a_stride, float* __restrict__ lse_out,
+    float* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t blk = blockIdx.x;
+  const int ti = (int)(blk % n_tiles);
+  blk /= n_tiles;
+  const int bi = (int)(blk % n_bands);
+  const int64_t b = blk / n_bands;
+  const AxisTile band = bands[bi], tile = tiles[ti];
+  const int n_rows = band.src_hi - band.src_lo + 1;
+  const int n_cols = tile.src_hi - tile.src_lo + 1;
+  T* stage = reinterpret_cast<T*>(smem);
+  int* row_base = reinterpret_cast<int*>(
+      smem + (size_t)stage_rows * slot * sizeof(T));
+  float* rows_h = reinterpret_cast<float*>(row_base + stage_rows);
+  const int tid = threadIdx.x;
+  const int64_t npix = (int64_t)out_h * out_w;
+  const L* lab = labels + b * npix;
+  float* lse = lse_out == nullptr ? nullptr : lse_out + b * npix;
+
+  // this thread's output column: its two taps as offsets into an
+  // H-interpolated row, and their weights
+  const int X = tile.out_lo + tid;
+  const bool has_x = X < tile.out_hi;
+  int x0 = 0, x1 = 0;
+  float ww0 = 0.0f, ww1 = 0.0f;
+  if (has_x) {
+    x0 = (tw.i0[X] - tile.src_lo) * a_stride;
+    x1 = (tw.i1[X] - tile.src_lo) * a_stride;
+    ww0 = tw.w0[X];
+    ww1 = tw.w1[X];
+  }
+  const T* src = logits + b * s_b + (int64_t)tile.src_lo * s_w;
+  // step (a)'s share of this thread: staged columns a_col, a_col + a_lanes,
+  // ... at classes a_cls, a_cls + a_groups, ... of the chunk
+  const int a_lanes = min(n_cols, (int)blockDim.x);
+  const int a_groups = blockDim.x / a_lanes;
+  const int a_col = tid % a_lanes, a_cls = tid / a_lanes;
+  // one pixel's online logsumexp; with several chunks the band has one row,
+  // so the pixel's state carries from chunk to chunk
+  float m = -1e30f, s = 0.0f, true_logit = 0.0f, loss = 0.0f;
+  for (int c0 = 0; c0 < num_classes; c0 += chunk) {
+    const int cn = min(chunk, num_classes - c0);
+    // The previous chunk's last row ended in a barrier after every read
+    // of the staged rows, so they may be overwritten now.
+    stage_band(src + (int64_t)c0 * s_c, s_h, s_w, s_c, num_classes,
+               band.src_lo, n_rows, n_cols, cn, slot, stage, row_base);
+    // labels are read one row ahead: a row's work hides the next load
+    L lab_next = has_x ? lab[(int64_t)band.out_lo * out_w + X] : L(0);
+    for (int Y = band.out_lo; Y < band.out_hi; ++Y) {
+      const L lab_y = lab_next;
+      if (has_x && Y + 1 < band.out_hi)
+        lab_next = lab[(int64_t)(Y + 1) * out_w + X];
+      // (a) output row Y along H at every staged column and class. The
+      //     buffer of this parity was last read in row Y - 2, before the
+      //     barrier of row Y - 1.
+      float* a = rows_h + (Y & 1) * n_cols * a_stride;
+      const T* r0 = stage + row_base[th.i0[Y] - band.src_lo];
+      const T* r1 = stage + row_base[th.i1[Y] - band.src_lo];
+      const float hw0 = th.w0[Y], hw1 = th.w1[Y];
+      if (a_cls < a_groups)
+        for (int col = a_col; col < n_cols; col += a_lanes) {
+          const T* p0 = r0 + col * cn;
+          const T* p1 = r1 + col * cn;
+          float* q = a + col * a_stride;
+          for (int c = a_cls; c < cn; c += a_groups)
+            q[c] = hw0 * to_f32(p0[c]) + hw1 * to_f32(p1[c]);
+        }
+      __syncthreads();
+      // (b) pixel (Y, X) along W, class by class in ascending order
+      if (has_x) {
+        if (c0 == 0) {
+          m = -1e30f;
+          s = 0.0f;
+          true_logit = 0.0f;
+        }
+        const float* a0 = a + x0;
+        const float* a1 = a + x1;
+        for (int c = 0; c < cn; ++c)
+          lse_step(ww0 * a0[c] + ww1 * a1[c], m, s);
+        // the label's upsampled logit: the loop's expression again
+        const int label = chunk_label(lab_y, c0, cn);
+        if (label >= 0) true_logit = ww0 * a0[label] + ww1 * a1[label];
+        if (c0 + cn == num_classes) {
+          const float v = m + logf(s);
+          if (lse != nullptr) lse[(int64_t)Y * out_w + X] = v;
+          loss += v - true_logit;
+        }
+      }
+    }
+  }
+  const float total = block_sum(loss);
+  if (tid == 0) partials[blockIdx.x] = total;
+}
 
 // The backward kernel's largest block (bwd_plan's max_threads): with up to
 // 128 registers a thread, two blocks an SM.
@@ -216,7 +386,6 @@ __global__ void __launch_bounds__(kBwdMaxThreads, 2) ce_bwd_band_kernel(
   const AxisTile band = bands[bi], tile = tiles[ti];
   const int n_rows = band.src_hi - band.src_lo + 1;
   const int n_cols = tile.src_hi - tile.src_lo + 1;
-  const int row_len = n_cols * cn;  // a staged row: [column][class]
   // stage_rows slots of staged rows, then one int per row: where its
   // values start in the slots
   T* stage = reinterpret_cast<T*>(smem);
@@ -227,56 +396,9 @@ __global__ void __launch_bounds__(kBwdMaxThreads, 2) ce_bwd_band_kernel(
   //    src_hi] of the tile, the chunk's classes.
   const T* src = logits + b * s_b + (int64_t)tile.src_lo * s_w +
                  (int64_t)c0 * s_c;
-  // one contiguous run per row: channels-last logits, all classes
-  const bool packed = s_c == 1 && s_w == num_classes && cn == num_classes;
+  stage_band(src, s_h, s_w, s_c, num_classes, band.src_lo, n_rows, n_cols,
+             cn, slot, stage, row_base);
   const int tid = threadIdx.x;
-  for (int r = tid; r < n_rows; r += blockDim.x) {
-    int base = r * slot;
-    if (packed)
-      base += (int)((reinterpret_cast<uintptr_t>(
-                         src + (int64_t)(band.src_lo + r) * s_h) & 15) /
-                    sizeof(T));
-    row_base[r] = base;
-  }
-  __syncthreads();
-  if (n_cols > 0) {
-    if (packed) {  // 16-byte loads, the row's head and tail one by one
-      constexpr int v = 16 / (int)sizeof(T);
-      for (int r = 0; r < n_rows; ++r) {
-        const T* g = src + (int64_t)(band.src_lo + r) * s_h;
-        T* d = stage + row_base[r];
-        const int head = min(
-            row_len,
-            (int)((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) /
-                (int)sizeof(T));
-        const int n_vec = (row_len - head) / v;
-        const uint4* gv = reinterpret_cast<const uint4*>(g + head);
-        uint4* dv = reinterpret_cast<uint4*>(d + head);
-        for (int i = tid; i < n_vec; i += blockDim.x) dv[i] = __ldg(gv + i);
-        for (int i = tid; i < head; i += blockDim.x) d[i] = g[i];
-        for (int i = head + n_vec * v + tid; i < row_len; i += blockDim.x)
-          d[i] = g[i];
-      }
-    } else {  // through the strides, the smaller of s_c and s_w fastest
-      const int total = n_rows * row_len;
-      const bool class_fastest = s_c <= s_w;
-      for (int i = tid; i < total; i += blockDim.x) {
-        int col, c;
-        if (class_fastest) {
-          c = i % cn;
-          col = (i / cn) % n_cols;
-        } else {
-          col = i % n_cols;
-          c = (i / n_cols) % cn;
-        }
-        const int r = i / row_len;
-        stage[row_base[r] + col * cn + c] =
-            src[(int64_t)(band.src_lo + r) * s_h + (int64_t)col * s_w +
-                (int64_t)c * s_c];
-      }
-    }
-  }
-  __syncthreads();
 
   const int lanes = (cn + CPT - 1) / CPT;
   const int lane = tid % lanes;
@@ -416,20 +538,43 @@ __global__ void __launch_bounds__(kBwdMaxThreads, 2) ce_bwd_band_kernel(
     return (int)cudaErrorInvalidValue;                           \
   }
 
-// partials: f32 scratch [batch * blocks_per_sample] with blocks_per_sample =
-// ceil(out_h * out_w / 256); sums: f32 [batch]; lse: f32 [B, out_h, out_w] or
-// null when the caller wants the forward only.
+// Lets a kernel have `bytes` of dynamic shared memory: above 48 KB only
+// after this call, which is per device, so it is made at every such launch.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// The tiling comes from fwd_plan (softmax_ce.py): bands / tiles int32 [n, 4]
+// (AxisTile) of output rows / columns, the band's rows and the tile's
+// columns at most, the class chunk (below num_classes only with bands of
+// one row), the largest band's staged rows, the elements of a staged row's
+// slot, the f32 stride of a column in the H-interpolated rows, the dynamic
+// shared memory in bytes and the block size. partials: f32 scratch [batch *
+// n_bands * n_tiles]; sums: f32 [batch]; lse: f32 [B, out_h, out_w] or null
+// when the caller wants the forward only.
 extern "C" int pseg_softmax_ce_fwd(
     const void* logits, int dtype, int batch, int num_classes, int64_t s_b,
     int64_t s_h, int64_t s_w, int64_t s_c, int out_h, int out_w,
     const void* labels, int label_dtype, const void* h_i0, const void* h_i1,
     const void* h_w0, const void* h_w1, const void* w_i0, const void* w_i1,
-    const void* w_w0, const void* w_w1, void* lse, void* partials, void* sums,
-    void* stream) {
-  const int threads = 256;
-  const int64_t npix = (int64_t)out_h * out_w;
-  if (batch == 0 || npix == 0) return 0;
-  const int64_t bps = (npix + threads - 1) / threads;
+    const void* w_w0, const void* w_w1, const void* bands, int band_rows,
+    int n_bands, const void* tiles, int tile_cols, int n_tiles, int chunk,
+    int stage_rows, int slot, int a_stride, int smem_bytes, int threads,
+    void* lse, void* partials, void* sums, void* stream) {
+  if (batch == 0) return 0;
+  const int elem = dtype == 0 ? 4 : 2;
+  if (chunk < 1 || (chunk < num_classes && band_rows != 1) ||
+      band_rows < 1 || tile_cols < 1 || tile_cols > threads ||
+      threads < 32 || threads > kFwdMaxThreads || threads % 32 != 0 ||
+      a_stride < min(chunk, num_classes) || slot < 1 ||
+      slot * elem % 16 != 0 ||
+      (int64_t)stage_rows * (slot * elem + 4) > smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  const int64_t bps = (int64_t)n_bands * n_tiles;
   const int64_t blocks = bps * batch;
   if (blocks >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -437,27 +582,24 @@ extern "C" int pseg_softmax_ce_fwd(
                    (const float*)h_w1};
   const Taps tw = {(const int*)w_i0, (const int*)w_i1, (const float*)w_w0,
                    (const float*)w_w1};
-#define PSEG_FWD(T, L)                                                      \
-  ce_fwd_kernel<T, L><<<(unsigned)blocks, threads, 0, s>>>(                 \
-      (const T*)logits, s_b, s_h, s_w, s_c, num_classes, out_h, out_w,      \
-      (int)bps, (const L*)labels, th, tw, (float*)lse, (float*)partials)
+#define PSEG_FWD(T, L)                                                       \
+  do {                                                                       \
+    const cudaError_t e = allow_smem(ce_fwd_band_kernel<T, L>, smem_bytes);  \
+    if (e != cudaSuccess) return (int)e;                                     \
+    ce_fwd_band_kernel<T, L><<<(unsigned)blocks, threads,                    \
+                               (size_t)smem_bytes, s>>>(                     \
+        (const T*)logits, s_b, s_h, s_w, s_c, num_classes, out_h, out_w,     \
+        (const L*)labels, th, tw, (const AxisTile*)bands, n_bands,           \
+        (const AxisTile*)tiles, n_tiles, chunk, stage_rows, slot, a_stride,  \
+        (float*)lse, (float*)partials);                                      \
+  } while (0)
   PSEG_DISPATCH(PSEG_FWD)
 #undef PSEG_FWD
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ce_sum_kernel<<<(unsigned)batch, threads, 0, s>>>(
-      (const float*)partials, (int)bps, (float*)sums);
+  ce_sum_kernel<<<(unsigned)batch, 256, 0, s>>>((const float*)partials,
+                                                (int)bps, (float*)sums);
   return (int)cudaGetLastError();
-}
-
-// Lets the kernel have `bytes` of dynamic shared memory: above 48 KB only
-// after this call, which is per device, so it is made at every such launch.
-template <typename T, typename L>
-cudaError_t allow_smem(int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(ce_bwd_band_kernel<T, L>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
 }
 
 // dlogits has the logits' shape [B, in_h, in_w, C] and dtype, with its own
@@ -495,7 +637,7 @@ extern "C" int pseg_softmax_ce_bwd(
                    (const float*)h_w1};
 #define PSEG_BWD(T, L)                                                        \
   do {                                                                        \
-    const cudaError_t e = allow_smem<T, L>(smem_bytes);                       \
+    const cudaError_t e = allow_smem(ce_bwd_band_kernel<T, L>, smem_bytes);  \
     if (e != cudaSuccess) return (int)e;                                      \
     ce_bwd_band_kernel<T, L><<<(unsigned)blocks, threads, (size_t)smem_bytes, \
                                s>>>(                                          \

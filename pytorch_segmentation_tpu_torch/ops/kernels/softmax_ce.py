@@ -5,11 +5,14 @@ ever writing `up` (port of pytorch_segmentation_tpu/ops/pallas/softmax_ce.py).
 
 On a CUDA tensor `fused_upsample_ce` goes through a `torch.autograd.Function`
 whose forward and backward launch the hand-written kernels in
-`csrc/softmax_ce.cu` (forward: one thread per output pixel, 2x2 tap gather,
-online logsumexp; backward: bands of source rows staged in shared memory,
-each output pixel's softmax term computed once per band and gathered in
-the order of the matrix product, no atomics, tiled by `bwd_plan`; see the
-note there for what bounds them). On a CPU tensor it runs
+`csrc/softmax_ce.cu`. Both stage the source rows a block reads in shared
+memory. Forward (tiled by `fwd_plan`): a block per band of output rows and
+tile of output columns interpolates each output row along H once per staged
+column and class, then a thread per output column interpolates along W and
+runs an online logsumexp over the classes. Backward (tiled by `bwd_plan`):
+bands of source rows, each output pixel's softmax term computed once per
+band and gathered in the order of the matrix product. No atomics; see the
+note there for what bounds them. On a CPU tensor it runs
 `upsample_ce_reference`, the plain PyTorch version that autograd
 differentiates and that the tests hold against the JAX package. There is no
 fallback from one to the other: a CUDA tensor gets the kernels or an
@@ -34,12 +37,12 @@ from .build import load_kernel_library
 from .upsample_argmax import _device_taps, interp_taps
 
 __all__ = ["fused_upsample_ce", "fused_upsample_ce_per_sample",
-           "upsample_ce_reference", "interp_taps_transposed", "bwd_plan",
+           "upsample_ce_reference", "interp_taps_transposed", "fwd_plan",
+           "bwd_plan",
            "launch_count", "reset_launch_count"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_CODE = {torch.int32: 0, torch.int64: 1}
-_FWD_THREADS = 256  # ce_fwd_kernel's block size: sizes the partials buffer
 _launches = {"fwd": 0, "bwd": 0}
 
 
@@ -97,27 +100,31 @@ def interp_taps_transposed(in_size: int, out_size: int, align_corners: bool):
     return table
 
 
-# The backward kernel's tiling (see the note in csrc/softmax_ce.cu). A block
-# covers one sample, a band of source rows, a tile of source columns and a
-# chunk of classes; a thread owns BWD_CLASSES_PER_THREAD classes of BWD_RUN
-# consecutive columns of the band.
+# The kernels' tilings (see the note in csrc/softmax_ce.cu). A backward
+# block covers one sample, a band of source rows, a tile of source columns and
+# a chunk of classes; a thread owns BWD_CLASSES_PER_THREAD classes of BWD_RUN
+# consecutive columns of the band. A forward block covers one sample, a band
+# of output rows and a tile of output columns, a thread one output column.
 BWD_BAND_ROWS = 16          # the most source rows a band has
 BWD_RUN = 4                 # kBwdRun in softmax_ce.cu
 BWD_CLASSES_PER_THREAD = 3  # kBwdClasses in softmax_ce.cu
 BWD_MAX_THREADS = 256       # kBwdMaxThreads in softmax_ce.cu
 BWD_MAX_CHUNK = 32          # classes per block at most
+FWD_BAND_ROWS = 16          # the most output rows a band has
+FWD_MAX_THREADS = 256       # kFwdMaxThreads: the widest tile of columns
 _SMEM_TWO_BLOCKS = 113 * 1024  # two blocks' worth of an SM's 228 KB
 # bands are halved until the grid has this many warps per SM: two waves of
-# the 16 an SM holds at the kernel's 128 registers a thread
+# the 16 an SM holds at the backward's 128 registers a thread
 _FILL_WARPS_PER_SM = 32
 
 
-def _bwd_smem(stage_rows, stage_cols, chunk, elem_size):
-    """The backward block's dynamic shared memory: `stage_rows` slots of
-    `slot` elements, each whole 16-byte vectors with one spare vector (a
-    staged row starts at its source's offset modulo 16 bytes), then one int
-    per row (where its values start). -> (slot, bytes); the kernel reads
-    the layout from these two numbers."""
+def _stage_smem(stage_rows, stage_cols, chunk, elem_size):
+    """Both kernels' staged source rows in dynamic shared memory
+    (`stage_band` in the .cu): `stage_rows` slots of `slot` elements, each
+    whole 16-byte vectors with one spare vector (a staged row starts at its
+    source's offset modulo 16 bytes), then one int per row (where its values
+    start). -> (slot, bytes); the kernels read the layout from these two
+    numbers."""
     vec = 16 // elem_size
     slot = -(-(stage_cols * chunk) // vec) * vec + vec
     return slot, stage_rows * (slot * elem_size + 4)
@@ -157,7 +164,7 @@ def bwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
     tiles (`_axis_tiles`), the class chunk, `col_first` (int32 [w + 1]: the
     first output column whose first tap is at or right of each source
     column), `col_w` (f32 [out_w, 2]: each output column's tap weights), the
-    block size and the shared memory (`_bwd_smem`). Bands have
+    block size and the shared memory (`_stage_smem`). Bands have
     BWD_BAND_ROWS rows, halved until two blocks fit an SM and the grid
     fills the card. Numpy tables; the kernel and the CPU model in the tests
     both follow them. The kernel always runs the defaults; the CPU model
@@ -183,7 +190,7 @@ def bwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
     while True:
         bands = _axis_tiles(h, out_h, align_corners, band_rows)
         stage_rows = max(1, int((bands[:, 3] - bands[:, 2] + 1).max()))
-        slot, smem = _bwd_smem(stage_rows, stage_cols, chunk, elem_size)
+        slot, smem = _stage_smem(stage_rows, stage_cols, chunk, elem_size)
         warps = blocks_per_band * len(bands) * (threads // 32)
         if band_rows == 1 or (smem <= _SMEM_TWO_BLOCKS and not (
                 fill and warps < _FILL_WARPS_PER_SM * sms)):
@@ -206,6 +213,86 @@ def _device_bwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size,
         plan.bands, plan.tiles, plan.col_first, plan.col_w)]
 
 
+def _output_tiles(in_size, out_size, align_corners, tile):
+    """Per tile of `tile` consecutive output indices (the last one ragged):
+    the indices [lo, hi) and the source indices [first, last] they read,
+    int32 [n, 4]."""
+    i0, i1, _, _ = interp_taps(in_size, out_size, align_corners)
+    lo = np.arange(0, out_size, tile)
+    return np.stack([lo, np.minimum(lo + tile, out_size),
+                     np.minimum.reduceat(i0, lo),
+                     np.maximum.reduceat(i1, lo)], axis=1).astype(np.int32)
+
+
+FwdPlan = collections.namedtuple("FwdPlan", [
+    "band_rows", "bands", "tile_cols", "tiles", "chunk", "threads",
+    "stage_rows", "stage_cols", "slot", "a_stride", "smem_bytes"])
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
+             band_rows=None, tile_cols=None, max_chunk=None):
+    """How the forward kernel tiles logits [b, h, w, c] -> labels
+    [b, out_h, out_w] on a card with `sms` SMs: bands of output rows and
+    tiles of output columns (`_output_tiles`; the columns spread evenly
+    over the tiles), the class chunk, the block size (a thread per column
+    of a tile) and the shared memory: the staged rows (`_stage_smem`) and
+    two f32 buffers of `stage_cols` x `a_stride` (an output row interpolated
+    along H; `a_stride` the chunk made odd, for the banks). Bands have
+    FWD_BAND_ROWS rows and tiles FWD_MAX_THREADS columns, the rows halved,
+    then the columns, until two blocks fit an SM and the grid fills the card
+    (the backward's rule); a stage of every class that still does not fit
+    is cut into class chunks, and with several chunks a band has one row.
+    Numpy tables; the kernel and the CPU model in the tests both follow
+    them. The kernel always runs the defaults; the CPU model passes smaller
+    `band_rows`, `tile_cols` and `max_chunk` (each only ever cut further)
+    to reach ragged bands, tiles and chunks at small shapes."""
+    fill = band_rows is None and tile_cols is None
+    rows = band_rows or FWD_BAND_ROWS
+    cols = min(tile_cols or FWD_MAX_THREADS, FWD_MAX_THREADS)
+    n_chunks = 1 if max_chunk is None else -(-c // max_chunk)
+    while True:
+        chunk = -(-c // n_chunks)
+        if chunk < c:  # a pixel's state carries over chunks in registers
+            rows = 1
+        tile = -(-out_w // -(-out_w // cols))
+        bands = _output_tiles(h, out_h, align_corners, rows)
+        tiles = _output_tiles(w, out_w, align_corners, tile)
+        stage_rows = int((bands[:, 3] - bands[:, 2] + 1).max())
+        stage_cols = int((tiles[:, 3] - tiles[:, 2] + 1).max())
+        a_stride = chunk | 1
+        slot, staged = _stage_smem(stage_rows, stage_cols, chunk, elem_size)
+        smem = staged + 2 * stage_cols * a_stride * 4
+        threads = -(-tile // 32) * 32
+        warps = b * len(bands) * len(tiles) * (threads // 32)
+        fits = smem <= _SMEM_TWO_BLOCKS
+        if fits and not (fill and warps < _FILL_WARPS_PER_SM * sms):
+            break
+        if rows > 1:
+            rows //= 2
+        elif tile > 32:
+            cols = tile // 2
+        elif not fits and chunk > 1:
+            n_chunks += 1
+        else:
+            break
+    for a in (bands, tiles):
+        a.flags.writeable = False
+    return FwdPlan(rows, bands, tile, tiles, chunk, threads, stage_rows,
+                   stage_cols, slot, a_stride, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size,
+                     device):
+    """`fwd_plan` for `device`'s SM count and its tables on `device`, copied
+    there once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size, sms)
+    return plan, [torch.tensor(a, device=device)
+                  for a in (plan.bands, plan.tiles)]
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_fns():
     lib = load_kernel_library("softmax_ce")
@@ -213,7 +300,8 @@ def _kernel_fns():
     fwd = lib.pseg_softmax_ce_fwd
     fwd.restype = ctypes.c_int
     fwd.argtypes = ([ptr, i32, i32, i32] + [i64] * 4 + [i32, i32, ptr, i32]
-                    + [ptr] * 8 + [ptr] * 4)
+                    + [ptr] * 8 + [ptr, i32, i32, ptr] + [i32] * 8
+                    + [ptr] * 4)
     bwd = lib.pseg_softmax_ce_bwd
     bwd.restype = ctypes.c_int
     bwd.argtypes = ([ptr] + [i32] * 5 + [i64] * 4 + [ptr] + [i64] * 4
@@ -267,9 +355,10 @@ def _launch_fwd(logits, labels, align_corners, want_lse):
     dev = logits.device
     th = _device_taps(h, out_h, align_corners, dev)
     tw = _device_taps(w, out_w, align_corners, dev)
-    blocks_per_sample = -(-(out_h * out_w) // _FWD_THREADS)
-    partials = torch.empty((b, blocks_per_sample), dtype=torch.float32,
-                           device=dev)
+    plan, (bands, tiles) = _device_fwd_plan(
+        b, h, w, c, out_h, out_w, align_corners, logits.element_size(), dev)
+    partials = torch.empty((b, len(plan.bands) * len(plan.tiles)),
+                           dtype=torch.float32, device=dev)
     sums = torch.empty((b,), dtype=torch.float32, device=dev)
     lse = (torch.empty((b, out_h, out_w), dtype=torch.float32, device=dev)
            if want_lse else None)
@@ -279,6 +368,10 @@ def _launch_fwd(logits, labels, align_corners, want_lse):
                   *logits.stride(), out_h, out_w, labels.data_ptr(),
                   _LABEL_CODE[labels.dtype],
                   *(t.data_ptr() for t in th), *(t.data_ptr() for t in tw),
+                  bands.data_ptr(), plan.band_rows, len(plan.bands),
+                  tiles.data_ptr(), plan.tile_cols, len(plan.tiles),
+                  plan.chunk, plan.stage_rows, plan.slot, plan.a_stride,
+                  plan.smem_bytes, plan.threads,
                   lse.data_ptr() if want_lse else None, partials.data_ptr(),
                   sums.data_ptr(), stream)
     if err != 0:

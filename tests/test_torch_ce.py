@@ -155,7 +155,8 @@ def _kernel_arithmetic(logits, labels, align):
     """The CUDA kernels' arithmetic, in torch. Forward: per output pixel the
     2x2 taps (H first, then W), logsumexp over classes, the label's logit by
     comparison. Backward: per source pixel and class, the transposed tap
-    table's outputs, columns summed first, then rows."""
+    table's outputs, columns summed first, then rows. -> (loss, dlogits,
+    lse [B, H, W])."""
     b, h, w, c = logits.shape
     out_h, out_w = labels.shape[1:]
     hi0, hi1, hw0, hw1 = (torch.from_numpy(np.array(a))
@@ -184,7 +185,7 @@ def _kernel_arithmetic(logits, labels, align):
                        [None, None, :, None]).sum(2)
             dlogits[:, i, j] = (row_acc * torch.from_numpy(
                 yw[i, :yc[i]].copy())[None, :, None]).sum(1)
-    return loss, dlogits / (b * out_h * out_w)
+    return loss, dlogits / (b * out_h * out_w), lse
 
 
 @pytest.mark.parametrize("shape,out_hw", [
@@ -198,8 +199,8 @@ def test_kernel_arithmetic_matches_autograd_of_plain(shape, out_hw, align):
     labels[0, 0, 0] = shape[-1]  # one label outside the classes
     want, want_grad = _torch_value_and_grad(
         lambda x, y: ce.upsample_ce_reference(x, y, align), logits, labels)
-    got, got_grad = _kernel_arithmetic(torch.from_numpy(logits),
-                                       torch.from_numpy(labels), align)
+    got, got_grad, _ = _kernel_arithmetic(torch.from_numpy(logits),
+                                          torch.from_numpy(labels), align)
     np.testing.assert_allclose(float(got), want, rtol=1e-6)
     torch.testing.assert_close(got_grad, want_grad, rtol=0, atol=1e-6)
 
@@ -309,11 +310,158 @@ def test_banded_arithmetic_matches_kernel_arithmetic_and_autograd(case):
     x, y = torch.from_numpy(logits), torch.from_numpy(labels)
     got = _banded_arithmetic(x, y, align, **tiling)
     assert not bool(got.isnan().any())  # every entry written by one block
-    _, want = _kernel_arithmetic(x, y, align)
+    _, want, _ = _kernel_arithmetic(x, y, align)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     _, ref_grad = _torch_value_and_grad(
         lambda v, t: ce.upsample_ce_reference(v, t, align), logits, labels)
     torch.testing.assert_close(got, ref_grad, rtol=0, atol=1e-6)
+
+
+def _fwd_banded_arithmetic(logits, labels, align, **tiling):
+    """The forward kernel's arithmetic, in torch, block by block as
+    `fwd_plan` tiles it: per band of output rows and tile of output columns
+    the staged source rows and columns, then per class chunk (ascending)
+    each output row interpolated along H at every staged column, each pixel
+    along W, and the online logsumexp over the chunk's classes, its (max,
+    sum, true logit) carried from chunk to chunk. -> (lse [B, H, W], NaN
+    where no block wrote; how many blocks wrote each pixel; per-sample sums
+    of the blocks' partials in block order)."""
+    b, h, w, c = logits.shape
+    out_h, out_w = labels.shape[1:]
+    plan = ce.fwd_plan(b, h, w, c, out_h, out_w, align, **tiling)
+    hi0, hi1, hw0, hw1 = (torch.from_numpy(np.array(a))
+                          for a in interp_taps(h, out_h, align))
+    wi0, wi1, ww0, ww1 = (torch.from_numpy(np.array(a))
+                          for a in interp_taps(w, out_w, align))
+    x, lab = logits.float(), labels.long()
+    lse = torch.full((b, out_h, out_w), float("nan"))
+    writes = torch.zeros((b, out_h, out_w), dtype=torch.int64)
+    partials = []
+    for y_lo, y_hi, r_lo, r_hi in plan.bands:
+        ys = torch.arange(y_lo, y_hi)
+        for x_lo, x_hi, c_lo, c_hi in plan.tiles:
+            xs = torch.arange(x_lo, x_hi)
+            staged = x[:, r_lo:r_hi + 1, c_lo:c_hi + 1]
+            shape = (b, len(ys), len(xs))
+            m, s, t = torch.full(shape, -1e30), torch.zeros(shape), \
+                torch.zeros(shape)
+            for c0 in range(0, c, plan.chunk):
+                cs = slice(c0, min(c, c0 + plan.chunk))
+                a = (hw0[ys][None, :, None, None]
+                     * staged[:, (hi0[ys] - r_lo).long(), :, cs]
+                     + hw1[ys][None, :, None, None]
+                     * staged[:, (hi1[ys] - r_lo).long(), :, cs])
+                up = (ww0[xs][None, None, :, None]
+                      * a[:, :, (wi0[xs] - c_lo).long()]
+                      + ww1[xs][None, None, :, None]
+                      * a[:, :, (wi1[xs] - c_lo).long()])
+                block_lab = lab[:, y_lo:y_hi, x_lo:x_hi]
+                for k in range(up.shape[-1]):
+                    u = up[..., k]
+                    new_max = u > m
+                    s = torch.where(new_max, s * torch.exp(m - u) + 1.0,
+                                    s + torch.exp(u - m))
+                    m = torch.where(new_max, u, m)
+                    t = torch.where(block_lab == c0 + k, u, t)
+            pixel = m + torch.log(s)
+            lse[:, y_lo:y_hi, x_lo:x_hi] = pixel
+            writes[:, y_lo:y_hi, x_lo:x_hi] += 1
+            partials.append((pixel - t).sum((1, 2)))
+    return lse, writes, torch.stack(partials, 1).sum(1)
+
+
+# name -> (logits shape, label (H, W), align_corners, fwd_plan tiling)
+FWD_BANDED_CASES = {
+    # 33 output rows in bands of 4 (the last of 1), 41 columns in 3 tiles
+    # of 14 (the last of 13)
+    "ragged_align_true": ((2, 9, 11, 5), (33, 41), True,
+                          dict(band_rows=4, tile_cols=15)),
+    "ragged_align_false": ((2, 9, 11, 5), (33, 41), False,
+                           dict(band_rows=4, tile_cols=15)),
+    # 7 classes in chunks of 3, 3, 1 (bands of one row)
+    "class_chunks": ((1, 7, 19, 7), (29, 31), False,
+                     dict(tile_cols=8, max_chunk=3)),
+    "downsampled_rows": ((1, 20, 9, 3), (7, 17), True,
+                         dict(band_rows=3, tile_cols=5)),
+    "downsampled_both": ((1, 20, 30, 5), (7, 9), False,
+                         dict(band_rows=2, tile_cols=4, max_chunk=2)),
+    "one_source_row": ((2, 1, 6, 4), (5, 13), True,
+                       dict(band_rows=2, tile_cols=6)),
+    "same_size": ((1, 6, 5, 3), (6, 5), True, dict(band_rows=4)),
+    "defaults_c21": ((2, 17, 13, 21), (65, 49), True, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_BANDED_CASES))
+def test_fwd_banded_arithmetic_matches_kernel_arithmetic(case):
+    """The forward tiling against the per-pixel arithmetic it replaced and
+    the plain version: f32 on both sides, lse to 2e-6 (the online
+    logsumexp against torch.logsumexp of the same upsampled logits, |lse| <
+    10), the loss to 1e-6 relative (another summation order)."""
+    shape, out_hw, align, tiling = FWD_BANDED_CASES[case]
+    logits, labels = _inputs(shape, out_hw, seed=11)
+    labels[0, 0, :2] = shape[-1]  # labels outside the classes
+    labels[-1, -1, -1] = -1
+    x, y = torch.from_numpy(logits), torch.from_numpy(labels)
+    plan = ce.fwd_plan(*shape, *out_hw, align, **tiling)
+    if tiling:  # the tiling the case names is the one the model follows
+        assert (len(plan.bands) > 1 or shape[1] == 1 or out_hw[0] == 1)
+        assert (plan.chunk < shape[-1]) == ("max_chunk" in tiling)
+    got, writes, sums = _fwd_banded_arithmetic(x, y, align, **tiling)
+    assert bool((writes == 1).all())  # every pixel in exactly one block
+    want_loss, _, want_lse = _kernel_arithmetic(x, y, align)
+    torch.testing.assert_close(got, want_lse, rtol=0, atol=2e-6)
+    loss = float(sums.sum()) / (shape[0] * out_hw[0] * out_hw[1])
+    np.testing.assert_allclose(loss, float(want_loss), rtol=1e-6)
+    np.testing.assert_allclose(
+        loss, float(ce.upsample_ce_reference(x, y, align)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("args", [
+    (32, 129, 129, 21, 513, 513, True, 2),      # the path shape, bf16
+    (32, 129, 129, 21, 513, 513, True, 4),      # and f32
+    (2, 65, 97, 150, 257, 385, False, 2),
+    (32, 45, 37, 97, 177, 145, False, 4),
+    (1, 4, 3000, 150, 6, 300, True, 4),         # bands, tiles and chunks
+    (1, 3, 2000, 32, 5, 16, True, 4),           # columns downsampled 125x
+    (1, 1, 1, 1, 1, 1, True, 4),
+    (3, 4, 5, 2, 4, 5, True, 4),                # same size, an even chunk
+])
+def test_fwd_plan_covers_every_pixel_once_and_fits(args):
+    b, h, w, c, out_h, out_w, align, elem = args
+    plan = ce.fwd_plan(*args)
+    for table, size, step in ((plan.bands, out_h, plan.band_rows),
+                              (plan.tiles, out_w, plan.tile_cols)):
+        lo, hi = table[:, 0], table[:, 1]
+        # consecutive, ascending, each `step` long but the last: every
+        # output index in exactly one band (tile)
+        assert lo[0] == 0 and hi[-1] == size
+        assert np.array_equal(lo[1:], hi[:-1])
+        assert bool((hi - lo <= step).all() and (hi[:-1] - lo[:-1] == step)
+                    .all())
+    for table, n_in, n_out, staged in (
+            (plan.bands, h, out_h, plan.stage_rows),
+            (plan.tiles, w, out_w, plan.stage_cols)):
+        i0, i1, _, _ = interp_taps(n_in, n_out, align)
+        for lo, hi, first, last in table:
+            assert first <= i0[lo:hi].min() and i1[lo:hi].max() <= last
+            assert 0 <= first <= last < n_in and last - first < staged
+    assert plan.tile_cols <= plan.threads <= ce.FWD_MAX_THREADS
+    assert plan.threads % 32 == 0
+    assert plan.a_stride % 2 == 1 and plan.a_stride >= plan.chunk
+    assert plan.chunk == c or plan.band_rows == 1
+    slot, staged = ce._stage_smem(plan.stage_rows, plan.stage_cols,
+                                  plan.chunk, elem)
+    assert plan.slot == slot and plan.slot * elem % 16 == 0
+    assert plan.smem_bytes == staged + 8 * plan.stage_cols * plan.a_stride
+    assert plan.smem_bytes <= ce._SMEM_TWO_BLOCKS
+    if args[:7] == (32, 129, 129, 21, 513, 513, True):
+        # bands of 16 rows, 513 columns in 3 tiles of 171, every class
+        assert (plan.band_rows, len(plan.tiles), plan.tile_cols,
+                plan.chunk) == (16, 3, 171, 21)
+    if args[2] == 3000:
+        assert len(plan.bands) > 1 and len(plan.tiles) > 1
+        assert plan.chunk < c
 
 
 def test_wrapper_routes_and_checks():

@@ -1,10 +1,11 @@
 """PyTorch port on the card: the hand-written kernels (upsample+argmax;
-upsample+cross-entropy forward and backward; the augmentation warp's row
-resampler; upsample+argmax+confusion counts; the fused 1x1 forward, dx and
-dW; the channels-major product; the Hopper loop's product with each operand
-K-major or MN-major) against their plain PyTorch versions at edge shapes, and the small model (served, trained, evaluated)
-against the CPU. Skips without a CUDA device. On the card (no jax there, so without the
-JAX-side conftest):
+upsample+cross-entropy forward, its loss and lse, and backward; the
+augmentation warp's row resampler; upsample+argmax+confusion counts; the
+fused 1x1 forward, dx and dW; the channels-major product; the Hopper loop's
+product with each operand K-major or MN-major) against their plain PyTorch
+versions at edge shapes, and the small model (served, trained, evaluated)
+against the CPU. Skips without a CUDA device. On the card (no jax there, so
+without the JAX-side conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -144,6 +145,32 @@ def _ce_check(x, y, align):
     return grad
 
 
+# lse from the forward kernel against the plain f32 logsumexp of the
+# upsampled logits: both f32 with |lse| < 12, they differ by the online
+# recurrence against torch's, and another interpolation order: a few ulps
+LSE_TOL = 1e-5
+
+
+def _lse_check(x, y, align):
+    """The forward kernel alone: lse against the plain per-pixel
+    logsumexp, the per-sample sums against the plain per-pixel losses (1e-5
+    relative: f32 sums of up to 263,169 pixels in another order). ->
+    (sums, lse)."""
+    before = ce.launch_count()["fwd"]
+    sums, lse, _ = ce._launch_fwd(x.detach(), y, align, want_lse=True)
+    assert ce.launch_count()["fwd"] == before + 1
+    up = resize_bilinear(x.detach().float(), tuple(y.shape[1:]),
+                         align_corners=align)
+    want = torch.logsumexp(up, dim=-1)
+    del up
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= LSE_TOL
+    per_pixel = ce._per_pixel_reference(x.detach(), y, align)
+    torch.testing.assert_close(sums, per_pixel.sum(dim=(1, 2)), rtol=1e-5,
+                               atol=0)
+    return sums, lse
+
+
 @pytest.mark.parametrize("shape,out_hw,align,dtype,label_dtype", [
     ((32, 129, 129, 21), (513, 513), True, torch.bfloat16, torch.int32),
     ((32, 129, 129, 21), (513, 513), True, torch.float32, torch.int64),
@@ -170,6 +197,48 @@ def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
     torch.testing.assert_close(
         per.mean(), ce.upsample_ce_reference(x.detach().float(), y, align),
         rtol=1e-5, atol=0)
+    sums, _ = _lse_check(x, y, align)
+    assert torch.equal(per, sums / (out_hw[0] * out_hw[1]))
+
+
+@pytest.mark.parametrize("shape,out_hw,dtype,chunks", [
+    # 6 bands of one row, 300 columns in 18 tiles of 17 (each reading ~170
+    # source columns), 150 classes in chunks of 38, 38, 38, 36
+    ((1, 4, 3000, 150), (6, 300), torch.float32, 4),
+    # bf16, 2 samples: 2 chunks of 75
+    ((2, 4, 1500, 150), (6, 300), torch.bfloat16, 2),
+    # every class in one chunk, staged in 16-byte loads: at batch 2 the
+    # grid fills the card with bands of 4 rows, 3 tiles of 171 columns
+    ((2, 129, 129, 21), (513, 513), torch.bfloat16, 1),
+])
+def test_ce_forward_bands_tiles_and_chunks_match_plain(device, shape, out_hw,
+                                                       dtype, chunks):
+    x, y = _ce_inputs(shape, out_hw, dtype, device)
+    y[0, 0, :3] = shape[-1]  # labels outside the classes
+    y[-1, -1, -2:] = -1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = ce.fwd_plan(*shape, *out_hw, True, x.element_size(), sms)
+    assert len(plan.bands) > 1 and len(plan.tiles) > 1
+    assert -(-shape[-1] // plan.chunk) == chunks
+    _ce_check(x, y, True)
+    _lse_check(x, y, True)
+
+
+def test_ce_forward_is_bit_reproducible_and_reads_strides(device):
+    """Two launches give the same lse and per-sample sums, and the NCHW
+    memory seen through strides (staged element by element) gives the bits
+    of the contiguous logits (staged in 16-byte loads)."""
+    for shape, out_hw, dtype in (
+            ((4, 33, 33, 21), (129, 129), torch.bfloat16),
+            ((1, 4, 3000, 150), (6, 300), torch.float32)):
+        x, y = _ce_inputs(shape, out_hw, dtype, device)
+        x = x.detach()
+        sums, lse, _ = ce._launch_fwd(x, y, True, want_lse=True)
+        again, lse_again, _ = ce._launch_fwd(x, y, True, want_lse=True)
+        assert torch.equal(again, sums) and torch.equal(lse_again, lse)
+        view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        sums_v, lse_v, _ = ce._launch_fwd(view, y, True, want_lse=True)
+        assert torch.equal(sums_v, sums) and torch.equal(lse_v, lse)
 
 
 @pytest.mark.parametrize("shape,out_hw,dtype,tiled", [
@@ -385,6 +454,32 @@ def _eval_check(x, y, valid, align):
         assert g.dtype == torch.float32 and g.shape == (x.shape[-1],)
         assert torch.equal(g, w) and torch.equal(g, a)
     return got
+
+
+# lse from the forward kernel against the plain f32 logsumexp of the
+# upsampled logits: both f32 with |lse| < 12, they differ by the online
+# recurrence against torch's, and another interpolation order: a few ulps
+LSE_TOL = 1e-5
+
+
+def _lse_check(x, y, align):
+    """The forward kernel alone: lse against the plain per-pixel
+    logsumexp, the per-sample sums against the plain per-pixel losses (1e-5
+    relative: f32 sums of up to 263,169 pixels in another order). ->
+    (sums, lse)."""
+    before = ce.launch_count()["fwd"]
+    sums, lse, _ = ce._launch_fwd(x.detach(), y, align, want_lse=True)
+    assert ce.launch_count()["fwd"] == before + 1
+    up = resize_bilinear(x.detach().float(), tuple(y.shape[1:]),
+                         align_corners=align)
+    want = torch.logsumexp(up, dim=-1)
+    del up
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= LSE_TOL
+    per_pixel = ce._per_pixel_reference(x.detach(), y, align)
+    torch.testing.assert_close(sums, per_pixel.sum(dim=(1, 2)), rtol=1e-5,
+                               atol=0)
+    return sums, lse
 
 
 @pytest.mark.parametrize("shape,out_hw,align,dtype,label_dtype", [
