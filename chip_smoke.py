@@ -60,7 +60,8 @@ from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
 from pytorch_segmentation_tpu_torch.engine import test as run_eval
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.engine.steps import (make_eval_step,
-                                                         nhwc_forward)
+                                                         nhwc_forward,
+                                                         require_eval_mode)
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import (_tile_offsets,
                                                       make_mask_fn,
@@ -527,15 +528,16 @@ def eval_case(name, shape, out_hw, dtype, align, device, valid=None,
         labels_outside=outside, max_abs_err=err, equal=True,
         two_launches_bit_equal=True, ms=ms, launch_only_ms=launch_ms,
         plain_ms=plain_ms, **least)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
-            "library_ms": None}
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": launch_ms,
+            "plain_ms": plain_ms, **least, "library_ms": None}
 
 
 def eval_cases(device):
     """The path shape (what `test()` hands the kernel at batch 32) with every
     sample valid, with a count of 20, with a mask that has holes, in f32 and
     from NCHW memory; a ragged 150-class shape with align_corners=False,
-    int64 labels, a planted tie and labels of 255; 81 classes."""
+    int64 labels, a planted tie and labels of 255; 81 classes; bands of one
+    row, column tiles and class chunks."""
     shape, out_hw = (EVAL_BATCH, 129, 129, NUM_CLASSES), (IMG, IMG)
     path = eval_case("eval_path_bf16", shape, out_hw, torch.bfloat16, True,
                      device)
@@ -552,6 +554,18 @@ def eval_cases(device):
               tie=(3, 7), outside_rows=5)
     eval_case("eval_c81_f32", (2, 33, 33, 81), (129, 129), torch.float32,
               True, device)
+    # bands of one row, 18 column tiles and 4 chunks of 37-38 classes: each
+    # pixel's (best, pred) carried from chunk to chunk
+    chunked = (1, 4, 3000, 150)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ec.eval_plan(*chunked, 6, 300, True, 4, sms)
+    if not (len(plan.bands) > 1 and len(plan.tiles) > 1
+            and plan.chunk < chunked[-1]):
+        raise AssertionError(f"{chunked} -> (6, 300): eval plan "
+                             f"{len(plan.bands)} bands, {len(plan.tiles)} "
+                             f"tiles, chunks of {plan.chunk}")
+    eval_case("eval_chunks_c150", chunked, (6, 300), torch.float32, True,
+              device, outside_rows=1)
     return path
 
 
@@ -1097,11 +1111,23 @@ def serve_phase(device):
         best = min(best, (time.perf_counter() - t1) / 10)
     if out.shape != (BATCH, IMG, IMG):
         raise AssertionError(f"mask shape {tuple(out.shape)}")
+    # the eval-mode check, host clock, us per call over 1000: over the
+    # modules taken once (each mask function's call) and walking
+    # model.modules() (each eval and predict step's call)
+    modules = tuple(model.modules())
+    check_us = []
+    for walk in (lambda: modules, model.modules):
+        t1 = time.perf_counter()
+        for _ in range(1000):
+            require_eval_mode(walk(), "serving")
+        check_us.append(1e3 * (time.perf_counter() - t1))
     log("serve", requests=len(imgs), burst_s=burst_s,
         request_latency_ms_median=1e3 * statistics.median(lat),
         launches=launches, classes_present=n_classes,
         batches=server.stats["batches"], burst_batches=len(burst_batches),
-        images_per_s_batch8=BATCH / best, ms_per_batch8=1e3 * best)
+        images_per_s_batch8=BATCH / best, ms_per_batch8=1e3 * best,
+        modules=len(modules), eval_mode_check_us=check_us[0],
+        eval_mode_check_walk_us=check_us[1])
     return launches
 
 
@@ -2003,10 +2029,19 @@ def main():
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/banded_resample.py:60",
          "launches": resample_launches, **resample_path},
+        # ms: the wrapper call; kernel_ms: _launch (the zeroed count buffer
+        # and the kernel)
         {"name": "eval_confusion", "route": "cuda",
          "source": "pytorch_segmentation_tpu_torch/csrc/eval_confusion.cu",
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/eval_confusion.py:29",
+         "design": "eval_band_kernel: a band of output rows and a tile of "
+                   "output columns a block, the source rows they read "
+                   "staged in shared memory (stage_band), each output row "
+                   "interpolated along H once per staged column and class, "
+                   "a thread per output column, the gather kernel's "
+                   "arithmetic and select-form argmax (counts equal), "
+                   "warp-grouped shared-memory counts",
          "launches": eval_launches["eval_confusion"], **eval_path},
         # ms, plain_ms, bound_ms, library_ms at (N, K, M) = `shape`, a
         # stage-1 shape of the step; `second_shape` has a stage-4 shape's

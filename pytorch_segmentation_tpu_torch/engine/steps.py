@@ -44,7 +44,7 @@ from ..ops.tta import normalize_tta_scales, tta_logits
 
 __all__ = ["TrainState", "create_train_state", "make_train_step",
            "sample_valid_mask", "nhwc_forward", "tiled_logits",
-           "make_eval_step", "make_predict_step"]
+           "require_eval_mode", "make_eval_step", "make_predict_step"]
 
 
 @dataclasses.dataclass
@@ -61,6 +61,18 @@ class TrainState:
     micro_step: int = 0
     grad_acc: list | None = None
     ema_params: dict | None = None
+
+
+def require_eval_mode(modules, what: str) -> None:
+    """Raise a ValueError naming `what` if any of `modules` (a model's
+    `.modules()`, or a tuple of them taken once) is in train mode. A
+    module's own flag is not enough: a shallow copy (the Trainer's stride-4
+    twin) shares its children, so a train step on the copy puts them back
+    in train mode while the module's own flag stays False."""
+    if any(m.training for m in modules):
+        raise ValueError(f"{what} needs an eval-mode module: a submodule is "
+                         f"in train mode (BatchNorm would normalize by the "
+                         f"batch)")
 
 
 def _trainable(model):
@@ -244,9 +256,7 @@ def make_eval_step(num_classes: int, align_corners: bool = True,
         if quant_stats is not None:
             raise NotImplementedError("calibrated int8 evaluation is not "
                                       "ported yet (ROADMAP: quant.py)")
-        if model.training:
-            raise ValueError("the eval step needs an eval-mode module "
-                             "(BatchNorm would normalize by the batch)")
+        require_eval_mode(model.modules(), "the eval step")
         fwd = nhwc_forward(model)
 
         def averaged(x):
@@ -326,8 +336,7 @@ def make_predict_step(align_corners: bool = True, use_kernels: bool = True):
 
     @torch.inference_mode()
     def predict(model: torch.nn.Module, images: torch.Tensor, out_hw):
-        if model.training:
-            raise ValueError("the predict step needs an eval-mode module")
+        require_eval_mode(model.modules(), "the predict step")
         logits = nhwc_forward(model)(images)
         out_hw = (int(out_hw[0]), int(out_hw[1]))
         if tuple(logits.shape[1:3]) == out_hw:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .data.pipeline import normalize_images
-from .engine.steps import nhwc_forward
+from .engine.steps import nhwc_forward, require_eval_mode
 from .ops.kernels.upsample_argmax import fused_upsample_argmax
 from .ops.resize import resize_bilinear
 from .ops.tta import normalize_tta_scales, tta_logits
@@ -52,7 +52,8 @@ def make_mask_fn(model: torch.nn.Module, out_hw=None,
     normalization. tta_flip=True averages the logits with those of a second
     forward on the horizontally flipped batch before the upsample+argmax;
     tta_scales adds forwards at other input scales (ops/tta.py), composing
-    with the flip."""
+    with the flip. Each call raises a ValueError if any submodule of `model`
+    is in train mode."""
     if mesh is not None:
         raise NotImplementedError("multi-card serving is not ported yet "
                                   "(ROADMAP: parallel/)")
@@ -60,9 +61,11 @@ def make_mask_fn(model: torch.nn.Module, out_hw=None,
     align = getattr(model, "up_align_corners", True)
     tta_scales = normalize_tta_scales(tta_scales)
     fwd = nhwc_forward(model)
+    modules = tuple(model.modules())  # each call checks their flags
 
     @torch.inference_mode()
     def fn(images_u8):
+        require_eval_mode(modules, "make_mask_fn")
         x = prepare(images_u8)
         hw = (tuple(int(s) for s in out_hw) if out_hw is not None
               else (x.shape[1], x.shape[2]))
@@ -124,6 +127,7 @@ def make_tiled_mask_fn(model: torch.nn.Module, tile_hw=(513, 513),
     th, tw = int(tile_hw[0]), int(tile_hw[1])
     tta_scales = normalize_tta_scales(tta_scales)
     fwd = nhwc_forward(model)
+    modules = tuple(model.modules())  # each call checks their flags
 
     def fwd_tile(x):
         logits = tta_logits(fwd, x, scales=tta_scales, flip=tta_flip,
@@ -132,6 +136,7 @@ def make_tiled_mask_fn(model: torch.nn.Module, tile_hw=(513, 513),
 
     @torch.inference_mode()
     def fn(images_u8):
+        require_eval_mode(modules, "make_tiled_mask_fn")
         x = prepare(images_u8)
         h, w = x.shape[1:3]
         x = F.pad(x, (0, 0, 0, max(w, tw) - w, 0, max(h, th) - h))

@@ -3,7 +3,8 @@
 Each `.cu` file exposes a plain C interface (no PyTorch headers), so one
 nvcc call builds it in seconds. The shared library goes to `build/kernels/`
 at the root of the checkout (listed in `.gitignore`), under a name that
-carries a hash of the source and the flags: an edited source is rebuilt and
+carries a hash of the source, of every header in `csrc/` (`*.cuh`, which the
+sources include) and of the flags: an edited source or header is rebuilt and
 never confused with an old library. Building happens at the first call of a
 kernel's wrapper, never at import, so the CPU-only test run imports this
 module without a CUDA toolkit. Different sources build side by side: each
@@ -24,8 +25,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_kernel_library", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
-           "LINK_FLAGS", "BUILD_LOGS"]
+__all__ = ["load_kernel_library", "library_path", "CSRC_DIR", "BUILD_DIR",
+           "NVCC_FLAGS", "LINK_FLAGS", "BUILD_LOGS"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -57,6 +58,16 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` goes: its name carries a hash
+    of the source, of every `csrc/*.cuh` header and of the flags."""
+    content = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        content.update(header.name.encode() + header.read_bytes())
+    content.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{content.hexdigest()[:16]}.so"
+
+
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` (once per source and flag set) and return
     the loaded library. Raises if the build fails."""
@@ -66,10 +77,7 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
-                                ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"{name}-{digest}.so"
+        lib_path = library_path(name)
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -4,11 +4,15 @@ samples of the batch, without writing the upsampled logits or the predicted
 mask (port of pytorch_segmentation_tpu/ops/pallas/eval_confusion.py).
 
 On a CUDA tensor `fused_eval_confusion` launches the hand-written kernel in
-`csrc/eval_confusion.cu` (one thread per output pixel, 2x2 tap gather, online
-argmax, integer counts through a per-block shared-memory table; see the note
-there for what bounds it). On a CPU tensor it runs `eval_confusion_reference`,
-the plain PyTorch version the tests hold against the JAX package. There is no
-fallback from one to the other: a CUDA tensor gets the kernel or an exception.
+`csrc/eval_confusion.cu`, tiled by `eval_plan`: a block per band of output
+rows and tile of output columns stages the source rows it reads in shared
+memory and interpolates each output row along H once per staged column and
+class; a thread per output column then interpolates along W, keeps the
+argmax over the classes and counts its pixel into a per-block shared-memory
+table (see the note there for what bounds it). On a CPU tensor it runs
+`eval_confusion_reference`, the plain PyTorch version the tests hold against
+the JAX package. There is no fallback from one to the other: a CUDA tensor
+gets the kernel or an exception.
 
 A label outside [0, C) matches no class: it adds nothing to `tp` or `fn`, and
 its pixel still counts as a false positive of the predicted class, as in the
@@ -26,15 +30,16 @@ import torch
 from ..metrics import sample_valid_mask
 from ..resize import resize_bilinear
 from .build import load_kernel_library
+from .softmax_ce import fwd_plan
 from .upsample_argmax import _device_taps
 
-__all__ = ["fused_eval_confusion", "eval_confusion_reference",
+__all__ = ["fused_eval_confusion", "eval_confusion_reference", "eval_plan",
            "MAX_CLASSES", "launch_count", "reset_launch_count"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_CODE = {torch.int32: 0, torch.int64: 1}
-# the kernel's count table is 3 x C int32 in the 48 KB of shared memory a
-# block may use without opting in to more
+# the kernel's count table is 3 x C int32 in a block's shared memory; at this
+# many classes it takes 48 KB, and the plan still fits two blocks an SM
 MAX_CLASSES = 48 * 1024 // (3 * 4)
 _launches = 0
 
@@ -82,13 +87,38 @@ def eval_confusion_reference(logits: torch.Tensor, labels: torch.Tensor,
     return _finish(per_sample, valid)
 
 
+def eval_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
+              band_rows=None, tile_cols=None, max_chunk=None):
+    """How the kernel tiles logits [b, h, w, c] -> labels [b, out_h, out_w]
+    on a card with `sms` SMs: the CE forward's rule and tables
+    (`softmax_ce.fwd_plan`: bands of output rows, tiles of output columns,
+    class chunks, the staged rows and the two H-interpolated row buffers),
+    with the block's 3 x C int32 count table, 12 * c bytes, in its shared
+    memory and budget. The kernel always runs the defaults; the CPU model
+    in the tests passes smaller `band_rows`, `tile_cols` and `max_chunk`."""
+    return fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size, sms,
+                    band_rows, tile_cols, max_chunk, extra_smem=12 * c)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_eval_plan(b, h, w, c, out_h, out_w, align_corners, elem_size,
+                      device):
+    """`eval_plan` for `device`'s SM count and its tables on `device`,
+    copied there once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = eval_plan(b, h, w, c, out_h, out_w, align_corners, elem_size, sms)
+    return plan, [torch.tensor(a, device=device)
+                  for a in (plan.bands, plan.tiles)]
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_fn():
     fn = load_kernel_library("eval_confusion").pseg_eval_confusion
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.restype = ctypes.c_int
     fn.argtypes = ([ptr, i32, i32, i32] + [i64] * 4 + [i32, i32, ptr, i32]
-                   + [ptr] * 8 + [ptr, ptr])
+                   + [ptr] * 8 + [ptr, i32, i32, ptr] + [i32] * 9
+                   + [ptr, ptr])
     return fn
 
 
@@ -106,8 +136,8 @@ def _launch(logits, labels, align_corners: bool) -> torch.Tensor:
         raise ValueError(f"eval_confusion kernel takes at most {MAX_CLASSES} "
                          f"classes (its count table lives in 48 KB of shared "
                          f"memory), got {c}")
-    # the grid's second dimension; per-sample counts are int32
-    if b > 65535 or out_h * out_w >= 2 ** 31:
+    # per-sample counts are int32; sizes are passed to C as int
+    if out_h * out_w >= 2 ** 31 or max(b, h, w) >= 2 ** 31:
         raise ValueError("eval_confusion shape out of range")
     if labels.dtype not in _LABEL_CODE:
         labels = labels.to(torch.int32)
@@ -116,6 +146,8 @@ def _launch(logits, labels, align_corners: bool) -> torch.Tensor:
     dev = logits.device
     th = _device_taps(h, out_h, align_corners, dev)
     tw = _device_taps(w, out_w, align_corners, dev)
+    plan, (bands, tiles) = _device_eval_plan(
+        b, h, w, c, out_h, out_w, align_corners, logits.element_size(), dev)
     counts = torch.zeros((b, 3, c), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -123,6 +155,10 @@ def _launch(logits, labels, align_corners: bool) -> torch.Tensor:
                  *logits.stride(), out_h, out_w, labels.data_ptr(),
                  _LABEL_CODE[labels.dtype],
                  *(t.data_ptr() for t in th), *(t.data_ptr() for t in tw),
+                 bands.data_ptr(), plan.band_rows, len(plan.bands),
+                 tiles.data_ptr(), plan.tile_cols, len(plan.tiles),
+                 plan.chunk, plan.stage_rows, plan.stage_cols, plan.slot,
+                 plan.a_stride, plan.smem_bytes, plan.threads,
                  counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"eval_confusion kernel launch failed: CUDA error "

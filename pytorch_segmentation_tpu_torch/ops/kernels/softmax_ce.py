@@ -231,7 +231,7 @@ FwdPlan = collections.namedtuple("FwdPlan", [
 
 @functools.lru_cache(maxsize=64)
 def fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
-             band_rows=None, tile_cols=None, max_chunk=None):
+             band_rows=None, tile_cols=None, max_chunk=None, extra_smem=0):
     """How the forward kernel tiles logits [b, h, w, c] -> labels
     [b, out_h, out_w] on a card with `sms` SMs: bands of output rows and
     tiles of output columns (`_output_tiles`; the columns spread evenly
@@ -246,7 +246,10 @@ def fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
     Numpy tables; the kernel and the CPU model in the tests both follow
     them. The kernel always runs the defaults; the CPU model passes smaller
     `band_rows`, `tile_cols` and `max_chunk` (each only ever cut further)
-    to reach ragged bands, tiles and chunks at small shapes."""
+    to reach ragged bands, tiles and chunks at small shapes. `extra_smem`:
+    bytes a block keeps after the two buffers (the eval kernel's count
+    table, `eval_confusion.eval_plan`), counted in `smem_bytes` and in the
+    budget."""
     fill = band_rows is None and tile_cols is None
     rows = band_rows or FWD_BAND_ROWS
     cols = min(tile_cols or FWD_MAX_THREADS, FWD_MAX_THREADS)
@@ -262,7 +265,7 @@ def fwd_plan(b, h, w, c, out_h, out_w, align_corners, elem_size=4, sms=132,
         stage_cols = int((tiles[:, 3] - tiles[:, 2] + 1).max())
         a_stride = chunk | 1
         slot, staged = _stage_smem(stage_rows, stage_cols, chunk, elem_size)
-        smem = staged + 2 * stage_cols * a_stride * 4
+        smem = staged + 2 * stage_cols * a_stride * 4 + extra_smem
         threads = -(-tile // 32) * 32
         warps = b * len(bands) * len(tiles) * (threads // 32)
         fits = smem <= _SMEM_TWO_BLOCKS

@@ -17,6 +17,7 @@ from pytorch_segmentation_tpu_torch.ops import resize as tresize
 from pytorch_segmentation_tpu_torch.ops.kernels import softmax_ce as ce
 from pytorch_segmentation_tpu_torch.ops.kernels.upsample_argmax import (
     interp_taps)
+from torch_port_util import BAND_PLAN_SHAPES, assert_output_band_plan
 
 torch.set_num_threads(1)
 
@@ -417,44 +418,11 @@ def test_fwd_banded_arithmetic_matches_kernel_arithmetic(case):
         loss, float(ce.upsample_ce_reference(x, y, align)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("args", [
-    (32, 129, 129, 21, 513, 513, True, 2),      # the path shape, bf16
-    (32, 129, 129, 21, 513, 513, True, 4),      # and f32
-    (2, 65, 97, 150, 257, 385, False, 2),
-    (32, 45, 37, 97, 177, 145, False, 4),
-    (1, 4, 3000, 150, 6, 300, True, 4),         # bands, tiles and chunks
-    (1, 3, 2000, 32, 5, 16, True, 4),           # columns downsampled 125x
-    (1, 1, 1, 1, 1, 1, True, 4),
-    (3, 4, 5, 2, 4, 5, True, 4),                # same size, an even chunk
-])
+@pytest.mark.parametrize("args", BAND_PLAN_SHAPES)
 def test_fwd_plan_covers_every_pixel_once_and_fits(args):
-    b, h, w, c, out_h, out_w, align, elem = args
+    c = args[3]
     plan = ce.fwd_plan(*args)
-    for table, size, step in ((plan.bands, out_h, plan.band_rows),
-                              (plan.tiles, out_w, plan.tile_cols)):
-        lo, hi = table[:, 0], table[:, 1]
-        # consecutive, ascending, each `step` long but the last: every
-        # output index in exactly one band (tile)
-        assert lo[0] == 0 and hi[-1] == size
-        assert np.array_equal(lo[1:], hi[:-1])
-        assert bool((hi - lo <= step).all() and (hi[:-1] - lo[:-1] == step)
-                    .all())
-    for table, n_in, n_out, staged in (
-            (plan.bands, h, out_h, plan.stage_rows),
-            (plan.tiles, w, out_w, plan.stage_cols)):
-        i0, i1, _, _ = interp_taps(n_in, n_out, align)
-        for lo, hi, first, last in table:
-            assert first <= i0[lo:hi].min() and i1[lo:hi].max() <= last
-            assert 0 <= first <= last < n_in and last - first < staged
-    assert plan.tile_cols <= plan.threads <= ce.FWD_MAX_THREADS
-    assert plan.threads % 32 == 0
-    assert plan.a_stride % 2 == 1 and plan.a_stride >= plan.chunk
-    assert plan.chunk == c or plan.band_rows == 1
-    slot, staged = ce._stage_smem(plan.stage_rows, plan.stage_cols,
-                                  plan.chunk, elem)
-    assert plan.slot == slot and plan.slot * elem % 16 == 0
-    assert plan.smem_bytes == staged + 8 * plan.stage_cols * plan.a_stride
-    assert plan.smem_bytes <= ce._SMEM_TWO_BLOCKS
+    assert_output_band_plan(plan, args)
     if args[:7] == (32, 129, 129, 21, 513, 513, True):
         # bands of 16 rows, 513 columns in 3 tiles of 171, every class
         assert (plan.band_rows, len(plan.tiles), plan.tile_cols,

@@ -492,6 +492,12 @@ def _lse_check(x, y, align):
     ((3, 4, 5, 2), (4, 5), True, torch.float32, torch.int64),   # same size
     ((1, 20, 30, 21), (7, 9), True, torch.float32, torch.int32),  # downsample
     ((1, 5, 5, 4096), (9, 9), True, torch.bfloat16, torch.int32),  # the limit
+    # bands of one row, 18 column tiles and class chunks: each pixel's
+    # argmax carried from chunk to chunk
+    ((1, 4, 3000, 150), (6, 300), True, torch.float32, torch.int32),
+    # the limit at the path's output size: a 48 KB table, above 48 KB of
+    # shared memory
+    ((1, 129, 129, 4096), (513, 513), True, torch.bfloat16, torch.int32),
 ])
 def test_eval_kernel_equals_plain(device, shape, out_hw, align, dtype,
                                   label_dtype):

@@ -23,7 +23,8 @@ from pytorch_segmentation_tpu.ops.loss import compute_loss as jax_compute_loss
 from pytorch_segmentation_tpu_torch.engine import steps as tsteps
 from pytorch_segmentation_tpu_torch.engine import trainer as ttrainer
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
-from pytorch_segmentation_tpu_torch.inference import make_mask_fn
+from pytorch_segmentation_tpu_torch.inference import (make_mask_fn,
+                                                       make_tiled_mask_fn)
 from pytorch_segmentation_tpu_torch.models import build_model
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.ops.loss import compute_loss
@@ -619,6 +620,41 @@ def test_unported_train_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_train_step()(state, torch.from_numpy(x),
                                  torch.from_numpy(y))
+
+
+def test_held_model_after_a_step_is_refused_by_the_eval_paths():
+    """A module held from `trainer.model` before a step: the step trains
+    the stride-4 twin, a shallow copy that shares the held module's
+    children, and puts them back in train mode while the held module's own
+    flag stays False. The eval step, the predict step and both mask
+    functions look at every submodule and refuse it; `trainer.model` again
+    is in eval mode throughout."""
+    model = _TorchTiny()
+    model.full_res_output = True    # so that the Trainer makes the twin
+    trainer = ttrainer.Trainer(model, _Fetcher(_batches(1, seed=13, hw=16)),
+                               device="cpu", log=False)
+    assert trainer._train_module is not model
+    held = trainer.model
+    trainer.step()
+    assert not held.training and held.block.training
+    x, y = (torch.from_numpy(a) for a in _batches(1, seed=14, hw=16)[0])
+    imgs = np.random.default_rng(15).integers(0, 256, (BS, 16, 16, 3),
+                                              dtype=np.uint8)
+    calls = {
+        "the eval step": lambda m: tsteps.make_eval_step(NC)(m, x, y, BS),
+        "the predict step": lambda m: tsteps.make_predict_step()(
+            m, x, (16, 16)),
+        "make_mask_fn": lambda m: make_mask_fn(m)(imgs),
+        "make_tiled_mask_fn": lambda m: make_tiled_mask_fn(
+            m, tile_hw=(16, 16))(imgs)}
+    for what, call in calls.items():
+        with pytest.raises(ValueError, match=f"{what} needs an eval-mode "
+                           f"module: a submodule is in train mode"):
+            call(held)
+    fresh = trainer.model
+    assert fresh is held and not any(m.training for m in fresh.modules())
+    for call in calls.values():
+        call(fresh)
 
 
 def test_trainer_needs_cuda_unless_asked_for_the_cpu():
