@@ -83,6 +83,10 @@ from pytorch_segmentation_tpu_torch.ops.resize import (resize_bilinear,
                                                        resize_nearest)
 from pytorch_segmentation_tpu_torch.serving import MaskServer
 from pytorch_segmentation_tpu_torch.tools import bench_cmajor
+# device ms of a call without the host's enqueue: calls queued behind a
+# sleep kernel
+from pytorch_segmentation_tpu_torch.tools.bench_eval_confusion import (
+    queued_ms)
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
 from pytorch_segmentation_tpu_torch.utils.weights import seeded_state_dict
@@ -204,21 +208,38 @@ def interp_flops(w, out_w):
     return 3.0 * w / out_w + 3.0
 
 
-def kernel_case(name, shape, out_hw, dtype, align, device, tie=None):
+def kernel_case(name, shape, out_hw, dtype, align, device, tie=None,
+                nchw=False):
+    """The upsample+argmax kernel against its plain version (the top-2-gap
+    rule) and against the eval kernel: its mask, counted against seeded
+    labels with plain torch, gives kernel 3's counts on the same logits and
+    labels exactly (the two run the same staged argmax)."""
     rng = np.random.default_rng(SEED)
     x = rng.standard_normal(shape).astype(np.float32)
     if tie is not None:  # class tie[1] duplicates tie[0]: tie[0] must win
         x[..., tie[1]] = x[..., tie[0]]
     logits = torch.from_numpy(x).to(device=device, dtype=dtype)
+    if nchw:
+        logits = logits.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     got = ua.fused_upsample_argmax(logits, out_hw, align_corners=align)
     ref = ua.upsample_argmax_reference(logits, out_hw, align_corners=align)
     torch.cuda.synchronize()
     up = resize_bilinear(logits.float(), out_hw, align_corners=align)
     agreement, err = mask_check(got, ref, up)
+    del up, ref
     if tie is not None and int((got == tie[1]).sum()):
         raise AssertionError("a tied higher class id won")
+    labels = torch.from_numpy(rng.integers(0, shape[-1], (shape[0],)
+                                           + tuple(out_hw))).to(device)
+    counted = confusion_update(got, labels, shape[-1])
+    for a, b in zip(counted, ec.fused_eval_confusion(
+            logits, labels, shape[0], align_corners=align)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: the mask's counts differ from "
+                                 f"the eval kernel's")
     ms = cuda_median_ms(lambda: ua.fused_upsample_argmax(
         logits, out_hw, align_corners=align))
+    device_ms = queued_ms(lambda: ua._launch(logits, out_hw, align))
     plain_ms = cuda_median_ms(lambda: ua.upsample_argmax_reference(
         logits, out_hw, align_corners=align))
     # logits read once, int32 mask written once; per output pixel and class
@@ -228,11 +249,12 @@ def kernel_case(name, shape, out_hw, dtype, align, device, tie=None):
     least = bound(logits.numel() * logits.element_size() + 4 * pixels,
                   (interp_flops(w, out_hw[1]) + 1) * pixels * c)
     log("kernel", case=name, shape=list(shape), out_hw=list(out_hw),
-        dtype=str(dtype).replace("torch.", ""), align_corners=align,
-        agreement=agreement, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **least)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
-            "library_ms": None}
+        dtype=str(dtype).replace("torch.", ""),
+        logits_strides=list(logits.stride()), align_corners=align,
+        agreement=agreement, max_abs_err=err, counts_equal_eval_kernel=True,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, **least)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, **least, "library_ms": None}
 
 
 def peak_mb(fn):
@@ -364,21 +386,28 @@ def ce_case(name, shape, out_hw, dtype, align, device,
 def resample_case(name, planes, coords, use_bil, out_dtype):
     """The row-resample kernel against its plain version on the same
     tensors: equal bit for bit (two exact bf16 x bf16 products and one f32
-    sum on both sides), so the label plane is exact too."""
+    sum on both sides), so the label plane is exact too; a second launch
+    gives the same bits."""
     before = br.launch_count()
     got = br.banded_resample_rows(planes, coords, use_bil,
                                   out_dtype=out_dtype)
     if br.launch_count() != before + 1:
         raise AssertionError(f"{name}: the wrapper did not count its launch")
+    again = br.banded_resample_rows(planes, coords, use_bil,
+                                    out_dtype=out_dtype)
     want = br.banded_resample_reference(planes, coords, use_bil, out_dtype)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if got.dtype != out_dtype or not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel and plain version differ by "
                              f"{err}")
-    del got, want
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    del got, want, again
     ms = cuda_median_ms(lambda: br.banded_resample_rows(
         planes, coords, use_bil, out_dtype=out_dtype))
+    device_ms = queued_ms(lambda: br._launch(planes, coords, use_bil,
+                                             out_dtype))
     plain_ms = cuda_median_ms(lambda: br.banded_resample_reference(
         planes, coords, use_bil, out_dtype))
     # planes and coordinates read once, the output written once; per output
@@ -392,9 +421,10 @@ def resample_case(name, planes, coords, use_bil, out_dtype):
         planes=list(planes.shape), planes_strides=list(planes.stride()),
         out_w=coords.shape[-1], out_dtype=str(out_dtype).replace("torch.", ""),
         bilinear_samples=int(use_bil.sum()), max_abs_err=err, equal=True,
-        ms=ms, plain_ms=plain_ms, **least)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
-            "library_ms": None}
+        two_launches_bit_equal=True, route=br.route(planes.stride()),
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, **least)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, **least, "library_ms": None}
 
 
 def capture_resample_calls(fn):
@@ -453,12 +483,18 @@ def resample_cases(device, dataset):
                   torch.from_numpy(planes).to(device, torch.bfloat16),
                   torch.from_numpy(coords).to(device),
                   torch.tensor([True, False], device=device), torch.float32)
+    # the second pass's source with random coordinates: a warp's taps fall
+    # into as many source columns as it has rows
+    wide = torch.from_numpy(rng.uniform(0, IMG - 1, tuple(c2.shape)).astype(
+        np.float32)).to(device)
+    resample_case("wide_span_pass2_random", p2, wide, ub, torch.bfloat16)
     # one figure per launch on the path: the mean of the two passes
     mean = {key: (pass1[key] + pass2[key]) / 2
-            for key in ("ms", "plain_ms", "bound_ms")}
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
     return {"max_abs_err": max(pass1["max_abs_err"], pass2["max_abs_err"]),
             **mean, "bound_by": pass1["bound_by"], "library_ms": None,
-            "pass_ms": [pass1["ms"], pass2["ms"]]}
+            "pass_ms": [pass1["ms"], pass2["ms"]],
+            "pass_device_ms": [pass1["device_ms"], pass2["device_ms"]]}
 
 
 def eval_case(name, shape, out_hw, dtype, align, device, valid=None,
@@ -1922,8 +1958,22 @@ def main():
                        (IMG, IMG), torch.bfloat16, True, device)
     kernel_case("path_f32", (BATCH, 129, 129, NUM_CLASSES), (IMG, IMG),
                 torch.float32, True, device)
+    kernel_case("path_bf16_nchw", (BATCH, 129, 129, NUM_CLASSES), (IMG, IMG),
+                torch.bfloat16, True, device, nchw=True)
     kernel_case("ragged_c150", (2, 65, 97, 150), (257, 385), torch.bfloat16,
                 False, device, tie=(3, 7))
+    # bands of one row, column tiles and class chunks, each pixel's (best,
+    # pred) carried from chunk to chunk
+    chunked = (1, 4, 3000, 150)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ua.argmax_plan(*chunked, 6, 300, True, 4, sms)
+    if not (len(plan.bands) > 1 and len(plan.tiles) > 1
+            and plan.chunk < chunked[-1]):
+        raise AssertionError(f"{chunked} -> (6, 300): argmax plan "
+                             f"{len(plan.bands)} bands, {len(plan.tiles)} "
+                             f"tiles, chunks of {plan.chunk}")
+    kernel_case("chunks_c150", chunked, (6, 300), torch.float32, True, device,
+                tie=(3, 7))
 
     # the path shape in both layouts a convolution may leave its output in
     ce_paths = [ce_case(name, (TRAIN_BATCH, 129, 129, NUM_CLASSES),
@@ -1949,8 +1999,6 @@ def main():
             device)
     # the forward's bands of one row, 18 column tiles and 4 chunks of 36-38
     # classes, the state of each pixel carried from chunk to chunk
-    chunked = (1, 4, 3000, 150)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = ce.fwd_plan(*chunked, 6, 300, True, 4, sms)
     if not (len(plan.bands) > 1 and len(plan.tiles) > 1
             and plan.chunk < chunked[-1]):
@@ -1998,10 +2046,19 @@ def main():
     ce_replaces = ("pytorch_segmentation_tpu/ops/pallas/softmax_ce.py:"
                    "83,114,153,188")
     print(json.dumps({"kernels": [
+        # ms: the wrapper call; device_ms: _launch with calls queued
+        # behind a sleep kernel
         {"name": "upsample_argmax", "route": "cuda",
          "source": "pytorch_segmentation_tpu_torch/csrc/upsample_argmax.cu",
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/upsample_argmax.py:31",
+         "design": "argmax_band_kernel: the eval kernel's layout (a band of "
+                   "output rows and a tile of output columns a block, the "
+                   "source rows staged by stage_band, each output row "
+                   "interpolated along H once per staged column and class, "
+                   "a thread per output column, the shared band_argmax "
+                   "loop), one coalesced int32 store a pixel; the gather "
+                   "kernel's arithmetic (mask bit-equal)",
          "launches": launches, **path},
         # ms: the wrapper call; kernel_ms: _launch_fwd alone, with lse
         {"name": "softmax_ce_fwd", "route": "cuda", "source": ce_source,
@@ -2023,11 +2080,21 @@ def main():
                    "and class, gathered in the matrix product's order, no "
                    "atomics",
          "launches": ce_launches["bwd"], **ce_path["bwd"]},
-        # ms, plain_ms and bound_ms: per launch, the mean of the two passes
+        # ms, device_ms, plain_ms and bound_ms: per launch, the mean of the
+        # two passes
         {"name": "banded_resample", "route": "cuda",
          "source": "pytorch_segmentation_tpu_torch/csrc/banded_resample.cu",
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/banded_resample.py:60",
+         "design": "two kernels by layout: the second pass's transposed "
+                   "view through transposed_resample_kernel (32 x 32 tiles, "
+                   "a warp's lanes on 32 rows so that its taps are "
+                   "coalesced runs along the contiguous rows, coordinates "
+                   "and outputs crossing shared tiles so that they load and "
+                   "store along the columns); the first pass through the "
+                   "first port's gather kernel, kept (tiles staged in "
+                   "shared memory measured slower); bit-equal to the plain "
+                   "version",
          "launches": resample_launches, **resample_path},
         # ms: the wrapper call; kernel_ms: _launch (the zeroed count buffer
         # and the kernel)

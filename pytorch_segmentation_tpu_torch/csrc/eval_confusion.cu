@@ -25,8 +25,9 @@
 // sample, a band of output rows and a tile of output columns, sized by
 // eval_plan in eval_confusion.py, and a thread one output column of the
 // tile. The block stages the source rows and columns those outputs read in
-// shared memory (stage_band, stage_band.cuh). For each output row Y of the
-// band, ascending, the block interpolates the staged rows along H once per
+// shared memory (stage_band, stage_band.cuh). The loop that follows is
+// band_argmax (stage_band.cuh), which the argmax kernel of
+// upsample_argmax.cu runs too: for each output row Y of the band, ascending, the block interpolates the staged rows along H once per
 // staged column and class, in f32, into a shared buffer (two of them, by the
 // parity of Y: one barrier a row). Then the thread of output column X walks
 // the classes in ascending order: interpolate along W from that buffer and
@@ -87,6 +88,45 @@ __device__ __forceinline__ void warp_count(int* table, int key, int lane) {
   }
 }
 
+// band_argmax's hook for the counts. The labels are read one row ahead, so
+// that a row's work hides the next load; after the last chunk each row's
+// pixels are counted with three warp_count calls (a lane without a pixel
+// passes -1).
+template <typename L>
+struct EvalCounts {
+  const L* lab;  // the sample's labels [out_h, out_w]
+  int out_w, X;
+  bool has_x;
+  AxisTile band;
+  int num_classes;
+  int* table;
+  int lane;
+  bool read;
+  L lab_next, lab_y;
+
+  __device__ __forceinline__ void chunk(bool last) {
+    read = has_x && last;
+    lab_next = read ? lab[(int64_t)band.out_lo * out_w + X] : L(0);
+  }
+  __device__ __forceinline__ void row(int Y) {
+    lab_y = lab_next;
+    if (read && Y + 1 < band.out_hi)
+      lab_next = lab[(int64_t)(Y + 1) * out_w + X];
+  }
+  // (c) the pixel's three counts
+  __device__ __forceinline__ void done(int, int pred) {
+    int p = -1, label = -1;
+    if (has_x) {
+      p = pred;
+      const int64_t l = (int64_t)lab_y;
+      if (l >= 0 && l < num_classes) label = (int)l;
+    }
+    warp_count(table, p == label ? p : -1, lane);
+    warp_count(table + num_classes, label, lane);
+    warp_count(table + 2 * num_classes, p, lane);
+  }
+};
+
 // Block: (sample, band of output rows, tile of output columns), decoded with
 // the tile fastest. Thread: output column tile.out_lo + threadIdx.x (the plan
 // gives no tile more columns than threads). Shared memory (eval_plan's
@@ -113,7 +153,6 @@ __global__ void __launch_bounds__(kEvalMaxThreads) eval_band_kernel(
   const int bi = (int)(blk % n_bands);
   const int64_t b = blk / n_bands;
   const AxisTile band = bands[bi], tile = tiles[ti];
-  const int n_rows = band.src_hi - band.src_lo + 1;
   const int n_cols = tile.src_hi - tile.src_lo + 1;
   T* stage = reinterpret_cast<T*>(smem);
   int* row_base = reinterpret_cast<int*>(
@@ -124,7 +163,6 @@ __global__ void __launch_bounds__(kEvalMaxThreads) eval_band_kernel(
   const int entries = 3 * num_classes;
   // the barriers in stage_band order these stores before the first count
   for (int i = tid; i < entries; i += blockDim.x) table[i] = 0;
-  const L* lab = labels + b * (int64_t)out_h * out_w;
 
   // this thread's output column: its two taps as offsets into an
   // H-interpolated row, and their weights
@@ -139,76 +177,12 @@ __global__ void __launch_bounds__(kEvalMaxThreads) eval_band_kernel(
     ww1 = tw.w1[X];
   }
   const T* src = logits + b * s_b + (int64_t)tile.src_lo * s_w;
-  // step (a)'s share of this thread: staged columns a_col, a_col + a_lanes,
-  // ... at classes a_cls, a_cls + a_groups, ... of the chunk
-  const int a_lanes = min(n_cols, (int)blockDim.x);
-  const int a_groups = blockDim.x / a_lanes;
-  const int a_col = tid % a_lanes, a_cls = tid / a_lanes;
-  // one pixel's argmax; with several chunks the band has one row, so the
-  // pixel's state carries from chunk to chunk
-  float best = -1e30f;
-  int pred = 0;
-  for (int c0 = 0; c0 < num_classes; c0 += chunk) {
-    const int cn = min(chunk, num_classes - c0);
-    // the counts come after the last chunk (the same for the whole block,
-    // so every lane of a warp reaches the matches below)
-    const bool last = c0 + cn == num_classes;
-    const bool read_labels = has_x && last;
-    // The previous chunk's last row ended in a barrier after every read
-    // of the staged rows, so they may be overwritten now.
-    stage_band(src + (int64_t)c0 * s_c, s_h, s_w, s_c, num_classes,
-               band.src_lo, n_rows, n_cols, cn, slot, stage, row_base);
-    // labels are read one row ahead: a row's work hides the next load
-    L lab_next = read_labels ? lab[(int64_t)band.out_lo * out_w + X] : L(0);
-    for (int Y = band.out_lo; Y < band.out_hi; ++Y) {
-      const L lab_y = lab_next;
-      if (read_labels && Y + 1 < band.out_hi)
-        lab_next = lab[(int64_t)(Y + 1) * out_w + X];
-      // (a) output row Y along H at every staged column and class. The
-      //     buffer of this parity was last read in row Y - 2, before the
-      //     barrier of row Y - 1.
-      float* a = rows_h + (Y & 1) * n_cols * a_stride;
-      const T* r0 = stage + row_base[th.i0[Y] - band.src_lo];
-      const T* r1 = stage + row_base[th.i1[Y] - band.src_lo];
-      const float hw0 = th.w0[Y], hw1 = th.w1[Y];
-      if (a_cls < a_groups)
-        for (int col = a_col; col < n_cols; col += a_lanes) {
-          const T* p0 = r0 + col * cn;
-          const T* p1 = r1 + col * cn;
-          float* q = a + col * a_stride;
-          for (int c = a_cls; c < cn; c += a_groups)
-            q[c] = hw0 * to_f32(p0[c]) + hw1 * to_f32(p1[c]);
-        }
-      __syncthreads();
-      // (b) pixel (Y, X) along W, class by class in ascending order
-      if (has_x) {
-        if (c0 == 0) {
-          best = -1e30f;
-          pred = 0;
-        }
-        const float* a0 = a + x0;
-        const float* a1 = a + x1;
-        for (int c = 0; c < cn; ++c) {
-          const float up = ww0 * a0[c] + ww1 * a1[c];
-          const bool take = up > best;
-          best = take ? up : best;
-          pred = take ? c0 + c : pred;
-        }
-      }
-      // (c) the pixel's three counts; a lane without a pixel passes -1
-      if (last) {
-        int p = -1, label = -1;
-        if (has_x) {
-          p = pred;
-          const int64_t l = (int64_t)lab_y;
-          if (l >= 0 && l < num_classes) label = (int)l;
-        }
-        warp_count(table, p == label ? p : -1, lane);
-        warp_count(table + num_classes, label, lane);
-        warp_count(table + 2 * num_classes, p, lane);
-      }
-    }
-  }
+  EvalCounts<L> counter{labels + b * (int64_t)out_h * out_w, out_w, X,
+                        has_x, band, num_classes, table, lane, false, L(0),
+                        L(0)};
+  band_argmax(src, s_h, s_w, s_c, num_classes, th, band, n_cols, chunk, slot,
+              a_stride, stage, row_base, rows_h, has_x, x0, x1, ww0, ww1,
+              counter);
   __syncthreads();
 
   int32_t* sample_counts = counts + b * entries;

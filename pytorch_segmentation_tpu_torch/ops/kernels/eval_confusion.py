@@ -31,7 +31,7 @@ from ..metrics import sample_valid_mask
 from ..resize import resize_bilinear
 from .build import load_kernel_library
 from .softmax_ce import fwd_plan
-from .upsample_argmax import _device_taps
+from .taps import device_taps
 
 __all__ = ["fused_eval_confusion", "eval_confusion_reference", "eval_plan",
            "MAX_CLASSES", "launch_count", "reset_launch_count"]
@@ -144,8 +144,8 @@ def _launch(logits, labels, align_corners: bool) -> torch.Tensor:
     labels = labels.contiguous()
     fn = _kernel_fn()
     dev = logits.device
-    th = _device_taps(h, out_h, align_corners, dev)
-    tw = _device_taps(w, out_w, align_corners, dev)
+    th = device_taps(h, out_h, align_corners, dev)
+    tw = device_taps(w, out_w, align_corners, dev)
     plan, (bands, tiles) = _device_eval_plan(
         b, h, w, c, out_h, out_w, align_corners, logits.element_size(), dev)
     counts = torch.zeros((b, 3, c), dtype=torch.int32, device=dev)

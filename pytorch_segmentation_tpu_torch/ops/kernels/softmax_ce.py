@@ -34,7 +34,7 @@ import torch
 
 from ..resize import _interp_weights, resize_bilinear
 from .build import load_kernel_library
-from .upsample_argmax import _device_taps, interp_taps
+from .taps import device_taps, interp_taps
 
 __all__ = ["fused_upsample_ce", "fused_upsample_ce_per_sample",
            "upsample_ce_reference", "interp_taps_transposed", "fwd_plan",
@@ -356,8 +356,8 @@ def _launch_fwd(logits, labels, align_corners, want_lse):
     b, h, w, c = logits.shape
     out_h, out_w = labels.shape[1], labels.shape[2]
     dev = logits.device
-    th = _device_taps(h, out_h, align_corners, dev)
-    tw = _device_taps(w, out_w, align_corners, dev)
+    th = device_taps(h, out_h, align_corners, dev)
+    tw = device_taps(w, out_w, align_corners, dev)
     plan, (bands, tiles) = _device_fwd_plan(
         b, h, w, c, out_h, out_w, align_corners, logits.element_size(), dev)
     partials = torch.empty((b, len(plan.bands) * len(plan.tiles)),
@@ -391,7 +391,7 @@ def _launch_bwd(logits, labels, lse, grad_out, align_corners):
     b, h, w, c = logits.shape
     out_h, out_w = labels.shape[1], labels.shape[2]
     dev = logits.device
-    th = _device_taps(h, out_h, align_corners, dev)
+    th = device_taps(h, out_h, align_corners, dev)
     plan, (bands, tiles, col_first, col_w) = _device_bwd_plan(
         b, h, w, c, out_h, out_w, align_corners, logits.element_size(), dev)
     dlogits = torch.empty_like(logits)  # dense logits keep their strides

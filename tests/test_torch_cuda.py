@@ -1,6 +1,8 @@
-"""PyTorch port on the card: the hand-written kernels (upsample+argmax;
+"""PyTorch port on the card: the hand-written kernels (upsample+argmax, its
+mask counted to the eval kernel's counts;
 upsample+cross-entropy forward, its loss and lse, and backward; the
-augmentation warp's row resampler; upsample+argmax+confusion counts; the
+augmentation warp's row resampler on both of its kernels;
+upsample+argmax+confusion counts; the
 fused 1x1 forward, dx and dW; the channels-major product; the Hopper loop's
 product with each operand K-major or MN-major) against their plain PyTorch
 versions at edge shapes, and the small model (served, trained, evaluated)
@@ -410,6 +412,100 @@ def test_resample_kernel_reads_strides_and_is_reproducible(device):
             view, coords, use_bil, out_dtype=torch.bfloat16))
     _resample_check(planes[:, :, ::2, 3:], coords[:, ::2], use_bil,
                     torch.float32)                 # sliced, offset view
+
+
+def _smooth_coords(rng, b, r, w, c, wrap_sample=None):
+    """Per-row coordinates as the warp makes them: advancing by 0.8 (C-1) /
+    (W-1) a column, shifting 0.4 a row, jittered, clamped into [0, C-1] with
+    both ends present; sample `wrap_sample` wraps from C-1 to 0 mid-row, as
+    the wrap mode does."""
+    x = np.arange(w, dtype=np.float32)
+    rows = np.arange(r, dtype=np.float32)[:, None]
+    coords = (3.0 + 0.8 * (c - 1) / max(w - 1, 1) * x[None] + 0.4 * rows
+              + rng.uniform(-1.5, 1.5, (b, r, w)))
+    coords = np.clip(coords, 0.0, c - 1.0).astype(np.float32)
+    coords[:, 0, 0], coords[:, -1, -1] = 0.0, c - 1.0
+    if wrap_sample is not None:
+        coords[wrap_sample] = np.mod(coords[wrap_sample] + c / 2, c - 1.0)
+    return coords
+
+
+# name -> (B, R, C, W, planes as a transposed view, coordinates, out dtype)
+RESAMPLE_ROUTE_CASES = {
+    "contiguous_513_bf16": (2, 513, 513, 513, False, "smooth",
+                            torch.bfloat16),
+    "transposed_513_bf16": (2, 513, 513, 513, True, "smooth",
+                            torch.bfloat16),
+    "contiguous_513_f32": (2, 513, 513, 513, False, "smooth", torch.float32),
+    "transposed_211_f32": (3, 37, 211, 150, True, "smooth", torch.float32),
+    "wide_span_211_to_150": (2, 37, 211, 150, False, "random",
+                             torch.float32),
+    "transposed_513_wrap": (2, 513, 513, 513, True, "wrap", torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESAMPLE_ROUTE_CASES))
+def test_resample_both_routes_equal_plain(device, case):
+    """Both kernels (the gather for contiguous columns, the transposed one
+    for the second pass's view) equal the plain version bit for bit, at odd
+    widths whose rows are misaligned, with coordinates at exactly 0 and
+    C-1, random ones, a sample in wrap mode and mixed use_bil; a repeat
+    gives the same bits."""
+    b, r, c, w, transposed, kind, out_dtype = RESAMPLE_ROUTE_CASES[case]
+    rng = np.random.default_rng(3)
+    planes = rng.uniform(0, 255, (b, 4, c, r) if transposed
+                         else (b, 4, r, c)).astype(np.float32)
+    planes = torch.from_numpy(planes).to(device=device, dtype=torch.bfloat16)
+    if transposed:
+        planes = planes.transpose(2, 3)
+    planes[:, 3] = torch.from_numpy(rng.integers(0, 21, (b, r, c))).to(
+        device=device, dtype=torch.bfloat16)
+    if kind == "random":
+        coords = rng.uniform(0, c - 1, (b, r, w)).astype(np.float32)
+        coords[:, :, 0], coords[:, :, -1] = 0.0, c - 1.0
+    else:
+        coords = _smooth_coords(rng, b, r, w, c,
+                                wrap_sample=1 if kind == "wrap" else None)
+    coords = torch.from_numpy(coords).to(device)
+    use_bil = torch.from_numpy(np.arange(b) % 2 == 0).to(device)
+    assert br.route(planes.stride()) == ("transposed" if transposed
+                                         else "gather")
+    first = _resample_check(planes, coords, use_bil, out_dtype)
+    assert torch.equal(first, br.banded_resample_rows(
+        planes, coords, use_bil, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("shape,out_hw,align,dtype,nchw", [
+    ((8, 129, 129, 21), (513, 513), True, torch.bfloat16, False),  # path
+    ((8, 129, 129, 21), (513, 513), True, torch.bfloat16, True),   # NCHW
+    ((2, 65, 97, 150), (257, 385), False, torch.bfloat16, False),
+    ((1, 4, 3000, 150), (6, 300), True, torch.float32, False),  # chunks
+])
+def test_argmax_mask_counts_to_the_eval_kernels_counts(device, shape, out_hw,
+                                                       align, dtype, nchw):
+    """Kernel 1's mask, counted against seeded labels with plain torch,
+    gives kernel 3's counts on the same logits and labels (the two run the
+    same staged argmax), and a planted tie keeps the lower class."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[..., 7] = x[..., 3]  # class 3 must win every tie with class 7
+    logits = torch.from_numpy(x).to(device=device, dtype=dtype)
+    if nchw:
+        logits = logits.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    labels = torch.from_numpy(rng.integers(0, shape[-1], (shape[0],)
+                                           + out_hw)).to(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = ua.argmax_plan(*shape, *out_hw, align, logits.element_size(), sms)
+    if shape[-1] == 150 and shape[1] == 4:
+        assert plan.chunk < shape[-1] and plan.band_rows == 1
+    _check(logits, out_hw, align)
+    mask = ua.fused_upsample_argmax(logits, out_hw, align_corners=align)
+    from pytorch_segmentation_tpu_torch.ops.metrics import confusion_update
+    want = ec.fused_eval_confusion(logits, labels, shape[0],
+                                   align_corners=align)
+    for a, b in zip(confusion_update(mask, labels, shape[-1]), want):
+        assert torch.equal(a, b)
+    assert not bool((mask == 7).any())
 
 
 def test_resample_wrapper_rejects_what_the_kernel_does_not_take(device):

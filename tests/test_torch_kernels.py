@@ -1,5 +1,7 @@
 """PyTorch port: resizing and the upsample+argmax kernel module against the
-JAX package (CPU; the JAX Pallas kernel runs in interpret mode)."""
+JAX package (CPU; the JAX Pallas kernel runs in interpret mode), and the CUDA
+kernel's tiling (`argmax_plan`) and arithmetic, modelled in plain torch,
+against the plain version."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,8 @@ from pytorch_segmentation_tpu.ops.pallas.upsample_argmax import (
     fused_upsample_argmax as jax_fused_upsample_argmax)
 from pytorch_segmentation_tpu_torch.ops import resize as tresize
 from pytorch_segmentation_tpu_torch.ops.kernels import upsample_argmax as ua
-from torch_port_util import assert_masks_agree
+from torch_port_util import (BAND_PLAN_SHAPES, assert_masks_agree,
+                             assert_output_band_plan)
 
 torch.set_num_threads(1)
 
@@ -177,3 +180,99 @@ def test_wrapper_routes_and_checks():
         ua.fused_upsample_argmax(logits[0], (13, 17))
     with pytest.raises(ValueError, match="no path"):
         ua.fused_upsample_argmax(logits.to("meta"), (13, 17))
+
+
+@pytest.mark.parametrize("args", BAND_PLAN_SHAPES)
+def test_argmax_plan_covers_every_pixel_and_fits(args):
+    """`argmax_plan` is the CE forward's output-band plan with nothing after
+    the two row buffers: every pixel in one block, what each block reads
+    staged, two blocks an SM."""
+    assert_output_band_plan(ua.argmax_plan(*args), args, table_bytes=0)
+
+
+def _argmax_banded_arithmetic(logits, out_hw, align, **tiling):
+    """The kernel's arithmetic, in torch, block by block as `argmax_plan`
+    tiles it: per band of output rows and tile of output columns the staged
+    source rows and columns, then per class chunk (ascending) each output
+    row interpolated along H at every staged column, each pixel along W,
+    and the argmax over the chunk's classes in the select form (strict '>'
+    from -1e30), its (best, pred) carried from chunk to chunk. -> (the mask
+    int32 [B, H, W]; how many blocks wrote each pixel)."""
+    b, h, w, c = logits.shape
+    out_h, out_w = out_hw
+    plan = ua.argmax_plan(b, h, w, c, out_h, out_w, align, **tiling)
+    hi0, hi1, hw0, hw1 = (torch.from_numpy(np.array(a))
+                          for a in ua.interp_taps(h, out_h, align))
+    wi0, wi1, ww0, ww1 = (torch.from_numpy(np.array(a))
+                          for a in ua.interp_taps(w, out_w, align))
+    x = logits.float()
+    mask = torch.full((b, out_h, out_w), -1, dtype=torch.int32)
+    writes = torch.zeros((b, out_h, out_w), dtype=torch.int64)
+    for y_lo, y_hi, r_lo, r_hi in plan.bands:
+        ys = torch.arange(y_lo, y_hi)
+        for x_lo, x_hi, c_lo, c_hi in plan.tiles:
+            xs = torch.arange(x_lo, x_hi)
+            staged = x[:, r_lo:r_hi + 1, c_lo:c_hi + 1]
+            shape = (b, len(ys), len(xs))
+            best = torch.full(shape, -1e30)
+            pred = torch.zeros(shape, dtype=torch.int32)
+            for c0 in range(0, c, plan.chunk):
+                cs = slice(c0, min(c, c0 + plan.chunk))
+                a = (hw0[ys][None, :, None, None]
+                     * staged[:, (hi0[ys] - r_lo).long(), :, cs]
+                     + hw1[ys][None, :, None, None]
+                     * staged[:, (hi1[ys] - r_lo).long(), :, cs])
+                up = (ww0[xs][None, None, :, None]
+                      * a[:, :, (wi0[xs] - c_lo).long()]
+                      + ww1[xs][None, None, :, None]
+                      * a[:, :, (wi1[xs] - c_lo).long()])
+                for k in range(up.shape[-1]):
+                    take = up[..., k] > best
+                    best = torch.where(take, up[..., k], best)
+                    pred = torch.where(take, c0 + k, pred)
+            mask[:, y_lo:y_hi, x_lo:x_hi] = pred
+            writes[:, y_lo:y_hi, x_lo:x_hi] += 1
+    return mask, writes
+
+
+# name -> (logits shape, mask (H, W), align_corners, argmax_plan tiling)
+ARGMAX_BANDED_CASES = {
+    # 33 output rows in bands of 4 (the last of 1), 41 columns in 3 tiles
+    "ragged_align_true": ((2, 9, 11, 5), (33, 41), True,
+                          dict(band_rows=4, tile_cols=15)),
+    "ragged_align_false": ((2, 9, 11, 5), (33, 41), False,
+                           dict(band_rows=4, tile_cols=15)),
+    # 7 classes in chunks of 3, 3, 1 (bands of one row); class 5 duplicates
+    # class 1, across chunks: class 1 must win every tie
+    "class_chunks_tie": ((1, 7, 19, 7), (29, 31), False,
+                         dict(tile_cols=8, max_chunk=3)),
+    "downsampled_both": ((1, 20, 30, 5), (7, 9), False,
+                         dict(band_rows=2, tile_cols=4, max_chunk=2)),
+    "one_source_row": ((2, 1, 6, 4), (5, 13), True,
+                       dict(band_rows=2, tile_cols=6)),
+    "defaults_c21": ((2, 17, 13, 21), (65, 49), True, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ARGMAX_BANDED_CASES))
+def test_argmax_banded_arithmetic_agrees_with_plain(case):
+    """The kernel's tiling and arithmetic against the plain version: every
+    pixel written by one block, the masks equal where the top-2 gap is
+    clear (the same f32 values in another interpolation order), and a tie
+    kept by the lower class."""
+    shape, out_hw, align, tiling = ARGMAX_BANDED_CASES[case]
+    x = np.random.default_rng(13).standard_normal(shape).astype(np.float32)
+    if case.endswith("_tie"):
+        x[..., 5] = x[..., 1]
+    logits = torch.from_numpy(x)
+    plan = ua.argmax_plan(*shape, *out_hw, align, **tiling)
+    if tiling:  # the tiling the case names is the one the model follows
+        assert len(plan.bands) > 1 or shape[1] == 1 or out_hw[0] == 1
+        assert (plan.chunk < shape[-1]) == ("max_chunk" in tiling)
+    got, writes = _argmax_banded_arithmetic(logits, out_hw, align, **tiling)
+    assert bool((writes == 1).all())
+    want = ua.upsample_argmax_reference(logits, out_hw, align)
+    up = tresize.resize_bilinear(logits, out_hw, align_corners=align)
+    assert_masks_agree(got.numpy(), want.numpy(), up.numpy())
+    if case.endswith("_tie"):
+        assert not bool((got == 5).any()) and bool((got == 1).any())
