@@ -421,7 +421,7 @@ def resample_case(name, planes, coords, use_bil, out_dtype):
         planes=list(planes.shape), planes_strides=list(planes.stride()),
         out_w=coords.shape[-1], out_dtype=str(out_dtype).replace("torch.", ""),
         bilinear_samples=int(use_bil.sum()), max_abs_err=err, equal=True,
-        two_launches_bit_equal=True, route=br.route(planes.stride()),
+        two_launches_bit_equal=True,
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, **least)
     return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, **least, "library_ms": None}
@@ -2086,15 +2086,11 @@ def main():
          "source": "pytorch_segmentation_tpu_torch/csrc/banded_resample.cu",
          "replaces":
              "pytorch_segmentation_tpu/ops/pallas/banded_resample.py:60",
-         "design": "two kernels by layout: the second pass's transposed "
-                   "view through transposed_resample_kernel (32 x 32 tiles, "
-                   "a warp's lanes on 32 rows so that its taps are "
-                   "coalesced runs along the contiguous rows, coordinates "
-                   "and outputs crossing shared tiles so that they load and "
-                   "store along the columns); the first pass through the "
-                   "first port's gather kernel, kept (tiles staged in "
-                   "shared memory measured slower); bit-equal to the plain "
-                   "version",
+         "design": "the first port's gather, kept: a thread per output "
+                   "position, a block of 32 output columns x 8 rows, both "
+                   "passes (the second on the transposed view through its "
+                   "strides); staged-tile and transposed-tile variants "
+                   "measured no faster; bit-equal to the plain version",
          "launches": resample_launches, **resample_path},
         # ms: the wrapper call; kernel_ms: _launch (the zeroed count buffer
         # and the kernel)

@@ -18,54 +18,26 @@
 // The TPU kernel multiplies by a banded interpolation matrix that it builds
 // in fast memory because the TPU cannot gather, and it walks a window of
 // 4 x 128 source columns into which the caller clamps the coordinates.
-// Hopper gathers, and there is no window: every coordinate in [0, C-1] is
-// resampled exactly, and a tap outside [0, C-1] (the second tap at c = C-1,
-// whose weight is 0) is never read.
+// Hopper gathers: each thread reads its coordinate once, works out the two
+// taps and both weight pairs once, and produces all four planes. There is no
+// window, so every coordinate in [0, C-1] is resampled exactly. A tap
+// outside [0, C-1] (the second tap at c = C-1, whose weight is 0) is never
+// read.
 //
 // What bounds it on an H100: memory. At the path shape ([32, 4, 513, 513]
-// bf16 in and out, f32 coordinates) it must move 67 + 34 + 67 MB, 50 us at
-// 3.35 TB/s; the ~22 f32 operations per output position are far below that.
-// The warp runs it twice per batch: the first pass on a contiguous source,
-// the second on the transposed view of the first pass's output (s_r = 1,
-// s_c = 513), read through its strides without a copy.
-//
-// Two kernels, chosen by the layout. The first pass, and any strides, take
-// the gather kernel of the first port, kept as it was: a thread per output
-// position reads its coordinate, works out the two taps and both weight
-// pairs once and produces all four planes; a warp's taps of a contiguous
-// row are neighbouring elements and its stores a coalesced run a plane. On
-// an NVIDIA H100 80GB HBM3 at 700 W it takes 0.082 ms of device time at the
-// path shape (1.6x its bound). On the transposed view the same kernel's 32
-// taps of a warp fall into 32 cache lines (0.109 ms); the transposed kernel
-// below reads them along the rows instead and crosses shared tiles for the
-// coordinates and the outputs, so that every access to device memory is
-// coalesced (0.107 ms). Neither reaches its bound: measured beside them on
-// the same card (PERF.md, PR 12), kernels that staged a tile's source span
-// in shared memory (16-byte chunks or cp.async along the contiguous axis,
-// one tile a block or persistent blocks with a two-deep pipeline, 16 x 64
-// to 32 x 32 tiles), and the gather with 2, 4 or 8 rows a thread, were all
-// as fast or slower (0.08-0.36 ms), and no variant moved the time with the
-// loads in flight or the instructions a position; what holds the kernels
-// there is unmeasured (no kernel profiler on the card's host).
-//
-// Traps: a 513-wide bf16 row has a 1026-byte pitch, so rows alternate their
-// alignment (vector loads and stores need an aligned body and scalar ends);
-// for the same reason TMA cannot describe these tensors
-// (cuTensorMapEncodeTiled needs global strides that are multiples of 16
-// bytes). Moving the transpose into the first pass's store would change the
-// wrapper's output contract and the augmentation's calls; it was not taken.
+// bf16 in and out, f32 coordinates) it must move 67 + 34 + 67 MB, about 50 us
+// at 3.35 TB/s; the ~10 f32 operations per output element are far below
+// that. A block is 32 output columns by 8 rows: the coordinate loads and the
+// four stores of a warp are coalesced, and the plane loads are nearly so
+// because coordinates move slowly along a row. The planes are read through
+// their strides, so a transposed view needs no copy; then a warp's taps fall
+// into separate cache lines, which the 8 rows of a block share.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// The transposed kernel's block and tile: kTile rows (a warp's lanes) x
-// kTile output columns, a thread kItems of them.
-constexpr int kThreads = 256;
-constexpr int kTile = 32;
-constexpr int kItems = kTile * kTile / kThreads;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -76,44 +48,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// One output position's two taps and their weights: the gather kernel's
-// expressions. Image planes take (w0, w1), the label plane (n0, n1); a tap
-// outside [0, C-1] (in0 / in1 false) is never read.
-struct Taps2 {
-  int j0;
-  bool in0, in1;
-  float w0, w1, n0, n1;
-
-  __device__ __forceinline__ Taps2(float c, bool bil, int cols) {
-    const float f0 = floorf(c);
-    j0 = (int)f0;
-    const int jn = (int)floorf(c + 0.5f);
-    // one-hot of the nearest tap, on the same two columns
-    n0 = jn == j0 ? 1.0f : 0.0f;
-    n1 = jn == j0 + 1 ? 1.0f : 0.0f;
-    w0 = n0;
-    w1 = n1;
-    if (bil) {
-      w0 = bf16_round(fmaxf(1.0f - fabsf(c - f0), 0.0f));
-      w1 = bf16_round(fmaxf(1.0f - fabsf(c - (f0 + 1.0f)), 0.0f));
-    }
-    in0 = j0 >= 0 && j0 < cols;
-    in1 = j0 >= -1 && j0 < cols - 1;
-  }
-  // plane p's output from its two taps: both products exact in f32, one
-  // rounding in the sum
-  __device__ __forceinline__ float value(int p, float v0, float v1) const {
-    return p < 3 ? w0 * v0 + w1 * v1 : n0 * v0 + n1 * v1;
-  }
-};
-
-// Any strides, and the first pass (s_c == 1): the gather kernel of the
-// first port, kept as it was (a thread per output position, a block of 32
-// output columns x 8 rows). A warp's taps of a contiguous row are
-// neighbouring elements, and its stores one coalesced run a plane; it runs
-// within 1.7x of its bound, and every variant measured beside it (tiles
-// staged in shared memory, 2-8 rows a thread) was as fast or slower
-// (PERF.md).
 template <typename OutT>
 __global__ void banded_resample_kernel(
     const __nv_bfloat16* __restrict__ planes, int64_t s_b, int64_t s_p,
@@ -156,124 +90,33 @@ __global__ void banded_resample_kernel(
   }
 }
 
-// The second pass (s_r == 1: the transposed view of the first pass's
-// output, whose rows are contiguous). There the gather kernel's 32 taps of
-// a warp fall into 32 cache lines. Here a block takes kTile rows x kTile
-// output columns; lane i of a warp takes row r0 + i, warp w the columns
-// x0 + w + 8k. The coordinates come in along the columns, coalesced, and
-// cross a shared tile; the taps of a warp are 32 consecutive rows of the few
-// source columns its coordinates fall into (a coalesced run a column); a
-// thread's 32 taps are all in flight at once; the outputs cross a shared
-// tile back and go out along the columns, a coalesced run a row and plane.
-// Pitches of 33 words and 34 halves keep both crossings free of bank
-// conflicts.
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads) transposed_resample_kernel(
-    const __nv_bfloat16* __restrict__ planes, int64_t s_b, int64_t s_p,
-    int64_t s_c, const float* __restrict__ coords,
-    const uint8_t* __restrict__ use_bil, OutT* __restrict__ out, int rows,
-    int cols, int out_w) {
-  constexpr int kPitch = sizeof(OutT) == 4 ? kTile + 1 : kTile + 2;
-  __shared__ float crd_s[kTile][kTile + 1];
-  __shared__ OutT out_s[4][kTile][kPitch];
-  const int x0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
-  const int64_t b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_rows = min(kTile, rows - r0), n_cols = min(kTile, out_w - x0);
-  const float* crd = coords + (b * rows + r0) * out_w + x0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int r = warp + 8 * k;
-    if (r < n_rows && lane < n_cols)
-      crd_s[r][lane] = crd[(int64_t)r * out_w + lane];
-  }
-  __syncthreads();
-  const bool bil = use_bil[b] != 0;
-  const __nv_bfloat16* src = planes + b * s_b + r0 + lane;
-  if (lane < n_rows) {
-    float v0[kItems][4], v1[kItems][4];
-    bool has[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int x = warp + 8 * k;
-      has[k] = x < n_cols;
-      const Taps2 t(has[k] ? crd_s[lane][x] : 0.0f, bil, cols);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const __nv_bfloat16* pl = src + p * s_p;
-        v0[k][p] = has[k] && t.in0
-                       ? __bfloat162float(pl[(int64_t)t.j0 * s_c])
-                       : 0.0f;
-        v1[k][p] = has[k] && t.in1
-                       ? __bfloat162float(pl[(int64_t)(t.j0 + 1) * s_c])
-                       : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int x = warp + 8 * k;
-      if (!has[k]) continue;
-      const Taps2 t(crd_s[lane][x], bil, cols);
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        store(&out_s[p][lane][x], t.value(p, v0[k][p], v1[k][p]));
-    }
-  }
-  __syncthreads();
-  const int64_t plane_out = (int64_t)rows * out_w;
-  OutT* dst = out + (b * 4 * rows + r0) * out_w + x0 + lane;
-  if (lane < n_cols) {
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int r = warp + 8 * k;
-      if (r >= n_rows) break;
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        dst[p * plane_out + (int64_t)r * out_w] = out_s[p][r][lane];
-    }
-  }
-}
-
 }  // namespace
 
 // Plain C entry point for ctypes. planes: bf16 with strides in elements;
 // coords: contiguous f32 [batch, rows, out_w]; use_bil: one byte per sample;
 // out: contiguous [batch, 4, rows, out_w], out_dtype 0 = float32,
-// 1 = bfloat16. Planes whose rows are contiguous (s_r == 1) and whose
-// columns are not go through transposed_resample_kernel, any others through
-// banded_resample_kernel. Returns cudaGetLastError() after the launch (0 =
-// success).
+// 1 = bfloat16. Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int pseg_banded_resample(
     const void* planes, int64_t s_b, int64_t s_p, int64_t s_r, int64_t s_c,
     int batch, int rows, int cols, const void* coords, int out_w,
     const void* use_bil, void* out, int out_dtype, void* stream) {
   if (batch == 0 || rows == 0 || out_w == 0) return 0;
-  if (out_dtype < 0 || out_dtype > 1 || batch > 65535 ||
-      (rows + 7) / 8 > 65535)
-    return (int)cudaErrorInvalidValue;
+  const dim3 block(32, 8);
+  const dim3 grid((out_w + block.x - 1) / block.x,
+                  (rows + block.y - 1) / block.y, batch);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool transposed = s_r == 1 && s_c != 1;
-#define PSEG_LAUNCH(T)                                                       \
-  do {                                                                       \
-    if (transposed) {                                                        \
-      const dim3 grid((out_w + kTile - 1) / kTile, (rows + kTile - 1) / kTile, \
-                      batch);                                                \
-      transposed_resample_kernel<T><<<grid, kThreads, 0, s>>>(               \
-          (const __nv_bfloat16*)planes, s_b, s_p, s_c, (const float*)coords, \
-          (const uint8_t*)use_bil, (T*)out, rows, cols, out_w);              \
-    } else {                                                                 \
-      const dim3 block(32, 8);                                               \
-      const dim3 grid((out_w + 31) / 32, (rows + 7) / 8, batch);             \
-      banded_resample_kernel<T><<<grid, block, 0, s>>>(                      \
-          (const __nv_bfloat16*)planes, s_b, s_p, s_r, s_c,                  \
-          (const float*)coords, (const uint8_t*)use_bil, (T*)out, rows,      \
-          cols, out_w);                                                      \
-    }                                                                        \
-  } while (0)
+#define PSEG_LAUNCH(T)                                                      \
+  banded_resample_kernel<T><<<grid, block, 0, s>>>(                         \
+      (const __nv_bfloat16*)planes, s_b, s_p, s_r, s_c,                     \
+      (const float*)coords, (const uint8_t*)use_bil, (T*)out, rows, cols,   \
+      out_w)
   if (out_dtype == 0) {
     PSEG_LAUNCH(float);
-  } else {
+  } else if (out_dtype == 1) {
     PSEG_LAUNCH(__nv_bfloat16);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
 #undef PSEG_LAUNCH
   return (int)cudaGetLastError();

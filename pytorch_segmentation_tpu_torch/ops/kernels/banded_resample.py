@@ -2,13 +2,9 @@
 [B, 4, R, C] resampled at per-row coordinates [B, R, W] (port of
 pytorch_segmentation_tpu/ops/pallas/banded_resample.py).
 
-On a CUDA tensor `banded_resample_rows` launches one of the two
-hand-written kernels in `csrc/banded_resample.cu`, by the planes' layout
-(`route`): planes whose rows are contiguous and whose columns are not (the
-second pass's transposed view) go to a kernel whose warps read 32 rows of a
-source column at once, the outputs crossing a shared tile so that they are
-stored along the rows; any others to a thread-per-position gather (see the
-note there for what bounds them). On a CPU tensor it runs
+On a CUDA tensor `banded_resample_rows` launches the hand-written kernel in
+`csrc/banded_resample.cu` (one thread per output position: two taps, all
+four planes; see the note there for what bounds it). On a CPU tensor it runs
 `banded_resample_reference`, the plain PyTorch version the tests hold
 against the JAX package. There is no fallback from one to the other: a CUDA
 tensor gets the kernel or an exception.
@@ -27,24 +23,11 @@ import torch
 
 from .build import load_kernel_library
 
-__all__ = ["banded_resample_rows", "banded_resample_reference", "route",
-           "GATHER_BLOCK", "TRANSPOSED_TILE", "launch_count",
-           "reset_launch_count"]
+__all__ = ["banded_resample_rows", "banded_resample_reference",
+           "launch_count", "reset_launch_count"]
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (rows, output columns) a block of each kernel covers (the .cu's block of
-# the gather kernel, and kTile x kTile of the transposed one)
-GATHER_BLOCK = (8, 32)
-TRANSPOSED_TILE = (32, 32)
 _launches = 0
-
-
-def route(strides) -> str:
-    """Which kernel takes planes of these (B, 4, R, C) strides, as the C
-    entry point decides: "transposed" where the rows are contiguous and the
-    columns are not, "gather" otherwise."""
-    return ("transposed" if strides[2] == 1 and strides[3] != 1
-            else "gather")
 
 
 def launch_count() -> int:

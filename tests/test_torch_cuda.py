@@ -1,7 +1,7 @@
 """PyTorch port on the card: the hand-written kernels (upsample+argmax, its
 mask counted to the eval kernel's counts;
 upsample+cross-entropy forward, its loss and lse, and backward; the
-augmentation warp's row resampler on both of its kernels;
+augmentation warp's row resampler on both passes' layouts;
 upsample+argmax+confusion counts; the
 fused 1x1 forward, dx and dW; the channels-major product; the Hopper loop's
 product with each operand K-major or MN-major) against their plain PyTorch
@@ -431,7 +431,7 @@ def _smooth_coords(rng, b, r, w, c, wrap_sample=None):
 
 
 # name -> (B, R, C, W, planes as a transposed view, coordinates, out dtype)
-RESAMPLE_ROUTE_CASES = {
+RESAMPLE_CASES = {
     "contiguous_513_bf16": (2, 513, 513, 513, False, "smooth",
                             torch.bfloat16),
     "transposed_513_bf16": (2, 513, 513, 513, True, "smooth",
@@ -444,14 +444,14 @@ RESAMPLE_ROUTE_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(RESAMPLE_ROUTE_CASES))
-def test_resample_both_routes_equal_plain(device, case):
-    """Both kernels (the gather for contiguous columns, the transposed one
-    for the second pass's view) equal the plain version bit for bit, at odd
-    widths whose rows are misaligned, with coordinates at exactly 0 and
+@pytest.mark.parametrize("case", sorted(RESAMPLE_CASES))
+def test_resample_kernel_equals_plain_on_both_passes_layouts(device, case):
+    """The kernel equals the plain version bit for bit on a contiguous
+    source (the first pass) and a transposed view (the second pass's), at
+    odd widths whose rows are misaligned, with coordinates at exactly 0 and
     C-1, random ones, a sample in wrap mode and mixed use_bil; a repeat
     gives the same bits."""
-    b, r, c, w, transposed, kind, out_dtype = RESAMPLE_ROUTE_CASES[case]
+    b, r, c, w, transposed, kind, out_dtype = RESAMPLE_CASES[case]
     rng = np.random.default_rng(3)
     planes = rng.uniform(0, 255, (b, 4, c, r) if transposed
                          else (b, 4, r, c)).astype(np.float32)
@@ -468,8 +468,6 @@ def test_resample_both_routes_equal_plain(device, case):
                                 wrap_sample=1 if kind == "wrap" else None)
     coords = torch.from_numpy(coords).to(device)
     use_bil = torch.from_numpy(np.arange(b) % 2 == 0).to(device)
-    assert br.route(planes.stride()) == ("transposed" if transposed
-                                         else "gather")
     first = _resample_check(planes, coords, use_bil, out_dtype)
     assert torch.equal(first, br.banded_resample_rows(
         planes, coords, use_bil, out_dtype=out_dtype))

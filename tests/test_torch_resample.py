@@ -1,9 +1,7 @@
 """PyTorch port: the row resampler of the augmentation warp against the JAX
 package on the same numpy inputs (CPU). On the CPU the port's wrapper runs
 its plain version; the JAX side is its dense `_reference` and the Pallas
-kernel in interpret mode. Then the CUDA kernel's tiling (`resample_plan`)
-and its staged arithmetic, modelled in plain torch, against the plain
-version."""
+kernel in interpret mode."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -142,116 +140,3 @@ def test_resample_wrapper_checks_shapes():
     assert torch.equal(
         br.banded_resample_rows(sq.transpose(2, 3), cs, ub),
         br.banded_resample_rows(sq.transpose(2, 3).contiguous(), cs, ub))
-
-
-def _tiled_arithmetic(planes, coords, use_bil, out_dtype):
-    """The kernels' arithmetic, in torch, block by block as the kernel that
-    takes these planes (`route`) tiles them: per block and sample the two
-    taps of each position (j0 = floor(c); the nearest tap floor(c + 0.5)
-    compared as integers; a tap outside [0, C-1] never read), bilinear
-    weights rounded to bf16, two products and one f32 sum. -> (output,
-    blocks that wrote each position)."""
-    b, _, rows, cols = planes.shape
-    out_w = coords.shape[2]
-    tile_rows, tile_cols = (br.TRANSPOSED_TILE
-                            if br.route(planes.stride()) == "transposed"
-                            else br.GATHER_BLOCK)
-    values = planes.float()
-    out = torch.zeros((b, 4, rows, out_w))
-    writes = torch.zeros((b, rows, out_w), dtype=torch.int64)
-    for r_lo in range(0, rows, tile_rows):
-        for x_lo in range(0, out_w, tile_cols):
-            rs = slice(r_lo, min(rows, r_lo + tile_rows))
-            xs = slice(x_lo, min(out_w, x_lo + tile_cols))
-            c = coords[:, rs, xs]
-            f0 = torch.floor(c)
-            j0 = f0.long()
-            jn = torch.floor(c + 0.5).long()
-            n0, n1 = (jn == j0).float(), (jn == j0 + 1).float()
-            wb0 = (1.0 - (c - f0).abs()).clamp_min(0.0).bfloat16().float()
-            wb1 = (1.0 - (c - (f0 + 1.0)).abs()).clamp_min(0.0).bfloat16() \
-                .float()
-            bil = use_bil[:, None, None]
-            w0, w1 = torch.where(bil, wb0, n0), torch.where(bil, wb1, n1)
-            src = values[:, :, rs]
-            taps = []
-            for j, inside in ((j0, (j0 >= 0) & (j0 < cols)),
-                              (j0 + 1, (j0 >= -1) & (j0 < cols - 1))):
-                at = torch.where(inside, j, 0)[:, None].expand(-1, 4, -1, -1)
-                taps.append(torch.where(inside[:, None],
-                                        torch.gather(src, 3, at), 0.0))
-            a0 = torch.stack([w0, w0, w0, n0], 1)
-            a1 = torch.stack([w1, w1, w1, n1], 1)
-            out[:, :, rs, xs] = a0 * taps[0] + a1 * taps[1]
-            writes[:, rs, xs] += 1
-    return out.to(out_dtype), writes
-
-
-def _smooth_coords(rng, b, rows, out_w, cols, slope, shear):
-    """Per-row coordinates that advance by `slope` a column and shift by
-    `shear` a row, with jitter, inside [0, C-1]; both ends present."""
-    x = np.arange(out_w, dtype=np.float32)
-    r = np.arange(rows, dtype=np.float32)[:, None]
-    c = 3.0 + slope * x[None] + shear * r + rng.uniform(-1.5, 1.5,
-                                                        (b, rows, out_w))
-    c = np.clip(c, 0.0, cols - 1.0).astype(np.float32)
-    c[:, 0, 0], c[:, -1, -1] = 0.0, cols - 1.0
-    return c
-
-
-# name -> (B, R, C, W, planes as a transposed view, coordinates, out dtype)
-TILED_CASES = {
-    "gather_ragged": (2, 37, 211, 150, False, "smooth", torch.float32),
-    "transposed_view": (2, 40, 300, 300, True, "smooth", torch.bfloat16),
-    "transposed_ragged_f32": (3, 37, 211, 150, True, "smooth",
-                              torch.float32),
-    "gather_random": (2, 20, 300, 40, False, "random", torch.float32),
-    "transposed_random": (2, 33, 300, 70, True, "random", torch.bfloat16),
-    "transposed_wrap_sample": (2, 40, 300, 300, True, "wrap",
-                               torch.bfloat16),
-}
-
-
-@pytest.mark.parametrize("case", sorted(TILED_CASES))
-def test_tiled_arithmetic_equals_plain(case):
-    """The kernels' tiling and arithmetic against the plain version: equal
-    bit for bit (two exact bf16 x bf16 products and one f32 sum on both
-    sides), every position written by one block, on both routes, at ragged
-    sizes, with coordinates at exactly 0 and C-1, random ones and a sample
-    whose rows wrap from C-1 to 0."""
-    b, rows, cols, out_w, transposed, kind, out_dtype = TILED_CASES[case]
-    rng = np.random.default_rng(21)
-    planes = rng.uniform(0, 255, (b, 4, cols, rows) if transposed
-                         else (b, 4, rows, cols)).astype(np.float32)
-    planes = torch.from_numpy(planes).bfloat16()
-    if transposed:  # a view with the rows contiguous
-        planes = planes.transpose(2, 3)
-    planes[:, 3] = torch.from_numpy(rng.integers(0, 21, (b, rows, cols))
-                                    ).bfloat16()
-    if kind == "random":
-        coords = rng.uniform(0, cols - 1, (b, rows, out_w)).astype(np.float32)
-        coords[:, :, 0], coords[:, :, -1] = 0.0, cols - 1.0
-    else:
-        coords = _smooth_coords(rng, b, rows, out_w, cols, 0.9, 0.4)
-        if kind == "wrap":  # sample 1 jumps from C-1 to 0 mid-row
-            coords[1] = np.mod(coords[1] + 150.0, cols - 1.0)
-    coords = torch.from_numpy(coords)
-    use_bil = torch.tensor([True, False, True][:b])
-    assert br.route(planes.stride()) == ("transposed" if transposed
-                                         else "gather")
-    got, writes = _tiled_arithmetic(planes, coords, use_bil, out_dtype)
-    assert bool((writes == 1).all())
-    assert torch.equal(got, br.banded_resample_reference(planes, coords,
-                                                         use_bil, out_dtype))
-
-
-def test_route_follows_the_strides():
-    """The transposed kernel takes planes whose rows are contiguous and
-    whose columns are not; the gather takes any others (contiguous rows of
-    columns, one column, sliced views)."""
-    x = torch.zeros(2, 4, 5, 6, dtype=torch.bfloat16)
-    assert br.route(x.stride()) == "gather"
-    assert br.route(x.transpose(2, 3).stride()) == "transposed"
-    assert br.route(x[..., ::2].stride()) == "gather"
-    assert br.route(x.transpose(2, 3)[..., ::2].stride()) == "transposed"
-    assert br.route(torch.zeros(2, 4, 5, 1).stride()) == "gather"
