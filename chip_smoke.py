@@ -12,7 +12,12 @@ the same counts; then each option of the eval step once: flip and
 multi-scale TTA, sliding-window tiles, ignore_index, Boundary IoU), trains
 it end to end from u8 host batches (an in-memory dataset -> DataLoader ->
 Fetcher -> PostFetch, the default augmentation policy on the card, whose
-warp runs the row-resample kernel twice per batch -> Trainer), and then
+warp runs the row-resample kernel twice per batch -> Trainer), drives the
+command lines from files on disk (a seeded synthetic COCO set written as
+PNG, 96 + 32 images at 640x480 with 21 classes: `train` for 2 epochs with
+the per-epoch eval, `train --resume` to epoch 3, `test` on best.pt and
+`inference` on the val images, held against `engine.test` and
+`inference()` in the same process; the host's records/s beside), and then
 trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
 conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
@@ -27,7 +32,8 @@ benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
 main-path run (serving, training, evaluation, training end to end, training
-with the fused 1x1 switch on, or the layout benchmark), its error against
+with the fused 1x1 switch on, or the layout benchmark) and, for the four it
+runs, on the command lines' run (`cli_launches`), its error against
 the plain version, its time, the plain version's, one library call's where
 there is one, and the card's bound for the same work; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -45,18 +51,25 @@ import re
 import statistics
 import subprocess
 import tempfile
+import struct
 import threading
 import time
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from pytorch_segmentation_tpu_torch import _native as native
 from pytorch_segmentation_tpu_torch.data import augment as taug
+from pytorch_segmentation_tpu_torch.data.colormap import colorize_mask
 from pytorch_segmentation_tpu_torch.data.loader import DataLoader, Fetcher
 from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
                                                           normalize_images)
+from pytorch_segmentation_tpu_torch.data.rasterize import (
+    rasterize_annotations)
+from pytorch_segmentation_tpu_torch.data.resize_host import resize_u8
 from pytorch_segmentation_tpu_torch.engine import test as run_eval
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.engine.steps import (make_eval_step,
@@ -87,8 +100,10 @@ from pytorch_segmentation_tpu_torch.tools import bench_cmajor
 # sleep kernel
 from pytorch_segmentation_tpu_torch.tools.bench_eval_confusion import (
     queued_ms)
+from pytorch_segmentation_tpu_torch.utils import png
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
+from pytorch_segmentation_tpu_torch.utils.synthetic import make_synthetic_coco
 from pytorch_segmentation_tpu_torch.utils.weights import seeded_state_dict
 
 SEED = 0
@@ -97,6 +112,9 @@ BATCH = 8
 TRAIN_BATCH = 32
 EVAL_BATCH = 32
 EVAL_IMAGES = 80   # 3 eval batches, valid = 32, 32, 16
+# the cli phase's synthetic COCO set: 20 categories + background
+CLI_TRAIN, CLI_VAL, CLI_WH, CLI_CATEGORIES = 96, 32, (640, 480), 20
+CLI_WORKERS = 4
 NUM_CLASSES = 21
 GAP = 1e-4       # pixels with a larger top-2 gap must agree exactly
 AGREEMENT = 0.999
@@ -1850,7 +1868,223 @@ def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
         resample_kernel_ms_per_pass=resample_pass_ms,
         augment_peak_memory_mb=augment_peak_mb, peak_memory_gb=peak_gb,
         resample_launches=resample_launches, ce_launches=ce_launches)
-    return resample_launches
+    return resample_launches, [ms / n_batches for ms in epoch_ms]
+
+
+def encode_png_filtered(rgb, filter_type):
+    """PNG bytes of uint8 RGB [H, W, 3] with every row filtered with
+    `filter_type` 1..4 (PNG specification, section 9): decoding such a file
+    runs the reconstruction that filter needs."""
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]                       # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                             # up
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]                    # up-left
+    pred = {1: a, 2: b, 3: (a + b) >> 1, 4: png._paeth(a, b, c)}[filter_type]
+    rows = np.concatenate([np.full((h, 1), filter_type, np.int16),
+                           (x - pred) & 255], axis=1).astype(np.uint8)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (png._SIGNATURE + png._chunk(b"IHDR", ihdr)
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + png._chunk(b"IEND", b""))
+
+
+def host_record_rates(dataset, first, n):
+    """Records/s of the host's per-record work on one thread, split into
+    PNG decode, rasterize and the cubic (image) + nearest (labels) resize,
+    over records first..first+n-1; and the whole record (decode to resized
+    RGB) through the DataLoader's worker threads, over the dataset."""
+    seconds = {"decode": 0.0, "rasterize": 0.0, "resize": 0.0}
+    tw, th = dataset.img_size
+    records = dataset.data[first:first + n]
+    n = len(records)
+    for path, anns in records:
+        t0 = time.perf_counter()
+        img = png.imread(path)
+        t1 = time.perf_counter()
+        seg = rasterize_annotations(img.shape[0], img.shape[1], anns)
+        t2 = time.perf_counter()
+        resize_u8(np.ascontiguousarray(img[:, :, ::-1]), (tw, th), "cubic")
+        resize_u8(seg, (tw, th), "nearest")
+        t3 = time.perf_counter()
+        seconds["decode"] += t1 - t0
+        seconds["rasterize"] += t2 - t1
+        seconds["resize"] += t3 - t2
+    rates = {f"{k}_records_per_s": n / v for k, v in seconds.items()}
+    rates["one_thread_records_per_s"] = n / sum(seconds.values())
+    loader = DataLoader(dataset, TRAIN_BATCH, num_workers=CLI_WORKERS)
+    t0 = time.perf_counter()
+    count = sum(batch.valid for batch in loader)
+    rates[f"dataloader_{CLI_WORKERS}_workers_records_per_s"] = (
+        count / (time.perf_counter() - t0))
+    return rates
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    """The CLIs write weights/, runs/ and batch.png where they run."""
+    before = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(before)
+
+
+def cli_phase(device, e2e_ms_per_step):
+    """The command lines from files on disk, at full width: a seeded
+    synthetic COCO set written as PNG (96 train and 32 val images at
+    640x480, 20 categories + background; four train files re-encoded with
+    row filters 1-4), then `train` (2 epochs, the per-epoch eval),
+    `train --resume` (to epoch 3), `test` on best.pt and `inference` on the
+    val images, each through its module's `main` as `python -m` runs it.
+    Checks: the resumed run starts at epoch 2 with the saved best mIoU and
+    update count; the test CLI's mIoU is `engine.test`'s on the same weights
+    and files; the inference CLI's masks are at each image's size and equal
+    to `inference()`'s on the same batches. Kernels 1-4 must all launch."""
+    from pytorch_segmentation_tpu_torch import inference as infer_cli
+    from pytorch_segmentation_tpu_torch import test as test_cli
+    from pytorch_segmentation_tpu_torch import train as train_cli
+    from pytorch_segmentation_tpu_torch.data import CocoDataset
+
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        t0 = time.perf_counter()
+        data = make_synthetic_coco(os.path.join(tmp, "coco"), CLI_TRAIN,
+                                   CLI_VAL, CLI_WH, seed=SEED,
+                                   num_classes=CLI_CATEGORIES)
+        for k in range(4):   # rows filtered with types 1..4
+            path = os.path.join(data, f"train_{k:04d}.png")
+            rgb = png.decode_png(open(path, "rb").read())
+            with open(path, "wb") as f:
+                f.write(encode_png_filtered(rgb, k + 1))
+            if not np.array_equal(png.decode_png(open(path, "rb").read()),
+                                  rgb):
+                raise AssertionError(f"filter {k + 1}: the decode differs")
+        write_s = time.perf_counter() - t0
+        train_set = CocoDataset(os.path.join(data, "train.json"),
+                                img_size=(IMG, IMG))
+        # filter-0 files (the generator's) one by one; the filtered four
+        # apart
+        rates = host_record_rates(train_set, 4, 16)
+        t0 = time.perf_counter()
+        for path, _ in train_set.data[:4]:
+            png.imread(path)
+        filtered_decode_ms = 1e3 * (time.perf_counter() - t0) / 4
+        os.makedirs("imgs")
+        for info in json.load(open(os.path.join(data, "val.json")))["images"]:
+            os.symlink(os.path.join(data, info["file_name"]),
+                       os.path.join("imgs", info["file_name"]))
+
+        # the main path, with every count at 0
+        argv = [data, "--model", "deeplabv3plus", "--dataset", "coco",
+                "-s", str(IMG), str(IMG), "-bs", str(TRAIN_BATCH), "-a", "1",
+                "-mp", "--num-workers", str(CLI_WORKERS)]
+        for kernel in (ua, ce, br, ec):
+            kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        first = train_cli.main(argv + ["--epochs", "2"])
+        saved = torch.load("weights/last.pt", weights_only=True)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = train_cli.main(argv + ["--epochs", "3", "--resume"])
+        resume_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        miou = test_cli.main([os.path.join(data, "val.json"), "--model",
+                              "deeplabv3plus", "--weights", "weights/best.pt",
+                              "-s", str(IMG), str(IMG), "-bs",
+                              str(EVAL_BATCH), "--num-workers",
+                              str(CLI_WORKERS)])
+        test_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        masks = infer_cli.main(["imgs", "out", "--model", "deeplabv3plus",
+                                "-s", str(IMG), str(IMG), "-nc",
+                                str(NUM_CLASSES), "--weights",
+                                "weights/best.pt", "-bs", str(BATCH)])
+        infer_s = time.perf_counter() - t0
+        launches = {"upsample_argmax": ua.launch_count(),
+                    "softmax_ce": ce.launch_count(),
+                    "banded_resample": br.launch_count(),
+                    "eval_confusion": ec.launch_count()}
+
+        with open("runs/log.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if "steps" in r]
+        val = [r for r in records if "val_miou" in r]
+        per_epoch = CLI_TRAIN // TRAIN_BATCH
+        if not (first.epoch == 2 and first.state.step == 2 * per_epoch
+                and saved["epoch"] == 2 and saved["step"] == 2 * per_epoch
+                and saved["best_miou"] == first.metrics > 0):
+            raise AssertionError(f"train: epoch {first.epoch}, step "
+                                 f"{first.state.step}, saved {saved['epoch']}"
+                                 f" / {saved['step']} / {saved['best_miou']}")
+        if not ([r["epoch"] for r in epochs] == [r["epoch"] for r in val]
+                == [0, 1, 2] and resumed.epoch == 3
+                and resumed.state.step == 3 * per_epoch
+                and resumed.metrics == max(first.metrics,
+                                           val[-1]["val_miou"])):
+            raise AssertionError(f"resume: epochs {[r['epoch'] for r in val]}"
+                                 f", step {resumed.state.step}, best "
+                                 f"{resumed.metrics} after {first.metrics}")
+        if not all(np.isfinite(r["loss"]) for r in epochs):
+            raise AssertionError(f"epoch losses {epochs}")
+        del first, resumed
+        # 3 epochs; 3 per-epoch evals and the test CLI's, each with a
+        # first-batch picture
+        steps, tests = 3 * per_epoch, 4
+        evals = tests * -(-CLI_VAL // EVAL_BATCH)
+        want = {"upsample_argmax": tests,
+                "softmax_ce": {"fwd": steps + evals, "bwd": steps},
+                "banded_resample": 2 * steps, "eval_confusion": evals}
+        if launches != want:
+            raise AssertionError(f"cli launches {launches}, want {want}")
+
+        # the same weights and files in this process
+        model = load_model_bundle(build_model("deeplabv3plus", NUM_CLASSES),
+                                  "weights/best.pt", device)
+        val_set = CocoDataset(os.path.join(data, "val.json"),
+                              img_size=(IMG, IMG), augments=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_miou = run_eval(model, Fetcher(
+            DataLoader(val_set, EVAL_BATCH, num_workers=CLI_WORKERS),
+            PostFetch(device=device)), log=False, show_first_batch=False,
+            device=device)
+        eval_s = time.perf_counter() - t0
+        if miou != want_miou or not 0.0 <= miou <= 1.0:
+            raise AssertionError(f"test CLI mIoU {miou}, engine.test "
+                                 f"{want_miou}")
+        names = sorted(masks)
+        t0 = time.perf_counter()
+        for start in range(0, len(names), BATCH):
+            chunk = names[start:start + BATCH]
+            imgs = [png.imread(os.path.join("imgs", n)) for n in chunk]
+            for name, img, mask in zip(chunk, imgs, infer_cli.inference(
+                    model, imgs, (IMG, IMG))):
+                if not mask.shape == img.shape[:2] == masks[name].shape:
+                    raise AssertionError(f"{name}: mask {mask.shape}")
+                if not np.array_equal(mask, masks[name]):
+                    raise AssertionError(f"{name}: the CLI's mask differs")
+        torch.cuda.synchronize()
+        infer_images_s = len(names) / (time.perf_counter() - t0)
+        written = png.imread(os.path.join("out", names[0]))
+        if not np.array_equal(written, colorize_mask(masks[names[0]])):
+            raise AssertionError("the written mask differs")
+    step_ms = [1e3 * r["seconds"] / r["steps"] for r in epochs]
+    log("cli", train_images=CLI_TRAIN, val_images=CLI_VAL,
+        image_wh=list(CLI_WH), classes=NUM_CLASSES, batch=TRAIN_BATCH,
+        write_dataset_s=write_s, **rates,
+        filtered_png_decode_ms=filtered_decode_ms,
+        step_records_per_s=1e3 * TRAIN_BATCH / min(e2e_ms_per_step),
+        ms_per_step_cli=step_ms, ms_per_step_end_to_end_in_memory=(
+            e2e_ms_per_step), val_miou=[r["val_miou"] for r in val],
+        test_miou=miou, eval_images_per_s=CLI_VAL / eval_s,
+        inference_images_per_s=infer_images_s,
+        seconds={"train": first_s, "resume": resume_s, "test": test_s,
+                 "inference": infer_s}, launches=launches)
+    return launches
 
 
 def profile_steps(trainer, phase="profile"):
@@ -1939,9 +2173,15 @@ def main():
         build.load_kernel_library(name)
         return time.perf_counter() - t0
 
+    def build_native():  # the datasets' polygon fill and colour map
+        t0 = time.perf_counter()
+        native.lib()
+        return time.perf_counter() - t0
+
     names = ("upsample_argmax", "softmax_ce", "banded_resample",
              "eval_confusion", "fused_matmul_bn")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        native_seconds = pool.submit(build_native)
         for name, seconds in zip(names, pool.map(build_one, names)):
             ptxas = build.BUILD_LOGS.get(name, "")  # what ptxas -v printed
             extra = {}
@@ -1953,6 +2193,9 @@ def main():
                 spill_bytes=sum(int(n) for n in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", ptxas)),
                 flags=" ".join(build.NVCC_FLAGS + build.LINK_FLAGS), **extra)
+        log("build", kernel="pseg_native", compiler="g++",
+            seconds=native_seconds.result(),
+            flags=" ".join(native.CXX_FLAGS))
 
     path = kernel_case("path_bf16", (BATCH, 129, 129, NUM_CLASSES),
                        (IMG, IMG), torch.bfloat16, True, device)
@@ -2027,10 +2270,10 @@ def main():
     eval_launches = eval_phase(device, trained, eval_set,
                                profile=args.profile)
     del trained
-    resample_launches = augment_phase(device, dataset,
-                                      train_figures["images_per_s"],
-                                      resample_path.pop("pass_ms"),
-                                      profile=args.profile)
+    resample_launches, e2e_ms_per_step = augment_phase(
+        device, dataset, train_figures["images_per_s"],
+        resample_path.pop("pass_ms"), profile=args.profile)
+    cli_launches = cli_phase(device, e2e_ms_per_step)
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
     # the kernels' line reports the case in the layout the train step used
@@ -2059,7 +2302,8 @@ def main():
                    "a thread per output column, the shared band_argmax "
                    "loop), one coalesced int32 store a pixel; the gather "
                    "kernel's arithmetic (mask bit-equal)",
-         "launches": launches, **path},
+         "launches": launches,
+         "cli_launches": cli_launches["upsample_argmax"], **path},
         # ms: the wrapper call; kernel_ms: _launch_fwd alone, with lse
         {"name": "softmax_ce_fwd", "route": "cuda", "source": ce_source,
          "replaces": ce_replaces,
@@ -2069,7 +2313,8 @@ def main():
                    "along H once per staged column and class, a thread per "
                    "output column, the gather kernel's arithmetic (lse "
                    "bit-equal), no atomics",
-         "launches": ce_launches["fwd"], **ce_path["fwd"]},
+         "launches": ce_launches["fwd"],
+         "cli_launches": cli_launches["softmax_ce"]["fwd"], **ce_path["fwd"]},
         # ms: the backward through autograd; kernel_ms: the kernel alone on
         # the forward's saved tensors
         {"name": "softmax_ce_bwd", "route": "cuda", "source": ce_source,
@@ -2079,7 +2324,8 @@ def main():
                    "each output pixel's softmax term computed once per band "
                    "and class, gathered in the matrix product's order, no "
                    "atomics",
-         "launches": ce_launches["bwd"], **ce_path["bwd"]},
+         "launches": ce_launches["bwd"],
+         "cli_launches": cli_launches["softmax_ce"]["bwd"], **ce_path["bwd"]},
         # ms, device_ms, plain_ms and bound_ms: per launch, the mean of the
         # two passes
         {"name": "banded_resample", "route": "cuda",
@@ -2091,7 +2337,8 @@ def main():
                    "passes (the second on the transposed view through its "
                    "strides); staged-tile and transposed-tile variants "
                    "measured no faster; bit-equal to the plain version",
-         "launches": resample_launches, **resample_path},
+         "launches": resample_launches,
+         "cli_launches": cli_launches["banded_resample"], **resample_path},
         # ms: the wrapper call; kernel_ms: _launch (the zeroed count buffer
         # and the kernel)
         {"name": "eval_confusion", "route": "cuda",
@@ -2105,7 +2352,8 @@ def main():
                    "a thread per output column, the gather kernel's "
                    "arithmetic and select-form argmax (counts equal), "
                    "warp-grouped shared-memory counts",
-         "launches": eval_launches["eval_confusion"], **eval_path},
+         "launches": eval_launches["eval_confusion"],
+         "cli_launches": cli_launches["eval_confusion"], **eval_path},
         # ms, plain_ms, bound_ms, library_ms at (N, K, M) = `shape`, a
         # stage-1 shape of the step; `second_shape` has a stage-4 shape's
         {"name": "fused_matmul_bn_fwd", "route": "cuda",

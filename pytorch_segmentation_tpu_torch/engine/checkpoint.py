@@ -4,8 +4,8 @@
 The JAX package's own `.ckpt` files are msgpack trees that need flax to read;
 the port reads and writes `.pt` files whose `'model'` entry is a state_dict:
 the ones `port_weights.py --reverse` writes from a `.ckpt`, and the trainer's
-own `last.pt` / `best.pt`, which carry the optimizer state, the epoch, the
-best mIoU and the EMA weights beside it.
+own `last.pt` / `best.pt`, which carry the optimizer state and its update
+count, the epoch, the best mIoU and the EMA weights beside it.
 """
 
 from __future__ import annotations
@@ -20,10 +20,12 @@ __all__ = ["load_model_bundle", "save_checkpoint"]
 
 
 def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
-                    epoch: int = 0, best_miou: float = 0.0, ema=None) -> None:
-    """Write `{'model', 'optimizer', 'epoch', 'best_miou', 'ema'}` to `path`
-    (tensors moved to the CPU; written to a temporary file and renamed, so
-    a reader never sees half a checkpoint). `load_state` and
+                    epoch: int = 0, best_miou: float = 0.0, ema=None,
+                    step: int = 0) -> None:
+    """Write `{'model', 'optimizer', 'step', 'epoch', 'best_miou', 'ema'}`
+    to `path` (`step`: the optimizer updates so far; tensors moved to the
+    CPU; written to a temporary file and renamed, so a reader never sees
+    half a checkpoint). `load_state` and
     `load_model_bundle` read the `'model'` entry."""
     def to_cpu(tree):
         if isinstance(tree, torch.Tensor):
@@ -37,7 +39,7 @@ def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
     torch.save({"model": to_cpu(dict(model_state)),
-                "optimizer": to_cpu(optimizer_state),
+                "optimizer": to_cpu(optimizer_state), "step": int(step),
                 "epoch": int(epoch), "best_miou": float(best_miou),
                 "ema": to_cpu(ema)}, tmp)
     os.replace(tmp, path)

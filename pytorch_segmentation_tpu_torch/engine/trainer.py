@@ -2,14 +2,15 @@
 trainer.py).
 
 Contract kept from the JAX package: `Trainer(model, fetcher, loss_fn,
-workdir, accumulate, adam, lr, weights, ...)` with the attributes `.epoch`,
-`.model`, `.metrics` and the methods `.step()` (one epoch) and `.save(best)`.
+workdir, accumulate, adam, lr, weights, resume, ...)` with the attributes
+`.epoch`, `.model`, `.metrics` and the methods `.step()` (one epoch),
+`.save(best)` and `.warmup(sizes_hw, batch_size)`.
 The model is an `nn.Module` with f32 parameters whose compute dtype is its
 own (`dtype=torch.bfloat16` for mixed precision); bf16 needs no loss scaling.
 Checkpoints are the port's `.pt` files (engine/checkpoint.py).
 
-Not ported yet: `mesh` and `zero` (ROADMAP: parallel/), `resume`, `profile`
-and `warmup()` (ROADMAP: trainer and CLIs), `qat` and distillation.
+Not ported yet: `mesh` and `zero` (ROADMAP: parallel/), `qat` and
+distillation.
 """
 
 from __future__ import annotations
@@ -137,8 +138,7 @@ def make_optimizer(params, lr: float = 1e-3, adam: bool = False,
 
 
 _UNPORTED = {
-    "mesh": "parallel/", "zero": "parallel/", "resume": "trainer and CLIs",
-    "profile": "trainer and CLIs", "qat": "quant.py",
+    "mesh": "parallel/", "zero": "parallel/", "qat": "quant.py",
     "distill_fn": "losses and extras"}
 
 
@@ -150,6 +150,14 @@ class Trainer:
     `device` is explicit: None means the first CUDA device and raises when
     there is none; the CPU is used only when asked for. Without `weights`
     the model starts from `seeded_state_dict(model, seed, init="train")`.
+
+    resume=True restores what the JAX Trainer restores from
+    `<workdir>/last.pt` (written by `save`): the model, the optimizer state
+    with its update count (the LR schedule's position), `epoch`, the best
+    mIoU and the EMA weights. As in the JAX package, the fetcher's batch
+    counter and the loader's epoch are not restored. profile=True writes a
+    torch.profiler trace of steps 2-6 of the first epoch to
+    `<log_dir>/profile/trace.json`.
 
     Taken as the JAX Trainer takes them, so that the train CLI's call
     works: `mixed_precision` (ignored: the model's `dtype` decides the
@@ -165,6 +173,7 @@ class Trainer:
                  weights: str = "", momentum: float = 0.9,
                  weight_decay: float = 0.0, clip_grad: float = 0.0,
                  seed: int = 0, log: bool = True, log_dir: str = "runs",
+                 resume: bool = False, profile: bool = False,
                  defer_upsample: bool = True, lr_schedule: str = "constant",
                  warmup_steps: int = 0, total_steps: int | None = None,
                  ema_decay: float = 0.0, mixed_precision: bool = False,
@@ -187,6 +196,7 @@ class Trainer:
         self.metrics = 0.0  # best val mIoU so far
         self.log = log
         self.log_dir = log_dir
+        self.profile = profile
         self.ema_decay = float(ema_decay)
 
         if weights:
@@ -201,6 +211,13 @@ class Trainer:
         else:
             model.load_state_dict(seeded_state_dict(model, seed,
                                                     init="train"))
+        ckpt = None
+        if resume:
+            ckpt = torch.load(os.path.join(workdir, "last.pt"),
+                              map_location="cpu", weights_only=True)
+            model.load_state_dict(ckpt["model"])
+            self.epoch = int(ckpt["epoch"])
+            self.metrics = float(ckpt["best_miou"])
         model.to(self.device, memory_format=torch.channels_last)
 
         # Train on low-resolution logits and fold the model's trailing
@@ -218,14 +235,25 @@ class Trainer:
             loss_fn = make_loss_fn(
                 align_corners=getattr(model, "up_align_corners", True))
 
-        self.optimizer = make_optimizer(
-            [p for p in model.parameters() if p.requires_grad], lr=lr,
-            adam=adam, momentum=momentum, weight_decay=weight_decay,
+        self._optimizer_options = dict(
+            lr=lr, adam=adam, momentum=momentum, weight_decay=weight_decay,
             clip_grad=clip_grad, lr_schedule=lr_schedule,
             warmup_steps=warmup_steps, total_steps=total_steps)
+        self.optimizer = make_optimizer(
+            [p for p in model.parameters() if p.requires_grad],
+            **self._optimizer_options)
         self.state = create_train_state(self._train_module, self.optimizer,
                                         accumulate=self.accumulate,
                                         ema=self.ema_decay > 0)
+        if ckpt is not None:
+            self.optimizer.load_state_dict(ckpt["optimizer"])
+            # the JAX optimizer state carries its update count; a partly
+            # summed accumulation is not saved, so it restarts here
+            self.state.step = int(ckpt["step"])
+            self.state.micro_step = self.state.step * self.accumulate
+            if self.ema_decay > 0 and ckpt["ema"] is not None:
+                for name, value in ckpt["ema"].items():
+                    self.state.ema_params[name].copy_(value)
         self._train_step = make_train_step(loss_fn=loss_fn,
                                            accumulate=self.accumulate,
                                            ema_decay=self.ema_decay)
@@ -249,14 +277,57 @@ class Trainer:
     def _to_device(self, array):
         return host_to_device(array, self.device)
 
+    def warmup(self, sizes_hw, batch_size: int, label_hw=None) -> None:
+        """One train step on zeros per input size in `sizes_hw` (the
+        multi-scale set, data/resize_host.py), with labels at the dataset's
+        base size (default `label_hw`), so that the kernel builds and
+        cuDNN's algorithm choices of every size happen before the first
+        epoch. The steps run on a throwaway copy of the model, optimizer
+        and EMA: the live ones are not touched."""
+        if label_hw is None:
+            w, h = self.fetcher.loader.dataset.img_size
+            label_hw = (h, w)
+        module = copy.deepcopy(self._train_module)
+        optimizer = make_optimizer(
+            [p for p in module.parameters() if p.requires_grad],
+            **self._optimizer_options)
+        state = create_train_state(module, optimizer,
+                                   accumulate=self.accumulate,
+                                   ema=self.ema_decay > 0)
+        for hh, ww in sizes_hw:
+            images = torch.zeros((batch_size, hh, ww, 3), device=self.device)
+            segs = torch.zeros((batch_size, *label_hw), dtype=torch.int32,
+                               device=self.device)
+            state, loss = self._train_step(state, images, segs)
+            float(loss)  # wait for the step before the next size
+            if self.log:
+                print(f"warmup: compiled train step @ {hh}x{ww}")
+
+    def _profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
+    def _stop_profile(self, prof) -> None:
+        prof.stop()
+        path = os.path.join(self.log_dir, "profile")
+        os.makedirs(path, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(path, "trace.json"))
+
     def step(self) -> float:
         """Run one training epoch; returns its mean loss."""
         running_loss = 0.0
         n = 0
         images_seen = 0
         pending_loss = None
+        prof = None
         t0 = time.time()
         for images, segs, valid in self.fetcher:
+            if self.profile and self.epoch == 0 and n == 2:
+                prof = self._profiler()
+                prof.start()
             self.state, loss = self._train_step(
                 self.state, self._to_device(images), self._to_device(segs))
             n += 1
@@ -266,8 +337,13 @@ class Trainer:
             if pending_loss is not None:
                 running_loss += float(pending_loss)
             pending_loss = loss
+            if prof is not None and n == 7:
+                self._stop_profile(prof)
+                prof = None
         if pending_loss is not None:
             running_loss += float(pending_loss)
+        if prof is not None:
+            self._stop_profile(prof)
         self.epoch += 1
         dt = time.time() - t0
         mean_loss = running_loss / max(n, 1)
@@ -293,8 +369,8 @@ class Trainer:
         """Write last.pt (and best.pt when `best`) under `workdir`."""
         kw = dict(model_state=self.module.state_dict(),
                   optimizer_state=self.optimizer.state_dict(),
-                  epoch=self.epoch, best_miou=self.metrics,
-                  ema=self.state.ema_params)
+                  step=self.state.step, epoch=self.epoch,
+                  best_miou=self.metrics, ema=self.state.ema_params)
         save_checkpoint(os.path.join(self.workdir, "last.pt"), **kw)
         if best:
             save_checkpoint(os.path.join(self.workdir, "best.pt"), **kw)

@@ -1,20 +1,60 @@
-"""Model registry of the port. Only DeepLabV3+ is ported so far; the other
-families of the JAX package follow in the order ROADMAP.md lists."""
+"""Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
+model names; only DeepLabV3+ is ported so far, and `build_model` raises
+NotImplementedError for the others, which follow in the order ROADMAP.md
+queue 1 item 6 lists."""
 
 from .deeplabv3plus import DeepLabV3Plus
 
-__all__ = ["DeepLabV3Plus", "MODEL_REGISTRY", "build_model"]
+__all__ = ["DeepLabV3Plus", "MODEL_REGISTRY", "UNPORTED_MODEL_ITEM",
+           "build_model", "variant_kwargs"]
 
+UNPORTED_MODEL_ITEM = "ROADMAP queue 1 item 6, other model families"
+
+# every name the JAX package's --model takes; None: not ported yet
 MODEL_REGISTRY = {
+    "unet": None,
+    "bisenetv2": None,
+    "danet": None,
     "deeplabv3plus": DeepLabV3Plus,
+    "hrnet": None,
+    "ocrnet": None,
+    "pspnet": None,
+    "fpn": None,
+    "fastfcn": None,
+    "segformer": None,
+    "segnext": None,
+    "segmenter": None,
+    "maskformer": None,
+    "upernet": None,
+    "fcn": None,
+    "deeplabv3": None,
+    "lraspp": None,
 }
 
 
-def build_model(name: str, num_classes: int, **kwargs):
+def _model_class(name: str):
     try:
         cls = MODEL_REGISTRY[name.lower()]
     except KeyError:
-        raise ValueError(
-            f"model {name!r} is not ported to the PyTorch package yet; "
-            f"ported: {sorted(MODEL_REGISTRY)}") from None
-    return cls(num_classes=num_classes, **kwargs)
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{sorted(MODEL_REGISTRY)}") from None
+    if cls is None:
+        ported = sorted(n for n, c in MODEL_REGISTRY.items() if c is not None)
+        raise NotImplementedError(
+            f"model {name!r} is not ported to the PyTorch package yet "
+            f"({UNPORTED_MODEL_ITEM}); ported: {ported}")
+    return cls
+
+
+def build_model(name: str, num_classes: int, **kwargs):
+    return _model_class(name)(num_classes=num_classes, **kwargs)
+
+
+def variant_kwargs(name: str, variant: str) -> dict:
+    """Model-constructor kwargs for a CLI `--variant`; '' = the defaults.
+    No ported family has variants yet, so any other value raises."""
+    if not variant:
+        return {}
+    _model_class(name)
+    raise ValueError(f"model {name!r} has no variants in the port "
+                     f"(variant {variant!r})")

@@ -21,6 +21,7 @@ import torch
 from .engine.checkpoint import load_model_bundle
 from .models import MODEL_REGISTRY, build_model
 from .serving import MaskServer
+from .utils.cli import refuse_unported
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,6 +49,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--tta-scales", type=float, nargs="+", default=[],
                         metavar="S", help="multi-scale TTA")
     opt = parser.parse_args(argv)
+    refuse_unported(parser, opt, {})  # a model not ported yet
     if not os.path.isfile(opt.weights):
         parser.error(f"--weights {opt.weights!r} is not a file")
     return opt

@@ -51,10 +51,10 @@ class _Pending:
 
 
 def _to_rgb(img: np.ndarray) -> np.ndarray:
-    """Decoded PNG (gray, RGB or RGBA) -> [H, W, 3] RGB; alpha is dropped
-    and gray repeated, as OpenCV's IMREAD_COLOR does."""
-    if img.ndim == 2:
-        return np.repeat(img[:, :, None], 3, axis=2)
+    """Decoded PNG (gray, gray + alpha, RGB or RGBA) -> [H, W, 3] RGB; alpha
+    is dropped and gray repeated, as OpenCV's IMREAD_COLOR does."""
+    if img.ndim == 2 or img.shape[2] == 2:
+        return np.repeat(img.reshape(*img.shape[:2], -1)[:, :, :1], 3, axis=2)
     return img[:, :, :3]
 
 

@@ -1,0 +1,44 @@
+"""What the port's command lines share: the ROADMAP item that each flag
+whose machinery is not ported yet waits for, and the refusal of such a flag
+(argparse's error: exit status 2, the item named)."""
+
+from __future__ import annotations
+
+import argparse
+
+from ..models import MODEL_REGISTRY, UNPORTED_MODEL_ITEM
+
+__all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
+
+# ROADMAP.md queue 1, by item number
+ROADMAP_ITEMS = {
+    5: "ROADMAP queue 1 item 5, train step rest",
+    6: UNPORTED_MODEL_ITEM,
+    7: "ROADMAP queue 1 item 7, losses and extras",
+    8: "ROADMAP queue 1 item 8, augmentation rest",
+    9: "ROADMAP queue 1 item 9, quant.py",
+    10: "ROADMAP queue 1 item 10, parallel/ and nn/moe.py",
+    11: "ROADMAP queue 1 item 11, export and utilities",
+}
+
+
+def unported_options(values: dict, table: dict) -> list[str]:
+    """table: option name -> (default, ROADMAP item number). One message
+    for each option of `values` set away from its default."""
+    return [f"--{name.replace('_', '-')} is not ported yet "
+            f"({ROADMAP_ITEMS[item]})"
+            for name, (default, item) in table.items()
+            if values.get(name, default) != default]
+
+
+def refuse_unported(parser: argparse.ArgumentParser,
+                    opt: argparse.Namespace, table: dict) -> None:
+    """Exit through `parser.error` (status 2) if `opt` sets an option of
+    `table` or names a model that is not ported yet."""
+    problems = unported_options(vars(opt), table)
+    model = getattr(opt, "model", None)
+    if model is not None and MODEL_REGISTRY.get(model) is None:
+        problems.append(f"--model {model} is not ported yet "
+                        f"({UNPORTED_MODEL_ITEM}); use --model deeplabv3plus")
+    if problems:
+        parser.error("; ".join(problems))

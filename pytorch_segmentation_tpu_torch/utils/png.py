@@ -1,9 +1,11 @@
 """A small PNG codec on the standard library's zlib and numpy.
 
-The serving path decodes request bodies and encodes masks with it, so a
-GPU serving host needs no OpenCV. Supported: 8-bit grayscale, RGB and
-RGBA, non-interlaced, all five row filter types. Anything else (including
-JPEG) raises ValueError, which the server answers with a 400.
+The serving path decodes request bodies and encodes masks with it, and the
+datasets read their files through `imread`, so a GPU host needs no OpenCV.
+Read: grayscale at bit depths 1, 2, 4 and 8, palette at 1, 2, 4 and 8,
+grayscale + alpha, RGB and RGBA at 8, non-interlaced, all five row filter
+types. Anything else (16-bit, interlaced, JPEG) raises ValueError, which the
+server answers with a 400.
 """
 
 from __future__ import annotations
@@ -13,11 +15,22 @@ import zlib
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png"]
+__all__ = ["decode_png", "encode_png", "imread",
+           "IMREAD_COLOR", "IMREAD_GRAYSCALE", "JPEG_ITEM"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> bytes per pixel at 8 bits
+# color type -> samples per pixel, bit depths read
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
 _MAX_PIXELS = 1 << 26
+# the flags of cv2.imread that `imread` takes, with cv2's values
+IMREAD_GRAYSCALE = 0
+IMREAD_COLOR = 1
+# where a JPEG decoder stands in the work still to do
+JPEG_ITEM = "ROADMAP queue 1 item 12, a JPEG decoder"
+# libpng's RGB -> gray weights over 2^15 (truncated sums): what
+# cv2.imread(..., IMREAD_GRAYSCALE) gives for a colour PNG
+_GRAY_WEIGHTS = (9797, 19234, 3737)  # R, G, B
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -57,6 +70,8 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Rows [h, 1 + w * bpp] (filter type byte first) -> the reconstructed
+    bytes [h, w, bpp]; `bpp` is the filter unit, at least one byte."""
     types = raw[:, 0]
     if types.max(initial=0) > 4:
         raise ValueError("PNG row filter type out of range")
@@ -92,15 +107,25 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8)
 
 
+def _unpack(rows: np.ndarray, w: int, depth: int) -> np.ndarray:
+    """Bytes [h, row_bytes] of `depth`-bit samples (1, 2 or 4; the first
+    sample in the highest bits) -> uint8 samples [h, w]."""
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth]
+    bits = bits.reshape(rows.shape[0], w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W] (gray), [H, W, 3] (RGB) or [H, W, 4]
-    (RGBA). Raises ValueError on anything this codec does not read."""
+    """PNG bytes -> uint8 [H, W] (gray), [H, W, 2] (gray + alpha),
+    [H, W, 3] (RGB; a palette image is looked up) or [H, W, 4] (RGBA).
+    Gray below 8 bits is scaled to 0..255 as libpng expands it. Raises
+    ValueError on anything this codec does not read."""
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG request bodies are not supported yet; "
-                         "send PNG")
+        raise ValueError(f"JPEG is not decoded yet ({JPEG_ITEM}); use PNG")
     if data[:8] != _SIGNATURE:
-        raise ValueError("request body is not a PNG image")
-    pos, header, idat = 8, None, []
+        raise ValueError("not a PNG image")
+    pos, header, idat, palette = 8, None, [], None
     while True:
         if pos + 8 > len(data):
             raise ValueError("truncated PNG")
@@ -117,6 +142,10 @@ def decode_png(data: bytes) -> np.ndarray:
             if length != 13:
                 raise ValueError("malformed PNG header")
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            if length % 3 or not 0 < length <= 768:
+                raise ValueError("malformed PNG palette")
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -124,14 +153,20 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _comp, _filt, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
+    if (color not in _CHANNELS or depth not in _DEPTHS[color]
+            or interlace != 0):
         raise ValueError(f"unsupported PNG (bit depth {depth}, color type "
-                         f"{color}, interlace {interlace}); 8-bit "
-                         "gray/RGB/RGBA non-interlaced only")
+                         f"{color}, interlace {interlace}); non-interlaced "
+                         "gray or palette at 1-8 bits, gray+alpha, RGB or "
+                         "RGBA at 8 bits only")
+    if color == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
     if not (0 < w and 0 < h and w * h <= _MAX_PIXELS):
         raise ValueError(f"PNG size {w}x{h} out of range")
-    bpp = _CHANNELS[color]
-    expected = h * (1 + w * bpp)
+    channels = _CHANNELS[color]
+    row_bytes = (w * channels * depth + 7) // 8
+    bpp = max(1, channels * depth // 8)  # the filters' unit
+    expected = h * (1 + row_bytes)
     try:
         inflater = zlib.decompressobj()
         buf = inflater.decompress(b"".join(idat), expected)
@@ -139,6 +174,39 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError(f"corrupt PNG data: {e}") from None
     if len(buf) != expected:
         raise ValueError("PNG image data has the wrong size")
-    raw = np.frombuffer(buf, np.uint8).reshape(h, 1 + w * bpp)
-    img = _unfilter(raw, h, w, bpp)
-    return img[:, :, 0] if bpp == 1 else img
+    raw = np.frombuffer(buf, np.uint8).reshape(h, 1 + row_bytes)
+    img = _unfilter(raw, h, row_bytes // bpp, bpp).reshape(h, row_bytes)
+    if depth < 8:
+        img = _unpack(img, w, depth)
+        if color == 0:
+            img = img * np.uint8(255 // (2 ** depth - 1))
+    if color == 3:
+        if int(img.max(initial=0)) >= len(palette):
+            raise ValueError("PNG palette index out of range")
+        return palette[img]
+    img = img.reshape(h, w, channels)
+    return img[:, :, 0] if channels == 1 else img
+
+
+def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """What `cv2.imread(path, flags)` returns for a PNG file:
+    IMREAD_COLOR: BGR uint8 [H, W, 3] (gray repeated, alpha dropped);
+    IMREAD_GRAYSCALE: uint8 [H, W] (alpha dropped; colour through libpng's
+    weights, as cv2 reads it). Unlike cv2 it raises (OSError, ValueError)
+    instead of returning None."""
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
+        raise ValueError(f"imread: flags {flags}: IMREAD_COLOR or "
+                         "IMREAD_GRAYSCALE only")
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    if img.ndim == 3 and img.shape[2] == 2:
+        img = img[:, :, 0]  # gray + alpha: the alpha is dropped
+    if flags == IMREAD_GRAYSCALE:
+        if img.ndim == 2:
+            return img
+        rgb = img[:, :, :3].astype(np.uint32)
+        gray = sum(rgb[:, :, i] * wt for i, wt in enumerate(_GRAY_WEIGHTS))
+        return (gray >> 15).astype(np.uint8)
+    if img.ndim == 2:
+        return np.repeat(img[:, :, None], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, 2::-1])

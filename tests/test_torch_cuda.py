@@ -6,7 +6,8 @@ upsample+argmax+confusion counts; the
 fused 1x1 forward, dx and dW; the channels-major product; the Hopper loop's
 product with each operand K-major or MN-major) against their plain PyTorch
 versions at edge shapes, and the small model (served, trained, evaluated)
-against the CPU. Skips without a CUDA device. On the card (no jax there, so
+against the CPU, and the train, test and inference command lines from
+PNG files. Skips without a CUDA device. On the card (no jax there, so
 without the JAX-side conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -980,3 +981,62 @@ def test_cmajor_kernel_matches_plain(device, co, ci, pix):
     assert torch.equal(got, cm.cmajor_matmul(w, x))
     with pytest.raises(ValueError):
         cm.cmajor_matmul(w, x.t().contiguous().t())   # pixels not contiguous
+
+
+def test_cli_train_resume_test_inference_on_card(device, tmp_path,
+                                                 monkeypatch):
+    """The command lines on the card at a small size, from PNG files: train
+    (one epoch), train --resume (to two), test on best.pt and inference,
+    each through its module's `main` with no device given. The augmented
+    train steps, the per-epoch eval and the test run kernels 1-4; the test
+    CLI's mIoU is engine.test's, the inference CLI's masks inference()'s."""
+    import json
+    import os
+
+    from pytorch_segmentation_tpu_torch import inference as infer_cli
+    from pytorch_segmentation_tpu_torch import test as test_cli
+    from pytorch_segmentation_tpu_torch import train as train_cli
+    from pytorch_segmentation_tpu_torch.data import (CocoDataset, DataLoader,
+                                                     Fetcher, PostFetch)
+    from pytorch_segmentation_tpu_torch.engine import test as engine_test
+    from pytorch_segmentation_tpu_torch.utils.png import imread
+    from pytorch_segmentation_tpu_torch.utils.synthetic import (
+        make_synthetic_coco)
+
+    monkeypatch.chdir(tmp_path)
+    data = make_synthetic_coco(str(tmp_path / "coco"), 8, 4, (96, 72),
+                               seed=2, num_classes=4)
+    argv = [data, "--model", "deeplabv3plus", "--dataset", "coco", "-s",
+            "64", "64", "-bs", "4", "-a", "1", "-mp", "--num-workers", "2"]
+    kernels = (ua, ce, br, ec)
+    for kernel in kernels:
+        kernel.reset_launch_count()
+    first = train_cli.main(argv + ["--epochs", "1"])
+    resumed = train_cli.main(argv + ["--epochs", "2", "--resume"])
+    assert (first.epoch, resumed.epoch, resumed.state.step) == (1, 2, 4)
+    miou = test_cli.main([os.path.join(data, "val.json"), "--weights",
+                          "weights/best.pt", "-s", "64", "64", "-bs", "4"])
+    os.makedirs("imgs")
+    for name in ("val_0000.png", "val_0001.png", "val_0002.png"):
+        os.symlink(os.path.join(data, name), os.path.join("imgs", name))
+    masks = infer_cli.main(["imgs", "out", "-s", "64", "64", "-nc", "5",
+                            "--weights", "weights/best.pt", "-bs", "3"])
+    assert ua.launch_count() == 3          # a picture per test() call
+    assert ce.launch_count() == {"fwd": 4 + 3, "bwd": 4}
+    assert br.launch_count() == 8 and ec.launch_count() == 3
+    with open("runs/log.jsonl") as f:
+        val = [json.loads(line) for line in f if "val_miou" in line]
+    assert [r["epoch"] for r in val] == [0, 1]
+
+    model = load_model_bundle(build_model("deeplabv3plus", 5),
+                              "weights/best.pt", device)
+    val_set = CocoDataset(os.path.join(data, "val.json"), img_size=(64, 64),
+                          augments=False)
+    assert miou == engine_test(model, Fetcher(DataLoader(val_set, 4),
+                                              PostFetch(device=device)),
+                               device=device, show_first_batch=False)
+    imgs = [imread(os.path.join("imgs", n)) for n in sorted(masks)]
+    want = infer_cli.inference(model, imgs, (64, 64))
+    for (name, mask), img, w in zip(sorted(masks.items()), imgs, want):
+        assert mask.shape == img.shape[:2] == (72, 96)
+        assert np.array_equal(mask, w), name

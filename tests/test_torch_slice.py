@@ -132,7 +132,7 @@ def test_checkpoint_loads_strict(weights):
     want = state_dict_from_jax(params, stats)
     for k, v in model.state_dict().items():
         assert np.array_equal(v.numpy(), want[k]), k
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         build_model("unet", NC)
 
 

@@ -504,8 +504,10 @@ def test_trainer_deferred_upsample_trajectory_and_round_trip(
     last = tmp_path / "w" / "last.pt"
     assert (tmp_path / "w" / "best.pt").exists()
     ckpt = torch.load(last, map_location="cpu", weights_only=True)
-    assert set(ckpt) == {"model", "optimizer", "epoch", "best_miou", "ema"}
-    assert ckpt["epoch"] == N_STEPS and ckpt["best_miou"] == 0.5
+    assert set(ckpt) == {"model", "optimizer", "step", "epoch", "best_miou",
+                         "ema"}
+    assert ckpt["epoch"] == ckpt["step"] == N_STEPS
+    assert ckpt["best_miou"] == 0.5
     assert ckpt["ema"] is None and ckpt["optimizer"]["state"]
     served = load_model_bundle(_port_module(False), str(last), "cpu")
     for k, v in served.state_dict().items():
@@ -598,7 +600,7 @@ def test_unported_train_options_raise(tmp_path):
         tsteps.make_train_step(qat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_train_step(distill_fn=lambda x: x)
-    for option in ("mesh", "zero", "resume", "profile", "qat", "distill_fn"):
+    for option in ("mesh", "zero", "qat", "distill_fn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
                              **{option: object()})
