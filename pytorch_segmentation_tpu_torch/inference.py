@@ -8,7 +8,9 @@ resized back to its image's own size (f32 bilinear with half-pixel centres)
 and argmaxed. It resizes probabilities, not logits, so it does not go
 through the upsample+argmax kernel.
 Fixed size: normalize -> forward -> upsample+argmax, on the model's device.
-Stride-4 logits go through `fused_upsample_argmax`: the hand-written kernel
+The model's low-resolution logits (stride 2 for UNet, 4 for DeepLabV3+ and
+HRNet, each with its own `up_align_corners`) go through
+`fused_upsample_argmax`: the hand-written kernel
 on a CUDA tensor, its plain PyTorch version on a CPU tensor. Softmax is
 skipped: the per-pixel argmax of the logits equals that of the
 probabilities. Sliding window: the same forward over a grid of tiles of the
@@ -18,7 +20,8 @@ training resolution, logits summed on a canvas, one argmax.
         --weights weights/best.pt -s 513 513 -nc 21 -bs 8
 
 writes `<name>.png`, the VOC-palette colour mask of each PNG image of
-IMG_DIR at the image's own size (CUDA only).
+IMG_DIR at the image's own size (CUDA only). `--model` takes the ported
+families: unet, deeplabv3plus (the default) and hrnet.
 """
 
 from __future__ import annotations

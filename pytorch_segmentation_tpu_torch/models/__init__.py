@@ -1,22 +1,25 @@
 """Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
-model names; only DeepLabV3+ is ported so far, and `build_model` raises
-NotImplementedError for the others, which follow in the order ROADMAP.md
-queue 1 item 6 lists."""
+model names; UNet (MobileNetV2 encoder), DeepLabV3+ and HRNet are ported so
+far (`ported_models()`), and `build_model` raises NotImplementedError for
+the others, which follow in the order ROADMAP.md queue 1 item 6 lists."""
 
 from .deeplabv3plus import DeepLabV3Plus
+from .hrnet import HRNet
+from .unet import UNet
 
-__all__ = ["DeepLabV3Plus", "MODEL_REGISTRY", "UNPORTED_MODEL_ITEM",
-           "build_model", "variant_kwargs"]
+__all__ = ["DeepLabV3Plus", "HRNet", "UNet", "MODEL_REGISTRY",
+           "UNPORTED_MODEL_ITEM", "build_model", "ported_models",
+           "variant_kwargs"]
 
 UNPORTED_MODEL_ITEM = "ROADMAP queue 1 item 6, other model families"
 
 # every name the JAX package's --model takes; None: not ported yet
 MODEL_REGISTRY = {
-    "unet": None,
+    "unet": UNet,
     "bisenetv2": None,
     "danet": None,
     "deeplabv3plus": DeepLabV3Plus,
-    "hrnet": None,
+    "hrnet": HRNet,
     "ocrnet": None,
     "pspnet": None,
     "fpn": None,
@@ -32,6 +35,10 @@ MODEL_REGISTRY = {
 }
 
 
+def ported_models() -> list[str]:
+    return sorted(n for n, c in MODEL_REGISTRY.items() if c is not None)
+
+
 def _model_class(name: str):
     try:
         cls = MODEL_REGISTRY[name.lower()]
@@ -39,10 +46,9 @@ def _model_class(name: str):
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{sorted(MODEL_REGISTRY)}") from None
     if cls is None:
-        ported = sorted(n for n, c in MODEL_REGISTRY.items() if c is not None)
         raise NotImplementedError(
             f"model {name!r} is not ported to the PyTorch package yet "
-            f"({UNPORTED_MODEL_ITEM}); ported: {ported}")
+            f"({UNPORTED_MODEL_ITEM}); ported: {ported_models()}")
     return cls
 
 

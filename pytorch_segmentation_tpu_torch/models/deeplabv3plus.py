@@ -17,16 +17,10 @@ import torch.nn as nn
 
 from ..nn.backbones.resnet import ResNet
 from ..nn.blocks import ConvNormAct, conv2d
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize_bilinear_nchw
 from .aspp import ASPP
 
 __all__ = ["DeepLabV3Plus"]
-
-
-def _resize_nchw(x, out_hw, align_corners):
-    # resize_bilinear keeps the JAX package's NHWC layout; permutes are views
-    return resize_bilinear(x.permute(0, 2, 3, 1), out_hw,
-                           align_corners=align_corners).permute(0, 3, 1, 2)
 
 
 class DeepLabV3Plus(nn.Module):
@@ -53,10 +47,10 @@ class DeepLabV3Plus(nn.Module):
         features = self.backbone(x)
         low = self.project(features[1])
         y = self.aspp(features[-1])
-        y = _resize_nchw(y, low.shape[2:], align_corners=True)
+        y = resize_bilinear_nchw(y, low.shape[2:], align_corners=True)
         y = torch.cat([y, low], dim=1)
         y = conv2d(self.cls_conv, y, self.dtype)
         if self.full_res_output:
-            y = _resize_nchw(y, (4 * y.shape[2], 4 * y.shape[3]),
+            y = resize_bilinear_nchw(y, (4 * y.shape[2], 4 * y.shape[3]),
                              align_corners=True)
         return y

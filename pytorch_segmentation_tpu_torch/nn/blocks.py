@@ -42,10 +42,11 @@ _FORCE_FUSED_1X1 = None  # 'on' | 'off' | None = default (off)
 
 def set_force_fused_1x1(mode) -> None:
     """None (the default: off) | 'off' | 'on' (opt-in). Read at forward time:
-    ResNet bottlenecks then route their 1x1 convolutions through
-    `ops/kernels/fused_matmul_bn.py` (the CUDA kernels on the card, their
-    plain versions on the CPU). The JAX package's 'interpret' mode (its
-    Pallas kernels on the CPU) has no meaning here."""
+    ResNet bottlenecks (conv1, conv3) and MobileNetV2 inverted residuals
+    with an expand (expand, project) then route their 1x1 convolutions
+    through `ops/kernels/fused_matmul_bn.py` (the CUDA kernels on the card,
+    their plain versions on the CPU). The JAX package's 'interpret' mode
+    (its Pallas kernels on the CPU) has no meaning here."""
     global _FORCE_FUSED_1X1
     if mode not in (None, "off", "on"):
         raise ValueError(f"set_force_fused_1x1 takes None, 'off' or 'on', "
@@ -54,7 +55,8 @@ def set_force_fused_1x1(mode) -> None:
 
 
 def fused_1x1_available() -> bool:
-    """Whether ResNet blocks take the folded chain. Off by default."""
+    """Whether ResNet bottlenecks and MobileNetV2 inverted residuals take
+    the folded chain. Off by default."""
     return _FORCE_FUSED_1X1 == "on"
 
 
@@ -72,10 +74,15 @@ def _pad(kernel_size: int, dilation: int) -> int:
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Run `conv`'s geometry with input, kernel and bias cast to `dtype`."""
-    bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    """Run `conv`'s geometry with input, kernel and bias cast to `dtype`. The
+    bias is added to the convolution's output in `dtype`, as the flax Conv
+    does: in bf16 that is two roundings, which a bias inside the
+    convolution would make one."""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
+                 conv.padding, conv.dilation, conv.groups)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype).view(1, -1, 1, 1)
+    return y
 
 
 class BatchNorm2d(nn.BatchNorm2d):

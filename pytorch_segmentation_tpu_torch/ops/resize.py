@@ -16,7 +16,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_nearest"]
+__all__ = ["resize_bilinear", "resize_bilinear_nchw", "resize_nearest",
+           "upsample2x"]
 
 
 @functools.lru_cache(maxsize=256)
@@ -110,6 +111,14 @@ def resize_bilinear(x: torch.Tensor, out_hw,
     return y[0] if squeeze else y
 
 
+def resize_bilinear_nchw(x: torch.Tensor, out_hw,
+                         align_corners: bool = False) -> torch.Tensor:
+    """`resize_bilinear` of an NCHW tensor (through NHWC views, so a
+    channels_last input stays channels_last)."""
+    return resize_bilinear(x.permute(0, 2, 3, 1), out_hw,
+                           align_corners=align_corners).permute(0, 3, 1, 2)
+
+
 def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Nearest-neighbour resize of NHWC / NHW (or HW) tensors, for masks."""
     spatial_offset = 1 if x.dim() >= 3 else 0
@@ -122,3 +131,10 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     wi = _device_nearest_indices(w, ow, x.device)
     x = torch.index_select(x, spatial_offset, hi)
     return torch.index_select(x, spatial_offset + 1, wi)
+
+
+def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
+    """scale_factor=2 bilinear upsampling of NHWC `x`: `resize_bilinear` to
+    (2h, 2w)."""
+    _, h, w, _ = x.shape
+    return resize_bilinear(x, (2 * h, 2 * w), align_corners=align_corners)

@@ -8,7 +8,8 @@
 --weights is required: a `{'model': state_dict}` `.pt` file, such as
 `port_weights.py --reverse` writes from a JAX checkpoint (`--ema` serves its
 `'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
-multi-scale test-time augmentation. Requests are PNG images.
+multi-scale test-time augmentation. Requests are PNG images. `--model`
+takes the ported families: unet, deeplabv3plus (the default) and hrnet.
 """
 
 from __future__ import annotations

@@ -3,6 +3,7 @@
     python -m pytorch_segmentation_tpu_torch.train data/coco \\
         --model deeplabv3plus --dataset coco -s 513 513 -bs 32 -a 1 -mp \\
         --epochs 2 --num-workers 4
+    python -m pytorch_segmentation_tpu_torch.train data/coco  # unet, 320^2
 
 The same flags, names and defaults as the root CLI. Files are read from
 disk by the port's datasets (PNG images; COCO JSON, or the segimg / idimg
@@ -14,8 +15,9 @@ Prints the per-epoch images/s and loss, the eval table and
 `save best, miou: ...`.
 
 A flag whose machinery is not ported yet exits with status 2 and names its
-ROADMAP item; so does a `--model` other than deeplabv3plus (the root
-default, unet, included). Runs on the card (`require_cuda`); `train(...,
+ROADMAP item; so does a `--model` that is not ported yet (ported: unet,
+the default, deeplabv3plus and hrnet; UNet and HRNet take sizes that are
+multiples of 32). Runs on the card (`require_cuda`); `train(...,
 device="cpu")` runs the same on the CPU.
 """
 
@@ -31,7 +33,8 @@ from .data import (CocoDataset, CocoInstance, DataLoader, Fetcher,
                    repeat_factors)
 from .data.resize_host import multi_scale_sizes
 from .engine import Trainer, test
-from .models import MODEL_REGISTRY, build_model, variant_kwargs
+from .models import (MODEL_REGISTRY, build_model, ported_models,
+                     variant_kwargs)
 from .ops.loss import compute_loss, softmax_cross_entropy
 from .ops.resize import resize_bilinear
 from .utils.cli import refuse_unported, unported_options
@@ -187,7 +190,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("data", type=str, default="data/voc")
     p.add_argument("--model", type=str, default="unet",
                    choices=sorted(MODEL_REGISTRY),
-                   help="deeplabv3plus is the one family ported so far")
+                   help="ported so far: " + ", ".join(ported_models()))
     p.add_argument("--dataset", type=str, default="cocoinstance",
                    choices=sorted(DATASETS))
     p.add_argument("--epochs", type=int, default=100)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import argparse
 
-from ..models import MODEL_REGISTRY, UNPORTED_MODEL_ITEM
+from ..models import MODEL_REGISTRY, UNPORTED_MODEL_ITEM, ported_models
 
 __all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
 
@@ -39,6 +39,7 @@ def refuse_unported(parser: argparse.ArgumentParser,
     model = getattr(opt, "model", None)
     if model is not None and MODEL_REGISTRY.get(model) is None:
         problems.append(f"--model {model} is not ported yet "
-                        f"({UNPORTED_MODEL_ITEM}); use --model deeplabv3plus")
+                        f"({UNPORTED_MODEL_ITEM}); ported: "
+                        f"{', '.join(ported_models())}")
     if problems:
         parser.error("; ".join(problems))

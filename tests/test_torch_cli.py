@@ -117,22 +117,24 @@ def test_unported_flag_exits_2_naming_its_item(filename, name, capsys):
 def test_unported_model_and_shapes_exit_2(filename, capsys):
     base = [a for a in _POSITIONAL[filename] if a not in ("--model",
                                                           "deeplabv3plus")]
-    refused = [base + ["--model", "unet"],
+    refused = [base + ["--model", "fpn"],
                base + ["--model", "deeplabv3plus", "--variant", "r50"]]
     if filename == "train.py":
-        refused += [base,   # the root default, unet
-                    base + ["--model", "deeplabv3plus", "-s", "64", "48"]]
+        refused += [base + ["--model", "deeplabv3plus", "-s", "64", "48"]]
     for argv in refused:
         with pytest.raises(SystemExit) as err:
             CLIS[filename].parse_args(argv)
         assert err.value.code == 2
     err = capsys.readouterr().err
-    assert "--model unet is not ported yet (ROADMAP queue 1 item 6" in err
+    assert ("--model fpn is not ported yet (ROADMAP queue 1 item 6, other "
+            "model families); ported: deeplabv3plus, hrnet, unet") in err
     assert "has no variants" in err
     if filename == "train.py":
         assert "square images only so far (ROADMAP queue 1 item 8" in err
-    opt = CLIS[filename].parse_args(base + ["--model", "deeplabv3plus"])
-    assert opt.model == "deeplabv3plus"
+        assert CLIS[filename].parse_args(base).model == "unet"  # the default
+    for model in ("deeplabv3plus", "hrnet", "unet"):
+        opt = CLIS[filename].parse_args(base + ["--model", model])
+        assert opt.model == model
 
 
 def test_train_main_passes_every_train_keyword():
