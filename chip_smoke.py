@@ -30,7 +30,9 @@ logits the run produced (stride 2, align_corners=True; stride 4, False);
 UNet trained with the fused 1x1 switch on (its 16 expand and 16 project
 products, each distinct shape held against the plain versions); and the
 train command line with the root defaults (`--model unet -s 320 320 -bs 32
--a 2`, one epoch), then `test --model unet` on the checkpoint it wrote.
+-a 2`, one epoch), then `test --model unet` on the checkpoint it wrote,
+kernels 1-4 held against their plain versions on tensors that run handed
+them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
@@ -494,22 +496,39 @@ def resample_case(name, planes, coords, use_bil, out_dtype):
             "plain_ms": plain_ms, **least, "library_ms": None}
 
 
-def capture_resample_calls(fn):
-    """Run `fn()` with the augmentation's resampler wrapped so that the
-    arguments of every call are kept: [(planes, coords, use_bil, kwargs)]."""
-    calls = []
-    real = taug.banded_resample_rows
+@contextlib.contextmanager
+def keeping_launches(calls):
+    """Wrap the launch functions `calls` names ({key: (module, attribute,
+    n)}) so that the arguments and the result of each one's first n calls
+    are kept, tensors cloned with their strides: yields {key: [(args,
+    result)]}. The kernel wrappers find their launch function among their
+    module's globals at each call, so the wrapped one runs."""
+    kept = {key: [] for key in calls}
+    real = {key: getattr(module, attr)
+            for key, (module, attr, _) in calls.items()}
 
-    def recording(planes, coords, use_bil, **kwargs):
-        calls.append((planes, coords, use_bil, kwargs))
-        return real(planes, coords, use_bil, **kwargs)
+    def keep(value):
+        if isinstance(value, torch.Tensor):
+            return value.detach().clone()
+        if isinstance(value, tuple):
+            return tuple(keep(v) for v in value)
+        return value
 
-    taug.banded_resample_rows = recording
+    def recording(key, n):
+        def launch(*args, **kwargs):
+            out = real[key](*args, **kwargs)
+            if len(kept[key]) < n:
+                kept[key].append((keep(args), keep(out)))
+            return out
+        return launch
+
+    for key, (module, attr, n) in calls.items():
+        setattr(module, attr, recording(key, n))
     try:
-        fn()
+        yield kept
     finally:
-        taug.banded_resample_rows = real
-    return calls
+        for key, (module, attr, _) in calls.items():
+            setattr(module, attr, real[key])
 
 
 def resample_cases(device, dataset):
@@ -521,13 +540,15 @@ def resample_cases(device, dataset):
     post = PostFetch(taug.make_augment_fn(), dtype=torch.bfloat16, seed=SEED,
                      device=device)
     batch = next(iter(DataLoader(dataset, TRAIN_BATCH)))
-    calls = capture_resample_calls(lambda: post(batch))
+    with keeping_launches({"banded_resample": (br, "_launch", 3)}) as kept:
+        post(batch)
+    calls = [args for args, _ in kept["banded_resample"]]
     if len(calls) != 2:
         raise AssertionError(f"one augmented batch made {len(calls)} "
                              f"resampler calls, not 2")
-    (p1, c1, ub, kw1), (p2, c2, _, _) = calls
-    if kw1 != {"out_dtype": torch.bfloat16} or p2.is_contiguous():
-        raise AssertionError(f"unexpected resampler calls: {kw1}, second "
+    (p1, c1, ub, dtype1), (p2, c2, _, _) = calls
+    if dtype1 != torch.bfloat16 or p2.is_contiguous():
+        raise AssertionError(f"unexpected resampler calls: {dtype1}, second "
                              f"source strides {p2.stride()}")
     for c in (c1, c2):
         if float(c.min()) < 0 or float(c.max()) > IMG - 1:
@@ -1125,28 +1146,43 @@ def smooth_image(rng, h, w):
             .round().clamp(0, 255).to(torch.uint8).numpy())
 
 
-def serve_phase(device):
-    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
-                        full_res_output=False)
-    model = load_model_bundle(model, None, device, seed=SEED)
+def serve_phase(device, name="deeplabv3plus", img=IMG):
+    """`name` (bf16, seeded weights, its stride-`output_stride` logits)
+    behind MaskServer at batch 8: a burst of 12 requests from threads (10 at
+    img x img, two of other sizes), then 5 one at a time, colorized. Each
+    batch the server ran gives the same mask when make_mask_fn runs it
+    directly (on the card, bf16 logits of an image change with its position
+    in the batch; a repeat of the same batch is bit-exact), and that mask
+    (the upsample+argmax kernel, counted) is held against the plain version
+    on the logits the batch produced; each img x img response equals its
+    batch's mask. Then make_mask_fn's images/s on a batch already on the
+    card, and the host time of the eval-mode check. Returns the kernel's
+    launches and the figures."""
+    model = load_model_bundle(build_model(
+        name, NUM_CLASSES, dtype=torch.bfloat16, full_res_output=False),
+        None, device, seed=SEED)
+    align, hw = model.up_align_corners, (img, img)
     rng = np.random.default_rng(SEED + 2)
-    sizes = [(IMG, IMG)] * 10 + [(400, 600), (700, 300)]  # (H, W)
+    sizes = [hw] * 10 + [(400, 600), (700, 300)]  # (H, W)
     imgs = [smooth_image(rng, h, w) for h, w in sizes]
-
-    ua.reset_launch_count()
-    server = MaskServer(model, img_size=(IMG, IMG), max_batch=BATCH)
-    # record the padded u8 batches the server runs: on the card, bf16
-    # logits of an image change with its position in the batch (a repeat
-    # of the same batch is bit-exact), so the direct run below replays the
-    # same batches
-    ran = []
+    logits, ran = [], []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach()))
+    server = MaskServer(model, img_size=hw, max_batch=BATCH)
     serve_fn = server._mask_fn
 
     def recording(images_u8):
-        ran.append(np.array(images_u8))
-        return serve_fn(images_u8)
+        masks = serve_fn(images_u8)
+        ran.append((np.array(images_u8), masks))
+        return masks
 
     server._mask_fn = recording
+    results = [None] * len(imgs)
+
+    def worker(i):
+        results[i] = post(base + "/predict?format=raw", encode_png(imgs[i]))
+
+    ua.reset_launch_count()
     host, port = server.start(port=0)[:2]
     base = f"http://{host}:{port}"
     try:
@@ -1154,12 +1190,6 @@ def serve_phase(device):
             health = json.loads(r.read())
         if health["status"] != "ok":
             raise AssertionError(f"healthz: {health}")
-        results = [None] * len(imgs)
-
-        def worker(i):
-            results[i] = post(base + "/predict?format=raw",
-                              encode_png(imgs[i]))
-
         t0 = time.perf_counter()
         threads = [threading.Thread(target=worker, args=(i,))
                    for i in range(len(imgs))]
@@ -1168,45 +1198,55 @@ def serve_phase(device):
         for t in threads:
             t.join(timeout=300)
         burst_s = time.perf_counter() - t0
-        burst_batches = list(ran)
+        burst_batches = len(ran)
         lat = []
         for i in range(5):  # one request at a time
             t1 = time.perf_counter()
             status, _, body = post(base + "/predict", encode_png(imgs[i]))
             lat.append(time.perf_counter() - t1)
             color = decode_png(body)
-            if status != 200 or color.shape != (IMG, IMG, 3):
+            if status != 200 or color.shape != (img, img, 3):
                 raise AssertionError(f"colorized response {status} "
                                      f"{color.shape}")
-        launches = ua.launch_count()
     finally:
         server.stop()
+        hook.remove()
+    launches = ua.launch_count()
+    if launches != len(ran) or len(logits) != len(ran):
+        raise AssertionError(f"{name}: {len(ran)} served batches launched "
+                             f"the argmax kernel {launches} times")
     if any(r is None for r in results):
         raise AssertionError("a request got no response")
-    masks = []
-    for (h, w), (status, ctype, body) in zip(sizes, results):
-        m = decode_png(body)
-        if status != 200 or ctype != "image/png" or m.shape != (h, w):
-            raise AssertionError(f"bad response {status} {ctype} {m.shape} "
-                                 f"for a {h}x{w} request")
-        masks.append(m)
-    if launches < 1:
-        raise AssertionError("the serving run never launched the kernel")
-
-    # every 513^2 mask equals make_mask_fn run directly on the same arrays
-    mask_fn = make_mask_fn(model, out_hw=(IMG, IMG))
-    direct = [mask_fn(b).cpu().numpy() for b in burst_batches]
+    mask_fn = make_mask_fn(model, out_hw=hw)
+    low = -(-img // model.output_stride)  # 513 -> 129 at stride 4
+    agreement = 1.0
+    for lg, (batch, masks) in zip(logits, ran):
+        if tuple(lg.shape[1:]) != (NUM_CLASSES, low, low):
+            raise AssertionError(f"{name}: logits {tuple(lg.shape)}")
+        if not torch.equal(mask_fn(batch), masks):
+            raise AssertionError(f"{name}: make_mask_fn run directly on a "
+                                 f"served batch gives another mask")
+        nhwc = lg.permute(0, 2, 3, 1)
+        ref = ua.upsample_argmax_reference(nhwc, hw, align_corners=align)
+        up = resize_bilinear(nhwc.float(), hw, align_corners=align)
+        agreement = min(agreement, mask_check(masks, ref, up)[0])
+        del ref, up
     n_classes = 0
-    for img, size, served in zip(imgs, sizes, masks):
-        if size != (IMG, IMG):
+    for image, size, (status, ctype, body) in zip(imgs, sizes, results):
+        served = decode_png(body)
+        if status != 200 or ctype != "image/png" or served.shape != size:
+            raise AssertionError(f"bad response {status} {ctype} "
+                                 f"{served.shape} for a {size} request")
+        if size != hw:
             continue
-        slots = [(k, j) for k, b in enumerate(burst_batches)
-                 for j in range(BATCH) if np.array_equal(b[j], img)]
+        slots = [(masks, j) for batch, masks in ran[:burst_batches]
+                 for j in range(len(batch)) if np.array_equal(batch[j], image)]
         if len(slots) != 1:
             raise AssertionError(f"request found in {len(slots)} batch slots")
-        want = direct[slots[0][0]][slots[0][1]]
+        want = slots[0][0][slots[0][1]].cpu().numpy()
         if not np.array_equal(served.astype(np.int32), want):
-            raise AssertionError(f"served mask differs from make_mask_fn at "
+            raise AssertionError(f"{name}: a response differs from its "
+                                 f"batch's mask at "
                                  f"{int((served != want).sum())} pixels")
         n_classes = max(n_classes, len(np.unique(want)))
     if n_classes < 2:
@@ -1224,7 +1264,7 @@ def serve_phase(device):
             out = mask_fn(batch)
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t1) / 10)
-    if out.shape != (BATCH, IMG, IMG):
+    if out.shape != (BATCH, img, img):
         raise AssertionError(f"mask shape {tuple(out.shape)}")
     # the eval-mode check, host clock, us per call over 1000: over the
     # modules taken once (each mask function's call) and walking
@@ -1236,14 +1276,19 @@ def serve_phase(device):
         for _ in range(1000):
             require_eval_mode(walk(), "serving")
         check_us.append(1e3 * (time.perf_counter() - t1))
-    log("serve", requests=len(imgs), burst_s=burst_s,
-        request_latency_ms_median=1e3 * statistics.median(lat),
+    figures = {"burst_s": burst_s,
+               "request_latency_ms_median": 1e3 * statistics.median(lat),
+               "served_batches": len(ran), "burst_batches": burst_batches,
+               "mask_agreement_min": agreement,
+               "images_per_s_batch8": BATCH / best,
+               "ms_per_batch8": 1e3 * best,
+               "logits_shape": [BATCH, NUM_CLASSES, low, low],
+               "align_corners": align}
+    log("serve", model=name, img=img, requests=len(imgs), **figures,
         launches=launches, classes_present=n_classes,
-        batches=server.stats["batches"], burst_batches=len(burst_batches),
-        images_per_s_batch8=BATCH / best, ms_per_batch8=1e3 * best,
-        modules=len(modules), eval_mode_check_us=check_us[0],
-        eval_mode_check_walk_us=check_us[1])
-    return launches
+        batches=server.stats["batches"], modules=len(modules),
+        eval_mode_check_us=check_us[0], eval_mode_check_walk_us=check_us[1])
+    return launches, figures
 
 
 class RepeatFetcher:
@@ -1288,6 +1333,42 @@ def train_batch(device, hw=IMG):
                      segs.to(device), TRAIN_BATCH)
 
 
+def make_trainer(device, name, batch, tmp):
+    """`name` (bf16 compute over f32 parameters, full_res_output=True, so
+    the Trainer's deferred upsample routes the loss through the upsample+CE
+    kernels) in a Trainer on one fixed batch, SGD 1e-3 with momentum 0.9,
+    from the seeded start: the same weights on every call."""
+    model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=True)
+    trainer = Trainer(model, RepeatFetcher(batch, 1),
+                      workdir=os.path.join(tmp, "w"), lr=1e-3, momentum=0.9,
+                      seed=SEED, log=False, log_dir=os.path.join(tmp, "runs"),
+                      device=device)
+    if trainer._train_module.full_res_output is not False:
+        raise AssertionError("the Trainer did not defer the upsample")
+    return trainer
+
+
+def timed_steps(trainer, warmup, windows):
+    """From zeroed launch counts and peak memory: `warmup` steps one by
+    one, then `windows` synchronised windows of 5 (`step_windows`). Returns
+    the losses (each warm-up step's, then each window's mean), the wall and
+    CUDA-event ms per step, the CE and fused kernels' launches and the peak
+    device memory, GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce.reset_launch_count()
+    fm.reset_launch_count()
+    trainer.fetcher.n = 1
+    losses = [trainer.step() for _ in range(warmup)]
+    trainer.fetcher.n = 5
+    wall_ms, event_ms = step_windows(trainer, windows, losses)
+    return (losses, wall_ms, event_ms,
+            {"softmax_ce": ce.launch_count(),
+             "fused_matmul_bn": fm.launch_count()},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
 def train_phase(device, eval_set, profile=False):
     """Full-width DeepLabV3+ R50 through the port's Trainer: a
     full_res_output=True model, so the Trainer's deferred upsample is what
@@ -1299,16 +1380,9 @@ def train_phase(device, eval_set, profile=False):
     mIoU, save(best), and find the same counts in the reloaded best.pt.
     Returns that reloaded model beside the train step's figures."""
     imgs_u8, batch = train_batch(device)
-
-    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
-                        full_res_output=True)
     with tempfile.TemporaryDirectory() as tmp:
-        fetcher = RepeatFetcher(batch, 1)
-        trainer = Trainer(model, fetcher, workdir=os.path.join(tmp, "w"),
-                          lr=1e-3, momentum=0.9, seed=SEED, log=False,
-                          log_dir=os.path.join(tmp, "runs"), device=device)
-        if trainer._train_module.full_res_output is not False:
-            raise AssertionError("the Trainer did not defer the upsample")
+        trainer = make_trainer(device, "deeplabv3plus", batch, tmp)
+        model = trainer.model
         stem_mean = model.backbone.stem.bn.running_mean.clone()
         # the strides of the NHWC view of the logits that the step hands
         # the loss: they follow the layout cls_conv's output came in
@@ -1316,25 +1390,9 @@ def train_phase(device, eval_set, profile=False):
         strides_hook = trainer._train_module.register_forward_hook(
             lambda mod, args, out: strides.add(
                 tuple(out.permute(0, 2, 3, 1).stride())))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ce.reset_launch_count()
-        losses = [trainer.step() for _ in range(3)]  # warm-up, one by one
-        fetcher.n = 5
-        wall_ms, event_ms = [], []
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            losses.append(trainer.step())  # ends by reading the last loss
-            end.record()
-            torch.cuda.synchronize()
-            wall_ms.append(1e3 * (time.perf_counter() - t0) / 5)
-            event_ms.append(start.elapsed_time(end) / 5)
-        launches = ce.launch_count()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses, wall_ms, event_ms, launches, peak_gb = timed_steps(trainer,
+                                                                   3, 3)
+        launches = launches["softmax_ce"]
         steps = trainer.state.step
         if not all(np.isfinite(losses)):
             raise AssertionError(f"a loss is not finite: {losses}")
@@ -1442,31 +1500,20 @@ def train_fused_phase(device, plain, profile=False):
     off, same weights and batch). Then one eval-mode forward with the switch
     on against the same forward with it off. Returns the fused kernels'
     launches."""
-    imgs_u8, batch = train_batch(device)
-    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
-                        full_res_output=True)
+    _, batch = train_batch(device)
     blocks.set_force_fused_1x1("on")
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            fetcher = RepeatFetcher(batch, 1)
-            trainer = Trainer(model, fetcher, workdir=os.path.join(tmp, "w"),
-                              lr=1e-3, momentum=0.9, seed=SEED, log=False,
-                              log_dir=os.path.join(tmp, "runs"),
-                              device=device)
-            folded_bn = model.backbone.layer1_block0.conv1.bn
+            trainer = make_trainer(device, "deeplabv3plus", batch, tmp)
+            folded_bn = trainer.model.backbone.layer1_block0.conv1.bn
             before = (folded_bn.running_mean.clone(),
                       int(folded_bn.num_batches_tracked))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            fm.reset_launch_count()
             fm.reset_layout_copy_count()
-            ce.reset_launch_count()
-            losses = [trainer.step() for _ in range(3)]
-            fetcher.n = 5
-            wall_ms, event_ms = step_windows(trainer, 3, losses)
-            launches, copies = fm.launch_count(), fm.layout_copy_count()
-            ce_launches = ce.launch_count()
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            losses, wall_ms, event_ms, counts, peak_gb = timed_steps(
+                trainer, 3, 3)
+            launches, ce_launches = (counts["fused_matmul_bn"],
+                                     counts["softmax_ce"])
+            copies = fm.layout_copy_count()
             steps = trainer.state.step
             moved = (not torch.equal(folded_bn.running_mean, before[0]),
                      int(folded_bn.num_batches_tracked) - before[1])
@@ -2154,93 +2201,6 @@ FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
 ROOT_BATCH, ROOT_ACCUMULATE = 32, 2   # the root train CLI's -bs and -a
 
 
-def family_serve(device, name):
-    """`name` (bf16, seeded weights, its stride-`output_stride` logits)
-    behind MaskServer at batch 8: 8 requests at once, each batch's mask
-    (the upsample+argmax kernel, counted) held against the plain version on
-    the logits that batch produced, each response against its batch's
-    mask; then make_mask_fn's images/s on a batch already on the card.
-    Returns the kernel's launches and the figures."""
-    model = load_model_bundle(build_model(
-        name, NUM_CLASSES, dtype=torch.bfloat16, full_res_output=False),
-        None, device, seed=SEED)
-    align, hw = model.up_align_corners, (FAMILY_IMG, FAMILY_IMG)
-    rng = np.random.default_rng(SEED + 7)
-    imgs = [smooth_image(rng, *hw) for _ in range(BATCH)]
-    logits, ran = [], []
-    hook = model.register_forward_hook(
-        lambda mod, args, out: logits.append(out.detach()))
-    server = MaskServer(model, img_size=hw, max_batch=BATCH)
-    serve_fn = server._mask_fn
-
-    def recording(images_u8):
-        masks = serve_fn(images_u8)
-        ran.append((np.array(images_u8), masks))
-        return masks
-
-    server._mask_fn = recording
-    results = [None] * len(imgs)
-
-    def worker(i):
-        results[i] = post(base + "/predict?format=raw", encode_png(imgs[i]))
-
-    ua.reset_launch_count()
-    host, port = server.start(port=0)[:2]
-    base = f"http://{host}:{port}"
-    try:
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=worker, args=(i,))
-                   for i in range(len(imgs))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        burst_s = time.perf_counter() - t0
-    finally:
-        server.stop()
-    launches = ua.launch_count()
-    hook.remove()
-    if launches != len(ran) or not ran:
-        raise AssertionError(f"{name}: {len(ran)} served batches launched "
-                             f"the argmax kernel {launches} times")
-    low = FAMILY_IMG // model.output_stride
-    agreement = 1.0
-    for lg, (batch, masks) in zip(logits, ran):
-        if tuple(lg.shape) != (BATCH, NUM_CLASSES, low, low):
-            raise AssertionError(f"{name}: logits {tuple(lg.shape)}")
-        nhwc = lg.permute(0, 2, 3, 1)
-        ref = ua.upsample_argmax_reference(nhwc, hw, align_corners=align)
-        up = resize_bilinear(nhwc.float(), hw, align_corners=align)
-        agreement = min(agreement, mask_check(masks, ref, up)[0])
-        del ref, up
-    for img, (status, _, body) in zip(imgs, results):
-        slots = [(b, j) for b, (batch, _) in enumerate(ran)
-                 for j in range(len(batch)) if np.array_equal(batch[j], img)]
-        served = decode_png(body)
-        if status != 200 or len(slots) != 1 or not np.array_equal(
-                served.astype(np.int32),
-                ran[slots[0][0]][1][slots[0][1]].cpu().numpy()):
-            raise AssertionError(f"{name}: a response differs from its "
-                                 f"batch's mask")
-    mask_fn = make_mask_fn(model, out_hw=hw)
-    batch = torch.from_numpy(np.stack(imgs)).to(device)
-    mask_fn(batch)
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(5):
-        t0 = time.perf_counter()
-        for _ in range(5):
-            mask_fn(batch)
-        torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) / 5)
-    return launches, {"burst_s": burst_s, "served_batches": len(ran),
-                      "mask_agreement_min": agreement,
-                      "images_per_s_batch8": BATCH / best,
-                      "ms_per_batch8": 1e3 * best,
-                      "logits_shape": [BATCH, NUM_CLASSES, low, low],
-                      "align_corners": align}
-
-
 def inverted_residual_shapes(model):
     """Forward hooks that record each folded InvertedResidual's expand and
     project products as (N, K, M, act) while they are registered."""
@@ -2261,47 +2221,41 @@ def inverted_residual_shapes(model):
     return shapes, handles
 
 
-def family_train(device, name, fused=False):
-    """`name` (bf16 over f32 parameters, full_res_output=True, so the
-    Trainer's deferred upsample routes the loss through the upsample+CE
-    kernels) on one fixed batch of 32 at 512x512, SGD 1e-3 with momentum
-    0.9: 2 warm-up steps, then 2 synchronised windows of 5 (the first
-    window after a model's warm-up runs slow on some hosts). The CE kernels
-    are held against the plain version on the last step's logits and
-    labels. With `fused` the fused 1x1 switch is on and the first step
-    records the expand and project products' shapes. Returns the launches,
-    the figures, the trained model and those shapes."""
+def family_train(device, name, plain=None):
+    """`name` through `make_trainer` on one fixed batch of 32 at 512x512:
+    2 warm-up steps, then 2 synchronised windows of 5 (the first window
+    after a model's warm-up runs slow on some hosts). The CE kernels are
+    held against the plain version on the last step's logits and labels.
+    Given `plain`, the figures of the same model's run with the switch off,
+    the fused 1x1 switch is on: the steps record the expand and project
+    products' shapes, step 1's loss is held against `plain`'s (the same
+    weights and batch) and a folded BN's running statistics must move once
+    a step. Returns the launches, the figures, the trained model and those
+    shapes."""
+    fused = plain is not None
     _, batch = train_batch(device, FAMILY_IMG)
-    model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
-                        full_res_output=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        fetcher = RepeatFetcher(batch, 1)
-        trainer = Trainer(model, fetcher, workdir=os.path.join(tmp, "w"),
-                          lr=1e-3, momentum=0.9, seed=SEED, log=False,
-                          log_dir=os.path.join(tmp, "runs"), device=device)
-        twin = trainer._train_module
-        if twin.full_res_output is not False:
-            raise AssertionError("the Trainer did not defer the upsample")
-        last = []
-        hook = twin.register_forward_hook(
-            lambda mod, args, out: last.__setitem__(slice(None),
-                                                    [out.detach()]))
-        shapes, handles = (inverted_residual_shapes(model) if fused
-                           else ([], []))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ce.reset_launch_count()
-        fm.reset_launch_count()
-        losses = [trainer.step()]
-        for handle in handles:
-            handle.remove()
-        losses += [trainer.step() for _ in range(FAMILY_WARMUP - 1)]
-        fetcher.n = FAMILY_STEPS
-        wall_ms, event_ms = step_windows(trainer, FAMILY_WINDOWS, losses)
-        launches = {"softmax_ce": ce.launch_count(),
-                    "fused_matmul_bn": fm.launch_count()}
-        peak_mb = torch.cuda.max_memory_allocated() / 1e6
-        hook.remove()
+    blocks.set_force_fused_1x1("on" if fused else None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = make_trainer(device, name, batch, tmp)
+            last = []
+            hooks = [trainer._train_module.register_forward_hook(
+                lambda mod, args, out: last.__setitem__(slice(None),
+                                                        [out.detach()]))]
+            shapes = []
+            if fused:
+                shapes, handles = inverted_residual_shapes(trainer.model)
+                hooks += handles
+                # stage 0's block has no expand: stage 1's is the first fold
+                folded_bn = trainer.model.backbone.stage1_block0.expand.bn
+                before = (folded_bn.running_mean.clone(),
+                          int(folded_bn.num_batches_tracked))
+            losses, wall_ms, event_ms, launches, peak_gb = timed_steps(
+                trainer, FAMILY_WARMUP, FAMILY_WINDOWS)
+            for hook in hooks:
+                hook.remove()
+    finally:
+        blocks.set_force_fused_1x1(None)
     steps = trainer.state.step
     if steps != FAMILY_WARMUP + FAMILY_WINDOWS * FAMILY_STEPS or launches[
             "softmax_ce"] != {"fwd": steps, "bwd": steps}:
@@ -2313,18 +2267,33 @@ def family_train(device, name, fused=False):
                              f"{launches['fused_matmul_bn']}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{name}: train losses {losses}")
+    figures = {}
+    if fused:
+        moved = (not torch.equal(folded_bn.running_mean, before[0]),
+                 int(folded_bn.num_batches_tracked) - before[1])
+        if moved != (True, steps):
+            raise AssertionError(f"{name}: a folded BN's running statistics "
+                                 f"did not move once per step: {moved}")
+        loss_diff = (abs(losses[0] - plain["first_loss"])
+                     / plain["first_loss"])
+        if not loss_diff <= FUSED_LOSS_RTOL:
+            raise AssertionError(f"{name}: step 1's loss {losses[0]} with "
+                                 f"the switch on, {plain['first_loss']} "
+                                 f"with it off")
+        figures["first_loss_rel_diff_switch_off"] = loss_diff
     # the CE kernels on the last step's logits and labels
     x = last.pop().permute(0, 2, 3, 1).requires_grad_(True)
     _, _, loss_err, grad_err, top = ce_check(f"{name}_step_logits", x,
-                                             batch[1], model.up_align_corners)
-    figures = {"first_loss": losses[0], "window_mean_losses": losses[-2:],
-               "ms_per_step_wall": wall_ms,
-               "ms_per_step_cuda_events": event_ms,
-               "images_per_s": 1e3 * TRAIN_BATCH / min(wall_ms),
-               "peak_memory_mb": peak_mb,
-               "ce_on_step_logits": {"loss_abs_err": loss_err,
-                                     "dlogits_max_abs_err": grad_err,
-                                     "dlogits_largest": top}}
+                                             batch[1],
+                                             trainer.model.up_align_corners)
+    figures.update({
+        "first_loss": losses[0], "window_mean_losses": losses[-2:],
+        "ms_per_step_wall": wall_ms, "ms_per_step_cuda_events": event_ms,
+        "images_per_s": 1e3 * TRAIN_BATCH / min(wall_ms),
+        "peak_memory_mb": 1e3 * peak_gb,
+        "ce_on_step_logits": {"loss_abs_err": loss_err,
+                              "dlogits_max_abs_err": grad_err,
+                              "dlogits_largest": top}})
     return launches, figures, trainer.model, sorted(set(shapes))
 
 
@@ -2394,6 +2363,56 @@ def family_eval(device, name, model, eval_set):
                       "near_tie_pixels_where_counts_differ": ties}
 
 
+def cli_kernel_checks(kept):
+    """Kernels 1-4 held against their plain versions on the tensors the
+    command lines' run handed them (`keeping_launches`): the upsample+CE
+    kernels (forward and backward, `ce_check`) on the first train step's
+    logits and labels; the first eval batch's confusion counts (equal but
+    for near-tie pixels); the first-batch picture's mask (the top-2-gap
+    rule); both passes of the first augmented batch's warp (bit-equal)."""
+    (x, y, align), _ = kept["softmax_ce"][0]
+    _, _, loss_err, grad_err, top = ce_check(
+        "unet_cli_step_logits", x.requires_grad_(True), y, align)
+    (logits, labels, align), per_sample = kept["eval_confusion"][0]
+    b = logits.shape[0]
+    got = ec._finish(per_sample, b)
+    want = ec.eval_confusion_reference(logits, labels, b, align)
+    ties = 0
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        ties = near_ties(logits, tuple(labels.shape[1:]), align)
+    close, l1 = counts_close(got, want, ties)
+    if not close:
+        raise AssertionError(f"unet cli eval: counts differ by {l1} with "
+                             f"{ties} near-tie pixels")
+    (logits, out_hw, align), mask = kept["upsample_argmax"][0]
+    up = resize_bilinear(logits.float(), out_hw, align_corners=align)
+    agreement, argmax_err = mask_check(
+        mask, ua.upsample_argmax_reference(logits, out_hw,
+                                           align_corners=align), up)
+    del up
+    for (planes, coords, use_bil, out_dtype), out in kept["banded_resample"]:
+        if not torch.equal(out, br.banded_resample_reference(
+                planes, coords, use_bil, out_dtype)):
+            raise AssertionError(f"unet cli warp: the kernel's pass on "
+                                 f"{tuple(planes.shape)} differs from the "
+                                 f"plain version")
+    return {"softmax_ce": {"logits": list(x.shape), "dtype": str(x.dtype),
+                           "out_hw": list(y.shape[1:]), "align_corners": align,
+                           "loss_abs_err": loss_err,
+                           "dlogits_max_abs_err": grad_err,
+                           "dlogits_largest": top},
+            "eval_confusion": {"logits": list(logits.shape),
+                               "counts_l1_diff_plain": l1,
+                               "near_tie_pixels": ties},
+            "upsample_argmax": {"logits": list(logits.shape),
+                                "out_hw": list(out_hw),
+                                "agreement": agreement,
+                                "max_abs_err": argmax_err},
+            "banded_resample": {"passes_bit_equal": [
+                list(args[0].shape) for args, _ in
+                kept["banded_resample"]]}}
+
+
 def family_cli(device):
     """The train command line with the root defaults (`--model unet -s 320
     320 -bs 32 -a 2`, the cocoinstance dataset, f32, 4 workers), `--epochs
@@ -2402,7 +2421,8 @@ def family_cli(device):
     the epoch's val mIoU rises above 0, as the root CLI does, and one update
     of seeded weights may leave a model that predicts none of the val
     crops' classes (mIoU 0): then the test runs on last.pt. Returns the
-    kernels' launches and the figures."""
+    kernels' launches and the figures, with kernels 1-4 held against their
+    plain versions on tensors the run handed them (`cli_kernel_checks`)."""
     from pytorch_segmentation_tpu_torch import test as test_cli
     from pytorch_segmentation_tpu_torch import train as train_cli
 
@@ -2413,7 +2433,12 @@ def family_cli(device):
         for kernel in (ua, ce, br, ec, fm):
             kernel.reset_launch_count()
         t0 = time.perf_counter()
-        trainer = train_cli.main([data, "--epochs", "1"])
+        with keeping_launches({"softmax_ce": (ce, "_launch_fwd", 1),
+                               "eval_confusion": (ec, "_launch", 1),
+                               "upsample_argmax": (ua, "_launch", 1),
+                               "banded_resample": (br, "_launch", 2)}
+                              ) as kept:
+            trainer = train_cli.main([data, "--epochs", "1"])
         train_s = time.perf_counter() - t0
         wrote_best = os.path.exists("weights/best.pt")
         if wrote_best != (trainer.metrics > 0.0):
@@ -2447,7 +2472,9 @@ def family_cli(device):
     if launches != want:
         raise AssertionError(f"unet cli launches {launches}, want {want}")
     epoch = [r for r in records if "steps" in r][0]
-    return launches, {"train_s": train_s, "test_s": test_s,
+    checks = cli_kernel_checks(kept)
+    return launches, {"kernels_against_plain": checks,
+                      "train_s": train_s, "test_s": test_s,
                       "epoch_loss": epoch["loss"],
                       "ms_per_step": 1e3 * epoch["seconds"] / epoch["steps"],
                       "val_miou": trainer.metrics, "tested": tested,
@@ -2462,8 +2489,9 @@ def families_phase(device):
     its 16 expand and 16 project products, each distinct (N, K, M, act)
     held against the plain versions); each kernel at each family's shape on
     random inputs for its times; then the train command line with the root
-    defaults (UNet) and the test command line on the checkpoint it wrote.
-    Returns each kernel's launches over the phase's main-path runs, each
+    defaults (UNet) and the test command line on the checkpoint it wrote,
+    kernels 1-4 held against their plain versions on tensors that run
+    handed them. Returns each kernel's launches over the phase's main-path runs, each
     family's kernel figures and each fused shape's."""
     t_phase = time.perf_counter()
     eval_set = MemoryDataset(FAMILY_EVAL_IMAGES,
@@ -2483,7 +2511,7 @@ def families_phase(device):
     cases, trained = {}, {}
     for name in ("unet", "hrnet"):
         t0 = time.perf_counter()
-        serve_launches, serve = family_serve(device, name)
+        serve_launches, serve = serve_phase(device, name, FAMILY_IMG)
         add({"upsample_argmax": serve_launches})
         train_launches, trained[name], model, _ = family_train(device, name)
         add(train_launches)
@@ -2513,12 +2541,8 @@ def families_phase(device):
 
     # UNet with the fused 1x1 switch on, beside its switch-off figures
     t0 = time.perf_counter()
-    blocks.set_force_fused_1x1("on")
-    try:
-        fused_launches, fused, _, shapes = family_train(device, "unet",
-                                                        fused=True)
-    finally:
-        blocks.set_force_fused_1x1(None)
+    fused_launches, fused, _, shapes = family_train(device, "unet",
+                                                    plain=trained["unet"])
     add(fused_launches)
     if len(shapes) != 17:
         raise AssertionError(f"{len(shapes)} distinct fused shapes: {shapes}")
@@ -2721,7 +2745,7 @@ def main():
     small_eval_check(device)
     small_augment_check(device)
     small_train_check(device, fused=True)
-    launches = serve_phase(device)
+    launches, _ = serve_phase(device)
     eval_set = dataset.first(EVAL_IMAGES)
     ce_launches, ce_strides, train_figures, trained = train_phase(
         device, eval_set, profile=args.profile)

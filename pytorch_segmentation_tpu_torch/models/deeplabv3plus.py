@@ -24,6 +24,8 @@ __all__ = ["DeepLabV3Plus"]
 
 
 class DeepLabV3Plus(nn.Module):
+    output_stride = 4  # stride of the logits when full_res_output=False
+
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True, up_align_corners: bool = True):

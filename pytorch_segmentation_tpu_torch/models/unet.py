@@ -18,15 +18,14 @@ import torch.nn as nn
 
 from ..nn.backbones.mobilenetv2 import MOBILENETV2_TAP_CHANNELS, MobileNetV2
 from ..nn.blocks import ConvNormAct, conv2d
-from ..ops.resize import upsample2x
+from ..ops.resize import resize_bilinear_nchw
 
 __all__ = ["UNet"]
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
-    # upsample2x keeps the JAX package's NHWC layout; permutes are views
-    return upsample2x(x.permute(0, 2, 3, 1),
-                      align_corners=True).permute(0, 3, 1, 2)
+    return resize_bilinear_nchw(x, (2 * x.shape[2], 2 * x.shape[3]),
+                                align_corners=True)
 
 
 class UNet(nn.Module):

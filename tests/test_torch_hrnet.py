@@ -27,16 +27,21 @@ NC, HW = 5, 64
 
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
-    """The bf16 mean bound is held at the first stage's branch 0: past it,
-    single bf16 roundings that flip between the two packages' convolution
-    orders (the first ones, of 1 ulp, in the stem: its output agrees to
-    1e-9) cascade through the branches' sums, so that the logits of the
-    three-stage network sit at 0.41 of the bf16 error from the JAX module's
-    (0.70 at two stages, 0.30 at one) with every cast where the JAX module
-    puts it; the stage-0 output sits at 0.23 (measured on this seed)."""
+    """The bf16 mean bounds. Single bf16 roundings that flip between the
+    two packages' convolution orders (the first ones, of 1 ulp, in the
+    stem: its output agrees to 1e-9) cascade through the branches' sums, so
+    that with every cast where the JAX module puts it the mean difference
+    of the logits is 0.41 of the bf16 error on these weights and images
+    (seeds 1-4 of both: 0.46, 0.57, 0.69, 0.38), above test_torch_slice's
+    0.4. With one cast moved it reads 0.53 (stage 2's branch-1 blocks in
+    f32) or 0.54 (stage 2's fuse upsample and branch sum in f32). So the
+    logits are held at 0.47, between the two, which separates them on this
+    seed's data only (the readings of other seeds overlap); and the first
+    stage's branch 0, before the cascade, at the usual 0.4: it reads 0.23
+    here (0.06-0.22 on seeds 1-4)."""
     return FamilyCase("hrnet", JaxHRNet, NC, HW,
                       tmp_path_factory.mktemp("hrnet"), probe=("stage0", 0),
-                      base_channels=8)
+                      logits_mean_bound=0.47, base_channels=8)
 
 
 @pytest.fixture(scope="module")
