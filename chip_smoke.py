@@ -23,16 +23,20 @@ conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
 step) beside the figures of the same run with the switch off. The layout
 benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
-Last, the other two families (`families`): UNet on MobileNetV2 and
-HRNet-W32 at 512x512 served at batch 8, trained at batch 32 and evaluated
-over 64 images, each kernel's result held against its plain version on the
-logits the run produced (stride 2, align_corners=True; stride 4, False);
-UNet trained with the fused 1x1 switch on (its 16 expand and 16 project
-products, each distinct shape held against the plain versions); and the
+Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32
+and FPN-R50 at 512x512, PSPNet and FastFCN at 513x513 (both trained with
+the auxiliary head, its loss weighted 0.4), served at batch 8, trained at
+batch 32 and evaluated over 64 images, each kernel's result held against
+its plain version on the logits the run produced (stride 2, align_corners
+True; stride 4, False; stride 8, True, and FastFCN's aux logits at stride
+16); UNet and PSPNet trained with the fused 1x1 switch on (UNet's 16 expand
+and 16 project products, ResNet-50's 16 conv1 and 16 conv3, each distinct
+shape held against the plain versions); FPN-R34 serving one batch; and the
 train command line with the root defaults (`--model unet -s 320 320 -bs 32
--a 2`, one epoch), then `test --model unet` on the checkpoint it wrote,
-kernels 1-4 held against their plain versions on tensors that run handed
-them.
+-a 2`, one epoch) and with `--model pspnet --aux-loss 0.4 -s 321 321`, then
+the test command line on the checkpoint each wrote (PSPNet's built without
+the head, whose entries it drops), kernels 1-4 held against their plain
+versions on tensors those runs handed them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
@@ -44,8 +48,9 @@ The line before the last is a JSON object with each kernel's launches on its
 main-path run (serving, training, evaluation, training end to end, training
 with the fused 1x1 switch on, or the layout benchmark) and, for the four it
 runs, on the command lines' run (`cli_launches`), on the families phase's
-runs (`families_launches`, with each family's shape's figures under
-`families` for kernels 1-3), its error against
+runs (`families_launches`, and by model in `families_launches_by_model`,
+with each family's shape's figures under `families` for kernels 1-3), its
+error against
 the plain version, its time, the plain version's, one library call's where
 there is one, and the card's bound for the same work; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -91,7 +96,7 @@ from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import (_tile_offsets,
                                                       make_mask_fn,
                                                       make_tiled_mask_fn)
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import build_model, variant_kwargs
 from pytorch_segmentation_tpu_torch.nn import blocks
 from pytorch_segmentation_tpu_torch.ops.boundary import (boundary_confusion,
                                                          boundary_pixels)
@@ -1333,13 +1338,15 @@ def train_batch(device, hw=IMG):
                      segs.to(device), TRAIN_BATCH)
 
 
-def make_trainer(device, name, batch, tmp):
+def make_trainer(device, name, batch, tmp, **model_kwargs):
     """`name` (bf16 compute over f32 parameters, full_res_output=True, so
     the Trainer's deferred upsample routes the loss through the upsample+CE
-    kernels) in a Trainer on one fixed batch, SGD 1e-3 with momentum 0.9,
-    from the seeded start: the same weights on every call."""
+    kernels; `model_kwargs` to its constructor) in a Trainer on one fixed
+    batch, SGD 1e-3 with momentum 0.9, the aux head's loss at the Trainer's
+    default weight, from the seeded start: the same weights on every
+    call."""
     model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
-                        full_res_output=True)
+                        full_res_output=True, **model_kwargs)
     trainer = Trainer(model, RepeatFetcher(batch, 1),
                       workdir=os.path.join(tmp, "w"), lr=1e-3, momentum=0.9,
                       seed=SEED, log=False, log_dir=os.path.join(tmp, "runs"),
@@ -2195,59 +2202,98 @@ def cli_phase(device, e2e_ms_per_step):
     return launches
 
 
-FAMILY_IMG = 512     # UNet and HRNet take multiples of 32
+# the families' input sizes: multiples of 32 for UNet, HRNet and FPN; 513
+# for PSPNet and FastFCN, whose stride-8 logits (65) and FastFCN's stride-16
+# aux logits (33) then upsample by 8x and 16x with binary-fraction taps, as
+# the JAX tools/bench_models.py sizes them
+FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
+               "fastfcn": 513}
+# the constructor arguments each family is trained with (the aux head's
+# loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
+FAMILY_KWARGS = {"pspnet": {"aux": True}, "fastfcn": {"aux": True}}
+AUX_WEIGHT = 0.4
 FAMILY_EVAL_IMAGES = 64
 FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
 ROOT_BATCH, ROOT_ACCUMULATE = 32, 2   # the root train CLI's -bs and -a
+FUSED_PER_STEP = 32   # UNet's expand + project, ResNet-50's conv1 + conv3
 
 
-def inverted_residual_shapes(model):
-    """Forward hooks that record each folded InvertedResidual's expand and
-    project products as (N, K, M, act) while they are registered."""
+def fused_product_shapes(model):
+    """Forward hooks that record each folded block's 1x1 products as (N, K,
+    M, act) while they are registered: an InvertedResidual's expand and
+    project, a Bottleneck's conv1 and conv3."""
     from pytorch_segmentation_tpu_torch.nn.backbones.mobilenetv2 import (
         InvertedResidual)
+    from pytorch_segmentation_tpu_torch.nn.backbones.resnet import Bottleneck
     shapes, handles = [], []
 
     def hook(mod, args, out):
         b, k, h, w = args[0].shape
+        n_out = b * out.shape[2] * out.shape[3]
+        if isinstance(mod, Bottleneck):
+            width = mod.conv1.conv.out_channels
+            shapes.append((b * h * w, k, width, "relu"))
+            shapes.append((n_out, width, out.shape[1], "relu"))
+            return
         hidden = mod.expand.conv.out_channels
         shapes.append((b * h * w, k, hidden, "none"))
-        shapes.append((b * out.shape[2] * out.shape[3], hidden,
-                       out.shape[1], "relu6"))
+        shapes.append((n_out, hidden, out.shape[1], "relu6"))
 
     for mod in model.modules():
-        if isinstance(mod, InvertedResidual) and mod.expand is not None:
+        if (isinstance(mod, Bottleneck) or isinstance(mod, InvertedResidual)
+                and mod.expand is not None):
             handles.append(mod.register_forward_hook(hook))
     return shapes, handles
 
 
+def first_folded_bn(model):
+    """A BatchNorm whose statistics come from kernel 5's epilogue with the
+    switch on: UNet's stage 1 expand (stage 0's block has no expand), a
+    ResNet's first conv1."""
+    backbone = model.backbone
+    if hasattr(backbone, "stage1_block0"):
+        return backbone.stage1_block0.expand.bn
+    return backbone.layer1_block0.conv1.bn
+
+
 def family_train(device, name, plain=None):
-    """`name` through `make_trainer` on one fixed batch of 32 at 512x512:
-    2 warm-up steps, then 2 synchronised windows of 5 (the first window
-    after a model's warm-up runs slow on some hosts). The CE kernels are
-    held against the plain version on the last step's logits and labels.
-    Given `plain`, the figures of the same model's run with the switch off,
-    the fused 1x1 switch is on: the steps record the expand and project
-    products' shapes, step 1's loss is held against `plain`'s (the same
-    weights and batch) and a folded BN's running statistics must move once
-    a step. Returns the launches, the figures, the trained model and those
-    shapes."""
+    """`name` (with FAMILY_KWARGS) through `make_trainer` on one fixed batch
+    of 32 at its FAMILY_IMGS size: 2 warm-up steps, then 2 synchronised
+    windows of 5 (the first window after a model's warm-up runs slow on
+    some hosts). The CE kernels are held against the plain version on the
+    last step's logits and labels, the aux logits too. For an aux model
+    each step launches the CE forward and backward twice (the main and the
+    aux head), and step 1's loss must equal the plain version's loss of
+    that step's logits plus AUX_WEIGHT times that of its aux logits (the
+    function the deferred upsample computes). Given `plain`, the figures of
+    the same model's run with the switch off, the fused 1x1 switch is on:
+    the steps record the 1x1 products' shapes, step 1's loss is held
+    against `plain`'s (the same weights and batch) and a folded BN's
+    running statistics must move once a step. Returns the launches, the
+    figures, the trained model and those shapes."""
     fused = plain is not None
-    _, batch = train_batch(device, FAMILY_IMG)
+    hw = FAMILY_IMGS[name]
+    aux = FAMILY_KWARGS.get(name, {}).get("aux", False)
+    _, batch = train_batch(device, hw)
     blocks.set_force_fused_1x1("on" if fused else None)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            trainer = make_trainer(device, name, batch, tmp)
-            last = []
-            hooks = [trainer._train_module.register_forward_hook(
-                lambda mod, args, out: last.__setitem__(slice(None),
-                                                        [out.detach()]))]
+            trainer = make_trainer(device, name, batch, tmp,
+                                   **FAMILY_KWARGS.get(name, {}))
+            kept = []   # the first and the last step's outputs
+
+            def keep(mod, args, out):
+                if len(kept) == 2:
+                    kept.pop()
+                kept.append(tuple(o.detach() for o in (
+                    out if isinstance(out, tuple) else (out,))))
+
+            hooks = [trainer._train_module.register_forward_hook(keep)]
             shapes = []
             if fused:
-                shapes, handles = inverted_residual_shapes(trainer.model)
+                shapes, handles = fused_product_shapes(trainer.model)
                 hooks += handles
-                # stage 0's block has no expand: stage 1's is the first fold
-                folded_bn = trainer.model.backbone.stage1_block0.expand.bn
+                folded_bn = first_folded_bn(trainer.model)
                 before = (folded_bn.running_mean.clone(),
                           int(folded_bn.num_batches_tracked))
             losses, wall_ms, event_ms, launches, peak_gb = timed_steps(
@@ -2257,17 +2303,34 @@ def family_train(device, name, plain=None):
     finally:
         blocks.set_force_fused_1x1(None)
     steps = trainer.state.step
+    heads = 2 if aux else 1
     if steps != FAMILY_WARMUP + FAMILY_WINDOWS * FAMILY_STEPS or launches[
-            "softmax_ce"] != {"fwd": steps, "bwd": steps}:
+            "softmax_ce"] != {"fwd": heads * steps, "bwd": heads * steps}:
         raise AssertionError(f"{name}: {steps} steps launched "
                              f"{launches['softmax_ce']}")
-    per_step = 32 if fused else 0   # UNet's expand and project products
-    if set(launches["fused_matmul_bn"].values()) != {per_step * steps}:
+    per_step = FUSED_PER_STEP if fused else 0
+    if (set(launches["fused_matmul_bn"].values()) != {per_step * steps}
+            or len(shapes) != per_step * steps):
         raise AssertionError(f"{name}: {steps} steps launched "
-                             f"{launches['fused_matmul_bn']}")
+                             f"{launches['fused_matmul_bn']}, "
+                             f"{len(shapes)} products recorded")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{name}: train losses {losses}")
+    align = trainer.model.up_align_corners
+    segs = batch[1]
     figures = {}
+    if aux:
+        # step 1's loss: the plain upsample+CE of its logits, + AUX_WEIGHT x
+        # that of its aux logits, in f32
+        main, head = (o.permute(0, 2, 3, 1) for o in kept[0])
+        plain_loss = float(
+            ce.upsample_ce_reference(main, segs, align)
+            + AUX_WEIGHT * ce.upsample_ce_reference(head, segs, align))
+        if not abs(losses[0] - plain_loss) <= LOSS_RTOL * plain_loss:
+            raise AssertionError(f"{name}: step 1's loss {losses[0]}, the "
+                                 f"plain version's {plain_loss}")
+        figures["first_loss_plain"] = plain_loss
+        figures["aux_logits"] = list(kept[0][1].shape)
     if fused:
         moved = (not torch.equal(folded_bn.running_mean, before[0]),
                  int(folded_bn.num_batches_tracked) - before[1])
@@ -2281,19 +2344,22 @@ def family_train(device, name, plain=None):
                                  f"the switch on, {plain['first_loss']} "
                                  f"with it off")
         figures["first_loss_rel_diff_switch_off"] = loss_diff
-    # the CE kernels on the last step's logits and labels
-    x = last.pop().permute(0, 2, 3, 1).requires_grad_(True)
-    _, _, loss_err, grad_err, top = ce_check(f"{name}_step_logits", x,
-                                             batch[1],
-                                             trainer.model.up_align_corners)
+    # the CE kernels on the last step's logits (and aux logits) and labels
+    checked = {}
+    for head_name, out in zip(("logits", "aux_logits"), kept[-1]):
+        x = out.permute(0, 2, 3, 1).requires_grad_(True)
+        _, _, loss_err, grad_err, top = ce_check(
+            f"{name}_step_{head_name}", x, segs, align)
+        checked[head_name] = {"shape": list(x.shape),
+                              "loss_abs_err": loss_err,
+                              "dlogits_max_abs_err": grad_err,
+                              "dlogits_largest": top}
+    del kept
     figures.update({
         "first_loss": losses[0], "window_mean_losses": losses[-2:],
         "ms_per_step_wall": wall_ms, "ms_per_step_cuda_events": event_ms,
         "images_per_s": 1e3 * TRAIN_BATCH / min(wall_ms),
-        "peak_memory_mb": 1e3 * peak_gb,
-        "ce_on_step_logits": {"loss_abs_err": loss_err,
-                              "dlogits_max_abs_err": grad_err,
-                              "dlogits_largest": top}})
+        "peak_memory_mb": 1e3 * peak_gb, "ce_on_step_logits": checked})
     return launches, figures, trainer.model, sorted(set(shapes))
 
 
@@ -2363,16 +2429,58 @@ def family_eval(device, name, model, eval_set):
                       "near_tie_pixels_where_counts_differ": ties}
 
 
-def cli_kernel_checks(kept):
+def serve_one_batch(device, name, variant, img):
+    """`name` at `variant` (bf16, seeded weights, its stride-4 logits):
+    make_mask_fn on one batch of 8 smooth u8 images, the mask held against
+    the plain version on the logits the batch produced. Returns the
+    argmax kernel's launches."""
+    model = load_model_bundle(build_model(
+        name, NUM_CLASSES, dtype=torch.bfloat16, full_res_output=False,
+        **variant_kwargs(name, variant)), None, device, seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    images = np.stack([smooth_image(rng, img, img) for _ in range(BATCH)])
+    logits = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach()))
+    hw = (img, img)
+    ua.reset_launch_count()
+    t0 = time.perf_counter()
+    masks = make_mask_fn(model, out_hw=hw)(images)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ua.launch_count()
+    hook.remove()
+    nhwc = logits[0].permute(0, 2, 3, 1)
+    if launches != 1 or masks.shape != (BATCH, img, img):
+        raise AssertionError(f"{name} {variant}: {launches} launches, mask "
+                             f"{tuple(masks.shape)}")
+    align = model.up_align_corners
+    agreement, err = mask_check(
+        masks, ua.upsample_argmax_reference(nhwc, hw, align_corners=align),
+        resize_bilinear(nhwc.float(), hw, align_corners=align))
+    log("serve_one_batch", model=name, variant=variant, img=img,
+        logits_shape=list(logits[0].shape), mask_agreement=agreement,
+        max_abs_err=err, seconds_first_call=seconds, launches=launches)
+    return launches
+
+
+def cli_kernel_checks(name, kept):
     """Kernels 1-4 held against their plain versions on the tensors the
     command lines' run handed them (`keeping_launches`): the upsample+CE
     kernels (forward and backward, `ce_check`) on the first train step's
-    logits and labels; the first eval batch's confusion counts (equal but
-    for near-tie pixels); the first-batch picture's mask (the top-2-gap
-    rule); both passes of the first augmented batch's warp (bit-equal)."""
-    (x, y, align), _ = kept["softmax_ce"][0]
-    _, _, loss_err, grad_err, top = ce_check(
-        "unet_cli_step_logits", x.requires_grad_(True), y, align)
+    logits and labels (and its aux logits, where the model has the head);
+    the first eval batch's confusion counts (equal but for near-tie
+    pixels); the first-batch picture's mask (the top-2-gap rule); both
+    passes of the first augmented batch's warp (bit-equal)."""
+    steps = []
+    for i, ((x, y, align), _) in enumerate(kept["softmax_ce"]):
+        _, _, loss_err, grad_err, top = ce_check(
+            f"{name}_cli_step_logits_{i}", x.requires_grad_(True), y, align)
+        steps.append({"logits": list(x.shape), "dtype": str(x.dtype),
+                      "out_hw": list(y.shape[1:]), "align_corners": align,
+                      "loss_abs_err": loss_err,
+                      "dlogits_max_abs_err": grad_err,
+                      "dlogits_largest": top})
     (logits, labels, align), per_sample = kept["eval_confusion"][0]
     b = logits.shape[0]
     got = ec._finish(per_sample, b)
@@ -2382,7 +2490,7 @@ def cli_kernel_checks(kept):
         ties = near_ties(logits, tuple(labels.shape[1:]), align)
     close, l1 = counts_close(got, want, ties)
     if not close:
-        raise AssertionError(f"unet cli eval: counts differ by {l1} with "
+        raise AssertionError(f"{name} cli eval: counts differ by {l1} with "
                              f"{ties} near-tie pixels")
     (logits, out_hw, align), mask = kept["upsample_argmax"][0]
     up = resize_bilinear(logits.float(), out_hw, align_corners=align)
@@ -2393,14 +2501,10 @@ def cli_kernel_checks(kept):
     for (planes, coords, use_bil, out_dtype), out in kept["banded_resample"]:
         if not torch.equal(out, br.banded_resample_reference(
                 planes, coords, use_bil, out_dtype)):
-            raise AssertionError(f"unet cli warp: the kernel's pass on "
+            raise AssertionError(f"{name} cli warp: the kernel's pass on "
                                  f"{tuple(planes.shape)} differs from the "
                                  f"plain version")
-    return {"softmax_ce": {"logits": list(x.shape), "dtype": str(x.dtype),
-                           "out_hw": list(y.shape[1:]), "align_corners": align,
-                           "loss_abs_err": loss_err,
-                           "dlogits_max_abs_err": grad_err,
-                           "dlogits_largest": top},
+    return {"softmax_ce": steps,
             "eval_confusion": {"logits": list(logits.shape),
                                "counts_l1_diff_plain": l1,
                                "near_tie_pixels": ties},
@@ -2413,19 +2517,35 @@ def cli_kernel_checks(kept):
                 kept["banded_resample"]]}}
 
 
-def family_cli(device):
-    """The train command line with the root defaults (`--model unet -s 320
-    320 -bs 32 -a 2`, the cocoinstance dataset, f32, 4 workers), `--epochs
-    1` the only flag, on the cli phase's synthetic COCO set; then `test
-    --model unet` on the best.pt it wrote. The CLI writes best.pt only when
-    the epoch's val mIoU rises above 0, as the root CLI does, and one update
-    of seeded weights may leave a model that predicts none of the val
-    crops' classes (mIoU 0): then the test runs on last.pt. Returns the
-    kernels' launches and the figures, with kernels 1-4 held against their
-    plain versions on tensors the run handed them (`cli_kernel_checks`)."""
+# the command-line runs of the families phase: the train argv after the
+# data directory (the root defaults but for these flags), the test argv's
+# flags after the val file, the model class and the train-step heads
+FAMILY_CLIS = {
+    "unet": (["--epochs", "1"], ["--model", "unet"], "UNet", 1),
+    # 321 = 8 x 40 + 1: stride-8 logits of 41 upsample 8x with taps of 1/8
+    "pspnet": (["--model", "pspnet", "--aux-loss", str(AUX_WEIGHT), "-s",
+                "321", "321", "--epochs", "1"],
+               ["--model", "pspnet", "-s", "321", "321"], "PSPNet", 2),
+}
+
+
+def family_cli(device, name):
+    """The train command line with the root defaults (the cocoinstance
+    dataset, -bs 32 -a 2, f32, 4 workers) and FAMILY_CLIS' flags on the cli
+    phase's synthetic COCO set for one epoch; then the test command line on
+    the best.pt it wrote. The CLI writes best.pt only when the epoch's val
+    mIoU rises above 0, as the root CLI does, and one update of seeded
+    weights may leave a model that predicts none of the val crops' classes
+    (mIoU 0): then the test runs on last.pt. For PSPNet, trained with
+    `--aux-loss`, the test builds the model without the head and must say
+    that it dropped the head's entries. Returns the kernels' launches and
+    the figures, with kernels 1-4 held against their plain versions on
+    tensors the run handed them (`cli_kernel_checks`)."""
+    import io
     from pytorch_segmentation_tpu_torch import test as test_cli
     from pytorch_segmentation_tpu_torch import train as train_cli
 
+    train_argv, test_argv, cls_name, heads = FAMILY_CLIS[name]
     with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
         data = make_synthetic_coco(os.path.join(tmp, "coco"), CLI_TRAIN,
                                    CLI_VAL, CLI_WH, seed=SEED,
@@ -2433,12 +2553,12 @@ def family_cli(device):
         for kernel in (ua, ce, br, ec, fm):
             kernel.reset_launch_count()
         t0 = time.perf_counter()
-        with keeping_launches({"softmax_ce": (ce, "_launch_fwd", 1),
+        with keeping_launches({"softmax_ce": (ce, "_launch_fwd", heads),
                                "eval_confusion": (ec, "_launch", 1),
                                "upsample_argmax": (ua, "_launch", 1),
                                "banded_resample": (br, "_launch", 2)}
                               ) as kept:
-            trainer = train_cli.main([data, "--epochs", "1"])
+            trainer = train_cli.main([data] + train_argv)
         train_s = time.perf_counter() - t0
         wrote_best = os.path.exists("weights/best.pt")
         if wrote_best != (trainer.metrics > 0.0):
@@ -2446,9 +2566,13 @@ def family_cli(device):
                                  f"val mIoU {trainer.metrics}")
         tested = "weights/best.pt" if wrote_best else "weights/last.pt"
         t0 = time.perf_counter()
-        miou = test_cli.main([os.path.join(data, "val.json"), "--model",
-                              "unet", "--weights", tested])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            miou = test_cli.main([os.path.join(data, "val.json"),
+                                  "--weights", tested] + test_argv)
         test_s = time.perf_counter() - t0
+        printed = printed.getvalue()
+        print(printed, end="", flush=True)
         launches = {"upsample_argmax": ua.launch_count(),
                     "softmax_ce": ce.launch_count(),
                     "banded_resample": br.launch_count(),
@@ -2457,71 +2581,89 @@ def family_cli(device):
         with open("runs/log.jsonl") as f:
             records = [json.loads(line) for line in f]
     micro = CLI_TRAIN // ROOT_BATCH
-    if not (type(trainer.model).__name__ == "UNet"
+    if not (type(trainer.model).__name__ == cls_name
+            and getattr(trainer.model, "aux", False) == (heads == 2)
             and trainer.epoch == 1
             and trainer.state.step == micro // ROOT_ACCUMULATE
             and 0.0 <= trainer.metrics <= 1.0 and 0.0 <= miou <= 1.0):
-        raise AssertionError(f"train --model unet: epoch {trainer.epoch}, "
+        raise AssertionError(f"train --model {name}: epoch {trainer.epoch}, "
                              f"updates {trainer.state.step}, best "
                              f"{trainer.metrics}; test mIoU {miou}")
+    dropped = "dropping train-only entries not in the eval model" in printed
+    if dropped != (heads == 2):
+        raise AssertionError(f"test --model {name}: the train-only head's "
+                             f"entries dropped: {dropped}")
     evals = 2 * -(-CLI_VAL // ROOT_BATCH)  # the epoch's eval, the test CLI's
     want = {"upsample_argmax": 2,   # each eval's first-batch picture
-            "softmax_ce": {"fwd": micro + evals, "bwd": micro},
+            "softmax_ce": {"fwd": heads * micro + evals,
+                           "bwd": heads * micro},
             "banded_resample": 2 * micro, "eval_confusion": evals,
             "fused_matmul_bn": {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}}
     if launches != want:
-        raise AssertionError(f"unet cli launches {launches}, want {want}")
+        raise AssertionError(f"{name} cli launches {launches}, want {want}")
     epoch = [r for r in records if "steps" in r][0]
-    checks = cli_kernel_checks(kept)
-    return launches, {"kernels_against_plain": checks,
+    checks = cli_kernel_checks(name, kept)
+    return launches, {"train_argv": train_argv, "test_argv": test_argv,
+                      "kernels_against_plain": checks,
                       "train_s": train_s, "test_s": test_s,
                       "epoch_loss": epoch["loss"],
                       "ms_per_step": 1e3 * epoch["seconds"] / epoch["steps"],
                       "val_miou": trainer.metrics, "tested": tested,
+                      "test_dropped_train_only_head": dropped,
                       "test_miou": miou}
 
 
 def families_phase(device):
-    """UNet (MobileNetV2) and HRNet-W32 at 512x512, 21 classes, bf16
-    compute over f32 parameters, seeded weights: served at batch 8 (kernel
-    1), trained at batch 32 (kernel 2), evaluated over 64 images (kernels 2
-    and 3); UNet trained again with the fused 1x1 switch on (kernel 5 on
-    its 16 expand and 16 project products, each distinct (N, K, M, act)
-    held against the plain versions); each kernel at each family's shape on
-    random inputs for its times; then the train command line with the root
-    defaults (UNet) and the test command line on the checkpoint it wrote,
-    kernels 1-4 held against their plain versions on tensors that run
-    handed them. Returns each kernel's launches over the phase's main-path runs, each
-    family's kernel figures and each fused shape's."""
+    """UNet (MobileNetV2), HRNet-W32 and FPN-R50 at 512x512, PSPNet and
+    FastFCN (each with its aux head in training) at 513x513, 21 classes,
+    bf16 compute over f32 parameters, seeded weights: served at batch 8
+    (kernel 1), trained at batch 32 (kernel 2; twice a step for the aux
+    models), evaluated over 64 images (kernels 2 and 3); UNet and PSPNet
+    trained again with the fused 1x1 switch on (kernel 5 on UNet's 16
+    expand and 16 project products and on ResNet-50's 16 conv1 and 16
+    conv3, each distinct (N, K, M, act) held against the plain versions);
+    FPN-R34 serves one batch; each kernel at each family's shape on random
+    inputs for its times; then the train command line with the root
+    defaults (UNet), with `--model pspnet --aux-loss 0.4 -s 321 321`, and
+    the test command line on the checkpoint each wrote, kernels 1-4 held
+    against their plain versions on tensors those runs handed them.
+    Returns each kernel's launches over the phase's main-path runs (in all
+    and by model), each family's kernel figures and each fused shape's."""
     t_phase = time.perf_counter()
-    eval_set = MemoryDataset(FAMILY_EVAL_IMAGES,
-                             np.random.default_rng(SEED + 8), hw=FAMILY_IMG)
-    total = {"upsample_argmax": 0, "softmax_ce": {"fwd": 0, "bwd": 0},
-             "eval_confusion": 0, "banded_resample": 0,
-             "fused_matmul_bn": {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}}
+    eval_sets = {hw: MemoryDataset(FAMILY_EVAL_IMAGES,
+                                   np.random.default_rng(SEED + 8), hw=hw)
+                 for hw in sorted(set(FAMILY_IMGS.values()))}
 
-    def add(launches):
-        for key, value in launches.items():
-            if isinstance(value, dict):
-                for k, v in value.items():
-                    total[key][k] += v
-            else:
-                total[key] += value
+    def zeros():
+        return {"upsample_argmax": 0, "softmax_ce": {"fwd": 0, "bwd": 0},
+                "eval_confusion": 0, "banded_resample": 0,
+                "fused_matmul_bn": {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}}
+
+    total, by_model = zeros(), {}
+
+    def add(launches, model):
+        for counts in (total, by_model.setdefault(model, zeros())):
+            for key, value in launches.items():
+                if isinstance(value, dict):
+                    for k, v in value.items():
+                        counts[key][k] += v
+                else:
+                    counts[key] += value
 
     cases, trained = {}, {}
-    for name in ("unet", "hrnet"):
+    for name, hw in FAMILY_IMGS.items():
         t0 = time.perf_counter()
-        serve_launches, serve = serve_phase(device, name, FAMILY_IMG)
-        add({"upsample_argmax": serve_launches})
+        serve_launches, serve = serve_phase(device, name, hw)
+        add({"upsample_argmax": serve_launches}, name)
         train_launches, trained[name], model, _ = family_train(device, name)
-        add(train_launches)
+        add(train_launches, name)
         eval_launches, evaluation = family_eval(device, name, model,
-                                                eval_set)
-        add(eval_launches)
-        low = FAMILY_IMG // model.output_stride
+                                                eval_sets[hw])
+        add(eval_launches, name)
+        low = -(-hw // model.output_stride)
         align = model.up_align_corners
         del model
-        out_hw = (FAMILY_IMG, FAMILY_IMG)
+        out_hw = (hw, hw)
         cases[name] = {
             "upsample_argmax": kernel_case(
                 f"{name}_argmax", (BATCH, low, low, NUM_CLASSES), out_hw,
@@ -2533,40 +2675,54 @@ def families_phase(device):
                 f"{name}_eval", (EVAL_BATCH, low, low, NUM_CLASSES), out_hw,
                 torch.bfloat16, align, device, nchw=True,
                 ties_allowed=name == "unet")}
-        log("family", model=name, img=FAMILY_IMG, classes=NUM_CLASSES,
-            serve=serve, train=trained[name], eval=evaluation,
+        aux_shape = trained[name].get("aux_logits")
+        if aux_shape and aux_shape[2] != low:   # FastFCN's 16x aux logits
+            cases[f"{name}_aux"] = {"softmax_ce": ce_case(
+                f"{name}_aux_ce", (TRAIN_BATCH, aux_shape[2], aux_shape[3],
+                                   NUM_CLASSES), out_hw, torch.bfloat16,
+                align, device, nchw=True)}
+        log("family", model=name, img=hw, classes=NUM_CLASSES,
+            train_kwargs=FAMILY_KWARGS.get(name, {}), serve=serve,
+            train=trained[name], eval=evaluation,
             launches={"serve": serve_launches, "train": train_launches,
                       "eval": eval_launches},
             seconds=time.perf_counter() - t0)
+    add({"upsample_argmax": serve_one_batch(device, "fpn", "r34",
+                                            FAMILY_IMGS["fpn"])}, "fpn_r34")
 
-    # UNet with the fused 1x1 switch on, beside its switch-off figures
-    t0 = time.perf_counter()
-    fused_launches, fused, _, shapes = family_train(device, "unet",
-                                                    plain=trained["unet"])
-    add(fused_launches)
-    if len(shapes) != 17:
-        raise AssertionError(f"{len(shapes)} distinct fused shapes: {shapes}")
+    # UNet and PSPNet with the fused 1x1 switch on, beside their switch-off
+    # figures
     fused_shapes = {}
-    for n, k, m, act in shapes:
-        figure = fused_case(f"unet_fused_{n}_{k}_{m}_{act}", n, k, m,
-                            torch.bfloat16, act, device, reps=3)
-        fused_shapes[f"{n}x{k}x{m}_{act}"] = figure
-    off = trained["unet"]
-    log("family_fused", model="unet", switch_on=fused,
-        switch_off={key: off[key] for key in (
-            "first_loss", "ms_per_step_wall", "ms_per_step_cuda_events",
-            "images_per_s", "peak_memory_mb")},
-        launches=fused_launches, launches_per_step=32,
-        distinct_shapes=[list(s) for s in shapes],
-        seconds=time.perf_counter() - t0)
+    for name, n_shapes in (("unet", 17), ("pspnet", 12)):
+        t0 = time.perf_counter()
+        fused_launches, fused, _, shapes = family_train(
+            device, name, plain=trained[name])
+        add(fused_launches, name)
+        if len(shapes) != n_shapes:
+            raise AssertionError(f"{name}: {len(shapes)} distinct fused "
+                                 f"shapes: {shapes}")
+        for n, k, m, act in shapes:
+            fused_shapes[f"{name}_{n}x{k}x{m}_{act}"] = fused_case(
+                f"{name}_fused_{n}_{k}_{m}_{act}", n, k, m, torch.bfloat16,
+                act, device, reps=3)
+        off = trained[name]
+        log("family_fused", model=name, switch_on=fused,
+            switch_off={key: off[key] for key in (
+                "first_loss", "ms_per_step_wall", "ms_per_step_cuda_events",
+                "images_per_s", "peak_memory_mb")},
+            launches=fused_launches, launches_per_step=FUSED_PER_STEP,
+            distinct_shapes=[list(s) for s in shapes],
+            seconds=time.perf_counter() - t0)
 
-    t0 = time.perf_counter()
-    cli_launches, cli = family_cli(device)
-    add(cli_launches)
-    log("family_cli", argv_changed=["--epochs", "1"], **cli,
-        launches=cli_launches, seconds=time.perf_counter() - t0)
-    log("families", seconds=time.perf_counter() - t_phase, launches=total)
-    return total, cases, fused_shapes
+    for name in FAMILY_CLIS:
+        t0 = time.perf_counter()
+        cli_launches, cli = family_cli(device, name)
+        add(cli_launches, name)
+        log("family_cli", model=name, **cli, launches=cli_launches,
+            seconds=time.perf_counter() - t0)
+    log("families", seconds=time.perf_counter() - t_phase, launches=total,
+        launches_by_model=by_model)
+    return total, by_model, cases, fused_shapes
 
 
 def profile_steps(trainer, phase="profile"):
@@ -2758,7 +2914,13 @@ def main():
     cli_launches = cli_phase(device, e2e_ms_per_step)
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
-    family_launches, family_cases, family_fused = families_phase(device)
+    family_launches, family_by_model, family_cases, family_fused = (
+        families_phase(device))
+
+    def by_model(kernel, part=None):
+        """The kernel's launches in each family's main-path runs."""
+        return {model: (v[kernel] if part is None else v[kernel][part])
+                for model, v in family_by_model.items()}
     # the kernels' line reports the case in the layout the train step used
     ce_path = [p for p in ce_paths if p["strides"] == ce_strides]
     if len(ce_path) != 1:
@@ -2788,8 +2950,9 @@ def main():
          "launches": launches,
          "cli_launches": cli_launches["upsample_argmax"],
          "families_launches": family_launches["upsample_argmax"],
+         "families_launches_by_model": by_model("upsample_argmax"),
          "families": {name: c["upsample_argmax"]
-                      for name, c in family_cases.items()}, **path},
+                      for name, c in family_cases.items() if "upsample_argmax" in c}, **path},
         # ms: the wrapper call; kernel_ms: _launch_fwd alone, with lse
         {"name": "softmax_ce_fwd", "route": "cuda", "source": ce_source,
          "replaces": ce_replaces,
@@ -2802,6 +2965,7 @@ def main():
          "launches": ce_launches["fwd"],
          "cli_launches": cli_launches["softmax_ce"]["fwd"],
          "families_launches": family_launches["softmax_ce"]["fwd"],
+         "families_launches_by_model": by_model("softmax_ce", "fwd"),
          "families": {name: c["softmax_ce"]["fwd"]
                       for name, c in family_cases.items()}, **ce_path["fwd"]},
         # ms: the backward through autograd; kernel_ms: the kernel alone on
@@ -2816,6 +2980,7 @@ def main():
          "launches": ce_launches["bwd"],
          "cli_launches": cli_launches["softmax_ce"]["bwd"],
          "families_launches": family_launches["softmax_ce"]["bwd"],
+         "families_launches_by_model": by_model("softmax_ce", "bwd"),
          "families": {name: c["softmax_ce"]["bwd"]
                       for name, c in family_cases.items()}, **ce_path["bwd"]},
         # ms, device_ms, plain_ms and bound_ms: per launch, the mean of the
@@ -2832,6 +2997,7 @@ def main():
          "launches": resample_launches,
          "cli_launches": cli_launches["banded_resample"],
          "families_launches": family_launches["banded_resample"],
+         "families_launches_by_model": by_model("banded_resample"),
          **resample_path},
         # ms: the wrapper call; kernel_ms: _launch (the zeroed count buffer
         # and the kernel)
@@ -2849,8 +3015,9 @@ def main():
          "launches": eval_launches["eval_confusion"],
          "cli_launches": cli_launches["eval_confusion"],
          "families_launches": family_launches["eval_confusion"],
+         "families_launches_by_model": by_model("eval_confusion"),
          "families": {name: c["eval_confusion"]
-                      for name, c in family_cases.items()}, **eval_path},
+                      for name, c in family_cases.items() if "eval_confusion" in c}, **eval_path},
         # ms, plain_ms, bound_ms, library_ms at (N, K, M) = `shape`, a
         # stage-1 shape of the step; `second_shape` has a stage-4 shape's
         {"name": "fused_matmul_bn_fwd", "route": "cuda",
@@ -2859,6 +3026,7 @@ def main():
                    "through the prologue in shared memory",
          "launches": fused_launches["fwd"],
          "families_launches": family_launches["fused_matmul_bn"]["fwd"],
+         "families_launches_by_model": by_model("fused_matmul_bn", "fwd"),
          "families_shapes": len(family_fused), **fused_path["fwd"]},
         {"name": "fused_matmul_bn_bwd_dx", "route": "cuda",
          "source": fused_source, "replaces": fused_replaces + "117",
@@ -2866,6 +3034,7 @@ def main():
                    "two full grids, K-major operands",
          "launches": fused_launches["bwd_dx"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dx"],
+         "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dx"),
          "families_shapes": len(family_fused), **fused_path["bwd_dx"]},
         {"name": "fused_matmul_bn_bwd_dw", "route": "cuda",
          "source": fused_source, "replaces": fused_replaces + "156",
@@ -2874,6 +3043,7 @@ def main():
                    "f32 partials summed by partials.sum(0)",
          "launches": fused_launches["bwd_dw"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dw"],
+         "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dw"),
          "families_shapes": len(family_fused), **fused_path["bwd_dw"]},
         {"name": "cmajor_matmul", "route": "cuda", "source": fused_source,
          "replaces": "tools/bench_cmajor.py:64",

@@ -45,6 +45,20 @@ def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
     os.replace(tmp, path)
 
 
+# the train-only modules of an auxiliary head (models/pspnet.py aux=True)
+TRAIN_ONLY_MODULES = ("aux_conv", "aux_cls")
+
+
+def _drop_train_only(sd: dict, template: dict, what: str) -> dict:
+    """`sd` without the train-only auxiliary-head entries that `template`
+    (the model's state_dict) has no slot for, printing their names."""
+    extra = sorted(k for k in sd if k not in template
+                   and k.split(".")[0] in TRAIN_ONLY_MODULES)
+    if extra:
+        print(f"dropping train-only {what} not in the eval model: {extra}")
+    return {k: v for k, v in sd.items() if k not in extra}
+
+
 def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
                       device: torch.device | str, seed: int = 0,
                       use_ema: bool = False) -> torch.nn.Module:
@@ -52,6 +66,10 @@ def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
 
     weights_path: a `.pt` checkpoint (loaded with strict=True), or
     None / '' for weights made from `seed` (utils/weights.seeded_state_dict).
+    A checkpoint of `train --aux-loss` carries the train-only auxiliary
+    head (`aux_conv`, `aux_cls`); a model built without it drops those
+    entries and prints which, as the JAX package does. Every other entry
+    stays strict.
     use_ema=True then loads the checkpoint's `'ema'` entry (the trainer's
     EMA-averaged parameters) over the parameters; BN running statistics stay
     the checkpoint's own, which already are a moving average. It raises for
@@ -61,8 +79,9 @@ def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
     same way."""
     if use_ema and not weights_path:
         raise ValueError("use_ema=True needs a checkpoint")
+    template = model.state_dict()
     if weights_path:
-        sd = load_state(weights_path)
+        sd = _drop_train_only(load_state(weights_path), template, "entries")
     else:
         sd = seeded_state_dict(model, seed)
     model.load_state_dict(sd, strict=True)
@@ -72,6 +91,7 @@ def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
         if ema is None:
             raise ValueError(f"{weights_path} holds no EMA parameters "
                              "(trained without ema_decay)")
+        ema = _drop_train_only(ema, template, "EMA entries")
         extra = model.load_state_dict(ema, strict=False).unexpected_keys
         if extra:
             raise ValueError(f"{weights_path}: EMA entries the model lacks: "

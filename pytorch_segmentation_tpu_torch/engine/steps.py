@@ -95,6 +95,7 @@ def create_train_state(model: torch.nn.Module, optimizer,
 
 def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                     qat: bool = False, ema_decay: float = 0.0,
+                    aux_weight: float = 0.4,
                     distill_fn: Callable | None = None):
     """Returns `(state, images, segs) -> (state, loss)` over ONE loader
     batch. images: [B, H, W, 3] normalized float, segs: [B, H, W] int, both
@@ -105,10 +106,15 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
     `create_train_state(..., ema=True)`) at `d * ema + (1 - d) * params`,
     once per optimizer update.
 
+    A model whose train-mode forward returns `(logits, aux)` (PSPNet and
+    FastFCN with aux=True; `aux` one tensor or a tuple of them) is trained
+    on `loss_fn(logits) + aux_weight * sum(loss_fn(a) for a in aux)`: the
+    same criterion on each head, each at its own resolution (through
+    `make_loss_fn`, one fused upsample+CE forward and backward a head).
+
     Not ported yet: `qat` (ROADMAP: quant.py), `distill_fn` (ROADMAP: losses
-    and extras), models whose train-mode forward returns a tuple with
-    auxiliary logits, and MoE load-balance losses (ROADMAP: other model
-    families, nn/moe.py)."""
+    and extras) and MoE load-balance losses (ROADMAP: other model families,
+    nn/moe.py)."""
     if qat:
         raise NotImplementedError("quantization-aware training is not ported "
                                   "yet (ROADMAP: quant.py)")
@@ -117,6 +123,7 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                                   "losses and extras, distill_loss)")
     accumulate = max(1, int(accumulate))
     ema_decay = float(ema_decay)
+    aux_weight = float(aux_weight)
 
     def update(state, params, grads):
         for (_, p), g in zip(params, grads):
@@ -142,10 +149,12 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
         params = _trainable(model)
         logits = model(images.permute(0, 3, 1, 2))
         if isinstance(logits, (tuple, list)):
-            raise NotImplementedError(
-                "auxiliary heads are not ported yet (ROADMAP: other model "
-                "families)")
-        loss = loss_fn(logits.permute(0, 2, 3, 1), segs)
+            main, aux = logits
+            auxs = aux if isinstance(aux, (tuple, list)) else (aux,)
+            loss = loss_fn(main.permute(0, 2, 3, 1), segs) + aux_weight * sum(
+                loss_fn(a.permute(0, 2, 3, 1), segs) for a in auxs)
+        else:
+            loss = loss_fn(logits.permute(0, 2, 3, 1), segs)
         grads = torch.autograd.grad(loss, [p for _, p in params])
         loss = loss.detach()
         if accumulate == 1:
@@ -175,9 +184,10 @@ def nhwc_forward(model: torch.nn.Module):
     def fwd(x):
         logits = model(x.permute(0, 3, 1, 2))
         if isinstance(logits, (tuple, list)):
-            raise NotImplementedError(
-                "auxiliary heads are not ported yet (ROADMAP: other model "
-                "families)")
+            raise ValueError(
+                "the eval and serving paths take one output: this module's "
+                "forward returned a tuple (an auxiliary head returns one in "
+                "train mode only)")
         return logits.permute(0, 2, 3, 1)
     return fwd
 

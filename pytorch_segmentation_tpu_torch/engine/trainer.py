@@ -159,12 +159,18 @@ class Trainer:
     torch.profiler trace of steps 2-6 of the first epoch to
     `<log_dir>/profile/trace.json`.
 
+    `aux_weight` scales the auxiliary head's loss of a model whose
+    train-mode forward returns `(logits, aux)` (`make_train_step`); the
+    deferred upsample's twin keeps the aux head, and each head's loss goes
+    through the fused upsample+CE at its own resolution. A warm start
+    (`weights`) from a checkpoint without the head leaves the head at its
+    seeded start.
+
     Taken as the JAX Trainer takes them, so that the train CLI's call
     works: `mixed_precision` (ignored: the model's `dtype` decides the
-    compute dtype, as in the JAX package), `aux_weight`, `distill_weight`
-    and `distill_temp` (inert until auxiliary heads and distillation are
-    ported; without a `distill_fn` the JAX Trainer ignores the last two as
-    well).
+    compute dtype, as in the JAX package), `distill_weight` and
+    `distill_temp` (inert until distillation is ported; without a
+    `distill_fn` the JAX Trainer ignores them as well).
     """
 
     def __init__(self, model: torch.nn.Module, fetcher,
@@ -256,7 +262,8 @@ class Trainer:
                     self.state.ema_params[name].copy_(value)
         self._train_step = make_train_step(loss_fn=loss_fn,
                                            accumulate=self.accumulate,
-                                           ema_decay=self.ema_decay)
+                                           ema_decay=self.ema_decay,
+                                           aux_weight=aux_weight)
 
     @property
     def model(self) -> torch.nn.Module:

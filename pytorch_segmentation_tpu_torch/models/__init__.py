@@ -1,17 +1,27 @@
 """Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
-model names; UNet (MobileNetV2 encoder), DeepLabV3+ and HRNet are ported so
-far (`ported_models()`), and `build_model` raises NotImplementedError for
-the others, which follow in the order ROADMAP.md queue 1 item 6 lists."""
+model names; UNet (MobileNetV2 encoder), DeepLabV3+, HRNet, FPN, PSPNet and
+FastFCN are ported so far (`ported_models()`), and `build_model` raises
+NotImplementedError for the others, which follow in the order ROADMAP.md
+queue 1 item 6 lists."""
 
 from .deeplabv3plus import DeepLabV3Plus
+from .fpn import FPN
 from .hrnet import HRNet
+from .pspnet import PSPNet
 from .unet import UNet
 
-__all__ = ["DeepLabV3Plus", "HRNet", "UNet", "MODEL_REGISTRY",
-           "UNPORTED_MODEL_ITEM", "build_model", "ported_models",
-           "variant_kwargs"]
+__all__ = ["DeepLabV3Plus", "FPN", "HRNet", "PSPNet", "UNet",
+           "MODEL_REGISTRY", "MODEL_VARIANTS", "UNPORTED_MODEL_ITEM",
+           "build_model", "ported_models", "variant_kwargs"]
 
 UNPORTED_MODEL_ITEM = "ROADMAP queue 1 item 6, other model families"
+
+
+def _fastfcn(**kw):
+    """FastFCN: the PSPNet head over joint pyramid upsampling in place of
+    the dilated backbone (`PSPNet(jpu=True)`)."""
+    return PSPNet(jpu=True, **kw)
+
 
 # every name the JAX package's --model takes; None: not ported yet
 MODEL_REGISTRY = {
@@ -21,9 +31,9 @@ MODEL_REGISTRY = {
     "deeplabv3plus": DeepLabV3Plus,
     "hrnet": HRNet,
     "ocrnet": None,
-    "pspnet": None,
-    "fpn": None,
-    "fastfcn": None,
+    "pspnet": PSPNet,
+    "fpn": FPN,
+    "fastfcn": _fastfcn,
     "segformer": None,
     "segnext": None,
     "segmenter": None,
@@ -56,11 +66,30 @@ def build_model(name: str, num_classes: int, **kwargs):
     return _model_class(name)(num_classes=num_classes, **kwargs)
 
 
+# per-family size variants of the CLIs' --variant, for the ported families
+MODEL_VARIANTS = {
+    "fpn": {
+        "r50": {},  # the default bottleneck (3, 4, 6, 3) backbone
+        "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},
+    },
+}
+
+
 def variant_kwargs(name: str, variant: str) -> dict:
     """Model-constructor kwargs for a CLI `--variant`; '' = the defaults.
-    No ported family has variants yet, so any other value raises."""
+    Raises, with the valid choices, for a family that has no variants in
+    the port or an unknown variant name; NotImplementedError for a family
+    not ported yet."""
     if not variant:
         return {}
     _model_class(name)
-    raise ValueError(f"model {name!r} has no variants in the port "
-                     f"(variant {variant!r})")
+    table = MODEL_VARIANTS.get(name.lower())
+    if not table:
+        raise ValueError(f"model {name!r} has no variants "
+                         f"(families with variants: "
+                         f"{sorted(MODEL_VARIANTS)})")
+    try:
+        return dict(table[variant.lower()])
+    except KeyError:
+        raise ValueError(f"unknown {name} variant {variant!r}; "
+                         f"available: {sorted(table)}") from None

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from ..blocks import ConvNormAct, apply_fold, fused_1x1_available
 
-__all__ = ["ResNet", "BasicBlock", "Bottleneck"]
+__all__ = ["ResNet", "BasicBlock", "Bottleneck", "resnet34_cfg",
+           "resnet50_cfg"]
 
 
 class BasicBlock(nn.Module):
@@ -137,3 +138,11 @@ class ResNet(nn.Module):
                 x = getattr(self, name)(x)
             features.append(x)
         return features
+
+
+def resnet34_cfg(**kw):
+    return dict(block="basic", layers=(3, 4, 6, 3), **kw)
+
+
+def resnet50_cfg(**kw):
+    return dict(block="bottleneck", layers=(3, 4, 6, 3), **kw)

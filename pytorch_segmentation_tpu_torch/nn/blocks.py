@@ -32,8 +32,9 @@ import torch.nn.functional as F
 
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
 
-__all__ = ["BatchNorm2d", "ConvNormAct", "conv2d", "BN_MOMENTUM",
-           "set_force_fused_1x1", "fused_1x1_available", "apply_fold"]
+__all__ = ["BatchNorm2d", "ConvNormAct", "SeparableConvNormAct", "conv2d",
+           "BN_MOMENTUM", "set_force_fused_1x1", "fused_1x1_available",
+           "apply_fold"]
 
 BN_MOMENTUM = 0.1  # torch convention
 
@@ -206,3 +207,25 @@ class ConvNormAct(nn.Module):
             n = y_raw.numel() // y_raw.shape[1]
         out_scale, out_shift = self.bn.fold(s, ss, n)
         return y_raw, out_scale, out_shift
+
+
+class SeparableConvNormAct(nn.Module):
+    """Depthwise-separable ConvNormAct: a depthwise k x k ConvNormAct
+    (`groups = in_channels`, stride, dilation) and a pointwise 1x1
+    ConvNormAct, each with the activation. Children are named `depthwise`
+    and `pointwise`, like the flax module's subtrees."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1,
+                 activate: Callable | None = F.relu,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.depthwise = ConvNormAct(in_channels, in_channels, kernel_size,
+                                     stride=stride, dilation=dilation,
+                                     groups=in_channels, activate=activate,
+                                     dtype=dtype)
+        self.pointwise = ConvNormAct(in_channels, features, 1,
+                                     activate=activate, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))

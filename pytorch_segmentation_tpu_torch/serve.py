@@ -9,7 +9,10 @@
 `port_weights.py --reverse` writes from a JAX checkpoint (`--ema` serves its
 `'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
 multi-scale test-time augmentation. Requests are PNG images. `--model`
-takes the ported families: unet, deeplabv3plus (the default) and hrnet.
+takes the ported families: unet, deeplabv3plus (the default), hrnet, fpn,
+pspnet and fastfcn; `--variant` a family's size variant (fpn: r50, r34),
+which must match the checkpoint. A checkpoint of `train --aux-loss` loads
+without its train-only auxiliary head.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import os
 import torch
 
 from .engine.checkpoint import load_model_bundle
-from .models import MODEL_REGISTRY, build_model
+from .models import MODEL_REGISTRY, build_model, variant_kwargs
 from .serving import MaskServer
 from .utils.cli import refuse_unported
 
@@ -34,6 +37,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("-nc", "--num-classes", type=int, default=21)
     parser.add_argument("--weights", type=str, required=True,
                         help="a {'model': state_dict} .pt checkpoint")
+    parser.add_argument("--variant", type=str, default="",
+                        help="model size variant (fpn: r50/r34); must "
+                             "match the checkpoint")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8500)
     parser.add_argument("--max-batch", type=int, default=8,
@@ -51,6 +57,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         metavar="S", help="multi-scale TTA")
     opt = parser.parse_args(argv)
     refuse_unported(parser, opt, {})  # a model not ported yet
+    try:
+        variant_kwargs(opt.model, opt.variant)
+    except ValueError as e:
+        parser.error(str(e))
     if not os.path.isfile(opt.weights):
         parser.error(f"--weights {opt.weights!r} is not a file")
     return opt
@@ -61,7 +71,8 @@ def build_server(opt: argparse.Namespace, device) -> MaskServer:
     parameters with --ema) on `device`, behind a MaskServer with the
     options' batching, preprocessing and TTA. Not started."""
     model = build_model(opt.model, num_classes=opt.num_classes,
-                        dtype=torch.bfloat16, full_res_output=False)
+                        dtype=torch.bfloat16, full_res_output=False,
+                        **variant_kwargs(opt.model, opt.variant))
     model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
     return MaskServer(model, img_size=tuple(opt.img_size),
                       max_batch=opt.max_batch,

@@ -16,9 +16,12 @@ Prints the per-epoch images/s and loss, the eval table and
 
 A flag whose machinery is not ported yet exits with status 2 and names its
 ROADMAP item; so does a `--model` that is not ported yet (ported: unet,
-the default, deeplabv3plus and hrnet; UNet and HRNet take sizes that are
-multiples of 32). Runs on the card (`require_cuda`); `train(...,
-device="cpu")` runs the same on the CPU.
+the default, deeplabv3plus, hrnet, fpn, pspnet and fastfcn; UNet, HRNet and
+FPN take sizes that are multiples of 32). `--aux-loss W` builds pspnet or
+fastfcn with its auxiliary head and adds W times that head's loss; any
+other family exits with the JAX CLI's message. `--variant` takes a
+family's size variant (fpn: r50, r34). Runs on the card (`require_cuda`);
+`train(..., device="cpu")` runs the same on the CPU.
 """
 
 from __future__ import annotations
@@ -50,10 +53,15 @@ DATASETS = {
     "idimg": (IdImgDataset, "train.txt", "val.txt"),
 }
 
+# the JAX CLI's families with an auxiliary head (--aux-loss); of them the
+# port has pspnet and fastfcn, and the others are refused as unported models
+AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
+                     "fcn", "deeplabv3", "danet")
+
 # options whose machinery is not ported: name -> (default, ROADMAP queue 1
 # item). `train()` raises for them; the CLI exits with status 2.
 UNPORTED = {
-    "remat": (False, 5), "aux_loss": (0.0, 5), "bn_subsample": (1, 5),
+    "remat": (False, 5), "bn_subsample": (1, 5),
     "debug_nans": (False, 5), "scan_blocks": (False, 6),
     "loss": ("ce", 7), "class_weights": ("", 7), "label_smoothing": (0.0, 7),
     "ohem": (0.0, 7), "cutmix": (0.0, 7), "mosaic": (0.0, 7),
@@ -97,6 +105,12 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
     unported = unported_options(locals(), UNPORTED)
     if unported:
         raise NotImplementedError("; ".join(unported))
+    model_kw = variant_kwargs(model_name, variant)
+    if aux_loss > 0:
+        if model_name not in AUX_LOSS_FAMILIES:
+            raise SystemExit("--aux-loss is only supported by the "
+                             + "/".join(AUX_LOSS_FAMILIES) + " families")
+        model_kw["aux"] = True
     device = require_cuda() if device is None else torch.device(device)
     ds_cls, train_file, val_file = DATASETS[dataset]
     train_data = ds_cls(osp.join(data_dir, train_file), img_size=img_size,
@@ -136,8 +150,7 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
         raise SystemExit("--patience keys off per-epoch val mIoU; it can't "
                          "work with --notest")
     model = build_model(model_name, num_classes=len(train_data.classes),
-                        dtype=feed_dtype, **variant_kwargs(model_name,
-                                                           variant))
+                        dtype=feed_dtype, **model_kw)
     loss_fn = compute_loss
     if ignore_index is not None:
         loss_fn = _ignore_index_loss(

@@ -299,6 +299,11 @@ BANDED_CASES = {
     "tiles_no_output_reads": ((1, 3, 60, 4), (5, 4), True,
                               dict(band_rows=2, max_chunk=4, max_threads=4)),
     "defaults_c21": ((2, 17, 13, 21), (65, 49), True, {}),
+    # the batch-32 plans' bands at 8x (PSPNet, FastFCN) and 16x (FastFCN's
+    # aux head), one sample
+    "x8_65_to_513": ((1, 65, 65, 21), (513, 513), True, dict(band_rows=2)),
+    "x16_33_to_513": ((1, 33, 33, 21), (513, 513), True,
+                      dict(band_rows=1)),
 }
 
 
@@ -390,6 +395,11 @@ FWD_BANDED_CASES = {
                        dict(band_rows=2, tile_cols=6)),
     "same_size": ((1, 6, 5, 3), (6, 5), True, dict(band_rows=4)),
     "defaults_c21": ((2, 17, 13, 21), (65, 49), True, {}),
+    # the batch-32 plans at 8x and 16x, one sample
+    "x8_65_to_513": ((1, 65, 65, 21), (513, 513), True,
+                     dict(band_rows=16, tile_cols=171)),
+    "x16_33_to_513": ((1, 33, 33, 21), (513, 513), True,
+                      dict(band_rows=16, tile_cols=171)),
 }
 
 

@@ -86,7 +86,7 @@ def test_cli_has_the_root_flags_and_defaults(filename):
 
 
 # a value away from the default, for each unported option that takes one
-_VALUES = {"aux_loss": "0.4", "bn_subsample": "2", "loss": "dice",
+_VALUES = {"bn_subsample": "2", "loss": "dice",
            "class_weights": "1,2", "label_smoothing": "0.1", "ohem": "0.2",
            "cutmix": "0.5", "mosaic": "0.5", "distill": "t.pt",
            "distill_model": "fpn", "distill_variant": "b1",
@@ -117,7 +117,7 @@ def test_unported_flag_exits_2_naming_its_item(filename, name, capsys):
 def test_unported_model_and_shapes_exit_2(filename, capsys):
     base = [a for a in _POSITIONAL[filename] if a not in ("--model",
                                                           "deeplabv3plus")]
-    refused = [base + ["--model", "fpn"],
+    refused = [base + ["--model", "segformer"],
                base + ["--model", "deeplabv3plus", "--variant", "r50"]]
     if filename == "train.py":
         refused += [base + ["--model", "deeplabv3plus", "-s", "64", "48"]]
@@ -126,8 +126,9 @@ def test_unported_model_and_shapes_exit_2(filename, capsys):
             CLIS[filename].parse_args(argv)
         assert err.value.code == 2
     err = capsys.readouterr().err
-    assert ("--model fpn is not ported yet (ROADMAP queue 1 item 6, other "
-            "model families); ported: deeplabv3plus, hrnet, unet") in err
+    assert ("--model segformer is not ported yet (ROADMAP queue 1 item 6, "
+            "other model families); ported: deeplabv3plus, fastfcn, fpn, "
+            "hrnet, pspnet, unet") in err
     assert "has no variants" in err
     if filename == "train.py":
         assert "square images only so far (ROADMAP queue 1 item 8" in err

@@ -62,6 +62,8 @@ def _check(logits, out_hw, align):
     ((1, 20, 30, 21), (7, 9), True, torch.float32),   # downsample
     ((2, 9, 11, 130), (33, 41), False, torch.bfloat16),  # > 128 classes
     ((8, 129, 129, 21), (513, 513), True, torch.bfloat16),  # serving path
+    ((8, 65, 65, 21), (513, 513), True, torch.bfloat16),    # PSPNet: 8x
+    ((8, 128, 128, 21), (512, 512), False, torch.bfloat16),  # FPN: 4x
 ])
 def test_kernel_matches_plain(device, shape, out_hw, align, dtype):
     x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
@@ -190,6 +192,9 @@ def _lse_check(x, y, align):
     ((2, 40, 50, 33), (13, 17), True, torch.bfloat16, torch.int64),
     # 150 classes at in_w 97 in f32 (58 KB a source row): chunks of 30
     ((2, 33, 97, 150), (129, 385), True, torch.float32, torch.int32),
+    # PSPNet's and FastFCN's logits (8x) and FastFCN's aux logits (16x)
+    ((32, 65, 65, 21), (513, 513), True, torch.bfloat16, torch.int32),
+    ((32, 33, 33, 21), (513, 513), True, torch.bfloat16, torch.int32),
 ])
 def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
                                 label_dtype):
@@ -593,6 +598,8 @@ def _lse_check(x, y, align):
     # the limit at the path's output size: a 48 KB table, above 48 KB of
     # shared memory
     ((1, 129, 129, 4096), (513, 513), True, torch.bfloat16, torch.int32),
+    # PSPNet's and FastFCN's eval logits: 8x with taps of 1/8
+    ((32, 65, 65, 21), (513, 513), True, torch.bfloat16, torch.int32),
 ])
 def test_eval_kernel_equals_plain(device, shape, out_hw, align, dtype,
                                   label_dtype):
@@ -756,6 +763,9 @@ def _fused_check(n, k, m, dtype, act, device, seed=0):
     (4161, 64, 256, torch.bfloat16, "relu"),
     (513, 256, 64, torch.float32, "none"),
     (700, 2048, 512, torch.bfloat16, "relu"),   # the path's deepest product
+    # PSPNet's dilated stages at batch 32, 513x513: 135,200 rows
+    (135200, 1024, 256, torch.bfloat16, "relu"),
+    (135200, 512, 2048, torch.bfloat16, "relu"),
 ])
 def test_fused_kernels_match_plain(device, n, k, m, dtype, act):
     _fused_check(n, k, m, dtype, act, device)

@@ -615,13 +615,18 @@ def test_unported_train_options_raise(tmp_path):
         def forward(self, x):
             return self.inner(x), self.inner(x)
 
+    # auxiliary heads are ported: the step takes main + aux_weight * aux,
+    # and the eval and serving paths refuse a forward that returns a tuple
     aux = Aux()
     state = tsteps.create_train_state(
-        aux, ttrainer.make_optimizer(aux.parameters()))
-    x, y = _batches(1, seed=7, hw=16)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step()(state, torch.from_numpy(x),
-                                 torch.from_numpy(y))
+        aux, ttrainer.make_optimizer(aux.parameters(), lr=0.0))
+    x, y = (torch.from_numpy(a) for a in _batches(1, seed=7, hw=16)[0])
+    _, loss = tsteps.make_train_step(aux_weight=0.25)(state, x, y)
+    with torch.no_grad():
+        logits = aux.inner(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    torch.testing.assert_close(loss, 1.25 * compute_loss(logits, y))
+    with pytest.raises(ValueError, match="returned a tuple"):
+        tsteps.nhwc_forward(aux.eval())(x)
 
 
 def test_held_model_after_a_step_is_refused_by_the_eval_paths():

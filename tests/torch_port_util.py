@@ -36,6 +36,9 @@ def assert_masks_agree(got, want, up, gap=GAP, agreement=AGREEMENT):
 BAND_PLAN_SHAPES = [
     (32, 129, 129, 21, 513, 513, True, 2),      # the path shape, bf16
     (32, 129, 129, 21, 513, 513, True, 4),      # and f32
+    (32, 65, 65, 21, 513, 513, True, 2),        # PSPNet, FastFCN: 8x
+    (32, 33, 33, 21, 513, 513, True, 2),        # FastFCN's aux head: 16x
+    (8, 128, 128, 21, 512, 512, False, 2),      # FPN served: 4x
     (2, 65, 97, 150, 257, 385, False, 2),
     (32, 45, 37, 97, 177, 145, False, 4),
     (1, 4, 3000, 150, 6, 300, True, 4),         # bands, tiles and chunks
