@@ -23,20 +23,23 @@ conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
 step) beside the figures of the same run with the switch off. The layout
 benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
-Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32
-and FPN-R50 at 512x512, PSPNet and FastFCN at 513x513 (both trained with
-the auxiliary head, its loss weighted 0.4), served at batch 8, trained at
-batch 32 and evaluated over 64 images, each kernel's result held against
-its plain version on the logits the run produced (stride 2, align_corners
-True; stride 4, False; stride 8, True, and FastFCN's aux logits at stride
-16); UNet and PSPNet trained with the fused 1x1 switch on (UNet's 16 expand
-and 16 project products, ResNet-50's 16 conv1 and 16 conv3, each distinct
-shape held against the plain versions); FPN-R34 serving one batch; and the
-train command line with the root defaults (`--model unet -s 320 320 -bs 32
--a 2`, one epoch) and with `--model pspnet --aux-loss 0.4 -s 321 321`, then
-the test command line on the checkpoint each wrote (PSPNet's built without
-the head, whose entries it drops), kernels 1-4 held against their plain
-versions on tensors those runs handed them.
+Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32,
+FPN-R50, DANet and LR-ASPP (MobileNetV3-Large) at 512x512, PSPNet,
+FastFCN, FCN and DeepLabV3 at 513x513 (PSPNet, FastFCN, FCN, DeepLabV3 and
+DANet trained with their auxiliary heads, each head's loss weighted 0.4),
+served at batch 8, trained at batch 32 and evaluated over 64 images, each
+kernel's result held against its plain version on the logits the run
+produced (stride 2, align_corners True; stride 4, False; stride 8, True,
+and FastFCN's aux logits at stride 16; stride 8, False: 65 -> 513 and 64
+-> 512); UNet, PSPNet and DANet trained with the fused 1x1 switch on
+(UNet's 16 expand and 16 project products, ResNet-50's 16 conv1 and 16
+conv3, each distinct shape held against the plain versions); FPN-R34 and
+FCN-R101 serving one batch; and the train command line with the root
+defaults (`--model unet -s 320 320 -bs 32 -a 2`, one epoch), with `--model
+pspnet --aux-loss 0.4 -s 321 321` and with `--model fcn --aux-loss 0.4 -s
+321 321`, then the test command line on the checkpoint each wrote (PSPNet
+and FCN built without the head, whose entries it drops), kernels 1-4 held
+against their plain versions on tensors those runs handed them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
@@ -134,6 +137,13 @@ CLI_TRAIN, CLI_VAL, CLI_WH, CLI_CATEGORIES = 96, 32, (640, 480), 20
 CLI_WORKERS = 4
 NUM_CLASSES = 21
 GAP = 1e-4       # pixels with a larger top-2 gap must agree exactly
+# ... plus the f32 rounding of an interpolated logit under another order of
+# its taps' products and sums (the kernels' two-tap lerps against the plain
+# version's matrix products), relative to the largest logit: a few ulps
+# (2^-23 relative each). It counts only where the taps are not short binary
+# fractions (2x align True, 65 -> 513 align False), where neither side's
+# sums are exact: full-width seeded logits reach |2e4|, whose ulp is 2e-3
+ROUNDING_GAP = 2.0 ** -18
 AGREEMENT = 0.999
 # upsample+CE kernels against the plain version and autograd on the same
 # values: the loss to LOSS_RTOL (f32, another summation order); f32 dlogits
@@ -192,12 +202,20 @@ def log(phase: str, **fields):
     print(f"{phase}: " + json.dumps(fields), flush=True)
 
 
-def mask_check(pred, ref, up, gap=GAP):
+def tie_gap(up):
+    """The top-2 gap at or below which a pixel of the f32 upsampled logits
+    `up` is a near tie: GAP, plus ROUNDING_GAP of `up`'s largest logit."""
+    return GAP + ROUNDING_GAP * float(up.abs().max())
+
+
+def mask_check(pred, ref, up, gap=None):
     """Hold an argmax mask against the reference mask of the same f32
     upsampled logits `up` [B, H, W, C]: exact where the top-2 gap is above
-    `gap` (a closer pair may flip under another FMA or summation order),
-    and at least AGREEMENT overall. Returns the agreement and the largest
-    loss in logit value from taking `pred` instead of the best class."""
+    `gap` (default `tie_gap(up)`: a closer pair may flip under another FMA
+    or summation order), and at least AGREEMENT overall. Returns the
+    agreement and the largest loss in logit value from taking `pred`
+    instead of the best class."""
+    gap = tie_gap(up) if gap is None else gap
     top2 = up.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > gap
     wrong_clear = int(((pred != ref) & clear).sum())
@@ -205,18 +223,22 @@ def mask_check(pred, ref, up, gap=GAP):
     chosen = up.gather(-1, pred.long().unsqueeze(-1)).squeeze(-1)
     max_abs_err = float((top2[..., 0] - chosen).max())
     if wrong_clear or agreement < AGREEMENT:
+        gaps = (top2[..., 0] - top2[..., 1])[pred != ref]
         raise AssertionError(f"masks disagree: {wrong_clear} pixels with a "
-                             f"clear top-2 gap, agreement {agreement:.6f}")
+                             f"top-2 gap above {gap}, agreement "
+                             f"{agreement:.6f}, largest gap of a differing "
+                             f"pixel {float(gaps.max())}")
     return agreement, max_abs_err
 
 
 def near_ties(logits_nhwc, out_hw, align, samples=None):
     """Pixels of the f32 upsampled logits (of `samples`, a bool mask over
-    the batch; default all) whose top-2 gap is at most GAP. Where a tap
-    weight is not a short binary fraction (2x with align_corners=True:
-    255/511 steps), the kernels' two-tap sums and the plain version's
-    matrix product round a logit differently, and such a pixel's argmax may
-    flip between the two."""
+    the batch; default all) whose top-2 gap is at most `tie_gap` of their
+    sample's. Where a tap weight is not a short binary fraction (2x with
+    align_corners=True: 255/511 steps; 65 -> 513 with align_corners=False),
+    the kernels' two-tap sums and the plain version's matrix product round
+    a logit differently, and such a pixel's argmax may flip between the
+    two."""
     count = 0
     for i in range(logits_nhwc.shape[0]):
         if samples is not None and not bool(samples[i]):
@@ -224,7 +246,7 @@ def near_ties(logits_nhwc, out_hw, align, samples=None):
         up = resize_bilinear(logits_nhwc[i:i + 1].float(), out_hw,
                              align_corners=align)
         top2 = up.topk(2, dim=-1).values
-        count += int(((top2[..., 0] - top2[..., 1]) <= GAP).sum())
+        count += int(((top2[..., 0] - top2[..., 1]) <= tie_gap(up)).sum())
     return count
 
 
@@ -631,7 +653,7 @@ def eval_case(name, shape, out_hw, dtype, align, device, valid=None,
         if g.dtype != torch.float32 or not close:
             raise AssertionError(f"{name}: kernel and plain version differ "
                                  f"by {err} ({l1} in all; {ties} pixels "
-                                 f"with a top-2 gap <= {GAP})")
+                                 f"with a top-2 gap <= tie_gap)")
         if not torch.equal(g, a):
             raise AssertionError(f"{name}: two launches differ")
     tp, fn, fp = (v.double() for v in got)
@@ -2202,15 +2224,34 @@ def cli_phase(device, e2e_ms_per_step):
     return launches
 
 
-# the families' input sizes: multiples of 32 for UNet, HRNet and FPN; 513
-# for PSPNet and FastFCN, whose stride-8 logits (65) and FastFCN's stride-16
-# aux logits (33) then upsample by 8x and 16x with binary-fraction taps, as
-# the JAX tools/bench_models.py sizes them
+# the families' input sizes, as the JAX tools/bench_models.py sizes them:
+# multiples of 32 for UNet, HRNet, FPN, DANet and LR-ASPP; 513 for PSPNet
+# and FastFCN, whose stride-8 logits (65) and FastFCN's stride-16 aux
+# logits (33) then upsample by 8x and 16x with align_corners=True and
+# binary-fraction taps, and for FCN and DeepLabV3, whose 65 upsample to
+# 513 with align_corners=False at the ratio 65/513 (not a short binary
+# fraction: near-tie pixels may count apart, `near_ties`)
 FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
-               "fastfcn": 513}
-# the constructor arguments each family is trained with (the aux head's
+               "fastfcn": 513, "fcn": 513, "deeplabv3": 513, "danet": 512,
+               "lraspp": 512}
+# the families whose upsampling taps are not short binary fractions, so
+# that kernel 3's counts may differ from the plain version's by the
+# near-tie pixels; every other family's counts must equal exactly
+NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3")
+# the constructor arguments each family is trained with (the aux heads'
 # loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
-FAMILY_KWARGS = {"pspnet": {"aux": True}, "fastfcn": {"aux": True}}
+FAMILY_KWARGS = {name: {"aux": True} for name in ("pspnet", "fastfcn",
+                                                  "fcn", "deeplabv3",
+                                                  "danet")}
+# the logits an aux model's train step returns (DANet: the fused logits
+# and both branch classifiers'), each through the CE kernels
+FAMILY_HEADS = {"danet": 3}
+# the families trained again with the fused 1x1 switch on, beside their
+# switch-off figures, and the distinct kernel-5 shapes of each (FCN's and
+# DeepLabV3's are PSPNet's)
+FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12}
+# (family, variant) pairs that serve one batch
+ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"))
 AUX_WEIGHT = 0.4
 FAMILY_EVAL_IMAGES = 64
 FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
@@ -2256,16 +2297,25 @@ def first_folded_bn(model):
     return backbone.layer1_block0.conv1.bn
 
 
+def flat_outputs(out):
+    """A forward's logits as a flat tuple: (logits,), (logits, aux) or,
+    for DANet, (logits, pam logits, cam logits)."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t for o in out for t in flat_outputs(o))
+    return (out,)
+
+
 def family_train(device, name, plain=None):
     """`name` (with FAMILY_KWARGS) through `make_trainer` on one fixed batch
     of 32 at its FAMILY_IMGS size: 2 warm-up steps, then 2 synchronised
     windows of 5 (the first window after a model's warm-up runs slow on
     some hosts). The CE kernels are held against the plain version on the
     last step's logits and labels, the aux logits too. For an aux model
-    each step launches the CE forward and backward twice (the main and the
-    aux head), and step 1's loss must equal the plain version's loss of
-    that step's logits plus AUX_WEIGHT times that of its aux logits (the
-    function the deferred upsample computes). Given `plain`, the figures of
+    each step launches the CE forward and backward once a head (the main
+    and each aux head: FAMILY_HEADS), and step 1's loss must equal the
+    plain version's loss of that step's logits plus AUX_WEIGHT times that
+    of each of its aux logits (the function the deferred upsample
+    computes). Given `plain`, the figures of
     the same model's run with the switch off, the fused 1x1 switch is on:
     the steps record the 1x1 products' shapes, step 1's loss is held
     against `plain`'s (the same weights and batch) and a folded BN's
@@ -2285,8 +2335,7 @@ def family_train(device, name, plain=None):
             def keep(mod, args, out):
                 if len(kept) == 2:
                     kept.pop()
-                kept.append(tuple(o.detach() for o in (
-                    out if isinstance(out, tuple) else (out,))))
+                kept.append(tuple(o.detach() for o in flat_outputs(out)))
 
             hooks = [trainer._train_module.register_forward_hook(keep)]
             shapes = []
@@ -2303,7 +2352,10 @@ def family_train(device, name, plain=None):
     finally:
         blocks.set_force_fused_1x1(None)
     steps = trainer.state.step
-    heads = 2 if aux else 1
+    heads = FAMILY_HEADS.get(name, 2) if aux else 1
+    if len(kept[0]) != heads:
+        raise AssertionError(f"{name}: the train step returned "
+                             f"{len(kept[0])} logits, not {heads}")
     if steps != FAMILY_WARMUP + FAMILY_WINDOWS * FAMILY_STEPS or launches[
             "softmax_ce"] != {"fwd": heads * steps, "bwd": heads * steps}:
         raise AssertionError(f"{name}: {steps} steps launched "
@@ -2321,11 +2373,12 @@ def family_train(device, name, plain=None):
     figures = {}
     if aux:
         # step 1's loss: the plain upsample+CE of its logits, + AUX_WEIGHT x
-        # that of its aux logits, in f32
-        main, head = (o.permute(0, 2, 3, 1) for o in kept[0])
+        # that of each of its aux logits, in f32
+        main, *aux_heads = (o.permute(0, 2, 3, 1) for o in kept[0])
         plain_loss = float(
             ce.upsample_ce_reference(main, segs, align)
-            + AUX_WEIGHT * ce.upsample_ce_reference(head, segs, align))
+            + AUX_WEIGHT * sum(ce.upsample_ce_reference(a, segs, align)
+                               for a in aux_heads))
         if not abs(losses[0] - plain_loss) <= LOSS_RTOL * plain_loss:
             raise AssertionError(f"{name}: step 1's loss {losses[0]}, the "
                                  f"plain version's {plain_loss}")
@@ -2346,7 +2399,9 @@ def family_train(device, name, plain=None):
         figures["first_loss_rel_diff_switch_off"] = loss_diff
     # the CE kernels on the last step's logits (and aux logits) and labels
     checked = {}
-    for head_name, out in zip(("logits", "aux_logits"), kept[-1]):
+    head_names = ["logits", "aux_logits"] + [f"aux_logits_{i}" for i in
+                                             range(1, heads - 1)]
+    for head_name, out in zip(head_names, kept[-1]):
         x = out.permute(0, 2, 3, 1).requires_grad_(True)
         _, _, loss_err, grad_err, top = ce_check(
             f"{name}_step_{head_name}", x, segs, align)
@@ -2366,9 +2421,9 @@ def family_train(device, name, plain=None):
 def family_eval(device, name, model, eval_set):
     """`test()` of the trained `model` (its low-resolution twin) over
     `eval_set` at batch 32; each batch's loss and confusion counts held
-    against the plain tail's on the logits the run produced (counts equal
-    but for near-tie pixels, `near_ties`). Returns the launches and the
-    figures."""
+    against the plain tail's on the logits the run produced (counts equal,
+    or for NEAR_TIE_FAMILIES equal but for near-tie pixels, `near_ties`).
+    Returns the launches and the figures."""
     align = model.up_align_corners
     captured, batches = [], []
     fetcher = Fetcher(DataLoader(eval_set, EVAL_BATCH),
@@ -2418,7 +2473,7 @@ def family_eval(device, name, model, eval_set):
                                    align, sample_valid_mask(
                                        valid, lg.shape[0], lg.device))
         close, batch_l1 = counts_close(got[1:], want[1:], batch_ties)
-        if not close:
+        if not close or batch_l1 and name not in NEAR_TIE_FAMILIES:
             raise AssertionError(f"{name} eval: counts differ by {batch_l1} "
                                  f"with {batch_ties} near-tie pixels")
         ties, l1 = ties + batch_ties, l1 + batch_l1
@@ -2427,6 +2482,36 @@ def family_eval(device, name, model, eval_set):
     return launches, {"miou": miou, "images_per_s": len(eval_set) / eval_s,
                       "counts_l1_diff_plain_tail": l1,
                       "near_tie_pixels_where_counts_differ": ties}
+
+
+def danet_attention_ms(model, hw, step_ms):
+    """CUDA-event ms of DANet's two attention blocks alone (`_pam`: the
+    projections, the [B, N, N] scores, the f32 softmax and the product
+    with v; `_cam`: the [B, C, C] energy and its softmax; each with its
+    gate and residual), forward and backward (to the input and the blocks'
+    parameters) at the train step's shape: batch 32, the branch width at
+    stride 8, bf16, random inputs. With their share of the step's ms."""
+    low = hw // model.output_stride
+    x = torch.randn(TRAIN_BATCH, model.channels, low, low,
+                    device=next(model.parameters()).device,
+                    dtype=model.dtype).contiguous(
+                        memory_format=torch.channels_last).requires_grad_()
+    blocks_params = {
+        "pam": (model._pam, [p for m in (model.pam_query, model.pam_key,
+                                         model.pam_value, model.pam_gamma)
+                             for p in m.parameters()]),
+        "cam": (model._cam, list(model.cam_gamma.parameters()))}
+    figures = {}
+    for name, (fn, params) in blocks_params.items():
+        grad_out = torch.randn_like(x)
+
+        def fwd_bwd():
+            torch.autograd.grad(fn(x), [x] + params, grad_out)
+
+        figures[f"{name}_ms"] = cuda_median_ms(fwd_bwd, reps=5)
+    figures["share_of_step"] = ((figures["pam_ms"] + figures["cam_ms"])
+                                / step_ms)
+    return figures
 
 
 def serve_one_batch(device, name, variant, img):
@@ -2526,6 +2611,11 @@ FAMILY_CLIS = {
     "pspnet": (["--model", "pspnet", "--aux-loss", str(AUX_WEIGHT), "-s",
                 "321", "321", "--epochs", "1"],
                ["--model", "pspnet", "-s", "321", "321"], "PSPNet", 2),
+    # the stride-8 logits of 41 upsample to 321 with align_corners=False;
+    # the test CLI drops the nested aux_head.* entries
+    "fcn": (["--model", "fcn", "--aux-loss", str(AUX_WEIGHT), "-s", "321",
+             "321", "--epochs", "1"],
+            ["--model", "fcn", "-s", "321", "321"], "FCN", 2),
 }
 
 
@@ -2536,11 +2626,12 @@ def family_cli(device, name):
     the best.pt it wrote. The CLI writes best.pt only when the epoch's val
     mIoU rises above 0, as the root CLI does, and one update of seeded
     weights may leave a model that predicts none of the val crops' classes
-    (mIoU 0): then the test runs on last.pt. For PSPNet, trained with
-    `--aux-loss`, the test builds the model without the head and must say
-    that it dropped the head's entries. Returns the kernels' launches and
-    the figures, with kernels 1-4 held against their plain versions on
-    tensors the run handed them (`cli_kernel_checks`)."""
+    (mIoU 0): then the test runs on last.pt. For PSPNet and FCN, trained
+    with `--aux-loss`, the test builds the model without the head and must
+    say that it dropped the head's entries (FCN's nested `aux_head.*`).
+    Returns the kernels' launches and the figures, with kernels 1-4 held
+    against their plain versions on tensors the run handed them
+    (`cli_kernel_checks`)."""
     import io
     from pytorch_segmentation_tpu_torch import test as test_cli
     from pytorch_segmentation_tpu_torch import train as train_cli
@@ -2590,6 +2681,8 @@ def family_cli(device, name):
                              f"updates {trainer.state.step}, best "
                              f"{trainer.metrics}; test mIoU {miou}")
     dropped = "dropping train-only entries not in the eval model" in printed
+    if name == "fcn":
+        dropped = dropped and "'aux_head.aux_cls.bias'" in printed
     if dropped != (heads == 2):
         raise AssertionError(f"test --model {name}: the train-only head's "
                              f"entries dropped: {dropped}")
@@ -2614,18 +2707,21 @@ def family_cli(device, name):
 
 
 def families_phase(device):
-    """UNet (MobileNetV2), HRNet-W32 and FPN-R50 at 512x512, PSPNet and
-    FastFCN (each with its aux head in training) at 513x513, 21 classes,
-    bf16 compute over f32 parameters, seeded weights: served at batch 8
-    (kernel 1), trained at batch 32 (kernel 2; twice a step for the aux
-    models), evaluated over 64 images (kernels 2 and 3); UNet and PSPNet
-    trained again with the fused 1x1 switch on (kernel 5 on UNet's 16
-    expand and 16 project products and on ResNet-50's 16 conv1 and 16
-    conv3, each distinct (N, K, M, act) held against the plain versions);
-    FPN-R34 serves one batch; each kernel at each family's shape on random
-    inputs for its times; then the train command line with the root
-    defaults (UNet), with `--model pspnet --aux-loss 0.4 -s 321 321`, and
-    the test command line on the checkpoint each wrote, kernels 1-4 held
+    """UNet (MobileNetV2), HRNet-W32, FPN-R50, DANet and LR-ASPP
+    (MobileNetV3-Large) at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at
+    513x513 (each with its aux heads in training but LR-ASPP, UNet, HRNet
+    and FPN), 21 classes, bf16 compute over f32 parameters, seeded weights:
+    served at batch 8 (kernel 1), trained at batch 32 (kernel 2; once a
+    step for each head: twice for PSPNet, FastFCN, FCN and DeepLabV3, three
+    times for DANet), evaluated over 64 images (kernels 2 and 3); UNet,
+    PSPNet and DANet trained again with the fused 1x1 switch on (kernel 5
+    on UNet's 16 expand and 16 project products and on ResNet-50's 16 conv1
+    and 16 conv3, each distinct (N, K, M, act) held against the plain
+    versions); FPN-R34 and FCN-R101 serve one batch; each kernel at each
+    family's shape on random inputs for its times; then the train command
+    line with the root defaults (UNet), with `--model pspnet --aux-loss 0.4
+    -s 321 321` and with `--model fcn --aux-loss 0.4 -s 321 321`, and the
+    test command line on the checkpoint each wrote, kernels 1-4 held
     against their plain versions on tensors those runs handed them.
     Returns each kernel's launches over the phase's main-path runs (in all
     and by model), each family's kernel figures and each fused shape's."""
@@ -2662,6 +2758,9 @@ def families_phase(device):
         add(eval_launches, name)
         low = -(-hw // model.output_stride)
         align = model.up_align_corners
+        if name == "danet":
+            trained[name]["attention"] = danet_attention_ms(
+                model, hw, min(trained[name]["ms_per_step_wall"]))
         del model
         out_hw = (hw, hw)
         cases[name] = {
@@ -2674,7 +2773,7 @@ def families_phase(device):
             "eval_confusion": eval_case(
                 f"{name}_eval", (EVAL_BATCH, low, low, NUM_CLASSES), out_hw,
                 torch.bfloat16, align, device, nchw=True,
-                ties_allowed=name == "unet")}
+                ties_allowed=name in NEAR_TIE_FAMILIES)}
         aux_shape = trained[name].get("aux_logits")
         if aux_shape and aux_shape[2] != low:   # FastFCN's 16x aux logits
             cases[f"{name}_aux"] = {"softmax_ce": ce_case(
@@ -2687,13 +2786,12 @@ def families_phase(device):
             launches={"serve": serve_launches, "train": train_launches,
                       "eval": eval_launches},
             seconds=time.perf_counter() - t0)
-    add({"upsample_argmax": serve_one_batch(device, "fpn", "r34",
-                                            FAMILY_IMGS["fpn"])}, "fpn_r34")
+    for name, variant in ONE_BATCH_VARIANTS:
+        add({"upsample_argmax": serve_one_batch(
+            device, name, variant, FAMILY_IMGS[name])}, f"{name}_{variant}")
 
-    # UNet and PSPNet with the fused 1x1 switch on, beside their switch-off
-    # figures
     fused_shapes = {}
-    for name, n_shapes in (("unet", 17), ("pspnet", 12)):
+    for name, n_shapes in FUSED_FAMILIES.items():
         t0 = time.perf_counter()
         fused_launches, fused, _, shapes = family_train(
             device, name, plain=trained[name])

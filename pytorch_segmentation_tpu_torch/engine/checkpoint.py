@@ -45,8 +45,11 @@ def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
     os.replace(tmp, path)
 
 
-# the train-only modules of an auxiliary head (models/pspnet.py aux=True)
-TRAIN_ONLY_MODULES = ("aux_conv", "aux_cls")
+# the top-level modules of the train-only auxiliary heads (aux=True):
+# PSPNet's and FastFCN's aux_conv and aux_cls, FCN's and DeepLabV3's nested
+# aux_head (aux_head.aux_conv, aux_head.aux_cls), DANet's pam_cls and cam_cls
+TRAIN_ONLY_MODULES = ("aux_conv", "aux_cls", "aux_head", "pam_cls",
+                      "cam_cls")
 
 
 def _drop_train_only(sd: dict, template: dict, what: str) -> dict:
@@ -67,9 +70,10 @@ def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
     weights_path: a `.pt` checkpoint (loaded with strict=True), or
     None / '' for weights made from `seed` (utils/weights.seeded_state_dict).
     A checkpoint of `train --aux-loss` carries the train-only auxiliary
-    head (`aux_conv`, `aux_cls`); a model built without it drops those
-    entries and prints which, as the JAX package does. Every other entry
-    stays strict.
+    heads (`TRAIN_ONLY_MODULES`: `aux_conv` and `aux_cls`, the nested
+    `aux_head.*`, `pam_cls` and `cam_cls`); a model built without them
+    drops those entries and prints which, as the JAX package does. Every
+    other entry stays strict.
     use_ema=True then loads the checkpoint's `'ema'` entry (the trainer's
     EMA-averaged parameters) over the parameters; BN running statistics stay
     the checkpoint's own, which already are a moving average. It raises for

@@ -21,8 +21,9 @@ training resolution, logits summed on a canvas, one argmax.
 
 writes `<name>.png`, the VOC-palette colour mask of each PNG image of
 IMG_DIR at the image's own size (CUDA only). `--model` takes the ported
-families: unet, deeplabv3plus (the default), hrnet, fpn, pspnet and
-fastfcn; `--variant` a family's size variant (fpn: r50, r34).
+families: unet, deeplabv3plus (the default), hrnet, fpn, pspnet, fastfcn,
+fcn, deeplabv3, danet and lraspp; `--variant` a family's size variant
+(fpn: r50, r34; fcn, deeplabv3, danet: r50, r101).
 """
 
 from __future__ import annotations

@@ -1,16 +1,21 @@
 """Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
-model names; UNet (MobileNetV2 encoder), DeepLabV3+, HRNet, FPN, PSPNet and
-FastFCN are ported so far (`ported_models()`), and `build_model` raises
-NotImplementedError for the others, which follow in the order ROADMAP.md
-queue 1 item 6 lists."""
+model names; UNet (MobileNetV2 encoder), DeepLabV3+, HRNet, FPN, PSPNet,
+FastFCN, FCN, DeepLabV3, DANet and LR-ASPP (MobileNetV3-Large) are ported
+so far (`ported_models()`), and `build_model` raises NotImplementedError
+for the others, which follow in the order ROADMAP.md queue 1 item 6
+lists."""
 
+from .danet import DANet
 from .deeplabv3plus import DeepLabV3Plus
 from .fpn import FPN
 from .hrnet import HRNet
+from .lraspp import LRASPP
 from .pspnet import PSPNet
+from .tvseg import FCN, DeepLabV3
 from .unet import UNet
 
-__all__ = ["DeepLabV3Plus", "FPN", "HRNet", "PSPNet", "UNet",
+__all__ = ["DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN", "HRNet",
+           "LRASPP", "PSPNet", "UNet",
            "MODEL_REGISTRY", "MODEL_VARIANTS", "UNPORTED_MODEL_ITEM",
            "build_model", "ported_models", "variant_kwargs"]
 
@@ -27,7 +32,7 @@ def _fastfcn(**kw):
 MODEL_REGISTRY = {
     "unet": UNet,
     "bisenetv2": None,
-    "danet": None,
+    "danet": DANet,
     "deeplabv3plus": DeepLabV3Plus,
     "hrnet": HRNet,
     "ocrnet": None,
@@ -39,9 +44,9 @@ MODEL_REGISTRY = {
     "segmenter": None,
     "maskformer": None,
     "upernet": None,
-    "fcn": None,
-    "deeplabv3": None,
-    "lraspp": None,
+    "fcn": FCN,
+    "deeplabv3": DeepLabV3,
+    "lraspp": LRASPP,
 }
 
 
@@ -72,6 +77,9 @@ MODEL_VARIANTS = {
         "r50": {},  # the default bottleneck (3, 4, 6, 3) backbone
         "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},
     },
+    # the torchvision zoo's ResNet depths (fcn_resnet50 / 101, ...)
+    **{name: {"r50": {}, "r101": {"backbone_layers": (3, 4, 23, 3)}}
+       for name in ("fcn", "deeplabv3", "danet")},
 }
 
 

@@ -10,9 +10,12 @@
 `'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
 multi-scale test-time augmentation. Requests are PNG images. `--model`
 takes the ported families: unet, deeplabv3plus (the default), hrnet, fpn,
-pspnet and fastfcn; `--variant` a family's size variant (fpn: r50, r34),
-which must match the checkpoint. A checkpoint of `train --aux-loss` loads
-without its train-only auxiliary head.
+pspnet, fastfcn, fcn, deeplabv3, danet and lraspp; `--variant` a family's
+size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101), which must
+match the checkpoint. A checkpoint of `train --aux-loss` loads without its
+train-only auxiliary heads. `--int8`, `--moe`, `--moe-top-k`,
+`--scan-blocks` and `--dp` (the root CLI's) exit with status 2 and name
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ from .models import MODEL_REGISTRY, build_model, variant_kwargs
 from .serving import MaskServer
 from .utils.cli import refuse_unported
 
+__all__ = ["UNPORTED", "parse_args", "build_server", "main"]
+
+# name -> (default, ROADMAP queue 1 item)
+UNPORTED = {"int8": (False, 9), "scan_blocks": (False, 6), "moe": (0, 10),
+            "moe_top_k": (2, 10), "dp": (False, 10)}
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
@@ -38,8 +47,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--weights", type=str, required=True,
                         help="a {'model': state_dict} .pt checkpoint")
     parser.add_argument("--variant", type=str, default="",
-                        help="model size variant (fpn: r50/r34); must "
-                             "match the checkpoint")
+                        help="model size variant (fpn: r50/r34; fcn, "
+                             "deeplabv3, danet: r50/r101); must match the "
+                             "checkpoint")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8500)
     parser.add_argument("--max-batch", type=int, default=8,
@@ -49,14 +59,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="how long to wait coalescing concurrent "
                              "requests into one batch")
     parser.add_argument("--legacy-preproc", action="store_true")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 PTQ forward (not ported yet)")
     parser.add_argument("--ema", action="store_true",
                         help="serve the EMA-averaged weights")
     parser.add_argument("--tta", action="store_true",
                         help="flip TTA (~2x cost per request)")
     parser.add_argument("--tta-scales", type=float, nargs="+", default=[],
                         metavar="S", help="multi-scale TTA")
+    parser.add_argument("--moe", type=int, default=0, metavar="E",
+                        help="mixture-of-experts FFNs (not ported yet)")
+    parser.add_argument("--moe-top-k", type=int, default=2, metavar="K")
+    parser.add_argument("--scan-blocks", action="store_true",
+                        help="a stacked-params checkpoint (not ported yet)")
+    parser.add_argument("--dp", action="store_true",
+                        help="data-parallel serving (not ported yet)")
     opt = parser.parse_args(argv)
-    refuse_unported(parser, opt, {})  # a model not ported yet
+    refuse_unported(parser, opt, UNPORTED)
     try:
         variant_kwargs(opt.model, opt.variant)
     except ValueError as e:

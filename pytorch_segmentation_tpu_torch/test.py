@@ -9,9 +9,10 @@ JSON, or a `segimg` / `idimg` list file; PNG images) through the port's
 `--tta-scales`, `--tile`, `--tile-overlap`, `--boundary-iou`, `--report`
 and `--ignore-index`. Prints the per-class table and `metrics: <mIoU>`.
 `--model` takes the ported families (unet, deeplabv3plus, hrnet, fpn,
-pspnet, fastfcn) and `--variant` a family's size variant (fpn: r50, r34); a
+pspnet, fastfcn, fcn, deeplabv3, danet, lraspp) and `--variant` a family's
+size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101); a
 checkpoint of `train --aux-loss` loads without its train-only auxiliary
-head. Another family, `--int8`, `--calib-batches`, `--scan-blocks` and
+heads. Another family, `--int8`, `--calib-batches`, `--scan-blocks` and
 `--moe` exit with status 2 and name their ROADMAP item. Runs on the card;
 `run(opt, "cpu")` runs the same on the CPU.
 """

@@ -16,11 +16,13 @@ Prints the per-epoch images/s and loss, the eval table and
 
 A flag whose machinery is not ported yet exits with status 2 and names its
 ROADMAP item; so does a `--model` that is not ported yet (ported: unet,
-the default, deeplabv3plus, hrnet, fpn, pspnet and fastfcn; UNet, HRNet and
-FPN take sizes that are multiples of 32). `--aux-loss W` builds pspnet or
-fastfcn with its auxiliary head and adds W times that head's loss; any
-other family exits with the JAX CLI's message. `--variant` takes a
-family's size variant (fpn: r50, r34). Runs on the card (`require_cuda`);
+the default, deeplabv3plus, hrnet, fpn, pspnet, fastfcn, fcn, deeplabv3,
+danet and lraspp; UNet, HRNet and FPN take sizes that are multiples of
+32). `--aux-loss W` builds pspnet, fastfcn, fcn, deeplabv3 or danet with
+its auxiliary heads (danet's two branch classifiers) and adds W times each
+head's loss; any other family exits with the JAX CLI's message.
+`--variant` takes a family's size variant (fpn: r50, r34; fcn, deeplabv3,
+danet: r50, r101). Runs on the card (`require_cuda`);
 `train(..., device="cpu")` runs the same on the CPU.
 """
 
@@ -54,7 +56,8 @@ DATASETS = {
 }
 
 # the JAX CLI's families with an auxiliary head (--aux-loss); of them the
-# port has pspnet and fastfcn, and the others are refused as unported models
+# port has pspnet, fastfcn, fcn, deeplabv3 and danet, and the others are
+# refused as unported models
 AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
                      "fcn", "deeplabv3", "danet")
 

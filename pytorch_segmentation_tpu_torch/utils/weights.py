@@ -3,13 +3,15 @@
 The port's modules are named like the flax tree (`backbone.stem.conv`,
 `backbone.layer1_block0.conv1.bn`, `aspp.atrous0`, `cls_conv`, ...), so the
 mapping is by name: conv kernels go HWIO -> OIHW, BN scale/bias/mean/var
-become weight/bias/running_mean/running_var. `state_dict_from_jax` is the
-same mapping as the JAX package's `utils/port_torch.export_torch_state_dict`
-(tests hold the two equal), written without jax so that a GPU host without
-jax can run it; `jax_trees_from_state_dict` is its inverse. `load_state`
-reads the `.pt` files whose `'model'` entry is a state_dict: those that
-`save_torch_checkpoint` (and `port_weights.py --reverse`) write, and the
-port's own trainer checkpoints.
+become weight/bias/running_mean/running_var, and a learned scale outside a
+BN (`<module>.scale`, DANet's residual gates) keeps its name.
+`state_dict_from_jax` is the same mapping as the JAX package's
+`utils/port_torch.export_torch_state_dict` (tests hold the two equal, where
+that export maps every leaf), written without jax so that a GPU host
+without jax can run it; `jax_trees_from_state_dict` is its inverse.
+`load_state` reads the `.pt` files whose `'model'` entry is a state_dict:
+those that `save_torch_checkpoint` (and `port_weights.py --reverse`) write,
+and the port's own trainer checkpoints.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
                 sd[f"{base}.{name}"] = np.asarray(v, np.float32)
             elif leaf == "kernel":
                 sd[f"{base}.weight"] = _conv_oihw(v)
-            elif leaf == "bias":
-                sd[f"{base}.bias"] = np.asarray(v, np.float32)
+            elif leaf in ("bias", "scale"):
+                sd[path] = np.asarray(v, np.float32)
             else:
                 raise ValueError(f"unmapped param leaf {path!r}")
 
@@ -102,8 +104,8 @@ def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
         elif leaf == "weight":  # OIHW -> HWIO
             put(params, parts, "kernel", np.ascontiguousarray(
                 np.transpose(value, (2, 3, 1, 0))).astype(np.float32))
-        elif leaf == "bias":
-            put(params, parts, "bias", value.astype(np.float32))
+        elif leaf in ("bias", "scale"):
+            put(params, parts, leaf, value.astype(np.float32))
         else:
             raise ValueError(f"unmapped state_dict entry {name!r}")
     return params, batch_stats
@@ -127,11 +129,12 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
     'serve': conv kernels He-normal over fan-out (the JAX package's conv
     init), conv biases small normal; BN affines and running statistics
     non-trivial (weight 0.5..1.5, bias N(0, 0.1), mean N(0, 0.1),
-    var 0.5..1.5), so eval-mode BN is exercised.
+    var 0.5..1.5), so eval-mode BN is exercised; a learned scale outside a
+    BN (DANet's residual gates) 0.5..1.5, so the branch it gates counts.
 
     'train': the JAX package's own start of training: the same kind of conv
     kernels, but conv biases 0, BN weight 1, bias 0, running mean 0 and
-    variance 1.
+    variance 1, learned scales 0.
 
     'uniform': as 'serve', but the conv kernels uniform in
     +-1/sqrt(fan_in), torch's default init. Small f32 models whose deep
@@ -158,7 +161,7 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
             v = rng.uniform(0.5, 1.5, shape)
         elif is_bn and leaf in ("bias", "running_mean"):
             v = 0.1 * rng.standard_normal(shape)
-        elif leaf == "running_var":
+        elif leaf in ("running_var", "scale"):
             v = rng.uniform(0.5, 1.5, shape)
         elif leaf == "weight" and init == "uniform":  # conv OIHW
             bound = 1.0 / np.sqrt(int(np.prod(shape[1:])))

@@ -127,8 +127,8 @@ def test_unported_model_and_shapes_exit_2(filename, capsys):
         assert err.value.code == 2
     err = capsys.readouterr().err
     assert ("--model segformer is not ported yet (ROADMAP queue 1 item 6, "
-            "other model families); ported: deeplabv3plus, fastfcn, fpn, "
-            "hrnet, pspnet, unet") in err
+            "other model families); ported: danet, deeplabv3, deeplabv3plus, "
+            "fastfcn, fcn, fpn, hrnet, lraspp, pspnet, unet") in err
     assert "has no variants" in err
     if filename == "train.py":
         assert "square images only so far (ROADMAP queue 1 item 8" in err

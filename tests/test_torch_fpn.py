@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from pytorch_segmentation_tpu.models import FPN as JaxFPN
+from pytorch_segmentation_tpu.models import (
+    MODEL_VARIANTS as JAX_MODEL_VARIANTS)
 from pytorch_segmentation_tpu.nn.backbones.resnet import ResNet as JaxResNet
 from pytorch_segmentation_tpu.nn.backbones.resnet import (
     resnet34_cfg as jax_resnet34_cfg)
@@ -118,9 +120,13 @@ def test_trainer_step_matches_jax(tmp_path):
 
 
 def test_variants_are_the_jax_packages():
-    assert MODEL_VARIANTS == {"fpn": {
+    """The port's variants are the JAX package's, family for family, for
+    every ported family that has variants."""
+    assert MODEL_VARIANTS["fpn"] == {
         "r50": {}, "r34": {"block": "basic",
-                           "backbone_layers": (3, 4, 6, 3)}}}
+                           "backbone_layers": (3, 4, 6, 3)}}
+    assert MODEL_VARIANTS == {name: JAX_MODEL_VARIANTS[name] for name in
+                              ("danet", "deeplabv3", "fcn", "fpn")}
     model = build_model("fpn", NC, **variant_kwargs("fpn", "R34"))
     assert model.block == "basic" and model.backbone.out_channels == 512
     assert variant_kwargs("fpn", "") == {}
@@ -128,7 +134,8 @@ def test_variants_are_the_jax_packages():
                        r"available: \['r34', 'r50'\]"):
         variant_kwargs("fpn", "r18")
     with pytest.raises(ValueError, match=r"model 'pspnet' has no variants "
-                       r"\(families with variants: \['fpn'\]\)"):
+                       r"\(families with variants: \['danet', 'deeplabv3', "
+                       r"'fcn', 'fpn'\]\)"):
         variant_kwargs("pspnet", "r50")
     with pytest.raises(NotImplementedError, match="not ported"):
         variant_kwargs("segformer", "b1")

@@ -268,9 +268,9 @@ def test_aux_loss_on_a_family_without_the_head_exits(model):
 
 def test_aux_loss_on_an_unported_family_exits_2(capsys):
     with pytest.raises(SystemExit) as err:
-        ttrain.parse_args(["data", "--model", "danet", "--aux-loss", "0.4"])
+        ttrain.parse_args(["data", "--model", "upernet", "--aux-loss", "0.4"])
     assert err.value.code == 2
-    assert ("--model danet is not ported yet (ROADMAP queue 1 item 6"
+    assert ("--model upernet is not ported yet (ROADMAP queue 1 item 6"
             in capsys.readouterr().err)
     opt = ttrain.parse_args(["data", "--model", "fastfcn", "--aux-loss",
                              "0.4"])

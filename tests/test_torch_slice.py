@@ -311,6 +311,24 @@ def test_serve_cli_needs_weights(tmp_path, capsys):
     assert "missing.pt" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("argv,item", [
+    (["--int8"], 9), (["--moe", "4"], 10), (["--moe-top-k", "1"], 10),
+    (["--scan-blocks"], 6), (["--dp"], 10)],
+    ids=["int8", "moe", "moe-top-k", "scan-blocks", "dp"])
+def test_serve_cli_refuses_unported_flags(argv, item, tmp_path, capsys):
+    """The root serve CLI's flags whose machinery is not ported exit 2 and
+    name their ROADMAP item (not argparse's 'unrecognized arguments')."""
+    from pytorch_segmentation_tpu_torch import serve
+    weights = tmp_path / "w.pt"
+    weights.touch()
+    with pytest.raises(SystemExit) as err:
+        serve.parse_args(["--weights", str(weights)] + argv)
+    assert err.value.code == 2
+    assert (f"{argv[0]} is not ported yet (ROADMAP queue 1 item {item}"
+            in capsys.readouterr().err)
+    assert serve.UNPORTED[argv[0][2:].replace("-", "_")][1] == item
+
+
 def test_serve_cli_wires_tta_and_ema(tmp_path, monkeypatch):
     """--tta, --tta-scales and --ema reach MaskServer and load_model_bundle
     (the server is built on the CPU, around the checkpoint's EMA

@@ -1,9 +1,10 @@
 """Shared pieces of the PyTorch port's CPU tests of the model families
-(tests/test_torch_unet.py, tests/test_torch_hrnet.py): the JAX module and
-the port's module on the same seeded weights, each JAX program compiled
-once."""
+(tests/test_torch_<family>.py): the JAX module and the port's module on
+the same seeded weights, each JAX program compiled once."""
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -211,8 +212,11 @@ def train_batch(case, seed=4):
 
 def jax_train_step(case, batch):
     """One SGD-momentum step of the JAX package on the full-resolution
-    module with compute_loss (its default step): the loss and the final
-    state as the port's state_dict."""
+    module with compute_loss (its default step), whose resize to the
+    labels takes the module's `up_align_corners`, as the JAX Trainer's
+    deferred upsample does (`make_loss_fn(align_corners=...)`): an aux head
+    left at low resolution upsamples as the main logits do. Returns the
+    loss and the final state as the port's state_dict."""
     module = case.jax_module(full_res_output=True)
     tx = optax.sgd(LR, momentum=MOMENTUM)
     params = jax.tree.map(jnp.asarray, case.params)
@@ -221,7 +225,9 @@ def jax_train_step(case, batch):
         batch_stats=jax.tree.map(jnp.asarray, case.stats),
         opt_state=tx.init(params), tx=tx, apply_fn=module.apply,
         grad_acc=None, micro_step=jnp.zeros((), jnp.int32), ema_params=None)
-    step = jsteps.make_train_step(loss_fn=jax_compute_loss, donate=False)
+    step = jsteps.make_train_step(loss_fn=functools.partial(
+        jax_compute_loss, align_corners=module.up_align_corners),
+        donate=False)
     args = (state, jnp.asarray(batch[0]), jnp.asarray(batch[1]))
     state, loss = step.lower(*args).compile(
         compiler_options=FAST_COMPILE)(*args)
