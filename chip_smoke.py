@@ -24,22 +24,26 @@ product + BN-statistics forward, dx and dW kernels, 32 launches of each per
 step) beside the figures of the same run with the switch off. The layout
 benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
 Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32,
-FPN-R50, DANet and LR-ASPP (MobileNetV3-Large) at 512x512, PSPNet,
-FastFCN, FCN and DeepLabV3 at 513x513 (PSPNet, FastFCN, FCN, DeepLabV3 and
-DANet trained with their auxiliary heads, each head's loss weighted 0.4),
-served at batch 8, trained at batch 32 and evaluated over 64 images, each
-kernel's result held against its plain version on the logits the run
-produced (stride 2, align_corners True; stride 4, False; stride 8, True,
-and FastFCN's aux logits at stride 16; stride 8, False: 65 -> 513 and 64
--> 512); UNet, PSPNet and DANet trained with the fused 1x1 switch on
-(UNet's 16 expand and 16 project products, ResNet-50's 16 conv1 and 16
-conv3, each distinct shape held against the plain versions); FPN-R34 and
-FCN-R101 serving one batch; and the train command line with the root
-defaults (`--model unet -s 320 320 -bs 32 -a 2`, one epoch), with `--model
-pspnet --aux-loss 0.4 -s 321 321` and with `--model fcn --aux-loss 0.4 -s
-321 321`, then the test command line on the checkpoint each wrote (PSPNet
-and FCN built without the head, whose entries it drops), kernels 1-4 held
-against their plain versions on tensors those runs handed them.
+FPN-R50, DANet, LR-ASPP (MobileNetV3-Large), SegFormer-B0 and UPerNet-R50
+at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at 513x513 (PSPNet,
+FastFCN, FCN, DeepLabV3, DANet and UPerNet trained with their auxiliary
+heads, each head's loss weighted 0.4), served at batch 8, trained at batch
+32 and evaluated over 64 images, each kernel's result held against its
+plain version on the logits the run produced (stride 2, align_corners
+True; stride 4, False; stride 8, True, and FastFCN's aux logits at stride
+16; stride 8, False: 65 -> 513 and 64 -> 512; UPerNet's aux logits at
+stride 16, False: 32 -> 512); SegFormer's attention and Mix-FFN timed
+alone; UNet, PSPNet, DANet and UPerNet trained with the fused 1x1 switch
+on (UNet's 16 expand and 16 project products, ResNet-50's 16 conv1 and 16
+conv3, each distinct shape held against the plain versions); FPN-R34,
+FCN-R101, SegFormer-B2 and UPerNet on MiT-B0 serving one batch; and the
+train command line with the root defaults (`--model unet -s 320 320 -bs 32
+-a 2`, one epoch), with `--model pspnet --aux-loss 0.4 -s 321 321`, with
+`--model fcn --aux-loss 0.4 -s 321 321` and with `--model upernet
+--aux-loss 0.4 -s 321 321`, then the test command line on the checkpoint
+each wrote (PSPNet, FCN and UPerNet built without the head, whose entries
+it drops), kernels 1-4 held against their plain versions on tensors those
+runs handed them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
@@ -2233,7 +2237,7 @@ def cli_phase(device, e2e_ms_per_step):
 # fraction: near-tie pixels may count apart, `near_ties`)
 FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
                "fastfcn": 513, "fcn": 513, "deeplabv3": 513, "danet": 512,
-               "lraspp": 512}
+               "lraspp": 512, "segformer": 512, "upernet": 512}
 # the families whose upsampling taps are not short binary fractions, so
 # that kernel 3's counts may differ from the plain version's by the
 # near-tie pixels; every other family's counts must equal exactly
@@ -2242,16 +2246,18 @@ NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3")
 # loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
 FAMILY_KWARGS = {name: {"aux": True} for name in ("pspnet", "fastfcn",
                                                   "fcn", "deeplabv3",
-                                                  "danet")}
+                                                  "danet", "upernet")}
 # the logits an aux model's train step returns (DANet: the fused logits
 # and both branch classifiers'), each through the CE kernels
 FAMILY_HEADS = {"danet": 3}
 # the families trained again with the fused 1x1 switch on, beside their
 # switch-off figures, and the distinct kernel-5 shapes of each (FCN's and
-# DeepLabV3's are PSPNet's)
-FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12}
+# DeepLabV3's are PSPNet's; UPerNet's the non-dilated ResNet-50's at 512,
+# 524288 rows down to 8192)
+FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12, "upernet": 12}
 # (family, variant) pairs that serve one batch
-ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"))
+ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"), ("segformer", "b2"),
+                      ("upernet", "mit-b0"))
 AUX_WEIGHT = 0.4
 FAMILY_EVAL_IMAGES = 64
 FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
@@ -2514,6 +2520,44 @@ def danet_attention_ms(model, hw, step_ms):
     return figures
 
 
+def segformer_blocks_ms(model, hw, step_ms):
+    """CUDA-event ms of the parts of SegFormer's blocks alone, forward and
+    backward (to the input and the part's parameters), at the train step's
+    shapes: batch 32, each stage's tokens (N = (hw/4 / 2^i)^2 of width
+    dim_i), bf16, random inputs. `attn` is the efficient self-attention (q,
+    the sr x sr reduction and its LayerNorm, kv, the [B, heads, N, N/sr^2]
+    scores, the f32 softmax, the product with v, proj), `ffn` the Mix-FFN
+    (fc1, the 3x3 depthwise convolution, GELU, fc2); each timed on the
+    stage's first block and counted depth times. With their shares of the
+    step's ms."""
+    mit = model.backbone
+    device = next(model.parameters()).device
+    side = -(-hw // 4)
+    figures, totals = {}, {"attn": 0.0, "ffn": 0.0}
+    for i, depth in enumerate(mit.depths):
+        block = getattr(mit, f"block{i + 1}_0")
+        dim = block.ln1.normalized_shape[0]
+        x = torch.randn(TRAIN_BATCH, side * side, dim, device=device,
+                        dtype=model.dtype, requires_grad=True)
+        grad_out = torch.randn_like(x)
+        for part in totals:
+            mod = getattr(block, part)
+            params = list(mod.parameters())
+
+            def fwd_bwd():
+                torch.autograd.grad(mod(x, side, side), [x] + params,
+                                    grad_out)
+
+            ms = cuda_median_ms(fwd_bwd, reps=5)
+            figures[f"stage{i + 1}_{part}_ms_per_block"] = ms
+            totals[part] += depth * ms
+        side = (side + 1) // 2
+    for part, ms in totals.items():
+        figures[f"{part}_ms"] = ms
+        figures[f"{part}_share_of_step"] = ms / step_ms
+    return figures
+
+
 def serve_one_batch(device, name, variant, img):
     """`name` at `variant` (bf16, seeded weights, its stride-4 logits):
     make_mask_fn on one batch of 8 smooth u8 images, the mask held against
@@ -2616,7 +2660,15 @@ FAMILY_CLIS = {
     "fcn": (["--model", "fcn", "--aux-loss", str(AUX_WEIGHT), "-s", "321",
              "321", "--epochs", "1"],
             ["--model", "fcn", "-s", "321", "321"], "FCN", 2),
+    # stride-4 logits of 81 and aux logits of 21 (stride 16) upsample to 321
+    # with align_corners=False; the test CLI drops aux_conv.* and aux_cls.*
+    "upernet": (["--model", "upernet", "--aux-loss", str(AUX_WEIGHT), "-s",
+                 "321", "321", "--epochs", "1"],
+                ["--model", "upernet", "-s", "321", "321"], "UPerNet", 2),
 }
+# what the test command line must print of each dropped aux head
+DROPPED_ENTRIES = {"fcn": ("'aux_head.aux_cls.bias'",),
+                   "upernet": ("'aux_cls.bias'", "'aux_conv.conv.weight'")}
 
 
 def family_cli(device, name):
@@ -2628,7 +2680,8 @@ def family_cli(device, name):
     weights may leave a model that predicts none of the val crops' classes
     (mIoU 0): then the test runs on last.pt. For PSPNet and FCN, trained
     with `--aux-loss`, the test builds the model without the head and must
-    say that it dropped the head's entries (FCN's nested `aux_head.*`).
+    say that it dropped the head's entries (DROPPED_ENTRIES: FCN's nested
+    `aux_head.*`, UPerNet's `aux_conv.*` and `aux_cls.*`).
     Returns the kernels' launches and the figures, with kernels 1-4 held
     against their plain versions on tensors the run handed them
     (`cli_kernel_checks`)."""
@@ -2680,9 +2733,8 @@ def family_cli(device, name):
         raise AssertionError(f"train --model {name}: epoch {trainer.epoch}, "
                              f"updates {trainer.state.step}, best "
                              f"{trainer.metrics}; test mIoU {miou}")
-    dropped = "dropping train-only entries not in the eval model" in printed
-    if name == "fcn":
-        dropped = dropped and "'aux_head.aux_cls.bias'" in printed
+    dropped = ("dropping train-only entries not in the eval model" in printed
+               and all(e in printed for e in DROPPED_ENTRIES.get(name, ())))
     if dropped != (heads == 2):
         raise AssertionError(f"test --model {name}: the train-only head's "
                              f"entries dropped: {dropped}")
@@ -2707,22 +2759,25 @@ def family_cli(device, name):
 
 
 def families_phase(device):
-    """UNet (MobileNetV2), HRNet-W32, FPN-R50, DANet and LR-ASPP
-    (MobileNetV3-Large) at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at
-    513x513 (each with its aux heads in training but LR-ASPP, UNet, HRNet
-    and FPN), 21 classes, bf16 compute over f32 parameters, seeded weights:
-    served at batch 8 (kernel 1), trained at batch 32 (kernel 2; once a
-    step for each head: twice for PSPNet, FastFCN, FCN and DeepLabV3, three
-    times for DANet), evaluated over 64 images (kernels 2 and 3); UNet,
-    PSPNet and DANet trained again with the fused 1x1 switch on (kernel 5
-    on UNet's 16 expand and 16 project products and on ResNet-50's 16 conv1
-    and 16 conv3, each distinct (N, K, M, act) held against the plain
-    versions); FPN-R34 and FCN-R101 serve one batch; each kernel at each
-    family's shape on random inputs for its times; then the train command
-    line with the root defaults (UNet), with `--model pspnet --aux-loss 0.4
-    -s 321 321` and with `--model fcn --aux-loss 0.4 -s 321 321`, and the
-    test command line on the checkpoint each wrote, kernels 1-4 held
-    against their plain versions on tensors those runs handed them.
+    """UNet (MobileNetV2), HRNet-W32, FPN-R50, DANet, LR-ASPP
+    (MobileNetV3-Large), SegFormer-B0 and UPerNet-R50 at 512x512, PSPNet,
+    FastFCN, FCN and DeepLabV3 at 513x513 (each with its aux heads in
+    training but LR-ASPP, UNet, HRNet, FPN and SegFormer), 21 classes, bf16
+    compute over f32 parameters, seeded weights: served at batch 8 (kernel
+    1), trained at batch 32 (kernel 2; once a step for each head: twice for
+    PSPNet, FastFCN, FCN, DeepLabV3 and UPerNet, three times for DANet),
+    evaluated over 64 images (kernels 2 and 3); UNet, PSPNet, DANet and
+    UPerNet trained again with the fused 1x1 switch on (kernel 5 on UNet's
+    16 expand and 16 project products and on ResNet-50's 16 conv1 and 16
+    conv3, each distinct (N, K, M, act) held against the plain versions);
+    FPN-R34, FCN-R101, SegFormer-B2 and UPerNet-MiT-B0 serve one batch;
+    each kernel at each family's shape (and kernels 2 and 3 at each aux
+    head's other stride) on random inputs for its times; then the train
+    command line with the root defaults (UNet), with `--model pspnet
+    --aux-loss 0.4 -s 321 321`, `--model fcn ...` and `--model upernet
+    ...`, and the test command line on the checkpoint each wrote, kernels
+    1-4 held against their plain versions on tensors those runs handed
+    them.
     Returns each kernel's launches over the phase's main-path runs (in all
     and by model), each family's kernel figures and each fused shape's."""
     t_phase = time.perf_counter()
@@ -2761,6 +2816,9 @@ def families_phase(device):
         if name == "danet":
             trained[name]["attention"] = danet_attention_ms(
                 model, hw, min(trained[name]["ms_per_step_wall"]))
+        if name == "segformer":
+            trained[name]["blocks"] = segformer_blocks_ms(
+                model, hw, min(trained[name]["ms_per_step_wall"]))
         del model
         out_hw = (hw, hw)
         cases[name] = {
@@ -2775,11 +2833,16 @@ def families_phase(device):
                 torch.bfloat16, align, device, nchw=True,
                 ties_allowed=name in NEAR_TIE_FAMILIES)}
         aux_shape = trained[name].get("aux_logits")
-        if aux_shape and aux_shape[2] != low:   # FastFCN's 16x aux logits
-            cases[f"{name}_aux"] = {"softmax_ce": ce_case(
-                f"{name}_aux_ce", (TRAIN_BATCH, aux_shape[2], aux_shape[3],
-                                   NUM_CLASSES), out_hw, torch.bfloat16,
-                align, device, nchw=True)}
+        if aux_shape and aux_shape[2] != low:
+            # FastFCN's and UPerNet's 16x aux logits (align True and False)
+            aux_low = (TRAIN_BATCH, aux_shape[2], aux_shape[3], NUM_CLASSES)
+            cases[f"{name}_aux"] = {
+                "softmax_ce": ce_case(f"{name}_aux_ce", aux_low, out_hw,
+                                      torch.bfloat16, align, device,
+                                      nchw=True),
+                "eval_confusion": eval_case(f"{name}_aux_eval", aux_low,
+                                            out_hw, torch.bfloat16, align,
+                                            device, nchw=True)}
         log("family", model=name, img=hw, classes=NUM_CLASSES,
             train_kwargs=FAMILY_KWARGS.get(name, {}), serve=serve,
             train=trained[name], eval=evaluation,

@@ -22,8 +22,10 @@ training resolution, logits summed on a canvas, one argmax.
 writes `<name>.png`, the VOC-palette colour mask of each PNG image of
 IMG_DIR at the image's own size (CUDA only). `--model` takes the ported
 families: unet, deeplabv3plus (the default), hrnet, fpn, pspnet, fastfcn,
-fcn, deeplabv3, danet and lraspp; `--variant` a family's size variant
-(fpn: r50, r34; fcn, deeplabv3, danet: r50, r101).
+fcn, deeplabv3, danet, lraspp, segformer and upernet; `--variant` a
+family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; segformer: b0..b5,
+tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, its cn-*, swin-*
+and vit-* exiting 2).
 """
 
 from __future__ import annotations
@@ -309,10 +311,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = build_parser()
     opt = parser.parse_args(argv)
     refuse_unported(parser, opt, UNPORTED)
-    try:
-        variant_kwargs(opt.model, opt.variant)
-    except ValueError as e:
-        parser.error(str(e))
     return opt
 
 

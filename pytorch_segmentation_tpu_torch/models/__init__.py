@@ -1,9 +1,12 @@
 """Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
 model names; UNet (MobileNetV2 encoder), DeepLabV3+, HRNet, FPN, PSPNet,
-FastFCN, FCN, DeepLabV3, DANet and LR-ASPP (MobileNetV3-Large) are ported
-so far (`ported_models()`), and `build_model` raises NotImplementedError
-for the others, which follow in the order ROADMAP.md queue 1 item 6
-lists."""
+FastFCN, FCN, DeepLabV3, DANet, LR-ASPP (MobileNetV3-Large), SegFormer
+(MiT-B0...B5) and UPerNet (ResNet and MiT encoders) are ported so far
+(`ported_models()`), and `build_model` raises NotImplementedError for the
+others, which follow in the order ROADMAP.md queue 1 item 6 lists.
+`MODEL_VARIANTS` is the JAX package's table for the ported families,
+UPerNet's ConvNeXt, Swin and ViT entries included: `variant_kwargs` returns
+them and the UPerNet constructor refuses them (`UNPORTED_ENCODERS`)."""
 
 from .danet import DANet
 from .deeplabv3plus import DeepLabV3Plus
@@ -11,11 +14,14 @@ from .fpn import FPN
 from .hrnet import HRNet
 from .lraspp import LRASPP
 from .pspnet import PSPNet
+from .segformer import SegFormer
 from .tvseg import FCN, DeepLabV3
 from .unet import UNet
+from .upernet import UNPORTED_ENCODERS, UPerNet
 
 __all__ = ["DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN", "HRNet",
-           "LRASPP", "PSPNet", "UNet",
+           "LRASPP", "PSPNet", "SegFormer", "UNet", "UPerNet",
+           "UNPORTED_ENCODERS",
            "MODEL_REGISTRY", "MODEL_VARIANTS", "UNPORTED_MODEL_ITEM",
            "build_model", "ported_models", "variant_kwargs"]
 
@@ -39,11 +45,11 @@ MODEL_REGISTRY = {
     "pspnet": PSPNet,
     "fpn": FPN,
     "fastfcn": _fastfcn,
-    "segformer": None,
+    "segformer": SegFormer,
     "segnext": None,
     "segmenter": None,
     "maskformer": None,
-    "upernet": None,
+    "upernet": UPerNet,
     "fcn": FCN,
     "deeplabv3": DeepLabV3,
     "lraspp": LRASPP,
@@ -73,6 +79,22 @@ def build_model(name: str, num_classes: int, **kwargs):
 
 # per-family size variants of the CLIs' --variant, for the ported families
 MODEL_VARIANTS = {
+    # tiny / tiny-d4 are not paper variants: the JAX package's test sizes
+    "segformer": {v: {"variant": v} for v in
+                  ("b0", "b1", "b2", "b3", "b4", "b5", "tiny", "tiny-d4")},
+    "upernet": {
+        "r50": {},  # the default bottleneck (3, 4, 6, 3) backbone
+        "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},
+        **{f"mit-{v}": {"encoder": "mit", "mit_variant": v}
+           for v in ("b0", "b1", "b2", "b3", "b4", "b5", "tiny")},
+        # not ported: the constructor refuses these encoders
+        **{f"cn-{v}": {"encoder": "convnext", "convnext_variant": v}
+           for v in ("t", "s", "b", "pico")},
+        **{f"swin-{v}": {"encoder": "swin", "swin_variant": v}
+           for v in ("t", "s", "b", "pico")},
+        **{f"vit-{v}": {"encoder": "vit", "vit_variant": v}
+           for v in ("b16", "l16", "pico")},
+    },
     "fpn": {
         "r50": {},  # the default bottleneck (3, 4, 6, 3) backbone
         "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},

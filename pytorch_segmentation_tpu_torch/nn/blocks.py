@@ -10,6 +10,10 @@ casts sit where the JAX modules put them, written out instead of
     batch's in train mode) into one scale and shift in f32 and applies them
     in the compute dtype.
 
+`Linear` (flax `Dense`) and `LayerNorm` (flax `LayerNorm`, eps 1e-6) keep
+the same cast points: the product in the compute dtype with its bias added
+after the rounding, the moments and the affine in f32.
+
 Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The int8,
 quantization-aware and dot-1x1 branches of the JAX module are not ported
 yet.
@@ -32,8 +36,8 @@ import torch.nn.functional as F
 
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
 
-__all__ = ["BatchNorm2d", "ConvNormAct", "SeparableConvNormAct", "conv2d",
-           "BN_MOMENTUM", "set_force_fused_1x1", "fused_1x1_available",
+__all__ = ["BatchNorm2d", "ConvNormAct", "LayerNorm", "Linear",
+           "SeparableConvNormAct", "conv2d", "BN_MOMENTUM", "set_force_fused_1x1", "fused_1x1_available",
            "apply_fold"]
 
 BN_MOMENTUM = 0.1  # torch convention
@@ -84,6 +88,44 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     if conv.bias is not None:
         y = y + conv.bias.to(dtype).view(1, -1, 1, 1)
     return y
+
+
+class Linear(nn.Linear):
+    """flax `Dense` on the last axis: the input and the weight `(out, in)`
+    cast to `dtype`, the product rounded to `dtype`, then the bias added in
+    `dtype`. Not `F.linear(x, w, b)`, whose fused epilogue adds the bias
+    before the one rounding."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, out_features, bias=True)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + \
+            self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `LayerNorm(epsilon=1e-6)` over the LAST axis: the moments in f32
+    from the compute-dtype input (the fast variance max(E[x^2] - E[x]^2,
+    0)), the f32 weight and bias applied in f32, the result cast to `dtype`.
+    The MiT normalizes its (B, N, C) tokens, the channels-last view of its
+    NCHW maps, so C is the last axis wherever it is used."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(num_features, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True)
+               - mean * mean).clamp(min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        return y.to(self.compute_dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -10,8 +10,10 @@
 `'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
 multi-scale test-time augmentation. Requests are PNG images. `--model`
 takes the ported families: unet, deeplabv3plus (the default), hrnet, fpn,
-pspnet, fastfcn, fcn, deeplabv3, danet and lraspp; `--variant` a family's
-size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101), which must
+pspnet, fastfcn, fcn, deeplabv3, danet, lraspp, segformer and upernet;
+`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; segformer: b0..b5,
+tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, its cn-*, swin-*
+and vit-* exiting 2), which must
 match the checkpoint. A checkpoint of `train --aux-loss` loads without its
 train-only auxiliary heads. `--int8`, `--moe`, `--moe-top-k`,
 `--scan-blocks` and `--dp` (the root CLI's) exit with status 2 and name
@@ -48,8 +50,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="a {'model': state_dict} .pt checkpoint")
     parser.add_argument("--variant", type=str, default="",
                         help="model size variant (fpn: r50/r34; fcn, "
-                             "deeplabv3, danet: r50/r101); must match the "
-                             "checkpoint")
+                             "deeplabv3, danet: r50/r101; segformer: "
+                             "b0..b5; upernet: r50/r34/mit-b0..b5); must "
+                             "match the checkpoint")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8500)
     parser.add_argument("--max-batch", type=int, default=8,
@@ -76,10 +79,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="data-parallel serving (not ported yet)")
     opt = parser.parse_args(argv)
     refuse_unported(parser, opt, UNPORTED)
-    try:
-        variant_kwargs(opt.model, opt.variant)
-    except ValueError as e:
-        parser.error(str(e))
     if not os.path.isfile(opt.weights):
         parser.error(f"--weights {opt.weights!r} is not a file")
     return opt

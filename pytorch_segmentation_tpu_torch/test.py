@@ -9,8 +9,10 @@ JSON, or a `segimg` / `idimg` list file; PNG images) through the port's
 `--tta-scales`, `--tile`, `--tile-overlap`, `--boundary-iou`, `--report`
 and `--ignore-index`. Prints the per-class table and `metrics: <mIoU>`.
 `--model` takes the ported families (unet, deeplabv3plus, hrnet, fpn,
-pspnet, fastfcn, fcn, deeplabv3, danet, lraspp) and `--variant` a family's
-size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101); a
+pspnet, fastfcn, fcn, deeplabv3, danet, lraspp, segformer, upernet) and
+`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; segformer: b0..b5,
+tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, its cn-*, swin-*
+and vit-* exiting 2); a
 checkpoint of `train --aux-loss` loads without its train-only auxiliary
 heads. Another family, `--int8`, `--calib-batches`, `--scan-blocks` and
 `--moe` exit with status 2 and name their ROADMAP item. Runs on the card;
@@ -108,10 +110,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = build_parser()
     opt = parser.parse_args(argv)
     refuse_unported(parser, opt, UNPORTED)
-    try:
-        variant_kwargs(opt.model, opt.variant)
-    except ValueError as e:
-        parser.error(str(e))
     return opt
 
 

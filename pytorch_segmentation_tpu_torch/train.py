@@ -17,12 +17,15 @@ Prints the per-epoch images/s and loss, the eval table and
 A flag whose machinery is not ported yet exits with status 2 and names its
 ROADMAP item; so does a `--model` that is not ported yet (ported: unet,
 the default, deeplabv3plus, hrnet, fpn, pspnet, fastfcn, fcn, deeplabv3,
-danet and lraspp; UNet, HRNet and FPN take sizes that are multiples of
-32). `--aux-loss W` builds pspnet, fastfcn, fcn, deeplabv3 or danet with
-its auxiliary heads (danet's two branch classifiers) and adds W times each
-head's loss; any other family exits with the JAX CLI's message.
-`--variant` takes a family's size variant (fpn: r50, r34; fcn, deeplabv3,
-danet: r50, r101). Runs on the card (`require_cuda`);
+danet, lraspp, segformer and upernet; UNet, HRNet, FPN, SegFormer and
+UPerNet take sizes that are multiples of 32). `--aux-loss W` builds
+pspnet, fastfcn, fcn, deeplabv3, danet or upernet with its auxiliary heads
+(danet's two branch classifiers) and adds W times each head's loss; any
+other family exits with the JAX CLI's message. `--variant` takes a
+family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101;
+segformer: b0..b5, tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5,
+mit-tiny, its cn-*, swin-* and vit-* exiting 2). Runs on the card
+(`require_cuda`);
 `train(..., device="cpu")` runs the same on the CPU.
 """
 
@@ -56,7 +59,7 @@ DATASETS = {
 }
 
 # the JAX CLI's families with an auxiliary head (--aux-loss); of them the
-# port has pspnet, fastfcn, fcn, deeplabv3 and danet, and the others are
+# port has pspnet, fastfcn, upernet, fcn, deeplabv3 and danet; the others are
 # refused as unported models
 AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
                      "fcn", "deeplabv3", "danet")
@@ -289,10 +292,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         parser.error("-s W H with W != H: the augmentation takes square "
                      "images only so far (ROADMAP queue 1 item 8, "
                      "augmentation rest)")
-    try:
-        variant_kwargs(opt.model, opt.variant)
-    except ValueError as e:
-        parser.error(str(e))
     return opt
 
 

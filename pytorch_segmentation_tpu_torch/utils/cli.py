@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import argparse
 
-from ..models import MODEL_REGISTRY, UNPORTED_MODEL_ITEM, ported_models
+from ..models import (MODEL_REGISTRY, UNPORTED_ENCODERS, UNPORTED_MODEL_ITEM,
+                      ported_models, variant_kwargs)
 
 __all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
 
@@ -34,12 +35,24 @@ def unported_options(values: dict, table: dict) -> list[str]:
 def refuse_unported(parser: argparse.ArgumentParser,
                     opt: argparse.Namespace, table: dict) -> None:
     """Exit through `parser.error` (status 2) if `opt` sets an option of
-    `table` or names a model that is not ported yet."""
+    `table`, names a model that is not ported yet, or a `--variant` that
+    its family lacks or whose encoder is not ported yet (UPerNet's cn-*,
+    swin-* and vit-*)."""
     problems = unported_options(vars(opt), table)
     model = getattr(opt, "model", None)
+    variant = getattr(opt, "variant", "")
     if model is not None and MODEL_REGISTRY.get(model) is None:
         problems.append(f"--model {model} is not ported yet "
                         f"({UNPORTED_MODEL_ITEM}); ported: "
                         f"{', '.join(ported_models())}")
+    elif model is not None and variant:
+        try:
+            kwargs = variant_kwargs(model, variant)
+        except ValueError as e:
+            problems.append(str(e))
+        else:
+            if kwargs.get("encoder") in UNPORTED_ENCODERS:
+                problems.append(f"--variant {variant} is not ported yet "
+                                f"({UNPORTED_MODEL_ITEM})")
     if problems:
         parser.error("; ".join(problems))

@@ -1,17 +1,28 @@
 """Weights between the JAX package and the port (numpy only).
 
 The port's modules are named like the flax tree (`backbone.stem.conv`,
-`backbone.layer1_block0.conv1.bn`, `aspp.atrous0`, `cls_conv`, ...), so the
-mapping is by name: conv kernels go HWIO -> OIHW, BN scale/bias/mean/var
-become weight/bias/running_mean/running_var, and a learned scale outside a
-BN (`<module>.scale`, DANet's residual gates) keeps its name.
-`state_dict_from_jax` is the same mapping as the JAX package's
-`utils/port_torch.export_torch_state_dict` (tests hold the two equal, where
-that export maps every leaf), written without jax so that a GPU host
-without jax can run it; `jax_trees_from_state_dict` is its inverse.
-`load_state` reads the `.pt` files whose `'model'` entry is a state_dict:
-those that `save_torch_checkpoint` (and `port_weights.py --reverse`) write,
-and the port's own trainer checkpoints.
+`backbone.layer1_block0.conv1.bn`, `aspp.atrous0`, `cls_conv`,
+`backbone.block1_0.attn.q`, ...), so the mapping is by name, and by the
+leaf's rank and its siblings where a name is not enough:
+
+  - a conv `kernel` (4-D, HWIO) <-> `weight` OIHW;
+  - a Dense `kernel` (2-D, (in, out)) <-> `nn.Linear.weight` (out, in);
+  - a BatchNorm's scale/bias/mean/var <-> weight/bias/running_mean/
+    running_var;
+  - a LayerNorm's `scale` (a `scale` beside a `bias` and no `kernel`) <->
+    the port's `LayerNorm.weight`, a 1-D `weight` outside a BN;
+  - a learned scale alone in its module (`<module>.scale`, DANet's residual
+    gates) keeps its name.
+
+`state_dict_from_jax` is the JAX package's
+`utils/port_torch.export_torch_state_dict` where that export maps every
+leaf (it has no Dense or LayerNorm leaves and no lone `scale`; tests hold
+the two equal there, and the inverse against the JAX `convert_named`
+elsewhere), written without jax so that a GPU host without jax can run it;
+`jax_trees_from_state_dict` is its inverse. `load_state` reads the `.pt`
+files whose `'model'` entry is a state_dict: those that
+`save_torch_checkpoint` (and `port_weights.py --reverse`) write, and the
+port's own trainer checkpoints.
 """
 
 from __future__ import annotations
@@ -48,8 +59,13 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
             if parent == "bn" and leaf in ("scale", "bias"):
                 name = "weight" if leaf == "scale" else "bias"
                 sd[f"{base}.{name}"] = np.asarray(v, np.float32)
+            elif leaf == "kernel" and np.ndim(v) == 2:  # Dense (in, out)
+                sd[f"{base}.weight"] = np.ascontiguousarray(
+                    np.asarray(v, np.float32).T)
             elif leaf == "kernel":
                 sd[f"{base}.weight"] = _conv_oihw(v)
+            elif leaf == "scale" and "bias" in node and "kernel" not in node:
+                sd[f"{base}.weight"] = np.asarray(v, np.float32)  # LayerNorm
             elif leaf in ("bias", "scale"):
                 sd[path] = np.asarray(v, np.float32)
             else:
@@ -78,8 +94,9 @@ def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
     """The inverse of `state_dict_from_jax`: the port's flat state_dict
     (tensors or numpy arrays) -> nested numpy `(params, batch_stats)` trees
     in the JAX package's layout (conv kernels OIHW -> HWIO, BN weight ->
-    scale, running_mean/var -> mean/var; `num_batches_tracked` has no
-    counterpart and is dropped)."""
+    scale, running_mean/var -> mean/var, Linear weight (out, in) -> Dense
+    kernel (in, out), a 1-D weight outside a BN -> LayerNorm scale;
+    `num_batches_tracked` has no counterpart and is dropped)."""
     params: dict = {}
     batch_stats: dict = {}
 
@@ -99,8 +116,12 @@ def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
         if leaf in ("running_mean", "running_var"):
             put(batch_stats, parts, leaf[len("running_"):],
                 value.astype(np.float32))
-        elif is_bn and leaf == "weight":
+        elif is_bn and leaf == "weight" or leaf == "weight" and \
+                value.ndim == 1:  # BatchNorm, LayerNorm
             put(params, parts, "scale", value.astype(np.float32))
+        elif leaf == "weight" and value.ndim == 2:  # Linear (out, in)
+            put(params, parts, "kernel",
+                np.ascontiguousarray(value.T).astype(np.float32))
         elif leaf == "weight":  # OIHW -> HWIO
             put(params, parts, "kernel", np.ascontiguousarray(
                 np.transpose(value, (2, 3, 1, 0))).astype(np.float32))
@@ -127,16 +148,18 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
     every device. `init` names one of three starts:
 
     'serve': conv kernels He-normal over fan-out (the JAX package's conv
-    init), conv biases small normal; BN affines and running statistics
+    init), Linear weights lecun-normal over fan-in (flax `Dense`'s), conv
+    and Linear biases small normal; BN affines and running statistics
     non-trivial (weight 0.5..1.5, bias N(0, 0.1), mean N(0, 0.1),
-    var 0.5..1.5), so eval-mode BN is exercised; a learned scale outside a
-    BN (DANet's residual gates) 0.5..1.5, so the branch it gates counts.
+    var 0.5..1.5), so eval-mode BN is exercised; LayerNorm weight 0.5..1.5,
+    bias N(0, 0.1); a learned scale outside a BN (DANet's residual gates)
+    0.5..1.5, so the branch it gates counts.
 
     'train': the JAX package's own start of training: the same kind of conv
-    kernels, but conv biases 0, BN weight 1, bias 0, running mean 0 and
-    variance 1, learned scales 0.
+    and Linear weights, but their biases 0, BN and LayerNorm weight 1, bias
+    0, running mean 0 and variance 1, learned scales 0.
 
-    'uniform': as 'serve', but the conv kernels uniform in
+    'uniform': as 'serve', but the conv and Linear weights uniform in
     +-1/sqrt(fan_in), torch's default init. Small f32 models whose deep
     stages normalize a few dozen values per channel train from it with
     well-conditioned gradients; under the He kernels two f32 runs that sum
@@ -147,13 +170,24 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
                          f"{init!r}")
     rng = np.random.default_rng(seed)
     sd = {}
-    for name, t in model.state_dict().items():
+    state = model.state_dict()
+    for name, t in state.items():
         shape = tuple(t.shape)
         parts = name.split(".")
         leaf = parts[-1]
         is_bn = len(parts) > 1 and parts[-2] == "bn"
+        # a LayerNorm: a 1-D weight outside a BN, and its bias
+        sibling = state.get(".".join(parts[:-1] + ["weight"]))
+        is_ln = (not is_bn and leaf in ("weight", "bias")
+                 and sibling is not None and sibling.dim() == 1)
         if leaf == "num_batches_tracked":
             v = np.zeros((), np.int64)
+        elif is_ln and leaf == "weight":
+            v = (np.ones(shape) if init == "train"
+                 else rng.uniform(0.5, 1.5, shape))
+        elif is_ln:
+            v = (np.zeros(shape) if init == "train"
+                 else 0.1 * rng.standard_normal(shape))
         elif init == "train" and (is_bn or leaf != "weight"):
             v = (np.ones if leaf in ("weight", "running_var")
                  else np.zeros)(shape)
@@ -163,9 +197,11 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
             v = 0.1 * rng.standard_normal(shape)
         elif leaf in ("running_var", "scale"):
             v = rng.uniform(0.5, 1.5, shape)
-        elif leaf == "weight" and init == "uniform":  # conv OIHW
+        elif leaf == "weight" and init == "uniform":  # conv OIHW, Linear
             bound = 1.0 / np.sqrt(int(np.prod(shape[1:])))
             v = rng.uniform(-bound, bound, shape)
+        elif leaf == "weight" and len(shape) == 2:  # Linear (out, in)
+            v = rng.standard_normal(shape) * np.sqrt(1.0 / shape[1])
         elif leaf == "weight":
             fan_out = shape[0] * int(np.prod(shape[2:]))
             v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_out)

@@ -117,7 +117,7 @@ def test_unported_flag_exits_2_naming_its_item(filename, name, capsys):
 def test_unported_model_and_shapes_exit_2(filename, capsys):
     base = [a for a in _POSITIONAL[filename] if a not in ("--model",
                                                           "deeplabv3plus")]
-    refused = [base + ["--model", "segformer"],
+    refused = [base + ["--model", "segnext"],
                base + ["--model", "deeplabv3plus", "--variant", "r50"]]
     if filename == "train.py":
         refused += [base + ["--model", "deeplabv3plus", "-s", "64", "48"]]
@@ -126,9 +126,10 @@ def test_unported_model_and_shapes_exit_2(filename, capsys):
             CLIS[filename].parse_args(argv)
         assert err.value.code == 2
     err = capsys.readouterr().err
-    assert ("--model segformer is not ported yet (ROADMAP queue 1 item 6, "
+    assert ("--model segnext is not ported yet (ROADMAP queue 1 item 6, "
             "other model families); ported: danet, deeplabv3, deeplabv3plus, "
-            "fastfcn, fcn, fpn, hrnet, lraspp, pspnet, unet") in err
+            "fastfcn, fcn, fpn, hrnet, lraspp, pspnet, segformer, unet, "
+            "upernet") in err
     assert "has no variants" in err
     if filename == "train.py":
         assert "square images only so far (ROADMAP queue 1 item 8" in err

@@ -195,6 +195,10 @@ def _lse_check(x, y, align):
     # PSPNet's and FastFCN's logits (8x) and FastFCN's aux logits (16x)
     ((32, 65, 65, 21), (513, 513), True, torch.bfloat16, torch.int32),
     ((32, 33, 33, 21), (513, 513), True, torch.bfloat16, torch.int32),
+    # SegFormer's and UPerNet's logits (4x) and UPerNet's aux logits (16x),
+    # align_corners=False
+    ((32, 128, 128, 21), (512, 512), False, torch.bfloat16, torch.int32),
+    ((32, 32, 32, 21), (512, 512), False, torch.bfloat16, torch.int32),
 ])
 def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
                                 label_dtype):
@@ -600,6 +604,8 @@ def _lse_check(x, y, align):
     ((1, 129, 129, 4096), (513, 513), True, torch.bfloat16, torch.int32),
     # PSPNet's and FastFCN's eval logits: 8x with taps of 1/8
     ((32, 65, 65, 21), (513, 513), True, torch.bfloat16, torch.int32),
+    # UPerNet's aux logits' shape: 16x, align_corners=False, taps of 1/32
+    ((32, 32, 32, 21), (512, 512), False, torch.bfloat16, torch.int32),
 ])
 def test_eval_kernel_equals_plain(device, shape, out_hw, align, dtype,
                                   label_dtype):
@@ -766,6 +772,9 @@ def _fused_check(n, k, m, dtype, act, device, seed=0):
     # PSPNet's dilated stages at batch 32, 513x513: 135,200 rows
     (135200, 1024, 256, torch.bfloat16, "relu"),
     (135200, 512, 2048, torch.bfloat16, "relu"),
+    # UPerNet-R50's smallest stage at batch 32, 512x512 (not dilated): 8192
+    (8192, 2048, 512, torch.bfloat16, "relu"),
+    (8192, 512, 2048, torch.bfloat16, "relu"),
 ])
 def test_fused_kernels_match_plain(device, n, k, m, dtype, act):
     _fused_check(n, k, m, dtype, act, device)

@@ -39,7 +39,7 @@ from torch_family_util import (FamilyCase, assert_forward_matches_jax,
                                assert_mask_fn_matches_jax,
                                assert_step_matches, assert_weights_match_jax,
                                jax_train_step, port_trainer_step,
-                               train_batch)
+                               train_batch, without_default_init)
 
 torch.set_num_threads(1)
 
@@ -58,12 +58,25 @@ CASES = {"pspnet": ("pspnet", JaxPSPNet, {}),
          "fastfcn_aux": ("fastfcn", jax_fastfcn, {"aux": True})}
 
 
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """Each case of CASES built once in the module: the parametrized `case`
+    and the aux train step share it (and its saved checkpoint)."""
+    made = {}
+
+    def get(key):
+        if key not in made:
+            name, jax_cls, extra = CASES[key]
+            made[key] = FamilyCase(name, jax_cls, NC, HW,
+                                   tmp_path_factory.mktemp(key),
+                                   backbone_layers=LAYERS, **extra)
+        return made[key]
+    return get
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
-def case(request, tmp_path_factory):
-    name, jax_cls, extra = CASES[request.param]
-    return FamilyCase(name, jax_cls, NC, HW,
-                      tmp_path_factory.mktemp(request.param),
-                      backbone_layers=LAYERS, **extra)
+def case(request, cases):
+    return cases(request.param)
 
 
 @pytest.fixture(scope="module")
@@ -170,7 +183,7 @@ def test_aux_head_runs_in_train_mode_only(case):
         nhwc_forward(model)(x.permute(0, 2, 3, 1))
 
 
-def test_aux_trainer_step_matches_jax(tmp_path):
+def test_aux_trainer_step_matches_jax(cases, tmp_path):
     """One SGD step (lr 1e-3, momentum 0.9) of `Trainer` on the
     full-resolution PSPNet with its aux head, through the stride-8 twin (the
     main and the aux logits each through the upsample+CE loss), against the
@@ -179,8 +192,7 @@ def test_aux_trainer_step_matches_jax(tmp_path):
     times that of its aux logits (1e-6 relative), and every final tensor
     the JAX step's, at assert_step_matches' tolerances and within 2e-3 of
     the tensor's largest entry."""
-    case = FamilyCase("pspnet", JaxPSPNet, NC, HW, tmp_path,
-                      backbone_layers=LAYERS, aux=True)
+    case = cases("pspnet_aux")
     batch = train_batch(case)
     model = case.loaded(full_res_output=True).train()
     with torch.no_grad():
@@ -200,7 +212,11 @@ def test_aux_trainer_step_matches_jax(tmp_path):
 
 
 def _shallow(name, num_classes, **kwargs):
-    return build_model(name, num_classes, backbone_layers=LAYERS, **kwargs)
+    """One block a stage; the parameters uninitialised, since every caller
+    loads or seeds them all."""
+    with without_default_init():
+        return build_model(name, num_classes, backbone_layers=LAYERS,
+                           **kwargs)
 
 
 def test_load_model_bundle_drops_the_train_only_head(tmp_path, capsys):
@@ -268,9 +284,10 @@ def test_aux_loss_on_a_family_without_the_head_exits(model):
 
 def test_aux_loss_on_an_unported_family_exits_2(capsys):
     with pytest.raises(SystemExit) as err:
-        ttrain.parse_args(["data", "--model", "upernet", "--aux-loss", "0.4"])
+        ttrain.parse_args(["data", "--model", "bisenetv2", "--aux-loss",
+                           "0.4"])
     assert err.value.code == 2
-    assert ("--model upernet is not ported yet (ROADMAP queue 1 item 6"
+    assert ("--model bisenetv2 is not ported yet (ROADMAP queue 1 item 6"
             in capsys.readouterr().err)
     opt = ttrain.parse_args(["data", "--model", "fastfcn", "--aux-loss",
                              "0.4"])

@@ -133,7 +133,7 @@ def test_checkpoint_loads_strict(weights):
     for k, v in model.state_dict().items():
         assert np.array_equal(v.numpy(), want[k]), k
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model("segformer", NC)
+        build_model("segnext", NC)
 
 
 @pytest.mark.parametrize("full_res_output,dtype", [

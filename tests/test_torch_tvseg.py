@@ -25,7 +25,7 @@ from torch_family_util import (FamilyCase, assert_forward_matches_jax,
                                assert_mask_fn_matches_jax,
                                assert_step_matches, assert_weights_match_jax,
                                jax_train_step, port_trainer_step,
-                               train_batch)
+                               train_batch, without_default_init)
 
 torch.set_num_threads(1)
 
@@ -37,12 +37,25 @@ CASES = {"fcn_aux": ("fcn", JaxFCN, {"aux": True}),
          "deeplabv3_aux": ("deeplabv3", JaxDeepLabV3, {"aux": True})}
 
 
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """Each case of CASES built once in the module: the parametrized `case`
+    and the aux train step share it (and its saved checkpoint)."""
+    made = {}
+
+    def get(key):
+        if key not in made:
+            name, jax_cls, extra = CASES[key]
+            made[key] = FamilyCase(name, jax_cls, NC, HW,
+                                   tmp_path_factory.mktemp(key),
+                                   backbone_layers=LAYERS, **extra)
+        return made[key]
+    return get
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
-def case(request, tmp_path_factory):
-    name, jax_cls, extra = CASES[request.param]
-    return FamilyCase(name, jax_cls, NC, HW,
-                      tmp_path_factory.mktemp(request.param),
-                      backbone_layers=LAYERS, **extra)
+def case(request, cases):
+    return cases(request.param)
 
 
 @pytest.fixture(scope="module")
@@ -122,19 +135,27 @@ def test_full_res_output_is_8x_the_logits():
 
 @pytest.mark.parametrize("name,jax_cls", [("fcn", JaxFCN),
                                           ("deeplabv3", JaxDeepLabV3)])
-def test_aux_trainer_step_matches_jax(name, jax_cls, tmp_path):
+def test_aux_trainer_step_matches_jax(name, jax_cls, cases, tmp_path):
     """One SGD step (lr 1e-3, momentum 0.9) of `Trainer` on the
     full-resolution model with its nested aux head, through the stride-8
     twin (the main and the aux logits each through the upsample+CE loss
     with align_corners=False), against the JAX train step with aux_weight
     0.4."""
-    case = FamilyCase(name, jax_cls, NC, HW, tmp_path,
-                      backbone_layers=LAYERS, aux=True)
+    case = cases(f"{name}_aux")
+    assert case.jax_cls is jax_cls
     batch = train_batch(case)
     want_loss, want = jax_train_step(case, batch)
     loss, got = port_trainer_step(case, batch, tmp_path)
     assert any(k.startswith("aux_head.") for k in want)
     assert_step_matches(loss, got, want_loss, want, case.sd, "cls_conv")
+
+
+def _shallow_fcn(**kwargs):
+    """FCN at one block a stage, its parameters uninitialised: each caller
+    seeds or loads them all."""
+    with without_default_init():
+        return build_model("fcn", NC, dtype=torch.float32,
+                           backbone_layers=LAYERS, **kwargs)
 
 
 def test_load_model_bundle_drops_the_nested_aux_head(tmp_path, capsys):
@@ -143,8 +164,7 @@ def test_load_model_bundle_drops_the_nested_aux_head(tmp_path, capsys):
     are dropped and named, every other entry loads; a stray key stays
     strict."""
     assert {"aux_head", "pam_cls", "cam_cls"} <= set(TRAIN_ONLY_MODULES)
-    aux_model = build_model("fcn", NC, dtype=torch.float32,
-                            backbone_layers=LAYERS, aux=True)
+    aux_model = _shallow_fcn(aux=True)
     sd = seeded_state_dict(aux_model, seed=5)
     path = str(tmp_path / "aux.pt")
     save_checkpoint(path, sd, ema={k: v + 1.0 for k, v in sd.items()
@@ -152,24 +172,21 @@ def test_load_model_bundle_drops_the_nested_aux_head(tmp_path, capsys):
                                    and "running" not in k})
     head = sorted(k for k in sd if k.startswith("aux_head."))
     assert len(head) == 8
-    model = load_model_bundle(build_model("fcn", NC, dtype=torch.float32,
-                                          backbone_layers=LAYERS), path,
+    model = load_model_bundle(_shallow_fcn(), path,
                               "cpu")
     out = capsys.readouterr().out
     assert f"dropping train-only entries not in the eval model: {head}" in out
     got = model.state_dict()
     assert set(got) == set(sd) - set(head)
     assert all(torch.equal(v, sd[k]) for k, v in got.items())
-    ema = load_model_bundle(build_model("fcn", NC, dtype=torch.float32,
-                                        backbone_layers=LAYERS), path,
+    ema = load_model_bundle(_shallow_fcn(), path,
                             "cpu", use_ema=True)
     assert "dropping train-only EMA entries" in capsys.readouterr().out
     assert torch.equal(ema.cls_conv.weight, sd["cls_conv.weight"] + 1.0)
     stray = dict(sd, **{"head2.conv.weight": sd["cls_conv.weight"]})
     torch.save({"model": stray}, path)
     with pytest.raises(RuntimeError, match="head2"):
-        load_model_bundle(build_model("fcn", NC, dtype=torch.float32,
-                                      backbone_layers=LAYERS), path, "cpu")
+        load_model_bundle(_shallow_fcn(), path, "cpu")
 
 
 @pytest.mark.parametrize("name", ["fcn", "deeplabv3"])
@@ -178,7 +195,9 @@ def test_r101_variant(name):
     default."""
     assert MODEL_VARIANTS[name] == {
         "r50": {}, "r101": {"backbone_layers": (3, 4, 23, 3)}}
-    model = build_model(name, NC, **variant_kwargs(name, "r101"))
+    with torch.device("meta"):   # the structure only
+        model = build_model(name, NC, **variant_kwargs(name, "r101"))
+        r50 = build_model(name, NC)
     assert hasattr(model.backbone, "layer3_block22")
     assert not hasattr(model.backbone, "layer3_block23")
-    assert not hasattr(build_model(name, NC).backbone, "layer3_block6")
+    assert not hasattr(r50.backbone, "layer3_block6")
