@@ -24,26 +24,30 @@ product + BN-statistics forward, dx and dW kernels, 32 launches of each per
 step) beside the figures of the same run with the switch off. The layout
 benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
 Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32,
-FPN-R50, DANet, LR-ASPP (MobileNetV3-Large), SegFormer-B0 and UPerNet-R50
-at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at 513x513 (PSPNet,
-FastFCN, FCN, DeepLabV3, DANet and UPerNet trained with their auxiliary
-heads, each head's loss weighted 0.4), served at batch 8, trained at batch
-32 and evaluated over 64 images, each kernel's result held against its
-plain version on the logits the run produced (stride 2, align_corners
-True; stride 4, False; stride 8, True, and FastFCN's aux logits at stride
-16; stride 8, False: 65 -> 513 and 64 -> 512; UPerNet's aux logits at
-stride 16, False: 32 -> 512); SegFormer's attention and Mix-FFN timed
-alone; UNet, PSPNet, DANet and UPerNet trained with the fused 1x1 switch
-on (UNet's 16 expand and 16 project products, ResNet-50's 16 conv1 and 16
-conv3, each distinct shape held against the plain versions); FPN-R34,
-FCN-R101, SegFormer-B2 and UPerNet on MiT-B0 serving one batch; and the
-train command line with the root defaults (`--model unet -s 320 320 -bs 32
--a 2`, one epoch), with `--model pspnet --aux-loss 0.4 -s 321 321`, with
-`--model fcn --aux-loss 0.4 -s 321 321` and with `--model upernet
---aux-loss 0.4 -s 321 321`, then the test command line on the checkpoint
-each wrote (PSPNet, FCN and UPerNet built without the head, whose entries
-it drops), kernels 1-4 held against their plain versions on tensors those
-runs handed them.
+FPN-R50, DANet, LR-ASPP (MobileNetV3-Large), SegFormer-B0, UPerNet-R50,
+Segmenter-B/16 and UPerNet-Swin-T at 512x512, PSPNet, FastFCN, FCN and
+DeepLabV3 at 513x513 (PSPNet, FastFCN, FCN, DeepLabV3, DANet and both
+UPerNets trained with their auxiliary heads, each head's loss weighted
+0.4), served at batch 8, trained at batch 32 and evaluated over 64 images,
+each kernel's result held against its plain version on the logits the run
+produced (stride 2, align_corners True; stride 4, False; stride 8, True,
+and FastFCN's aux logits at stride 16; stride 8, False: 65 -> 513 and 64
+-> 512; UPerNet's aux logits at stride 16, False: 32 -> 512; Segmenter's
+f32 logits at stride 16, False: 32 -> 512); SegFormer's attention and
+Mix-FFN, Swin-T's window attention and MLP, and the ViT's attention and
+MLP timed alone; UNet, PSPNet, DANet and UPerNet trained with the fused
+1x1 switch on (UNet's 16 expand and 16 project products, ResNet-50's 16
+conv1 and 16 conv3, each distinct shape held against the plain versions);
+FPN-R34, FCN-R101, SegFormer-B2 and UPerNet on MiT-B0 serving one batch,
+UPerNet on ConvNeXt-T and on ViT-B/16 serving one batch and taking one
+train step; and the train command line with the root defaults (`--model
+unet -s 320 320 -bs 32 -a 2`, one epoch), with `--model pspnet --aux-loss
+0.4 -s 321 321`, with `--model fcn --aux-loss 0.4 -s 321 321`, with
+`--model upernet --aux-loss 0.4 -s 321 321` and with `--model segmenter -s
+320 320` (the bicubic position-grid resize: a 20 x 20 patch grid), then
+the test command line on the checkpoint each wrote (PSPNet, FCN and
+UPerNet built without the head, whose entries it drops), kernels 1-4 held
+against their plain versions on tensors those runs handed them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
@@ -1189,8 +1193,8 @@ def serve_phase(device, name="deeplabv3plus", img=IMG):
     batch's mask. Then make_mask_fn's images/s on a batch already on the
     card, and the host time of the eval-mode check. Returns the kernel's
     launches and the figures."""
-    model = load_model_bundle(build_model(
-        name, NUM_CLASSES, dtype=torch.bfloat16, full_res_output=False),
+    model = load_model_bundle(family_model(
+        name, dtype=torch.bfloat16, full_res_output=False),
         None, device, seed=SEED)
     align, hw = model.up_align_corners, (img, img)
     rng = np.random.default_rng(SEED + 2)
@@ -1314,6 +1318,7 @@ def serve_phase(device, name="deeplabv3plus", img=IMG):
                "images_per_s_batch8": BATCH / best,
                "ms_per_batch8": 1e3 * best,
                "logits_shape": [BATCH, NUM_CLASSES, low, low],
+               "logits_dtype": str(logits[0].dtype).replace("torch.", ""),
                "align_corners": align}
     log("serve", model=name, img=img, requests=len(imgs), **figures,
         launches=launches, classes_present=n_classes,
@@ -1364,15 +1369,24 @@ def train_batch(device, hw=IMG):
                      segs.to(device), TRAIN_BATCH)
 
 
+def family_model(key, **kwargs):
+    """The model of a family entry (`FAMILY_VARIANTS`' model and
+    `--variant` where the key names one, else the model `key` at its
+    defaults) with NUM_CLASSES classes; `kwargs` to its constructor."""
+    name, variant = FAMILY_VARIANTS.get(key, (key, ""))
+    return build_model(name, NUM_CLASSES, **variant_kwargs(name, variant),
+                       **kwargs)
+
+
 def make_trainer(device, name, batch, tmp, **model_kwargs):
-    """`name` (bf16 compute over f32 parameters, full_res_output=True, so
-    the Trainer's deferred upsample routes the loss through the upsample+CE
-    kernels; `model_kwargs` to its constructor) in a Trainer on one fixed
-    batch, SGD 1e-3 with momentum 0.9, the aux head's loss at the Trainer's
-    default weight, from the seeded start: the same weights on every
-    call."""
-    model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
-                        full_res_output=True, **model_kwargs)
+    """`family_model(name)` (bf16 compute over f32 parameters,
+    full_res_output=True, so the Trainer's deferred upsample routes the loss
+    through the upsample+CE kernels; `model_kwargs` to its constructor) in a
+    Trainer on one fixed batch, SGD 1e-3 with momentum 0.9, the aux head's
+    loss at the Trainer's default weight, from the seeded start: the same
+    weights on every call."""
+    model = family_model(name, dtype=torch.bfloat16, full_res_output=True,
+                         **model_kwargs)
     trainer = Trainer(model, RepeatFetcher(batch, 1),
                       workdir=os.path.join(tmp, "w"), lr=1e-3, momentum=0.9,
                       seed=SEED, log=False, log_dir=os.path.join(tmp, "runs"),
@@ -2237,16 +2251,22 @@ def cli_phase(device, e2e_ms_per_step):
 # fraction: near-tie pixels may count apart, `near_ties`)
 FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
                "fastfcn": 513, "fcn": 513, "deeplabv3": 513, "danet": 512,
-               "lraspp": 512, "segformer": 512, "upernet": 512}
+               "lraspp": 512, "segformer": 512, "upernet": 512,
+               "segmenter": 512, "upernet_swin": 512}
+# family entries that are a --variant of a model: key -> (model, variant);
+# Segmenter runs at its default, ViT-B/16
+FAMILY_VARIANTS = {"upernet_swin": ("upernet", "swin-t"),
+                   "upernet_cn": ("upernet", "cn-t"),
+                   "upernet_vit": ("upernet", "vit-b16")}
 # the families whose upsampling taps are not short binary fractions, so
 # that kernel 3's counts may differ from the plain version's by the
 # near-tie pixels; every other family's counts must equal exactly
 NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3")
 # the constructor arguments each family is trained with (the aux heads'
 # loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
-FAMILY_KWARGS = {name: {"aux": True} for name in ("pspnet", "fastfcn",
-                                                  "fcn", "deeplabv3",
-                                                  "danet", "upernet")}
+FAMILY_KWARGS = {name: {"aux": True} for name in (
+    "pspnet", "fastfcn", "fcn", "deeplabv3", "danet", "upernet",
+    "upernet_swin", "upernet_cn", "upernet_vit")}
 # the logits an aux model's train step returns (DANet: the fused logits
 # and both branch classifiers'), each through the CE kernels
 FAMILY_HEADS = {"danet": 3}
@@ -2258,6 +2278,8 @@ FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12, "upernet": 12}
 # (family, variant) pairs that serve one batch
 ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"), ("segformer", "b2"),
                       ("upernet", "mit-b0"))
+# family entries that serve one batch and take one train step at 512
+ONE_STEP_FAMILIES = ("upernet_cn", "upernet_vit")
 AUX_WEIGHT = 0.4
 FAMILY_EVAL_IMAGES = 64
 FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
@@ -2558,6 +2580,124 @@ def segformer_blocks_ms(model, hw, step_ms):
     return figures
 
 
+def parts_ms(parts, x):
+    """CUDA-event ms of each `(name, fn, params)` of `parts` alone on `x`,
+    forward and backward (to `x` and `params`), against a random
+    gradient."""
+    grad_out = torch.randn_like(x)
+    figures = {}
+    for part, fn, params in parts:
+        def fwd_bwd():
+            torch.autograd.grad(fn(x), [x] + params, grad_out)
+        figures[part] = cuda_median_ms(fwd_bwd, reps=5)
+    return figures
+
+
+def swin_blocks_ms(model, hw, step_ms):
+    """CUDA-event ms of the halves of the Swin trunk's blocks alone, forward
+    and backward, at the train step's shapes: batch 32, each stage's NHWC
+    map (hw/4 / 2^s a side, 96 * 2^s wide), bf16, random inputs.
+    `attention` is `norm1`, the (shifted-)window attention (padding, roll,
+    qkv, the [B, windows, heads, 49, 49] scores with the relative-position
+    bias and the shift mask, the f32 softmax, the product with v, proj) and
+    the residual; `mlp` is `norm2`, fc1, GELU, fc2 and the residual. Each
+    stage's first block (no shift) and second (shifted) are timed and
+    counted once for every block of their parity. With their shares of the
+    step's ms."""
+    swin = model.backbone
+    device = next(model.parameters()).device
+    side = hw // 4
+    figures, totals = {}, {"attention": 0.0, "mlp": 0.0}
+    for s, depth in enumerate(swin.depths):
+        for b in range(min(depth, 2)):
+            block = getattr(swin, f"stage{s}_block{b}")
+            dim = block.norm1.normalized_shape[0]
+            x = torch.randn(TRAIN_BATCH, side, side, dim, device=device,
+                            dtype=model.dtype, requires_grad=True)
+            ms = parts_ms((
+                ("attention", block.attention,
+                 [*block.norm1.parameters(), *block.attn.parameters()]),
+                ("mlp", block.mlp, [*block.norm2.parameters(),
+                                    *block.fc1.parameters(),
+                                    *block.fc2.parameters()])), x)
+            blocks_of_parity = (depth - b + 1) // 2
+            for part, value in ms.items():
+                figures[f"stage{s}_block{b}_{part}_ms"] = value
+                totals[part] += blocks_of_parity * value
+        side = (side + 1) // 2
+    for part, ms in totals.items():
+        figures[f"{part}_ms"] = ms
+        figures[f"{part}_share_of_step"] = ms / step_ms
+    return figures
+
+
+def vit_blocks_ms(model, hw, step_ms):
+    """CUDA-event ms of the halves of Segmenter's ViT blocks alone, forward
+    and backward, at the train step's shapes: batch 32, bf16, random
+    inputs; the encoder's first block on 1 + (hw/16)^2 tokens, counted for
+    each of its blocks, and the decoder's first on (hw/16)^2 + K tokens,
+    counted for each of its. `attention` is `ln1`, the fused qkv, the
+    [B, heads, T, T] scores, the f32 softmax, the product with v, proj and
+    the residual; `mlp` is `ln2`, fc1, GELU, fc2 and the residual. With
+    their shares of the step's ms."""
+    device = next(model.parameters()).device
+    grid = (hw // 16) ** 2
+    figures, total = {}, 0.0
+    for stack, tokens, count in (
+            ("encoder", 1 + grid, model.backbone.layers),
+            ("decoder", grid + model.num_classes, model.decoder.n_layers)):
+        block = (model.backbone if stack == "encoder"
+                 else model.decoder).block0
+        x = torch.randn(TRAIN_BATCH, tokens, block.dim, device=device,
+                        dtype=model.dtype, requires_grad=True)
+        ms = parts_ms((
+            ("attention", block.attention,
+             [*block.ln1.parameters(), *block.qkv.parameters(),
+              *block.proj.parameters()]),
+            ("mlp", block.mlp, [*block.ln2.parameters(),
+                                *block.fc1.parameters(),
+                                *block.fc2.parameters()])), x)
+        for part, value in ms.items():
+            figures[f"{stack}_{part}_ms_per_block"] = value
+            figures[f"{stack}_{part}_ms"] = count * value
+            total += count * value
+        figures[f"{stack}_blocks"] = count
+    figures["blocks_ms"] = total
+    figures["blocks_share_of_step"] = total / step_ms
+    return figures
+
+
+def train_one_step(device, key):
+    """One train step of the family entry `key` (with FAMILY_KWARGS' aux
+    head) at batch 32 from the seeded start at its FAMILY_IMGS size, on the
+    train phases' fixed batch: the loss finite, the CE kernels launched once
+    for each head, the step's wall ms (cuDNN's first-call choices included)
+    and the peak device memory. Returns the CE kernels' launches."""
+    hw = FAMILY_IMGS.get(key, 512)
+    heads = 2 if FAMILY_KWARGS.get(key, {}).get("aux", False) else 1
+    _, batch = train_batch(device, hw)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = make_trainer(device, key, batch, tmp,
+                               **FAMILY_KWARGS.get(key, {}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ce.reset_launch_count()
+        t0 = time.perf_counter()
+        loss = trainer.step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    launches = ce.launch_count()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"fwd": heads, "bwd": heads} or not np.isfinite(loss):
+        raise AssertionError(f"{key}: one step launched {launches}, loss "
+                             f"{loss}")
+    name, variant = FAMILY_VARIANTS[key]
+    log("family_one_step", model=name, variant=variant, img=hw,
+        batch=TRAIN_BATCH, heads=heads, loss=loss, ms_first_step_wall=ms,
+        peak_memory_mb=1e3 * peak_gb, launches=launches)
+    return {"softmax_ce": launches}
+
+
 def serve_one_batch(device, name, variant, img):
     """`name` at `variant` (bf16, seeded weights, its stride-4 logits):
     make_mask_fn on one batch of 8 smooth u8 images, the mask held against
@@ -2665,6 +2805,12 @@ FAMILY_CLIS = {
     "upernet": (["--model", "upernet", "--aux-loss", str(AUX_WEIGHT), "-s",
                  "321", "321", "--epochs", "1"],
                 ["--model", "upernet", "-s", "321", "321"], "UPerNet", 2),
+    # ViT-B/16 at 320: a 20 x 20 patch grid, so the stored 14 x 14 position
+    # grid is resized bicubically; f32 stride-16 logits of 20 upsample 16x
+    # to 320 with align_corners=False (taps of 1/32)
+    "segmenter": (["--model", "segmenter", "-s", "320", "320", "--epochs",
+                   "1"], ["--model", "segmenter", "-s", "320", "320"],
+                  "Segmenter", 1),
 }
 # what the test command line must print of each dropped aux head
 DROPPED_ENTRIES = {"fcn": ("'aux_head.aux_cls.bias'",),
@@ -2760,24 +2906,27 @@ def family_cli(device, name):
 
 def families_phase(device):
     """UNet (MobileNetV2), HRNet-W32, FPN-R50, DANet, LR-ASPP
-    (MobileNetV3-Large), SegFormer-B0 and UPerNet-R50 at 512x512, PSPNet,
-    FastFCN, FCN and DeepLabV3 at 513x513 (each with its aux heads in
-    training but LR-ASPP, UNet, HRNet, FPN and SegFormer), 21 classes, bf16
-    compute over f32 parameters, seeded weights: served at batch 8 (kernel
-    1), trained at batch 32 (kernel 2; once a step for each head: twice for
-    PSPNet, FastFCN, FCN, DeepLabV3 and UPerNet, three times for DANet),
-    evaluated over 64 images (kernels 2 and 3); UNet, PSPNet, DANet and
-    UPerNet trained again with the fused 1x1 switch on (kernel 5 on UNet's
-    16 expand and 16 project products and on ResNet-50's 16 conv1 and 16
-    conv3, each distinct (N, K, M, act) held against the plain versions);
-    FPN-R34, FCN-R101, SegFormer-B2 and UPerNet-MiT-B0 serve one batch;
-    each kernel at each family's shape (and kernels 2 and 3 at each aux
-    head's other stride) on random inputs for its times; then the train
-    command line with the root defaults (UNet), with `--model pspnet
-    --aux-loss 0.4 -s 321 321`, `--model fcn ...` and `--model upernet
-    ...`, and the test command line on the checkpoint each wrote, kernels
-    1-4 held against their plain versions on tensors those runs handed
-    them.
+    (MobileNetV3-Large), SegFormer-B0, UPerNet-R50, Segmenter-B/16 and
+    UPerNet-Swin-T at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at
+    513x513 (each with its aux heads in training but LR-ASPP, UNet, HRNet,
+    FPN, SegFormer and Segmenter), 21 classes, bf16 compute over f32
+    parameters (Segmenter's logits f32), seeded weights: served at batch 8
+    (kernel 1), trained at batch 32 (kernel 2; once a step for each head:
+    twice for PSPNet, FastFCN, FCN, DeepLabV3 and both UPerNets, three times
+    for DANet), evaluated over 64 images (kernels 2 and 3); UNet, PSPNet,
+    DANet and UPerNet trained again with the fused 1x1 switch on (kernel 5
+    on UNet's 16 expand and 16 project products and on ResNet-50's 16 conv1
+    and 16 conv3, each distinct (N, K, M, act) held against the plain
+    versions); FPN-R34, FCN-R101, SegFormer-B2 and UPerNet-MiT-B0 serve one
+    batch, UPerNet-ConvNeXt-T and UPerNet-ViT-B/16 serve one batch and take
+    one train step; each kernel at each family's shape and dtype (and
+    kernels 2 and 3 at each aux head's other stride) on random inputs for
+    its times, once a shape; SegFormer's, Swin-T's and the ViT's blocks
+    timed alone; then the train command line with the root defaults (UNet),
+    with `--model pspnet --aux-loss 0.4 -s 321 321`, `--model fcn ...`,
+    `--model upernet ...` and `--model segmenter -s 320 320`, and the test
+    command line on the checkpoint each wrote, kernels 1-4 held against
+    their plain versions on tensors those runs handed them.
     Returns each kernel's launches over the phase's main-path runs (in all
     and by model), each family's kernel figures and each fused shape's."""
     t_phase = time.perf_counter()
@@ -2802,6 +2951,30 @@ def families_phase(device):
                     counts[key] += value
 
     cases, trained = {}, {}
+    cased = {}   # (shape, dtype, align) -> the family whose cases ran it
+
+    def kernel_cases(name, low, hw, dtype, align, aux=False):
+        """Kernels 1-3 (2-3 for an aux head's shape) on random logits of a
+        family's shapes, once for each (shape, dtype, align): a later
+        family with the same ones reuses the figures."""
+        key = (aux, low, hw, dtype, align)
+        if key in cased:
+            return cased[key]
+        out_hw = (hw, hw)
+        tag = f"{name}_aux" if aux else name
+        shape = (BATCH, low, low, NUM_CLASSES)
+        figures = {} if aux else {"upsample_argmax": kernel_case(
+            f"{tag}_argmax", shape, out_hw, dtype, align, device)}
+        shape = (TRAIN_BATCH, low, low, NUM_CLASSES)
+        figures["softmax_ce"] = ce_case(f"{tag}_ce", shape, out_hw, dtype,
+                                        align, device, nchw=True)
+        figures["eval_confusion"] = eval_case(
+            f"{tag}_eval", (EVAL_BATCH,) + shape[1:], out_hw, dtype, align,
+            device, nchw=True,
+            ties_allowed=not aux and name in NEAR_TIE_FAMILIES)
+        cased[key] = figures
+        return figures
+
     for name, hw in FAMILY_IMGS.items():
         t0 = time.perf_counter()
         serve_launches, serve = serve_phase(device, name, hw)
@@ -2816,33 +2989,21 @@ def families_phase(device):
         if name == "danet":
             trained[name]["attention"] = danet_attention_ms(
                 model, hw, min(trained[name]["ms_per_step_wall"]))
-        if name == "segformer":
-            trained[name]["blocks"] = segformer_blocks_ms(
+        blocks_ms = {"segformer": segformer_blocks_ms,
+                     "upernet_swin": swin_blocks_ms,
+                     "segmenter": vit_blocks_ms}.get(name)
+        if blocks_ms:
+            trained[name]["blocks"] = blocks_ms(
                 model, hw, min(trained[name]["ms_per_step_wall"]))
         del model
-        out_hw = (hw, hw)
-        cases[name] = {
-            "upsample_argmax": kernel_case(
-                f"{name}_argmax", (BATCH, low, low, NUM_CLASSES), out_hw,
-                torch.bfloat16, align, device),
-            "softmax_ce": ce_case(
-                f"{name}_ce", (TRAIN_BATCH, low, low, NUM_CLASSES), out_hw,
-                torch.bfloat16, align, device, nchw=True),
-            "eval_confusion": eval_case(
-                f"{name}_eval", (EVAL_BATCH, low, low, NUM_CLASSES), out_hw,
-                torch.bfloat16, align, device, nchw=True,
-                ties_allowed=name in NEAR_TIE_FAMILIES)}
+        # the logits' own dtype: bf16, but f32 for Segmenter
+        dtype = getattr(torch, serve["logits_dtype"])
+        cases[name] = kernel_cases(name, low, hw, dtype, align)
         aux_shape = trained[name].get("aux_logits")
         if aux_shape and aux_shape[2] != low:
             # FastFCN's and UPerNet's 16x aux logits (align True and False)
-            aux_low = (TRAIN_BATCH, aux_shape[2], aux_shape[3], NUM_CLASSES)
-            cases[f"{name}_aux"] = {
-                "softmax_ce": ce_case(f"{name}_aux_ce", aux_low, out_hw,
-                                      torch.bfloat16, align, device,
-                                      nchw=True),
-                "eval_confusion": eval_case(f"{name}_aux_eval", aux_low,
-                                            out_hw, torch.bfloat16, align,
-                                            device, nchw=True)}
+            cases[f"{name}_aux"] = kernel_cases(name, aux_shape[2], hw,
+                                                dtype, align, aux=True)
         log("family", model=name, img=hw, classes=NUM_CLASSES,
             train_kwargs=FAMILY_KWARGS.get(name, {}), serve=serve,
             train=trained[name], eval=evaluation,
@@ -2852,6 +3013,10 @@ def families_phase(device):
     for name, variant in ONE_BATCH_VARIANTS:
         add({"upsample_argmax": serve_one_batch(
             device, name, variant, FAMILY_IMGS[name])}, f"{name}_{variant}")
+    for key in ONE_STEP_FAMILIES:
+        name, variant = FAMILY_VARIANTS[key]
+        add({"upsample_argmax": serve_one_batch(device, name, variant, 512),
+             **train_one_step(device, key)}, key)
 
     fused_shapes = {}
     for name, n_shapes in FUSED_FAMILIES.items():

@@ -1,12 +1,12 @@
 """Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
 model names; UNet (MobileNetV2 encoder), DeepLabV3+, HRNet, FPN, PSPNet,
 FastFCN, FCN, DeepLabV3, DANet, LR-ASPP (MobileNetV3-Large), SegFormer
-(MiT-B0...B5) and UPerNet (ResNet and MiT encoders) are ported so far
-(`ported_models()`), and `build_model` raises NotImplementedError for the
-others, which follow in the order ROADMAP.md queue 1 item 6 lists.
-`MODEL_VARIANTS` is the JAX package's table for the ported families,
-UPerNet's ConvNeXt, Swin and ViT entries included: `variant_kwargs` returns
-them and the UPerNet constructor refuses them (`UNPORTED_ENCODERS`)."""
+(MiT-B0...B5), UPerNet (ResNet, MiT, ConvNeXt, Swin and ViT encoders) and
+Segmenter (ViT) are ported so far (`ported_models()`), and `build_model`
+raises NotImplementedError for the others, which follow in the order
+ROADMAP.md queue 1 item 6 lists. `MODEL_VARIANTS` is the JAX package's
+table for the ported families. `UNPORTED_ENCODERS` (UPerNet encoders the
+port lacks) is empty."""
 
 from .danet import DANet
 from .deeplabv3plus import DeepLabV3Plus
@@ -15,12 +15,13 @@ from .hrnet import HRNet
 from .lraspp import LRASPP
 from .pspnet import PSPNet
 from .segformer import SegFormer
+from .segmenter import Segmenter
 from .tvseg import FCN, DeepLabV3
 from .unet import UNet
 from .upernet import UNPORTED_ENCODERS, UPerNet
 
 __all__ = ["DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN", "HRNet",
-           "LRASPP", "PSPNet", "SegFormer", "UNet", "UPerNet",
+           "LRASPP", "PSPNet", "SegFormer", "Segmenter", "UNet", "UPerNet",
            "UNPORTED_ENCODERS",
            "MODEL_REGISTRY", "MODEL_VARIANTS", "UNPORTED_MODEL_ITEM",
            "build_model", "ported_models", "variant_kwargs"]
@@ -47,7 +48,7 @@ MODEL_REGISTRY = {
     "fastfcn": _fastfcn,
     "segformer": SegFormer,
     "segnext": None,
-    "segmenter": None,
+    "segmenter": Segmenter,
     "maskformer": None,
     "upernet": UPerNet,
     "fcn": FCN,
@@ -87,7 +88,6 @@ MODEL_VARIANTS = {
         "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},
         **{f"mit-{v}": {"encoder": "mit", "mit_variant": v}
            for v in ("b0", "b1", "b2", "b3", "b4", "b5", "tiny")},
-        # not ported: the constructor refuses these encoders
         **{f"cn-{v}": {"encoder": "convnext", "convnext_variant": v}
            for v in ("t", "s", "b", "pico")},
         **{f"swin-{v}": {"encoder": "swin", "swin_variant": v}
@@ -95,6 +95,8 @@ MODEL_VARIANTS = {
         **{f"vit-{v}": {"encoder": "vit", "vit_variant": v}
            for v in ("b16", "l16", "pico")},
     },
+    # pico is not a paper variant: the JAX package's test size
+    "segmenter": {v: {"variant": v} for v in ("pico", "b16", "l16")},
     "fpn": {
         "r50": {},  # the default bottleneck (3, 4, 6, 3) backbone
         "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},

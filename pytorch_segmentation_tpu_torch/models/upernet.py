@@ -1,11 +1,17 @@
 """UPerNet, NCHW (port of pytorch_segmentation_tpu/models/upernet.py; Xiao
 et al., ECCV 2018, mmseg UPerHead conventions).
 
-The encoder's C2..C5 pyramid: the port's `ResNet(block, layers)` (taps 1..4;
-`block` 'bottleneck' for R50 or 'basic' for R34) or SegFormer's Mix
-Transformer (`encoder='mit'`, `mit_variant` a key of SEGFORMER_VARIANTS),
-named `backbone`. The head, every resize bilinear with
-align_corners=False:
+The encoder's C2..C5 pyramid, named `backbone`: the port's `ResNet(block,
+layers)` (taps 1..4; `block` 'bottleneck' for R50 or 'basic' for R34),
+SegFormer's Mix Transformer (`encoder='mit'`, `mit_variant` a key of
+SEGFORMER_VARIANTS), ConvNeXt (`encoder='convnext'`, `convnext_variant` of
+CONVNEXT_VARIANTS), Swin (`encoder='swin'`, `swin_variant` of
+SWIN_VARIANTS), or the plain ViT (`encoder='vit'`, `vit_variant` of
+VIT_VARIANTS) with mmseg's MultiLevelNeck: for each of its four stride-16
+taps a raw biased 1x1 conv `neck_lat{i}` (dim -> dim, no norm, no
+activation), a bilinear rescale by 4, 2, 1 and 0.5 to int(t * s)
+(align_corners=False; none at 1), and a raw biased 3x3 conv `neck_conv{i}`.
+The head, every resize bilinear with align_corners=False:
   - PPM on C5: for each pool scale s (1, 2, 3, 6) an adaptive average pool
     to s x s (`ops/pool.adaptive_avg_pool2d`, torch's windows, so a C5
     smaller than s pools UP), a 1x1 ConvNormAct `ppm_conv{s}` to
@@ -22,8 +28,6 @@ to 256, and `aux_cls`, a 1x1 class conv with bias) at C4's stride (16): a
 train-mode forward then returns (logits, aux logits), the aux logits never
 upsampled here; an eval-mode forward returns the logits alone and does not
 run the head (the JAX module runs it and drops the result).
-
-The ConvNeXt, Swin and ViT encoders are not ported and raise.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..nn.backbones.convnext import CONVNEXT_VARIANTS, ConvNeXt
 from ..nn.backbones.resnet import ResNet
+from ..nn.backbones.swin import SWIN_VARIANTS, SwinTransformer
+from ..nn.backbones.vit import VIT_VARIANTS, ViT
 from ..nn.blocks import ConvNormAct, conv2d
 from ..ops.pool import adaptive_avg_pool2d
 from ..ops.resize import resize_bilinear_nchw
@@ -39,8 +46,9 @@ from .segformer import SEGFORMER_VARIANTS, _MiT, _refuse_unported
 
 __all__ = ["UPerNet", "UNPORTED_ENCODERS"]
 
-# the JAX module's other encoders (nn/backbones/convnext.py, swin.py, vit.py)
-UNPORTED_ENCODERS = ("convnext", "swin", "vit")
+# the JAX module's encoders that the port lacks: none
+UNPORTED_ENCODERS = ()
+NECK_SCALES = (4, 2, 1, 0.5)   # the MultiLevelNeck's rescale of each tap
 
 
 class UPerNet(nn.Module):
@@ -56,12 +64,7 @@ class UPerNet(nn.Module):
                  up_align_corners: bool = False, remat: bool = False,
                  aux: bool = False):
         super().__init__()
-        if encoder in UNPORTED_ENCODERS:
-            from ..utils.cli import ROADMAP_ITEMS
-            raise NotImplementedError(
-                f"UPerNet encoder={encoder!r} is not ported yet "
-                f"({ROADMAP_ITEMS[6]}); ported: 'resnet', 'mit'")
-        if encoder not in ("resnet", "mit"):
+        if encoder not in ("resnet", "mit", "convnext", "swin", "vit"):
             raise ValueError(f"unknown UPerNet encoder {encoder!r}")
         _refuse_unported(remat=remat)
         self.num_classes = num_classes
@@ -77,6 +80,26 @@ class UPerNet(nn.Module):
             dims, depths, heads, _ = SEGFORMER_VARIANTS[mit_variant]
             self.backbone = _MiT(dims, depths, heads, dtype=dtype)
             widths = tuple(dims)
+        elif encoder == "convnext":
+            depths, dims = CONVNEXT_VARIANTS[convnext_variant]
+            self.backbone = ConvNeXt(depths, dims, dtype=dtype)
+            widths = tuple(dims)
+        elif encoder == "swin":
+            depths, dim, heads, window = SWIN_VARIANTS[swin_variant]
+            self.backbone = SwinTransformer(depths, dim, heads, window,
+                                            dtype=dtype)
+            widths = tuple(dim * 2 ** s for s in range(4))
+        elif encoder == "vit":
+            layers, dim, heads, patch, base_grid, out_idx = \
+                VIT_VARIANTS[vit_variant]
+            self.backbone = ViT(layers, dim, heads, patch, base_grid,
+                                out_idx, dtype=dtype)
+            for i in range(len(NECK_SCALES)):
+                self.add_module(f"neck_lat{i}", nn.Conv2d(dim, dim, 1,
+                                                          bias=True))
+                self.add_module(f"neck_conv{i}", nn.Conv2d(
+                    dim, dim, 3, padding=1, bias=True))
+            widths = (dim,) * 4
         else:
             self.backbone = ResNet(block, backbone_layers, dtype=dtype)
             expansion = 4 if block == "bottleneck" else 1
@@ -100,6 +123,15 @@ class UPerNet(nn.Module):
             self.aux_conv = ConvNormAct(widths[2], 256, 3, dtype=dtype)
             self.aux_cls = nn.Conv2d(256, num_classes, 1, bias=True)
 
+    def _neck(self, i: int, tap: torch.Tensor, scale: float) -> torch.Tensor:
+        """The MultiLevelNeck on the ViT's tap `i`: 1x1, rescale, 3x3."""
+        y = conv2d(getattr(self, f"neck_lat{i}"), tap, self.dtype)
+        if scale != 1:
+            y = resize_bilinear_nchw(y, (int(tap.shape[2] * scale),
+                                         int(tap.shape[3] * scale)),
+                                     align_corners=False)
+        return conv2d(getattr(self, f"neck_conv{i}"), y, self.dtype)
+
     def forward(self, x: torch.Tensor):
         """x: [B, 3, H, W] float, H and W multiples of 32 -> logits
         [B, C, H/4, W/4] in the compute dtype (or 4x that with
@@ -108,6 +140,9 @@ class UPerNet(nn.Module):
         feats = self.backbone(x)
         if self.encoder == "resnet":
             feats = feats[1:]   # C2..C5
+        elif self.encoder == "vit":
+            feats = [self._neck(i, t, s)
+                     for i, (t, s) in enumerate(zip(feats, NECK_SCALES))]
         sizes = [tuple(f.shape[2:]) for f in feats]
         c5 = feats[3]
         branches = [c5]

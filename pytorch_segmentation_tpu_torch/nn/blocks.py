@@ -10,9 +10,9 @@ casts sit where the JAX modules put them, written out instead of
     batch's in train mode) into one scale and shift in f32 and applies them
     in the compute dtype.
 
-`Linear` (flax `Dense`) and `LayerNorm` (flax `LayerNorm`, eps 1e-6) keep
-the same cast points: the product in the compute dtype with its bias added
-after the rounding, the moments and the affine in f32.
+`Linear` (flax `Dense`) and `LayerNorm` (flax `LayerNorm`, eps 1e-6 unless
+told otherwise) keep the same cast points: the product in the compute dtype
+with its bias added after the rounding, the moments and the affine in f32.
 
 Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The int8,
 quantization-aware and dot-1x1 branches of the JAX module are not ported
@@ -92,30 +92,32 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 class Linear(nn.Linear):
     """flax `Dense` on the last axis: the input and the weight `(out, in)`
-    cast to `dtype`, the product rounded to `dtype`, then the bias added in
-    `dtype`. Not `F.linear(x, w, b)`, whose fused epilogue adds the bias
-    before the one rounding."""
+    cast to `dtype`, the product rounded to `dtype`, then the bias (where
+    `bias=True`) added in `dtype`. Not `F.linear(x, w, b)`, whose fused
+    epilogue adds the bias before the one rounding."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.bfloat16):
-        super().__init__(in_features, out_features, bias=True)
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + \
-            self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax `LayerNorm(epsilon=1e-6)` over the LAST axis: the moments in f32
-    from the compute-dtype input (the fast variance max(E[x^2] - E[x]^2,
-    0)), the f32 weight and bias applied in f32, the result cast to `dtype`.
-    The MiT normalizes its (B, N, C) tokens, the channels-last view of its
-    NCHW maps, so C is the last axis wherever it is used."""
+    """flax `LayerNorm(epsilon=eps)` over the LAST axis (eps 1e-6 by
+    default; Swin's are 1e-5): the moments in f32 from the compute-dtype
+    input (the fast variance max(E[x^2] - E[x]^2, 0)), the f32 weight and
+    bias applied in f32, the result cast to `dtype`. The transformers
+    normalize (B, N, C) tokens or NHWC maps, the channels-last view of NCHW
+    ones, so C is the last axis wherever it is used."""
 
-    def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16):
-        super().__init__(num_features, eps=1e-6)
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16,
+                 eps: float = 1e-6):
+        super().__init__(num_features, eps=eps)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""Bilinear and nearest resizing of NHWC tensors (port of
+"""Bilinear, bicubic and nearest resizing of NHWC tensors (port of
 pytorch_segmentation_tpu/ops/resize.py).
 
-Bilinear resizing is two contractions against small dense interpolation
-matrices, one along H and one along W, exactly as the JAX package does it, so
-the coordinate conventions (PyTorch's, for both `align_corners` settings)
-and the roundings are the same on both sides. The matrices come from
-`_interp_weights`, which the fused upsample+argmax kernel also reads its taps
-from.
+Bilinear and bicubic resizing are two contractions against small dense
+interpolation matrices, one along H and one along W, exactly as the JAX
+package does it, so the coordinate conventions (PyTorch's, for both
+`align_corners` settings) and the roundings are the same on both sides. The
+bilinear matrices come from `_interp_weights`, which the fused
+upsample+argmax kernel also reads its taps from; the bicubic ones from
+`_bicubic_weights` (the ViT's position-embedding grid).
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_bilinear_nchw", "resize_nearest",
-           "upsample2x"]
+__all__ = ["resize_bicubic", "resize_bilinear", "resize_bilinear_nchw",
+           "resize_nearest", "upsample2x"]
 
 
 @functools.lru_cache(maxsize=256)
@@ -53,6 +54,43 @@ def _interp_weights(in_size: int, out_size: int, align_corners: bool):
                                   bool(align_corners)).copy()
 
 
+def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys cubic convolution weight at distance |t| (torch's
+    cubic_convolution1/2 with A=-0.75)."""
+    t = np.abs(t)
+    return np.where(t <= 1.0, ((a + 2.0) * t - (a + 3.0)) * t * t + 1.0,
+                    np.where(t < 2.0,
+                             (((t - 5.0) * t + 8.0) * t - 4.0) * a, 0.0))
+
+
+@functools.lru_cache(maxsize=64)
+def _bicubic_weights(in_size: int, out_size: int, align_corners: bool):
+    """Dense [out_size, in_size] f32 bicubic interpolation matrix of torch
+    `interpolate(mode='bicubic')`, equal bit for bit to the JAX package's:
+    4 taps i-1..i+2 with Keys a=-0.75 weights; the source coordinates are
+    NOT clamped (torch's cubic convention, unlike bilinear), the taps out of
+    range clamp to the edge pixels. Cached and read-only."""
+    if in_size == out_size:
+        mat = np.eye(out_size, dtype=np.float32)
+    else:
+        out = np.arange(out_size, dtype=np.float64)
+        if align_corners:
+            src = (np.zeros(1, np.float64) if out_size == 1
+                   else out * (in_size - 1) / (out_size - 1))
+        else:
+            src = (out + 0.5) * (in_size / out_size) - 0.5
+        i = np.floor(src).astype(np.int64)
+        t = src - i
+        mat = np.zeros((out_size, in_size), dtype=np.float32)
+        rows = np.arange(out_size)
+        for k in (-1, 0, 1, 2):
+            idx = np.clip(i + k, 0, in_size - 1)
+            np.add.at(mat, (rows, idx),
+                      _cubic_kernel(t - k).astype(np.float32))
+    mat.flags.writeable = False
+    return mat
+
+
 @functools.lru_cache(maxsize=256)
 def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     # torch 'nearest' convention: src = floor(out * in / out_size)
@@ -64,16 +102,18 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=256)
 def _device_weights(in_size: int, out_size: int, align_corners: bool,
-                    compute_dtype, device) -> torch.Tensor:
-    """`_interp_weights` on `device`, rounded to `compute_dtype` and held as
-    f32: copied there once and shared (never written to), since a copy from
-    pageable host memory waits for all the work queued on the stream. Made
-    outside inference mode, so that a matrix first used while serving can
-    take part in a later training graph."""
+                    compute_dtype, device, bicubic: bool = False
+                    ) -> torch.Tensor:
+    """`_interp_weights` (or `_bicubic_weights`) on `device`, rounded to
+    `compute_dtype` and held as f32: copied there once and shared (never
+    written to), since a copy from pageable host memory waits for all the
+    work queued on the stream. Made outside inference mode, so that a matrix
+    first used while serving can take part in a later training graph."""
+    make = _bicubic_weights if bicubic else _interp_weights_cached
     with torch.inference_mode(False):
-        return torch.from_numpy(_interp_weights(
-            in_size, out_size, align_corners)).to(
-                device=device, dtype=compute_dtype).float()
+        return torch.from_numpy(make(int(in_size), int(out_size),
+                                     bool(align_corners)).copy()).to(
+            device=device, dtype=compute_dtype).float()
 
 
 @functools.lru_cache(maxsize=256)
@@ -83,14 +123,8 @@ def _device_nearest_indices(in_size: int, out_size: int, device):
                             device=device)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw,
-                    align_corners: bool = False) -> torch.Tensor:
-    """Bilinear-resize NHWC (or HWC) `x` to `out_hw=(H, W)`.
-
-    The interpolation matrices are cast to the compute dtype (f32 for an f32
-    or f64 input, bf16 otherwise), and each contraction runs in f32 and
-    rounds to the compute dtype, as the JAX package's HIGHEST-precision
-    einsums do. The output has the input's dtype."""
+def _resize_separable(x: torch.Tensor, out_hw, align_corners: bool,
+                      bicubic: bool) -> torch.Tensor:
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -101,14 +135,36 @@ def resize_bilinear(x: torch.Tensor, out_hw,
     orig_dtype = x.dtype
     compute_dtype = (torch.float32 if x.dtype in (torch.float32, torch.float64)
                      else torch.bfloat16)
-    mh = _device_weights(h, oh, bool(align_corners), compute_dtype, x.device)
-    mw = _device_weights(w, ow, bool(align_corners), compute_dtype, x.device)
+    mh = _device_weights(h, oh, bool(align_corners), compute_dtype, x.device,
+                         bicubic)
+    mw = _device_weights(w, ow, bool(align_corners), compute_dtype, x.device,
+                         bicubic)
     y = x.to(compute_dtype).float()
     # [oh,h] x [b,h,w,c] -> [b,oh,w,c]; then [ow,w] x [b,oh,w,c] -> [b,oh,ow,c]
     y = torch.einsum("oh,bhwc->bowc", mh, y).to(compute_dtype).float()
     y = torch.einsum("pw,bowc->bopc", mw, y).to(compute_dtype)
     y = y.to(orig_dtype)
     return y[0] if squeeze else y
+
+
+def resize_bilinear(x: torch.Tensor, out_hw,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear-resize NHWC (or HWC) `x` to `out_hw=(H, W)`.
+
+    The interpolation matrices are cast to the compute dtype (f32 for an f32
+    or f64 input, bf16 otherwise), and each contraction runs in f32 and
+    rounds to the compute dtype, as the JAX package's HIGHEST-precision
+    einsums do. The output has the input's dtype."""
+    return _resize_separable(x, out_hw, align_corners, bicubic=False)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw,
+                   align_corners: bool = False) -> torch.Tensor:
+    """Bicubic-resize NHWC (or HWC) `x` to `out_hw=(H, W)`: torch
+    `interpolate(mode='bicubic')`'s function with `resize_bilinear`'s
+    compute dtypes and roundings (an f32 input, the ViT's position grid,
+    runs both contractions in f32). Differentiable in `x`."""
+    return _resize_separable(x, out_hw, align_corners, bicubic=True)
 
 
 def resize_bilinear_nchw(x: torch.Tensor, out_hw,

@@ -36,8 +36,8 @@ def refuse_unported(parser: argparse.ArgumentParser,
                     opt: argparse.Namespace, table: dict) -> None:
     """Exit through `parser.error` (status 2) if `opt` sets an option of
     `table`, names a model that is not ported yet, or a `--variant` that
-    its family lacks or whose encoder is not ported yet (UPerNet's cn-*,
-    swin-* and vit-*)."""
+    its family lacks or whose encoder is not ported yet (`UNPORTED_ENCODERS`,
+    none now)."""
     problems = unported_options(vars(opt), table)
     model = getattr(opt, "model", None)
     variant = getattr(opt, "variant", "")

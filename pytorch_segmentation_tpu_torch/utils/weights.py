@@ -12,7 +12,13 @@ leaf's rank and its siblings where a name is not enough:
   - a LayerNorm's `scale` (a `scale` beside a `bias` and no `kernel`) <->
     the port's `LayerNorm.weight`, a 1-D `weight` outside a BN;
   - a learned scale alone in its module (`<module>.scale`, DANet's residual
-    gates) keeps its name.
+    gates) keeps its name;
+  - a bare parameter (`BARE_PARAMS`: ConvNeXt's layer scale `gamma` (C,),
+    Swin's relative-position bias table `rpb` ((2ws-1)^2, heads), the ViT's
+    `class_token` (1, 1, C) and `pos_embedding` (1, 1+g^2, C), Segmenter's
+    class embeddings `cls_emb` (1, K, C)) keeps its name and its layout
+    both ways: a 1-D `gamma` is no LayerNorm scale, a 2-D `rpb` no Dense
+    kernel.
 
 `state_dict_from_jax` is the JAX package's
 `utils/port_torch.export_torch_state_dict` where that export maps every
@@ -30,8 +36,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "jax_trees_from_state_dict", "load_state",
-           "seeded_state_dict"]
+__all__ = ["BARE_PARAMS", "state_dict_from_jax", "jax_trees_from_state_dict",
+           "load_state", "seeded_state_dict"]
+
+# parameters that are neither a kernel, a bias nor a norm's scale: carried
+# verbatim under their own names
+BARE_PARAMS = ("gamma", "rpb", "class_token", "pos_embedding", "cls_emb")
 
 
 def _conv_oihw(kernel) -> np.ndarray:
@@ -56,7 +66,9 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
             leaf = parts[-1]
             parent = parts[-2] if len(parts) >= 2 else ""
             base = ".".join(parts[:-1])
-            if parent == "bn" and leaf in ("scale", "bias"):
+            if leaf in BARE_PARAMS:
+                sd[path] = np.asarray(v, np.float32)
+            elif parent == "bn" and leaf in ("scale", "bias"):
                 name = "weight" if leaf == "scale" else "bias"
                 sd[f"{base}.{name}"] = np.asarray(v, np.float32)
             elif leaf == "kernel" and np.ndim(v) == 2:  # Dense (in, out)
@@ -95,8 +107,9 @@ def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
     (tensors or numpy arrays) -> nested numpy `(params, batch_stats)` trees
     in the JAX package's layout (conv kernels OIHW -> HWIO, BN weight ->
     scale, running_mean/var -> mean/var, Linear weight (out, in) -> Dense
-    kernel (in, out), a 1-D weight outside a BN -> LayerNorm scale;
-    `num_batches_tracked` has no counterpart and is dropped)."""
+    kernel (in, out), a 1-D weight outside a BN -> LayerNorm scale,
+    `BARE_PARAMS` as they are; `num_batches_tracked` has no counterpart and
+    is dropped)."""
     params: dict = {}
     batch_stats: dict = {}
 
@@ -113,7 +126,9 @@ def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
         is_bn = bool(parts) and parts[-1] == "bn"
         if leaf == "num_batches_tracked":
             continue
-        if leaf in ("running_mean", "running_var"):
+        if leaf in BARE_PARAMS:
+            put(params, parts, leaf, value.astype(np.float32))
+        elif leaf in ("running_mean", "running_var"):
             put(batch_stats, parts, leaf[len("running_"):],
                 value.astype(np.float32))
         elif is_bn and leaf == "weight" or leaf == "weight" and \
@@ -153,11 +168,17 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
     non-trivial (weight 0.5..1.5, bias N(0, 0.1), mean N(0, 0.1),
     var 0.5..1.5), so eval-mode BN is exercised; LayerNorm weight 0.5..1.5,
     bias N(0, 0.1); a learned scale outside a BN (DANet's residual gates)
-    0.5..1.5, so the branch it gates counts.
+    0.5..1.5, so the branch it gates counts; the bare parameters
+    (`BARE_PARAMS`) of order 0.1-1: ConvNeXt's `gamma` 0.5..1.5, the others
+    N(0, 0.5^2), so a ConvNeXt block's body, the relative-position bias and
+    the position grid all count.
 
     'train': the JAX package's own start of training: the same kind of conv
     and Linear weights, but their biases 0, BN and LayerNorm weight 1, bias
-    0, running mean 0 and variance 1, learned scales 0.
+    0, running mean 0 and variance 1, learned scales 0, ConvNeXt's `gamma`
+    1e-6, the ViT's `class_token` 0 and the other bare parameters 0.02
+    times a standard normal clipped to +-2 (the JAX inits: a constant, zeros
+    and truncated normals of scale 0.02).
 
     'uniform': as 'serve', but the conv and Linear weights uniform in
     +-1/sqrt(fan_in), torch's default init. Small f32 models whose deep
@@ -182,6 +203,14 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
                  and sibling is not None and sibling.dim() == 1)
         if leaf == "num_batches_tracked":
             v = np.zeros((), np.int64)
+        elif leaf in BARE_PARAMS and init == "train":
+            v = (np.full(shape, 1e-6) if leaf == "gamma"
+                 else np.zeros(shape) if leaf == "class_token"
+                 else 0.02 * np.clip(rng.standard_normal(shape), -2.0, 2.0))
+        elif leaf == "gamma":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif leaf in BARE_PARAMS:
+            v = 0.5 * rng.standard_normal(shape)
         elif is_ln and leaf == "weight":
             v = (np.ones(shape) if init == "train"
                  else rng.uniform(0.5, 1.5, shape))

@@ -128,8 +128,8 @@ def test_unported_model_and_shapes_exit_2(filename, capsys):
     err = capsys.readouterr().err
     assert ("--model segnext is not ported yet (ROADMAP queue 1 item 6, "
             "other model families); ported: danet, deeplabv3, deeplabv3plus, "
-            "fastfcn, fcn, fpn, hrnet, lraspp, pspnet, segformer, unet, "
-            "upernet") in err
+            "fastfcn, fcn, fpn, hrnet, lraspp, pspnet, segformer, segmenter, "
+            "unet, upernet") in err
     assert "has no variants" in err
     if filename == "train.py":
         assert "square images only so far (ROADMAP queue 1 item 8" in err

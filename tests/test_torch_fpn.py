@@ -127,7 +127,7 @@ def test_variants_are_the_jax_packages():
                            "backbone_layers": (3, 4, 6, 3)}}
     assert MODEL_VARIANTS == {name: JAX_MODEL_VARIANTS[name] for name in
                               ("danet", "deeplabv3", "fcn", "fpn",
-                               "segformer", "upernet")}
+                               "segformer", "segmenter", "upernet")}
     model = build_model("fpn", NC, **variant_kwargs("fpn", "R34"))
     assert model.block == "basic" and model.backbone.out_channels == 512
     assert variant_kwargs("fpn", "") == {}
@@ -136,7 +136,7 @@ def test_variants_are_the_jax_packages():
         variant_kwargs("fpn", "r18")
     with pytest.raises(ValueError, match=r"model 'pspnet' has no variants "
                        r"\(families with variants: \['danet', 'deeplabv3', "
-                       r"'fcn', 'fpn', 'segformer', 'upernet'\]\)"):
+                       r"'fcn', 'fpn', 'segformer', 'segmenter', 'upernet'\]\)"):
         variant_kwargs("pspnet", "r50")
     with pytest.raises(NotImplementedError, match="not ported"):
         variant_kwargs("segnext", "t")

@@ -1,15 +1,20 @@
 """PyTorch port: UPerNet (the PPM-capped FPN head) on its ResNet encoders
-(bottleneck and basic blocks) and on SegFormer's Mix Transformer, against
-the JAX package on the same seeded weights and inputs, on the CPU: the
-weights' mapping, the f32 and bf16 forwards, `make_mask_fn` (stride-4
-logits, align_corners=False), the auxiliary head (train mode only, one aux
-`Trainer` step against the JAX train step with aux_weight 0.4, the
-train-only entries that `load_model_bundle` drops), the adaptive pools of a
-C5 smaller than the pool scales, and the encoders that are not ported. 5
-classes, 64x64 inputs (C5 is 2x2, so the 3x3 and 6x6 pools pool UP),
+(bottleneck and basic blocks), SegFormer's Mix Transformer, ConvNeXt, Swin
+and the plain ViT (with the MultiLevelNeck), against the JAX package on the
+same seeded weights and inputs, on the CPU: the weights' mapping, the f32
+and bf16 forwards, `make_mask_fn` (stride-4 logits, align_corners=False),
+the auxiliary head (train mode only, one aux `Trainer` step against the JAX
+train step with aux_weight 0.4, the train-only entries that
+`load_model_bundle` drops), the adaptive pools of a C5 smaller than the
+pool scales, a Swin block and a ViT block bit for bit against eager flax in
+bf16, and every variant of the JAX table on the meta device. 5 classes,
 batch 2, one block a ResNet stage (`backbone_layers=(1, 1, 1, 1)`), a head
-of `channels=64`, the JAX package's `tiny` MiT. Each JAX program is
-compiled once."""
+of `channels=64`, the JAX package's `tiny` MiT and `pico` ConvNeXt, Swin
+and ViT; 64x64 inputs (C5 is 2x2, so the 3x3 and 6x6 pools pool UP) but for
+Swin and ViT at 96x96: Swin-pico's third stage (6x6, window 4) then shifts
+on a padded 8x8 canvas, and the ViT's 6x6 patch grid differs from its
+stored 4x4 one, so the bicubic resize runs. Each JAX program is compiled
+once."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_segmentation_tpu.models import (
+    MODEL_VARIANTS as JAX_MODEL_VARIANTS)
 from pytorch_segmentation_tpu.models import UPerNet as JaxUPerNet
+from pytorch_segmentation_tpu.nn.backbones.convnext import (
+    CONVNEXT_VARIANTS as JAX_CONVNEXT_VARIANTS)
+from pytorch_segmentation_tpu.nn.backbones.swin import (
+    SWIN_VARIANTS as JAX_SWIN_VARIANTS)
+from pytorch_segmentation_tpu.nn.backbones.vit import (
+    VIT_VARIANTS as JAX_VIT_VARIANTS)
 from pytorch_segmentation_tpu.ops.pool import (
     adaptive_avg_pool2d as jax_adaptive_avg_pool2d)
 from pytorch_segmentation_tpu.utils.port_torch import convert_named
@@ -27,7 +40,9 @@ from pytorch_segmentation_tpu_torch import test as ttest
 from pytorch_segmentation_tpu_torch import train as ttrain
 from pytorch_segmentation_tpu_torch.engine.checkpoint import (
     load_model_bundle, save_checkpoint)
-from pytorch_segmentation_tpu_torch.models import build_model, variant_kwargs
+from pytorch_segmentation_tpu_torch.models import (UNPORTED_ENCODERS,
+                                                   build_model,
+                                                   variant_kwargs)
 from pytorch_segmentation_tpu_torch.ops.loss import compute_loss
 from pytorch_segmentation_tpu_torch.ops.pool import adaptive_avg_pool2d
 from pytorch_segmentation_tpu_torch.utils.weights import (
@@ -36,7 +51,7 @@ from torch_family_util import (FamilyCase, assert_forward_matches_jax,
                                assert_mask_fn_matches_jax,
                                assert_step_matches, assert_weights_match_jax,
                                jax_train_step, port_trainer_step,
-                               train_batch)
+                               train_batch, without_default_init)
 
 torch.set_num_threads(1)
 
@@ -44,24 +59,34 @@ NC, HW = 5, 64
 RESNET = {"backbone_layers": (1, 1, 1, 1), "channels": 64}
 AUX_WEIGHT = 0.4   # the JAX make_train_step's default, the train CLI's
 
-# name -> constructor arguments
-CASES = {"r50_aux": dict(RESNET, aux=True),
-         "r34": dict(RESNET, block="basic"),
-         "mit_aux": {"encoder": "mit", "mit_variant": "tiny", "channels": 64,
-                     "aux": True}}
+# name -> (input size, constructor arguments)
+CASES = {"r50_aux": (HW, dict(RESNET, aux=True)),
+         "r34": (HW, dict(RESNET, block="basic")),
+         "mit_aux": (HW, {"encoder": "mit", "mit_variant": "tiny",
+                          "channels": 64, "aux": True}),
+         "cn": (HW, {"encoder": "convnext", "convnext_variant": "pico",
+                     "channels": 64}),
+         "swin": (96, {"encoder": "swin", "swin_variant": "pico",
+                       "channels": 64}),
+         "vit": (96, {"encoder": "vit", "vit_variant": "pico",
+                      "channels": 64})}
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request, tmp_path_factory):
-    # the MiT encoder's bf16 logits part from the compiled JAX program's as
-    # far as SegFormer's do (tests/test_torch_segformer.py: XLA keeps the
-    # patch embeddings' convolution outputs in f32 into their LayerNorms
-    # where the source rounds to bf16): the mean bound is 1.25 of the bf16
-    # error there, 0.4 on the ResNet encoders
-    bound = 1.25 if request.param.startswith("mit") else 0.4
-    return FamilyCase("upernet", JaxUPerNet, NC, HW,
+    # the transformer encoders' bf16 logits part from the compiled JAX
+    # program's as far as SegFormer's do (tests/test_torch_segformer.py: XLA
+    # keeps a convolution's output in f32 into the LayerNorm after it, and
+    # GELU's erfc unrounded, where the source rounds to bf16): the mean
+    # bound is 1.25 of the bf16 error there (ConvNeXt's depthwise conv and
+    # its LayerNorm, its GELU, likewise), 0.4 on the ResNet encoders; the
+    # cast points are held bit for bit against eager flax instead
+    # (test_bf16_swin_block_matches_eager_jax and the ViT's)
+    hw, kwargs = CASES[request.param]
+    bound = 0.4 if request.param.startswith("r") else 1.25
+    return FamilyCase("upernet", JaxUPerNet, NC, hw,
                       tmp_path_factory.mktemp(request.param),
-                      logits_mean_bound=bound, **CASES[request.param])
+                      logits_mean_bound=bound, **kwargs)
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +94,17 @@ def f32(case):
     """The JAX UPerNet's stride-4 f32 logits [2, 16, 16, NC] (an eval-mode
     forward: the aux head's output is dropped there)."""
     return case.jax_logits()
+
+
+# a leaf of each encoder's tree that its mapping must carry as it is
+WIDEST = {
+    "mit": lambda b: b["norm4"] == {"scale": (128,), "bias": (128,)},
+    "convnext": lambda b: b["stage3_block0"]["gamma"] == (128,)
+    and b["stage3_block0"]["dwconv"]["kernel"] == (7, 7, 1, 128),
+    "swin": lambda b: b["stage2_block1"]["attn"]["rpb"] == (49, 4)
+    and b["merge3"]["reduction"] == {"kernel": (256, 128)},
+    "vit": lambda b: b["pos_embedding"] == (1, 17, 32)
+    and b["class_token"] == (1, 1, 32)}
 
 
 def test_weights_map_to_jax(case):
@@ -83,7 +119,7 @@ def test_weights_map_to_jax(case):
     assert ("aux_cls.bias" in names) == aux
     assert {f"ppm_conv{s}.conv.weight" for s in (1, 2, 3, 6)} <= names
     assert model.fpn_bottleneck.conv.in_channels == 4 * 64
-    if case.kwargs.get("encoder") != "mit":
+    if case.kwargs.get("encoder") is None:
         assert_weights_match_jax(case)
         widths = 512 if case.kwargs.get("block") == "basic" else 2048
         assert model.ppm_bottleneck.conv.in_channels == widths + 4 * 64
@@ -92,8 +128,7 @@ def test_weights_map_to_jax(case):
     assert jax.tree_util.tree_map(lambda a: tuple(a.shape),
                                   (case.params, case.stats)) == (
         params_shapes, stats_shapes)
-    assert params_shapes["backbone"]["norm4"] == {"scale": (128,),
-                                                  "bias": (128,)}
+    assert WIDEST[case.kwargs["encoder"]](params_shapes["backbone"])
     want_p, want_s = convert_named({k: v.numpy() for k, v in
                                     case.sd.items()})
     for got, want in ((case.params, want_p), (case.stats, want_s)):
@@ -128,15 +163,16 @@ def test_aux_head_runs_in_train_mode_only(case):
     """An eval-mode forward returns the logits alone; a train-mode one of
     an aux model returns (logits, aux logits at C4's stride, 16)."""
     model = case.loaded()
-    x = torch.zeros(2, 3, HW, HW)
+    hw = case.hw
+    x = torch.zeros(2, 3, hw, hw)
     with torch.no_grad():
-        assert model(x).shape == (2, NC, HW // 4, HW // 4)
+        assert model(x).shape == (2, NC, hw // 4, hw // 4)
         out = model.train()(x)
     if not case.kwargs.get("aux"):
         assert isinstance(out, torch.Tensor)
         return
-    assert [tuple(o.shape) for o in out] == [(2, NC, HW // 4, HW // 4),
-                                             (2, NC, HW // 16, HW // 16)]
+    assert [tuple(o.shape) for o in out] == [(2, NC, hw // 4, hw // 4),
+                                             (2, NC, hw // 16, hw // 16)]
 
 
 def test_aux_trainer_step_matches_jax(tmp_path):
@@ -147,7 +183,7 @@ def test_aux_trainer_step_matches_jax(tmp_path):
     aux_weight 0.4: the loss equals the plain compute_loss of the main
     logits plus 0.4 times that of the aux logits (1e-6 relative)."""
     case = FamilyCase("upernet", JaxUPerNet, NC, HW, tmp_path,
-                      **dict(CASES["r34"], aux=True))
+                      **dict(CASES["r34"][1], aux=True))
     batch = train_batch(case)
     model = case.loaded(full_res_output=True).train()
     with torch.no_grad():
@@ -211,6 +247,83 @@ def test_adaptive_pool_of_a_small_c5_matches_jax(dtype):
         got[:, 0:1, 0:1], got[:, 0:3, 0:3].shape))   # 6 from 2: 3 repeats
 
 
+def _bf16_input(shape, seed=5):
+    x = jnp.asarray(np.random.default_rng(seed).standard_normal(shape),
+                    jnp.bfloat16)
+    return x, torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+
+
+def _seeded_pair(port, zero=()):
+    """Seeded weights loaded into `port` and as the flax params; the
+    entries named in `zero` set to 0."""
+    sd = seeded_state_dict(port, seed=4)
+    for k in zero:
+        sd[k] = torch.zeros_like(sd[k])
+    port.load_state_dict(sd)
+    return jax_trees_from_state_dict(sd)[0]
+
+
+@pytest.mark.parametrize("hw,shift", [(6, 2), (4, 0)],
+                         ids=["padded_shifted", "shift_set_to_0"])
+def test_bf16_swin_window_attention_matches_eager_jax(hw, shift):
+    """Swin-pico's third-stage window attention (64 wide, 4 heads, window
+    4, nominal shift 2) in bf16 against the JAX `_WindowAttention` run op
+    by op, equal bit for bit: at 6x6 the map pads to 8x8 and shifts by 2
+    under the mask of the padded canvas; at 4x4 the window covers the axis
+    and the shift is set to 0 (no roll, no mask). The relative-position
+    bias `rpb` is seeded N(0, 0.25), so a wrong index would show."""
+    from pytorch_segmentation_tpu.nn.backbones.swin import (
+        _WindowAttention as JaxWindowAttention)
+    from pytorch_segmentation_tpu_torch.nn.backbones.swin import (
+        _WindowAttention, _shift_mask)
+    port = _WindowAttention(64, 4, 4, 2, torch.bfloat16)
+    params = _seeded_pair(port)
+    assert float(np.abs(params["rpb"]).max()) > 0.5
+    x, xt = _bf16_input((2, hw, hw, 64))
+    want = JaxWindowAttention(64, 4, 4, 2, jnp.bfloat16).apply(
+        {"params": params}, x)
+    with torch.no_grad():
+        got = port(xt)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, hw, hw, 64)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    if shift:   # 4 windows of the 8x8 canvas; all but the first straddle
+        mask = _shift_mask(8, 8, 4, shift, shift)     # two of 9 regions
+        assert (mask == -100).any(axis=(1, 2)).tolist() == [False, True,
+                                                            True, True]
+
+
+def test_bf16_vit_block_attention_matches_eager_jax():
+    """The ViT block's attention half in bf16 (`ln1`, the fused `qkv`, q
+    scaled by hd**-0.5 in bf16 before the product, the f32 softmax, the
+    bf16 product with v, `proj`, the residual) against the JAX `_ViTBlock`
+    run op by op with its `fc2` zeroed (its MLP then adds exactly 0): equal
+    bit for bit, on 1 + 36 tokens (a class token and a 6x6 grid). The full
+    block differs only by the GELU: `F.gelu` rounds once, where the eager
+    JAX GELU rounds each of its bf16 steps (x/2, -x times sqrt(1/2) in
+    bf16, erfc, the product); the full blocks differ by at most 2^-7 of the
+    largest output (measured: 2^-6 where the largest is 4.8)."""
+    from pytorch_segmentation_tpu.nn.backbones.vit import (
+        _ViTBlock as JaxViTBlock)
+    from pytorch_segmentation_tpu_torch.nn.backbones.vit import _ViTBlock
+    x, xt = _bf16_input((2, 37, 64))
+    port = _ViTBlock(64, 2, torch.bfloat16)
+    params = _seeded_pair(port, zero=("fc2.weight", "fc2.bias"))
+    want = JaxViTBlock(64, 2, jnp.bfloat16).apply({"params": params}, x)
+    with torch.no_grad():
+        got = port.attention(xt)
+        assert torch.equal(port(xt), got)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    params = _seeded_pair(port)
+    want = np.asarray(JaxViTBlock(64, 2, jnp.bfloat16).apply(
+        {"params": params}, x).astype(jnp.float32))
+    with torch.no_grad():
+        got = port(xt).float().numpy()
+    diff = np.abs(got - want)
+    assert diff.max() <= 2.0 ** -7 * np.abs(want).max()
+
+
 def _cli_argv(cli, tmp_path, *extra):
     weights = tmp_path / "w.pt"
     weights.touch()
@@ -223,36 +336,74 @@ CLIS = {"train": ttrain, "test": ttest, "inference": tinference,
         "serve": tserve}
 
 
+def _encoder_sizes(backbone, encoder):
+    """The encoder's table row, read back from the built trunk's shapes."""
+    if encoder == "convnext":
+        depths = tuple(sum(n.startswith(f"stage{s}_block")
+                           for n, _ in backbone.named_children())
+                       for s in range(4))
+        dims = tuple(getattr(backbone, f"stage{s}_block0").gamma.shape[0]
+                     for s in range(4))
+        return depths, dims
+    if encoder == "swin":
+        depths = tuple(sum(n.startswith(f"stage{s}_block")
+                           for n, _ in backbone.named_children())
+                       for s in range(4))
+        blocks = [getattr(backbone, f"stage{s}_block0").attn
+                  for s in range(4)]
+        return (depths, backbone.patch_conv.out_channels,
+                tuple(a.heads for a in blocks), blocks[0].window)
+    block = backbone.block0
+    return (backbone.layers, backbone.dim, block.heads,
+            backbone.conv_proj.kernel_size[0], backbone.base_grid,
+            backbone.out_indices)
+
+
 @pytest.mark.parametrize("variant", ["cn-t", "swin-t", "vit-b16"])
 def test_unported_encoders_are_refused(variant, tmp_path, capsys):
-    """`variant_kwargs` returns the JAX table's entry; the constructor
-    refuses the encoder, and each command line exits 2 naming the item."""
+    """The encoders once refused are ported: `variant_kwargs` returns the
+    JAX table's entry, the model builds (on the meta device) at the JAX
+    table's sizes and every command line parses the variant. `--variant`
+    of a family not ported yet (maskformer's r50) still exits 2 on each,
+    naming the item."""
     kwargs = variant_kwargs("upernet", variant)
-    assert kwargs["encoder"] in ("convnext", "swin", "vit")
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP "
-                       r"queue 1 item 6, other model families\)"):
-        build_model("upernet", NC, **kwargs)
+    assert kwargs == JAX_MODEL_VARIANTS["upernet"][variant]
+    encoder = kwargs["encoder"]
+    assert encoder not in UNPORTED_ENCODERS == ()
+    with torch.device("meta"):
+        model = build_model("upernet", 21, **kwargs)
+    table, key = {"convnext": (JAX_CONVNEXT_VARIANTS, "convnext_variant"),
+                  "swin": (JAX_SWIN_VARIANTS, "swin_variant"),
+                  "vit": (JAX_VIT_VARIANTS, "vit_variant")}[encoder]
+    assert _encoder_sizes(model.backbone, encoder) == table[kwargs[key]]
+    assert model.cls_conv.out_channels == 21
     for cli, module in CLIS.items():
+        opt = module.parse_args(_cli_argv(cli, tmp_path, "--model", "upernet",
+                                          "--variant", variant))
+        assert (opt.model, opt.variant) == ("upernet", variant), cli
         with pytest.raises(SystemExit) as err:
-            module.parse_args(_cli_argv(cli, tmp_path, "--model", "upernet",
-                                        "--variant", variant))
+            module.parse_args(_cli_argv(cli, tmp_path, "--model",
+                                        "maskformer", "--variant", "r50"))
         assert err.value.code == 2, cli
-        assert (f"--variant {variant} is not ported yet (ROADMAP queue 1 "
+        assert ("--model maskformer is not ported yet (ROADMAP queue 1 "
                 "item 6" in capsys.readouterr().err), cli
 
 
 def test_ported_variants_and_aux_loss_parse(tmp_path):
-    """r50, r34 and mit-b0...mit-b5 build (on the meta device: shapes
-    only); `train --model upernet --aux-loss 0.4` parses, and every command
-    line takes a SegFormer and a UPerNet `--variant`."""
-    for variant in ("r50", "r34", "mit-b0", "mit-b5", "mit-tiny"):
-        with torch.device("meta"):
+    """Every variant of the JAX table builds (on the meta device: shapes
+    only) with its encoder; `train --model upernet --aux-loss 0.4` parses,
+    and every command line takes a SegFormer and a UPerNet `--variant`."""
+    encoders = {"r": "resnet", "mit": "mit", "cn": "convnext",
+                "swin": "swin", "vit": "vit"}
+    for variant in JAX_MODEL_VARIANTS["upernet"]:
+        with without_default_init(), torch.device("meta"):
             model = build_model("upernet", 21,
                                 **variant_kwargs("upernet", variant))
         assert model.channels == 512 and model.cls_conv.out_channels == 21
-        assert model.encoder == ("mit" if variant.startswith("mit")
-                                 else "resnet")
-    assert hasattr(model.backbone, "block1_0")
+        assert model.encoder == encoders[variant.split("-")[0].rstrip(
+            "0123456789")], variant
+        if variant == "mit-tiny":
+            assert hasattr(model.backbone, "block1_0")
     opt = ttrain.parse_args(["data", "--model", "upernet", "--variant",
                              "r34", "--aux-loss", "0.4"])
     assert (opt.model, opt.variant, opt.aux_loss) == ("upernet", "r34", 0.4)

@@ -62,12 +62,17 @@ class FamilyCase:
     bound is held at the logits, as `logits_mean_bound` of the bf16 error
     there, and, where `probe` (a top-level submodule's name and an index
     into its output sequence) names an activation, at 0.4 of the bf16 error
-    at that activation as well."""
+    at that activation as well. Every bf16 logit is held within 2% of the
+    largest, or, given `logits_max_bound`, within that multiple of the
+    largest bf16 error at the logits. `f32_logits`: the logits are f32
+    whatever the compute dtype (Segmenter's)."""
 
     def __init__(self, name, jax_cls, num_classes, hw, tmp_dir, probe=None,
-                 logits_mean_bound=0.4, **kwargs):
+                 logits_mean_bound=0.4, logits_max_bound=None,
+                 f32_logits=False, **kwargs):
         self.name, self.jax_cls, self.nc, self.hw = name, jax_cls, num_classes, hw
         self.probe, self.logits_mean_bound = probe, logits_mean_bound
+        self.logits_max_bound, self.f32_logits = logits_max_bound, f32_logits
         self.kwargs = kwargs
         # the seeded start: conv kernels uniform in +-1/sqrt(fan_in), BN
         # affines and statistics non-trivial (the f32 logits stay near 1, so
@@ -111,7 +116,7 @@ class FamilyCase:
         return (jax.tree_util.tree_map(lambda s: tuple(s.shape),
                                        variables["params"]),
                 jax.tree_util.tree_map(lambda s: tuple(s.shape),
-                                       variables["batch_stats"]))
+                                       variables.get("batch_stats", {})))
 
     def jax_logits(self, dtype=jnp.float32):
         """The JAX module's low-resolution logits on `images` (NHWC f32)
@@ -128,7 +133,7 @@ class FamilyCase:
         args = ({"params": self.params, "batch_stats": self.stats}, x)
         logits, state = jax.jit(run).lower(*args).compile(
             compiler_options=FAST_COMPILE)(*args)
-        assert logits.dtype == dtype
+        assert logits.dtype == (jnp.float32 if self.f32_logits else dtype)
         inner = (state["intermediates"][name]["__call__"][0][index]
                  if self.probe else logits)
         return (np.asarray(logits.astype(jnp.float32)),
@@ -145,7 +150,7 @@ class FamilyCase:
         with torch.inference_mode():
             got = model(normalize_images(torch.from_numpy(self.images))
                         .permute(0, 3, 1, 2))
-        assert got.dtype == dtype
+        assert got.dtype == (torch.float32 if self.f32_logits else dtype)
         inner = inner[0] if inner else got
         return (got.permute(0, 2, 3, 1).float().numpy(),
                 inner.permute(0, 2, 3, 1).float().numpy())
@@ -181,9 +186,12 @@ def assert_forward_matches_jax(case, full_res_output, dtype, f32, bf16=None):
     largest, the mean difference within `case.logits_mean_bound` of the
     mean bf16 error at the logits and within 0.4 of it at the probe (what a
     cast moved from where the JAX module puts it would exceed), and the
-    masks of `make_mask_fn` by the top-2-gap rule."""
+    masks of `make_mask_fn` by the top-2-gap rule. (`case.logits_max_bound`
+    replaces the 2% rule, as a multiple of the largest bf16 error.)"""
     align = case.jax_module().up_align_corners
-    stride = case.jax_module().output_stride
+    # the port's stride, held to the JAX logits' size below (the JAX
+    # Segmenter has no `output_stride` field)
+    stride = case.port_module().output_stride
     want, want_inner = f32 if dtype == torch.float32 else bf16
     if full_res_output:
         want = np.asarray(jax_resize(jnp.asarray(want), (case.hw, case.hw),
@@ -198,7 +206,11 @@ def assert_forward_matches_jax(case, full_res_output, dtype, f32, bf16=None):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
         return
     diff = np.abs(got - want)
-    assert diff.max() <= 0.02 * np.abs(want).max(), diff.max()
+    if case.logits_max_bound is None:
+        assert diff.max() <= 0.02 * np.abs(want).max(), diff.max()
+    else:
+        assert diff.max() <= case.logits_max_bound * np.abs(
+            want - f32[0]).max(), (diff.max(), np.abs(want - f32[0]).max())
     bf16_error = np.abs(want - f32[0]).mean()
     assert diff.mean() <= case.logits_mean_bound * bf16_error, (
         diff.mean(), bf16_error)
