@@ -2258,10 +2258,12 @@ FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
 FAMILY_VARIANTS = {"upernet_swin": ("upernet", "swin-t"),
                    "upernet_cn": ("upernet", "cn-t"),
                    "upernet_vit": ("upernet", "vit-b16")}
-# the families whose upsampling taps are not short binary fractions, so
-# that kernel 3's counts may differ from the plain version's by the
-# near-tie pixels; every other family's counts must equal exactly
-NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3")
+# the families whose upsampling taps are not short binary fractions, or
+# whose logits are f32 (Segmenter's: a tap of k/32 times an f32 logit
+# rounds, where times a bf16 one it is exact), so that kernel 3's counts
+# may differ from the plain version's by the near-tie pixels; every other
+# family's counts must equal exactly
+NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3", "segmenter")
 # the constructor arguments each family is trained with (the aux heads'
 # loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
 FAMILY_KWARGS = {name: {"aux": True} for name in (
@@ -2278,8 +2280,9 @@ FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12, "upernet": 12}
 # (family, variant) pairs that serve one batch
 ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"), ("segformer", "b2"),
                       ("upernet", "mit-b0"))
-# family entries that serve one batch and take one train step at 512
+# family entries that serve one batch and take one train step
 ONE_STEP_FAMILIES = ("upernet_cn", "upernet_vit")
+ONE_STEP_IMG = 512
 AUX_WEIGHT = 0.4
 FAMILY_EVAL_IMAGES = 64
 FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
@@ -2561,18 +2564,13 @@ def segformer_blocks_ms(model, hw, step_ms):
         dim = block.ln1.normalized_shape[0]
         x = torch.randn(TRAIN_BATCH, side * side, dim, device=device,
                         dtype=model.dtype, requires_grad=True)
-        grad_out = torch.randn_like(x)
-        for part in totals:
-            mod = getattr(block, part)
-            params = list(mod.parameters())
-
-            def fwd_bwd():
-                torch.autograd.grad(mod(x, side, side), [x] + params,
-                                    grad_out)
-
-            ms = cuda_median_ms(fwd_bwd, reps=5)
-            figures[f"stage{i + 1}_{part}_ms_per_block"] = ms
-            totals[part] += depth * ms
+        ms = parts_ms([(part, lambda t, m=getattr(block, part): m(t, side,
+                                                                  side),
+                        list(getattr(block, part).parameters()))
+                       for part in totals], x)
+        for part, value in ms.items():
+            figures[f"stage{i + 1}_{part}_ms_per_block"] = value
+            totals[part] += depth * value
         side = (side + 1) // 2
     for part, ms in totals.items():
         figures[f"{part}_ms"] = ms
@@ -2669,11 +2667,11 @@ def vit_blocks_ms(model, hw, step_ms):
 
 def train_one_step(device, key):
     """One train step of the family entry `key` (with FAMILY_KWARGS' aux
-    head) at batch 32 from the seeded start at its FAMILY_IMGS size, on the
-    train phases' fixed batch: the loss finite, the CE kernels launched once
+    head) at batch 32 from the seeded start at ONE_STEP_IMG, on the train
+    phases' fixed batch: the loss finite, the CE kernels launched once
     for each head, the step's wall ms (cuDNN's first-call choices included)
     and the peak device memory. Returns the CE kernels' launches."""
-    hw = FAMILY_IMGS.get(key, 512)
+    hw = ONE_STEP_IMG
     heads = 2 if FAMILY_KWARGS.get(key, {}).get("aux", False) else 1
     _, batch = train_batch(device, hw)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3015,7 +3013,8 @@ def families_phase(device):
             device, name, variant, FAMILY_IMGS[name])}, f"{name}_{variant}")
     for key in ONE_STEP_FAMILIES:
         name, variant = FAMILY_VARIANTS[key]
-        add({"upsample_argmax": serve_one_batch(device, name, variant, 512),
+        add({"upsample_argmax": serve_one_batch(device, name, variant,
+                                                ONE_STEP_IMG),
              **train_one_step(device, key)}, key)
 
     fused_shapes = {}

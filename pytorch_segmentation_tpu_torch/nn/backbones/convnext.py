@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..blocks import LayerNorm, Linear, conv2d
+from ..blocks import LayerNorm, Linear, nhwc_conv
 
 __all__ = ["ConvNeXt", "CONVNEXT_VARIANTS"]
 
@@ -33,12 +33,6 @@ CONVNEXT_VARIANTS = {
     "s": ((3, 3, 27, 3), (96, 192, 384, 768)),
     "b": ((3, 3, 27, 3), (128, 256, 512, 1024)),
 }
-
-
-def nhwc_conv(conv: nn.Conv2d, x: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
-    """`conv2d` of an NHWC tensor, through its NCHW view; NHWC out."""
-    return conv2d(conv, x.permute(0, 3, 1, 2), dtype).permute(0, 2, 3, 1)
 
 
 class _CNBlock(nn.Module):

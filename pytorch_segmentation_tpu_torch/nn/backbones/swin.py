@@ -41,8 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..blocks import LayerNorm, Linear
-from .convnext import nhwc_conv
+from ..blocks import LayerNorm, Linear, nhwc_conv
 
 __all__ = ["SwinTransformer", "SWIN_VARIANTS"]
 
@@ -105,8 +104,8 @@ class _WindowAttention(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, shift: int,
                  dtype: torch.dtype):
         super().__init__()
-        self.dim, self.heads, self.window, self.shift = dim, heads, window, shift
-        self.dtype = dtype
+        self.dim, self.heads, self.dtype = dim, heads, dtype
+        self.window, self.shift = window, shift
         self.qkv = Linear(dim, 3 * dim, dtype)
         self.rpb = nn.Parameter(torch.zeros((2 * window - 1) ** 2, heads))
         self.proj = Linear(dim, dim, dtype)
@@ -140,7 +139,7 @@ class _WindowAttention(nn.Module):
             scores = scores + _device_shift_mask(ph, pw, ws, sh, sw,
                                                  scores.dtype, x.device)
         attn = torch.softmax(scores.float(), dim=-1)
-        y = torch.matmul(attn.to(dt), v)                 # [b, nW, heads, n, hd]
+        y = torch.matmul(attn.to(dt), v)             # [b, nW, heads, n, hd]
         y = y.permute(0, 1, 3, 2, 4).reshape(b, nh, nw, ws, ws, self.dim)
         y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, ph, pw, self.dim)
         if sh or sw:

@@ -59,7 +59,7 @@ class _ViTBlock(nn.Module):
         heads = self.heads
         qkv = self.qkv(self.ln1(x)).reshape(b, t, 3, heads,
                                             self.dim // heads)
-        qkv = qkv.permute(2, 0, 3, 1, 4)                      # [3, b, h, t, hd]
+        qkv = qkv.permute(2, 0, 3, 1, 4)                  # [3, b, h, t, hd]
         q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
         attn = torch.softmax(torch.matmul(q, k.transpose(-2, -1)).float(),
                              dim=-1)

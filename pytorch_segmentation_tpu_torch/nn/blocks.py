@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
 
 __all__ = ["BatchNorm2d", "ConvNormAct", "LayerNorm", "Linear",
-           "SeparableConvNormAct", "conv2d", "BN_MOMENTUM", "set_force_fused_1x1", "fused_1x1_available",
+           "SeparableConvNormAct", "conv2d", "nhwc_conv", "BN_MOMENTUM",
+           "set_force_fused_1x1", "fused_1x1_available",
            "apply_fold"]
 
 BN_MOMENTUM = 0.1  # torch convention
@@ -88,6 +89,14 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     if conv.bias is not None:
         y = y + conv.bias.to(dtype).view(1, -1, 1, 1)
     return y
+
+
+def nhwc_conv(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """`conv2d` of an NHWC tensor, through its NCHW view (channels_last
+    strides); NHWC out. The ConvNeXt and Swin trunks run on NHWC tensors,
+    as the JAX modules do."""
+    return conv2d(conv, x.permute(0, 3, 1, 2), dtype).permute(0, 2, 3, 1)
 
 
 class Linear(nn.Linear):

@@ -64,6 +64,7 @@ def _check(logits, out_hw, align):
     ((8, 129, 129, 21), (513, 513), True, torch.bfloat16),  # serving path
     ((8, 65, 65, 21), (513, 513), True, torch.bfloat16),    # PSPNet: 8x
     ((8, 128, 128, 21), (512, 512), False, torch.bfloat16),  # FPN: 4x
+    ((8, 32, 32, 21), (512, 512), False, torch.float32),  # Segmenter: 16x
 ])
 def test_kernel_matches_plain(device, shape, out_hw, align, dtype):
     x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
@@ -199,6 +200,8 @@ def _lse_check(x, y, align):
     # align_corners=False
     ((32, 128, 128, 21), (512, 512), False, torch.bfloat16, torch.int32),
     ((32, 32, 32, 21), (512, 512), False, torch.bfloat16, torch.int32),
+    # Segmenter's f32 logits (16x, align_corners=False)
+    ((32, 32, 32, 21), (512, 512), False, torch.float32, torch.int32),
 ])
 def test_ce_kernels_match_plain(device, shape, out_hw, align, dtype,
                                 label_dtype):

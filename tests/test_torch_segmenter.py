@@ -149,11 +149,13 @@ def test_seeded_bare_params(init):
     table and the grids count in every comparison; 'train' starts them as
     the JAX inits do (`gamma` 1e-6, `class_token` 0, the others 0.02 times
     a normal clipped to +-2)."""
-    model = build_model("upernet", NC, dtype=torch.float32,
-                        encoder="convnext", convnext_variant="pico")
+    with without_default_init():
+        model = build_model("upernet", NC, dtype=torch.float32,
+                            encoder="convnext", convnext_variant="pico",
+                            channels=64)
+        segmenter = build_model("segmenter", NC, **PICO)
     sd = seeded_state_dict(model, seed=0, init=init)
-    seg = seeded_state_dict(build_model("segmenter", NC, **PICO), seed=0,
-                            init=init)
+    seg = seeded_state_dict(segmenter, seed=0, init=init)
     gamma = sd["backbone.stage0_block0.gamma"]
     others = [seg["backbone.pos_embedding"], seg["decoder.cls_emb"]]
     if init == "train":
@@ -216,6 +218,7 @@ def test_make_mask_fn_matches_jax(case, f32):
     assert_mask_fn_matches_jax(case, f32, (80, 72))
 
 
+@pytest.mark.slow   # the JAX train step's trace and compile: ~7 s
 def test_trainer_step_matches_jax(case, tmp_path):
     """One SGD step (lr 1e-3, momentum 0.9) of `Trainer` on the
     full-resolution Segmenter, through its stride-16 twin (the f32 logits

@@ -6,8 +6,11 @@ and bf16 forwards, `make_mask_fn` (stride-4 logits, align_corners=False),
 the auxiliary head (train mode only, one aux `Trainer` step against the JAX
 train step with aux_weight 0.4, the train-only entries that
 `load_model_bundle` drops), the adaptive pools of a C5 smaller than the
-pool scales, a Swin block and a ViT block bit for bit against eager flax in
-bf16, and every variant of the JAX table on the meta device. 5 classes,
+pool scales, Swin's shift set to 0 where the window covers the axis, the
+Swin window attention and the ViT block's attention bit for bit against
+eager flax in bf16, and every variant of the JAX table on the meta device.
+The ConvNeXt, Swin and ViT cases' bf16 forwards and the eager comparisons
+are marked slow (each JAX compile or eager op compile of its own). 5 classes,
 batch 2, one block a ResNet stage (`backbone_layers=(1, 1, 1, 1)`), a head
 of `channels=64`, the JAX package's `tiny` MiT and `pico` ConvNeXt, Swin
 and ViT; 64x64 inputs (C5 is 2x2, so the 3x3 and 6x6 pools pool UP) but for
@@ -72,8 +75,17 @@ CASES = {"r50_aux": (HW, dict(RESNET, aux=True)),
                       "channels": 64})}
 
 
+@pytest.fixture(scope="module")
+def built():
+    """Each case's FamilyCase and JAX f32 logits, made at first use and kept
+    for the module: `case` takes its name from its own params and, in
+    test_forward_matches_jax, from the test's, so pytest may set it up more
+    than once for a name."""
+    return {}
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
-def case(request, tmp_path_factory):
+def case(request, built, tmp_path_factory):
     # the transformer encoders' bf16 logits part from the compiled JAX
     # program's as far as SegFormer's do (tests/test_torch_segformer.py: XLA
     # keeps a convolution's output in f32 into the LayerNorm after it, and
@@ -81,19 +93,25 @@ def case(request, tmp_path_factory):
     # bound is 1.25 of the bf16 error there (ConvNeXt's depthwise conv and
     # its LayerNorm, its GELU, likewise), 0.4 on the ResNet encoders; the
     # cast points are held bit for bit against eager flax instead
-    # (test_bf16_swin_block_matches_eager_jax and the ViT's)
-    hw, kwargs = CASES[request.param]
-    bound = 0.4 if request.param.startswith("r") else 1.25
-    return FamilyCase("upernet", JaxUPerNet, NC, hw,
-                      tmp_path_factory.mktemp(request.param),
-                      logits_mean_bound=bound, **kwargs)
+    # (test_bf16_swin_window_attention_matches_eager_jax and the ViT's)
+    name = request.param
+    if name not in built:
+        hw, kwargs = CASES[name]
+        bound = 0.4 if name.startswith("r") else 1.25
+        built[name] = FamilyCase("upernet", JaxUPerNet, NC, hw,
+                                 tmp_path_factory.mktemp(name),
+                                 logits_mean_bound=bound, **kwargs)
+    return built[name]
 
 
 @pytest.fixture(scope="module")
-def f32(case):
-    """The JAX UPerNet's stride-4 f32 logits [2, 16, 16, NC] (an eval-mode
-    forward: the aux head's output is dropped there)."""
-    return case.jax_logits()
+def f32(case, built):
+    """The JAX UPerNet's stride-4 f32 logits [2, hw/4, hw/4, NC] (an
+    eval-mode forward: the aux head's output is dropped there)."""
+    key = ("f32", id(case))
+    if key not in built:
+        built[key] = case.jax_logits()
+    return built[key]
 
 
 # a leaf of each encoder's tree that its mapping must carry as it is
@@ -145,10 +163,21 @@ def test_weights_map_to_jax(case):
         assert np.array_equal(v.numpy(), case.sd[k].numpy()), k
 
 
-@pytest.mark.parametrize("full_res_output,dtype", [
-    pytest.param(False, torch.float32, id="False"),
-    pytest.param(True, torch.float32, id="True"),
-    pytest.param(False, torch.bfloat16, id="bf16")])
+# the ConvNeXt, Swin and ViT cases' bf16 forwards are marked slow: each is
+# a JAX compile of its own (the tier-1 run holds their f32 forwards, and the
+# attention blocks' bf16 cast points bit for bit run with them under -m slow)
+NEW_ENCODERS = ("cn", "swin", "vit")
+
+
+@pytest.mark.parametrize("case,full_res_output,dtype", [
+    pytest.param(name, full_res, dtype, id=f"{name}-{tag}",
+                 marks=(pytest.mark.slow if name in NEW_ENCODERS
+                        and dtype == torch.bfloat16 else ()))
+    for name in sorted(CASES)
+    for full_res, dtype, tag in ((False, torch.float32, "False"),
+                                 (True, torch.float32, "True"),
+                                 (False, torch.bfloat16, "bf16"))],
+    indirect=["case"])
 def test_forward_matches_jax(case, f32, full_res_output, dtype):
     bf16 = (case.jax_logits(jnp.bfloat16) if dtype == torch.bfloat16
             else None)
@@ -263,6 +292,7 @@ def _seeded_pair(port, zero=()):
     return jax_trees_from_state_dict(sd)[0]
 
 
+@pytest.mark.slow   # one eager compile a JAX op and shape: ~4 s a case
 @pytest.mark.parametrize("hw,shift", [(6, 2), (4, 0)],
                          ids=["padded_shifted", "shift_set_to_0"])
 def test_bf16_swin_window_attention_matches_eager_jax(hw, shift):
@@ -293,6 +323,27 @@ def test_bf16_swin_window_attention_matches_eager_jax(hw, shift):
                                                             True, True]
 
 
+def test_swin_shift_is_set_to_0_where_the_window_covers_the_axis():
+    """Swin-pico's window attention (window 4, nominal shift 2) on the
+    same weights: on a 4x4 map the window covers the axis, so the shifted
+    block computes what the unshifted one does; on a 6x6 map (padded to
+    8x8) the shift and its mask change the output."""
+    from pytorch_segmentation_tpu_torch.nn.backbones.swin import (
+        _WindowAttention)
+    shifted = _WindowAttention(64, 4, 4, 2, torch.float32)
+    plain = _WindowAttention(64, 4, 4, 0, torch.float32)
+    sd = seeded_state_dict(shifted, seed=4)
+    shifted.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for hw, same in ((4, True), (6, False)):
+            x = torch.from_numpy(rng.standard_normal(
+                (2, hw, hw, 64)).astype(np.float32))
+            assert torch.equal(shifted(x), plain(x)) == same, hw
+
+
+@pytest.mark.slow   # one eager compile a JAX op and shape: ~6 s
 def test_bf16_vit_block_attention_matches_eager_jax():
     """The ViT block's attention half in bf16 (`ln1`, the fused `qkv`, q
     scaled by hd**-0.5 in bf16 before the product, the f32 softmax, the
@@ -370,7 +421,7 @@ def test_unported_encoders_are_refused(variant, tmp_path, capsys):
     assert kwargs == JAX_MODEL_VARIANTS["upernet"][variant]
     encoder = kwargs["encoder"]
     assert encoder not in UNPORTED_ENCODERS == ()
-    with torch.device("meta"):
+    with without_default_init(), torch.device("meta"):
         model = build_model("upernet", 21, **kwargs)
     table, key = {"convnext": (JAX_CONVNEXT_VARIANTS, "convnext_variant"),
                   "swin": (JAX_SWIN_VARIANTS, "swin_variant"),
