@@ -164,8 +164,8 @@ def test_weights_map_to_jax(case):
 
 
 # the ConvNeXt, Swin and ViT cases' bf16 forwards are marked slow: each is
-# a JAX compile of its own (the tier-1 run holds their f32 forwards, and the
-# attention blocks' bf16 cast points bit for bit run with them under -m slow)
+# a JAX compile of its own (a `-m 'not slow'` run holds their f32 forwards;
+# the attention blocks' bf16 cast points, held bit for bit, are slow too)
 NEW_ENCODERS = ("cn", "swin", "vit")
 
 
