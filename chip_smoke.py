@@ -25,34 +25,42 @@ step) beside the figures of the same run with the switch off. The layout
 benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
 Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32,
 FPN-R50, DANet, LR-ASPP (MobileNetV3-Large), SegFormer-B0, UPerNet-R50,
-Segmenter-B/16 and UPerNet-Swin-T at 512x512, PSPNet, FastFCN, FCN and
-DeepLabV3 at 513x513 (PSPNet, FastFCN, FCN, DeepLabV3, DANet and both
-UPerNets trained with their auxiliary heads, each head's loss weighted
-0.4), served at batch 8, trained at batch 32 and evaluated over 64 images,
-each kernel's result held against its plain version on the logits the run
-produced (stride 2, align_corners True; stride 4, False; stride 8, True,
-and FastFCN's aux logits at stride 16; stride 8, False: 65 -> 513 and 64
--> 512; UPerNet's aux logits at stride 16, False: 32 -> 512; Segmenter's
-f32 logits at stride 16, False: 32 -> 512); SegFormer's attention and
+Segmenter-B/16, UPerNet-Swin-T, BiSeNetV2, OCRNet-W32 and SegNeXt-T at
+512x512, PSPNet, FastFCN, FCN and DeepLabV3 at 513x513 (PSPNet, FastFCN,
+FCN, DeepLabV3, DANet, both UPerNets, BiSeNetV2 with its four boosters and
+OCRNet with its soft-region head trained with their auxiliary heads, each
+head's loss weighted 0.4), served at batch 8, trained at batch 32 and
+evaluated over 64 images, each kernel's result held against its plain
+version on the logits the run produced (stride 2, align_corners True;
+stride 4, False; stride 8, True, and FastFCN's aux logits at stride 16;
+stride 8, False: 65 -> 513 and 64 -> 512; UPerNet's aux logits at stride
+16, False: 32 -> 512; Segmenter's f32 logits at stride 16, False: 32 ->
+512; SegNeXt's f32 logits at stride 8, False: 64 -> 512); SegFormer's
+attention and
 Mix-FFN, Swin-T's window attention and MLP, and the ViT's attention and
 MLP timed alone; UNet, PSPNet, DANet and UPerNet trained with the fused
 1x1 switch on (UNet's 16 expand and 16 project products, ResNet-50's 16
 conv1 and 16 conv3, each distinct shape held against the plain versions);
-FPN-R34, FCN-R101, SegFormer-B2 and UPerNet on MiT-B0 serving one batch,
+FPN-R34, FCN-R101, SegFormer-B2, UPerNet on MiT-B0, SegNeXt-B and
+OCRNet-W48 serving one batch,
 UPerNet on ConvNeXt-T and on ViT-B/16 serving one batch and taking one
 train step; and the train command line with the root defaults (`--model
 unet -s 320 320 -bs 32 -a 2`, one epoch), with `--model pspnet --aux-loss
 0.4 -s 321 321`, with `--model fcn --aux-loss 0.4 -s 321 321`, with
-`--model upernet --aux-loss 0.4 -s 321 321` and with `--model segmenter -s
-320 320` (the bicubic position-grid resize: a 20 x 20 patch grid), then
-the test command line on the checkpoint each wrote (PSPNet, FCN and
-UPerNet built without the head, whose entries it drops), kernels 1-4 held
-against their plain versions on tensors those runs handed them.
+`--model upernet --aux-loss 0.4 -s 321 321`, with `--model segmenter -s
+320 320` (the bicubic position-grid resize: a 20 x 20 patch grid) and with
+`--model bisenetv2 --aux-loss 0.4 -s 320 320`, then the test command line
+on the checkpoint each wrote (PSPNet, FCN, UPerNet and BiSeNetV2 built
+without the heads, whose entries it drops), kernels 1-4 held against their
+plain versions on tensors those runs handed them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
                                      # the train step (switch off and on),
                                      # the eval step and the augmentation
+    python3 chip_smoke.py --families bisenetv2 ocrnet segnext
+                                     # the builds, then the families phase
+                                     # for these entries alone
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
@@ -2252,26 +2260,29 @@ def cli_phase(device, e2e_ms_per_step):
 FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
                "fastfcn": 513, "fcn": 513, "deeplabv3": 513, "danet": 512,
                "lraspp": 512, "segformer": 512, "upernet": 512,
-               "segmenter": 512, "upernet_swin": 512}
+               "segmenter": 512, "upernet_swin": 512, "bisenetv2": 512,
+               "ocrnet": 512, "segnext": 512}
 # family entries that are a --variant of a model: key -> (model, variant);
-# Segmenter runs at its default, ViT-B/16
+# Segmenter runs at its default, ViT-B/16, OCRNet at W32 and SegNeXt at
+# MSCAN-T
 FAMILY_VARIANTS = {"upernet_swin": ("upernet", "swin-t"),
                    "upernet_cn": ("upernet", "cn-t"),
                    "upernet_vit": ("upernet", "vit-b16")}
 # the families whose upsampling taps are not short binary fractions, or
-# whose logits are f32 (Segmenter's: a tap of k/32 times an f32 logit
-# rounds, where times a bf16 one it is exact), so that kernel 3's counts
-# may differ from the plain version's by the near-tie pixels; every other
-# family's counts must equal exactly
-NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3", "segmenter")
+# whose logits are f32 (Segmenter's and SegNeXt's: a tap of k/32 or k/16
+# times an f32 logit rounds, where times a bf16 one it is exact), so that
+# kernel 3's counts may differ from the plain version's by the near-tie
+# pixels; every other family's counts must equal exactly
+NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3", "segmenter", "segnext")
 # the constructor arguments each family is trained with (the aux heads'
 # loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
 FAMILY_KWARGS = {name: {"aux": True} for name in (
     "pspnet", "fastfcn", "fcn", "deeplabv3", "danet", "upernet",
-    "upernet_swin", "upernet_cn", "upernet_vit")}
+    "upernet_swin", "upernet_cn", "upernet_vit", "bisenetv2", "ocrnet")}
 # the logits an aux model's train step returns (DANet: the fused logits
-# and both branch classifiers'), each through the CE kernels
-FAMILY_HEADS = {"danet": 3}
+# and both branch classifiers'; BiSeNetV2: the logits and its four
+# boosters), each through the CE kernels; 2 where not listed
+FAMILY_HEADS = {"danet": 3, "bisenetv2": 5}
 # the families trained again with the fused 1x1 switch on, beside their
 # switch-off figures, and the distinct kernel-5 shapes of each (FCN's and
 # DeepLabV3's are PSPNet's; UPerNet's the non-dilated ResNet-50's at 512,
@@ -2279,7 +2290,8 @@ FAMILY_HEADS = {"danet": 3}
 FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12, "upernet": 12}
 # (family, variant) pairs that serve one batch
 ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"), ("segformer", "b2"),
-                      ("upernet", "mit-b0"))
+                      ("upernet", "mit-b0"), ("segnext", "b"),
+                      ("ocrnet", "w48"))
 # family entries that serve one batch and take one train step
 ONE_STEP_FAMILIES = ("upernet_cn", "upernet_vit")
 ONE_STEP_IMG = 512
@@ -2809,10 +2821,20 @@ FAMILY_CLIS = {
     "segmenter": (["--model", "segmenter", "-s", "320", "320", "--epochs",
                    "1"], ["--model", "segmenter", "-s", "320", "320"],
                   "Segmenter", 1),
+    # stride-8 logits of 40 and the four boosters, resized onto that grid,
+    # upsample 8x to 320 with align_corners=False (taps of 1/16): five CE
+    # forwards and backwards a step; the test CLI drops aux2_* ... aux5_*
+    "bisenetv2": (["--model", "bisenetv2", "--aux-loss", str(AUX_WEIGHT),
+                   "-s", "320", "320", "--epochs", "1"],
+                  ["--model", "bisenetv2", "-s", "320", "320"],
+                  "BiSeNetV2", 5),
 }
 # what the test command line must print of each dropped aux head
 DROPPED_ENTRIES = {"fcn": ("'aux_head.aux_cls.bias'",),
-                   "upernet": ("'aux_cls.bias'", "'aux_conv.conv.weight'")}
+                   "upernet": ("'aux_cls.bias'", "'aux_conv.conv.weight'"),
+                   "bisenetv2": ("'aux2_cls.bias'", "'aux3_conv.conv.weight'",
+                                 "'aux4_conv.bn.running_var'",
+                                 "'aux5_cls.weight'")}
 
 
 def family_cli(device, name):
@@ -2825,7 +2847,8 @@ def family_cli(device, name):
     (mIoU 0): then the test runs on last.pt. For PSPNet and FCN, trained
     with `--aux-loss`, the test builds the model without the head and must
     say that it dropped the head's entries (DROPPED_ENTRIES: FCN's nested
-    `aux_head.*`, UPerNet's `aux_conv.*` and `aux_cls.*`).
+    `aux_head.*`, UPerNet's `aux_conv.*` and `aux_cls.*`, BiSeNetV2's
+    `aux2_*` ... `aux5_*`).
     Returns the kernels' launches and the figures, with kernels 1-4 held
     against their plain versions on tensors the run handed them
     (`cli_kernel_checks`)."""
@@ -2870,7 +2893,7 @@ def family_cli(device, name):
             records = [json.loads(line) for line in f]
     micro = CLI_TRAIN // ROOT_BATCH
     if not (type(trainer.model).__name__ == cls_name
-            and getattr(trainer.model, "aux", False) == (heads == 2)
+            and getattr(trainer.model, "aux", False) == (heads > 1)
             and trainer.epoch == 1
             and trainer.state.step == micro // ROOT_ACCUMULATE
             and 0.0 <= trainer.metrics <= 1.0 and 0.0 <= miou <= 1.0):
@@ -2879,7 +2902,7 @@ def family_cli(device, name):
                              f"{trainer.metrics}; test mIoU {miou}")
     dropped = ("dropping train-only entries not in the eval model" in printed
                and all(e in printed for e in DROPPED_ENTRIES.get(name, ())))
-    if dropped != (heads == 2):
+    if dropped != (heads > 1):
         raise AssertionError(f"test --model {name}: the train-only head's "
                              f"entries dropped: {dropped}")
     evals = 2 * -(-CLI_VAL // ROOT_BATCH)  # the epoch's eval, the test CLI's
@@ -2904,25 +2927,29 @@ def family_cli(device, name):
 
 def families_phase(device):
     """UNet (MobileNetV2), HRNet-W32, FPN-R50, DANet, LR-ASPP
-    (MobileNetV3-Large), SegFormer-B0, UPerNet-R50, Segmenter-B/16 and
-    UPerNet-Swin-T at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at
-    513x513 (each with its aux heads in training but LR-ASPP, UNet, HRNet,
-    FPN, SegFormer and Segmenter), 21 classes, bf16 compute over f32
-    parameters (Segmenter's logits f32), seeded weights: served at batch 8
-    (kernel 1), trained at batch 32 (kernel 2; once a step for each head:
-    twice for PSPNet, FastFCN, FCN, DeepLabV3 and both UPerNets, three times
-    for DANet), evaluated over 64 images (kernels 2 and 3); UNet, PSPNet,
+    (MobileNetV3-Large), SegFormer-B0, UPerNet-R50, Segmenter-B/16,
+    UPerNet-Swin-T, BiSeNetV2, OCRNet-W32 and SegNeXt-T at 512x512, PSPNet,
+    FastFCN, FCN and DeepLabV3 at 513x513 (each with its aux heads in
+    training but LR-ASPP, UNet, HRNet, FPN, SegFormer, Segmenter and
+    SegNeXt), 21 classes, bf16 compute over f32 parameters (Segmenter's and
+    SegNeXt's logits f32), seeded weights: served at batch 8 (kernel 1),
+    trained at batch 32 (kernel 2; once a step for each head: twice for
+    PSPNet, FastFCN, FCN, DeepLabV3, both UPerNets and OCRNet, three times
+    for DANet, five for BiSeNetV2), evaluated over 64 images (kernels 2 and
+    3); UNet, PSPNet,
     DANet and UPerNet trained again with the fused 1x1 switch on (kernel 5
     on UNet's 16 expand and 16 project products and on ResNet-50's 16 conv1
     and 16 conv3, each distinct (N, K, M, act) held against the plain
-    versions); FPN-R34, FCN-R101, SegFormer-B2 and UPerNet-MiT-B0 serve one
-    batch, UPerNet-ConvNeXt-T and UPerNet-ViT-B/16 serve one batch and take
+    versions); FPN-R34, FCN-R101, SegFormer-B2, UPerNet-MiT-B0, SegNeXt-B
+    and OCRNet-W48 serve one batch, UPerNet-ConvNeXt-T and UPerNet-ViT-B/16
+    serve one batch and take
     one train step; each kernel at each family's shape and dtype (and
     kernels 2 and 3 at each aux head's other stride) on random inputs for
     its times, once a shape; SegFormer's, Swin-T's and the ViT's blocks
     timed alone; then the train command line with the root defaults (UNet),
     with `--model pspnet --aux-loss 0.4 -s 321 321`, `--model fcn ...`,
-    `--model upernet ...` and `--model segmenter -s 320 320`, and the test
+    `--model upernet ...`, `--model segmenter -s 320 320` and `--model
+    bisenetv2 --aux-loss 0.4 -s 320 320`, and the test
     command line on the checkpoint each wrote, kernels 1-4 held against
     their plain versions on tensors those runs handed them.
     Returns each kernel's launches over the phase's main-path runs (in all
@@ -3050,6 +3077,22 @@ def families_phase(device):
     return total, by_model, cases, fused_shapes
 
 
+def only_families(keys):
+    """Cut the families phase's tables down to the entries `keys` (a
+    model's one-batch variants, fused run and command line go with it)."""
+    global FAMILY_IMGS, ONE_BATCH_VARIANTS, ONE_STEP_FAMILIES
+    global FUSED_FAMILIES, FAMILY_CLIS
+    unknown = set(keys) - set(FAMILY_IMGS) - set(ONE_STEP_FAMILIES)
+    if unknown:
+        raise SystemExit(f"--families: unknown entries {sorted(unknown)}")
+    FAMILY_IMGS = {k: v for k, v in FAMILY_IMGS.items() if k in keys}
+    ONE_BATCH_VARIANTS = tuple(p for p in ONE_BATCH_VARIANTS
+                               if p[0] in keys)
+    ONE_STEP_FAMILIES = tuple(k for k in ONE_STEP_FAMILIES if k in keys)
+    FUSED_FAMILIES = {k: v for k, v in FUSED_FAMILIES.items() if k in keys}
+    FAMILY_CLIS = {k: v for k, v in FAMILY_CLIS.items() if k in keys}
+
+
 def profile_steps(trainer, phase="profile"):
     """torch.profiler over one window of 3 steady steps."""
     trainer.fetcher.n = 3
@@ -3120,6 +3163,11 @@ def main():
                         help="also print torch.profiler tables, by op, of "
                              "the train step (fused 1x1 switch off and on), "
                              "the eval step and the augmentation")
+    parser.add_argument("--families", nargs="+", metavar="KEY",
+                        help="after the builds, run only the families phase "
+                             "for these FAMILY_IMGS entries (their one-batch "
+                             "variants, fused runs and command lines too) "
+                             "and stop: no kernels line, no last line")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -3159,6 +3207,10 @@ def main():
         log("build", kernel="pseg_native", compiler="g++",
             seconds=native_seconds.result(),
             flags=" ".join(native.CXX_FLAGS))
+    if args.families:
+        only_families(args.families)
+        families_phase(device)
+        return
 
     path = kernel_case("path_bf16", (BATCH, 129, 129, NUM_CLASSES),
                        (IMG, IMG), torch.bfloat16, True, device)

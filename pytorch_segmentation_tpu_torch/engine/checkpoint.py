@@ -46,10 +46,14 @@ def save_checkpoint(path: str, model_state: dict, optimizer_state=None,
 
 
 # the top-level modules of the train-only auxiliary heads (aux=True):
-# PSPNet's and FastFCN's aux_conv and aux_cls, FCN's and DeepLabV3's nested
-# aux_head (aux_head.aux_conv, aux_head.aux_cls), DANet's pam_cls and cam_cls
+# PSPNet's, FastFCN's and UPerNet's aux_conv and aux_cls, FCN's and
+# DeepLabV3's nested aux_head (aux_head.aux_conv, aux_head.aux_cls), DANet's
+# pam_cls and cam_cls, BiSeNetV2's booster heads aux2_conv, aux2_cls ...
+# aux5_cls. OCRNet's aux_conv and aux_cls are in every OCRNet (they weight
+# its gather), so a checkpoint's entries always have a slot there.
 TRAIN_ONLY_MODULES = ("aux_conv", "aux_cls", "aux_head", "pam_cls",
-                      "cam_cls")
+                      "cam_cls") + tuple(
+    f"aux{i}_{part}" for i in range(2, 6) for part in ("conv", "cls"))
 
 
 def _drop_train_only(sd: dict, template: dict, what: str) -> dict:
@@ -71,7 +75,8 @@ def load_model_bundle(model: torch.nn.Module, weights_path: str | None,
     None / '' for weights made from `seed` (utils/weights.seeded_state_dict).
     A checkpoint of `train --aux-loss` carries the train-only auxiliary
     heads (`TRAIN_ONLY_MODULES`: `aux_conv` and `aux_cls`, the nested
-    `aux_head.*`, `pam_cls` and `cam_cls`); a model built without them
+    `aux_head.*`, `pam_cls` and `cam_cls`, BiSeNetV2's `aux2_*` ...
+    `aux5_*`); a model built without them
     drops those entries and prints which, as the JAX package does. Every
     other entry stays strict.
     use_ema=True then loads the checkpoint's `'ema'` entry (the trainer's

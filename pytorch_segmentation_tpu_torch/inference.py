@@ -20,12 +20,14 @@ training resolution, logits summed on a canvas, one argmax.
         --weights weights/best.pt -s 513 513 -nc 21 -bs 8
 
 writes `<name>.png`, the VOC-palette colour mask of each PNG image of
-IMG_DIR at the image's own size (CUDA only). `--model` takes the ported
-families: unet, deeplabv3plus (the default), hrnet, fpn, pspnet, fastfcn,
-fcn, deeplabv3, danet, lraspp, segformer and upernet; `--variant` a
-family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; segformer: b0..b5,
-tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, its cn-*, swin-*
-and vit-* exiting 2).
+IMG_DIR at the image's own size (CUDA only). `--model` takes
+every family but maskformer (unet, bisenetv2, danet, deeplabv3,
+deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet,
+segformer, segmenter, segnext, upernet), deeplabv3plus the default;
+`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3,
+danet: r50, r101; ocrnet: w18, w32, w48; segnext: tiny, t, s, b;
+segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16; upernet: r50,
+r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*).
 """
 
 from __future__ import annotations

@@ -1,28 +1,32 @@
 """Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
-model names; UNet (MobileNetV2 encoder), DeepLabV3+, HRNet, FPN, PSPNet,
-FastFCN, FCN, DeepLabV3, DANet, LR-ASPP (MobileNetV3-Large), SegFormer
-(MiT-B0...B5), UPerNet (ResNet, MiT, ConvNeXt, Swin and ViT encoders) and
-Segmenter (ViT) are ported so far (`ported_models()`), and `build_model`
-raises NotImplementedError for the others, which follow in the order
-ROADMAP.md queue 1 item 6 lists. `MODEL_VARIANTS` is the JAX package's
+model names; UNet (MobileNetV2 encoder), BiSeNetV2, DeepLabV3+, HRNet,
+OCRNet (on HRNet), FPN, PSPNet, FastFCN, FCN, DeepLabV3, DANet, LR-ASPP
+(MobileNetV3-Large), SegFormer (MiT-B0...B5), SegNeXt (MSCAN + LightHam),
+UPerNet (ResNet, MiT, ConvNeXt, Swin and ViT encoders) and Segmenter (ViT)
+are ported so far (`ported_models()`), 16 of the 17; `build_model` raises
+NotImplementedError for MaskFormer, which follows as ROADMAP.md queue 1
+item 6 lists. `MODEL_VARIANTS` is the JAX package's
 table for the ported families. `UNPORTED_ENCODERS` (UPerNet encoders the
 port lacks) is empty."""
 
+from .bisenetv2 import BiSeNetV2
 from .danet import DANet
 from .deeplabv3plus import DeepLabV3Plus
 from .fpn import FPN
 from .hrnet import HRNet
 from .lraspp import LRASPP
+from .ocrnet import OCRNet
 from .pspnet import PSPNet
 from .segformer import SegFormer
 from .segmenter import Segmenter
+from .segnext import SegNeXt
 from .tvseg import FCN, DeepLabV3
 from .unet import UNet
 from .upernet import UNPORTED_ENCODERS, UPerNet
 
-__all__ = ["DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN", "HRNet",
-           "LRASPP", "PSPNet", "SegFormer", "Segmenter", "UNet", "UPerNet",
-           "UNPORTED_ENCODERS",
+__all__ = ["BiSeNetV2", "DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN",
+           "HRNet", "LRASPP", "OCRNet", "PSPNet", "SegFormer", "Segmenter",
+           "SegNeXt", "UNet", "UPerNet", "UNPORTED_ENCODERS",
            "MODEL_REGISTRY", "MODEL_VARIANTS", "UNPORTED_MODEL_ITEM",
            "build_model", "ported_models", "variant_kwargs"]
 
@@ -38,16 +42,16 @@ def _fastfcn(**kw):
 # every name the JAX package's --model takes; None: not ported yet
 MODEL_REGISTRY = {
     "unet": UNet,
-    "bisenetv2": None,
+    "bisenetv2": BiSeNetV2,
     "danet": DANet,
     "deeplabv3plus": DeepLabV3Plus,
     "hrnet": HRNet,
-    "ocrnet": None,
+    "ocrnet": OCRNet,
     "pspnet": PSPNet,
     "fpn": FPN,
     "fastfcn": _fastfcn,
     "segformer": SegFormer,
-    "segnext": None,
+    "segnext": SegNeXt,
     "segmenter": Segmenter,
     "maskformer": None,
     "upernet": UPerNet,
@@ -95,6 +99,11 @@ MODEL_VARIANTS = {
         **{f"vit-{v}": {"encoder": "vit", "vit_variant": v}
            for v in ("b16", "l16", "pico")},
     },
+    # MSCAN sizes; tiny is not a paper variant: the JAX package's test size
+    "segnext": {v: {"variant": v} for v in ("tiny", "t", "s", "b")},
+    # HRNet widths (mmseg ocrnet_hr18 / hr48; w32 is HRNet's default)
+    "ocrnet": {"w18": {"base_channels": 18}, "w32": {},
+               "w48": {"base_channels": 48}},
     # pico is not a paper variant: the JAX package's test size
     "segmenter": {v: {"variant": v} for v in ("pico", "b16", "l16")},
     "fpn": {

@@ -31,22 +31,10 @@ import torch
 import torch.nn as nn
 
 from ..nn.backbones.resnet import ResNet
-from ..nn.blocks import ConvNormAct, conv2d
+from ..nn.blocks import ConvNormAct, Scale, conv2d
 from ..ops.resize import resize_bilinear_nchw
 
 __all__ = ["DANet"]
-
-
-class _Scale(nn.Module):
-    """A learned scale (the JAX package's `_Scale`: a param named `scale` of
-    shape (dim,), initialised to `init`) applied in the input's dtype."""
-
-    def __init__(self, dim: int, init: float):
-        super().__init__()
-        self.scale = nn.Parameter(torch.full((dim,), float(init)))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.scale.to(x.dtype).view(1, -1, 1, 1) * x
 
 
 class DANet(nn.Module):
@@ -72,10 +60,10 @@ class DANet(nn.Module):
         self.pam_query = nn.Conv2d(ch, ch // 8, 1, bias=True)
         self.pam_key = nn.Conv2d(ch, ch // 8, 1, bias=True)
         self.pam_value = nn.Conv2d(ch, ch, 1, bias=True)
-        self.pam_gamma = _Scale(1, 0.0)
+        self.pam_gamma = Scale(1, 0.0)
         self.pam_out = ConvNormAct(ch, ch, 3, dtype=dtype)
         self.cam_in = ConvNormAct(2048, ch, 3, dtype=dtype)
-        self.cam_gamma = _Scale(1, 0.0)
+        self.cam_gamma = Scale(1, 0.0)
         self.cam_out = ConvNormAct(ch, ch, 3, dtype=dtype)
         self.cls_conv = nn.Conv2d(ch, num_classes, 1, bias=True)
         if aux:

@@ -14,8 +14,11 @@ The last stage fuses into the highest-resolution branch only; a 1x1 class
 conv with bias gives stride-4 logits, and with `full_res_output=True` a x4
 bilinear upsample (align_corners=False) follows.
 
-The JAX module's `feature_output=True` (the OCRNet backbone) is not ported
-yet.
+`feature_output=True` makes it the OCRNet backbone (HRNetV2's
+representation): the last stage keeps every branch, branches 1-3 are
+resized onto branch 0 (align_corners=False) and the four are concatenated,
+[B, sum(channels), H/4, W/4] (480 channels at width 32); no `final_layer`
+is built.
 """
 
 from __future__ import annotations
@@ -100,10 +103,7 @@ class HRNet(nn.Module):
                  up_align_corners: bool = False,
                  feature_output: bool = False):
         super().__init__()
-        if feature_output:
-            raise NotImplementedError(
-                "HRNet(feature_output=True), the OCRNet backbone, is not "
-                "ported yet (ROADMAP queue 1 item 6, ocrnet)")
+        self.feature_output = feature_output
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output
@@ -139,14 +139,18 @@ class HRNet(nn.Module):
             self._transitions.append(chains)
             last_stage = s == len(num_branches_list) - 1
             self.add_module(f"stage{s}", HRModule(
-                cur, multi_scale_output=not last_stage, dtype=dtype))
+                cur, multi_scale_output=feature_output or not last_stage,
+                dtype=dtype))
             prev = cur
-        self.final_layer = nn.Conv2d(prev[0], num_classes, 1, bias=True)
+        self.out_channels = sum(prev) if feature_output else num_classes
+        if not feature_output:
+            self.final_layer = nn.Conv2d(prev[0], num_classes, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, 3, H, W] float, H and W multiples of 32 -> logits
         [B, C, H/4, W/4] in the compute dtype (or [B, C, H, W] with
-        full_res_output)."""
+        full_res_output); with feature_output the concatenated branches
+        [B, sum(channels), H/4, W/4]."""
         x = self.stem_conv2(self.stem_conv1(x))
         for b in range(4):
             x = getattr(self, f"stem_bottleneck{b}")(x)
@@ -160,6 +164,11 @@ class HRNet(nn.Module):
                     z = getattr(self, name)(z)
                 xs.append(z)
             ys = getattr(self, f"stage{s}")(xs)
+        if self.feature_output:
+            size = tuple(ys[0].shape[2:])
+            return torch.cat([ys[0]] + [
+                resize_bilinear_nchw(y, size, align_corners=False)
+                for y in ys[1:]], dim=1)
         y = conv2d(self.final_layer, ys[0], self.dtype)
         if self.full_res_output:
             y = resize_bilinear_nchw(y, (4 * y.shape[2], 4 * y.shape[3]),

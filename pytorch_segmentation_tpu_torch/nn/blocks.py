@@ -10,9 +10,13 @@ casts sit where the JAX modules put them, written out instead of
     batch's in train mode) into one scale and shift in f32 and applies them
     in the compute dtype.
 
-`Linear` (flax `Dense`) and `LayerNorm` (flax `LayerNorm`, eps 1e-6 unless
-told otherwise) keep the same cast points: the product in the compute dtype
-with its bias added after the rounding, the moments and the affine in f32.
+`Linear` (flax `Dense`), `LayerNorm` (flax `LayerNorm`, eps 1e-6 unless
+told otherwise) and `GroupNorm` (flax `GroupNorm`, eps 1e-5) keep the same
+cast points: the product in the compute dtype with its bias added after the
+rounding, the moments and the affine in f32. `Scale` is a learned
+per-channel scale (DANet's residual gates, SegNeXt's layer scales) and
+`raw_conv` a biased convolution of any (kh, kw) kernel with symmetric
+k // 2 padding (SegNeXt's strip convolutions).
 
 Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The int8,
 quantization-aware and dot-1x1 branches of the JAX module are not ported
@@ -36,8 +40,9 @@ import torch.nn.functional as F
 
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
 
-__all__ = ["BatchNorm2d", "ConvNormAct", "LayerNorm", "Linear",
-           "SeparableConvNormAct", "conv2d", "nhwc_conv", "BN_MOMENTUM",
+__all__ = ["BatchNorm2d", "ConvNormAct", "GroupNorm", "LayerNorm", "Linear",
+           "Scale", "SeparableConvNormAct", "conv2d", "nhwc_conv",
+           "raw_conv", "BN_MOMENTUM",
            "set_force_fused_1x1", "fused_1x1_available",
            "apply_fold"]
 
@@ -77,6 +82,17 @@ def apply_fold(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 def _pad(kernel_size: int, dilation: int) -> int:
     return dilation * (kernel_size - 1) // 2
+
+
+def raw_conv(in_channels: int, out_channels: int, kernel_size,
+             stride: int = 1, groups: int = 1) -> nn.Conv2d:
+    """A biased convolution (torch's Conv2d default, the JAX package's raw
+    `nn.Conv` with same-padding) of an int or (kh, kw) kernel, padded
+    (kh // 2, kw // 2) on both sides; run it through `conv2d`."""
+    kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+              else kernel_size)
+    return nn.Conv2d(in_channels, out_channels, (kh, kw), stride=stride,
+                     padding=(kh // 2, kw // 2), groups=groups, bias=True)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -137,6 +153,47 @@ class LayerNorm(nn.LayerNorm):
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
         return y.to(self.compute_dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax `GroupNorm(num_groups, epsilon=eps)` on an NCHW map: the groups
+    are runs of consecutive channels; each (sample, group)'s moments in f32
+    from the compute-dtype input (flax's `force_float32_reductions`, the
+    fast variance max(E[x^2] - E[x]^2, 0)), the normalize and the f32
+    weight and bias in f32, the result cast to `dtype`."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 dtype: torch.dtype = torch.bfloat16, eps: float = 1e-5):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xf = x.float().reshape(b, g, -1)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True)
+               - mean * mean).clamp(min=0.0)
+        inv = torch.rsqrt(var + self.eps)
+        shape = (b, c) + (1,) * (x.dim() - 2)
+        mean = mean.repeat_interleave(c // g, dim=1).view(shape)
+        mul = (inv.repeat_interleave(c // g, dim=1).view(shape)
+               * self.weight.view((1, c) + shape[2:]))
+        y = (x.float() - mean) * mul + self.bias.view((1, c) + shape[2:])
+        return y.to(self.compute_dtype)
+
+
+class Scale(nn.Module):
+    """A learned per-channel scale (the JAX package's `_Scale`: a parameter
+    named `scale` of shape (dim,), initialised to `init`) applied to an
+    NCHW map in the map's dtype."""
+
+    def __init__(self, dim: int, init: float):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((dim,), float(init)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.scale.to(x.dtype).view(1, -1, 1, 1) * x
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -9,11 +9,13 @@
 `port_weights.py --reverse` writes from a JAX checkpoint (`--ema` serves its
 `'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
 multi-scale test-time augmentation. Requests are PNG images. `--model`
-takes the ported families: unet, deeplabv3plus (the default), hrnet, fpn,
-pspnet, fastfcn, fcn, deeplabv3, danet, lraspp, segformer and upernet;
-`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; segformer: b0..b5,
-tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, its cn-*, swin-*
-and vit-* exiting 2), which must
+takes every family but maskformer (unet, bisenetv2, danet, deeplabv3,
+deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet,
+segformer, segmenter, segnext, upernet), deeplabv3plus the default;
+`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3,
+danet: r50, r101; ocrnet: w18, w32, w48; segnext: tiny, t, s, b;
+segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16; upernet: r50,
+r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*), which must
 match the checkpoint. A checkpoint of `train --aux-loss` loads without its
 train-only auxiliary heads. `--int8`, `--moe`, `--moe-top-k`,
 `--scan-blocks` and `--dp` (the root CLI's) exit with status 2 and name
@@ -50,9 +52,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="a {'model': state_dict} .pt checkpoint")
     parser.add_argument("--variant", type=str, default="",
                         help="model size variant (fpn: r50/r34; fcn, "
-                             "deeplabv3, danet: r50/r101; segformer: "
-                             "b0..b5; upernet: r50/r34/mit-b0..b5); must "
-                             "match the checkpoint")
+                             "deeplabv3, danet: r50/r101; ocrnet: "
+                             "w18/w32/w48; segnext: tiny/t/s/b; segformer: "
+                             "b0..b5; upernet: r50/r34/mit-b0..b5/cn-*/"
+                             "swin-*/vit-*); must match the checkpoint")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8500)
     parser.add_argument("--max-batch", type=int, default=8,

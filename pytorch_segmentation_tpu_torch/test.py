@@ -8,14 +8,16 @@ JSON, or a `segimg` / `idimg` list file; PNG images) through the port's
 `load_model_bundle` and `engine.test`, with `--ema`, `--tta`,
 `--tta-scales`, `--tile`, `--tile-overlap`, `--boundary-iou`, `--report`
 and `--ignore-index`. Prints the per-class table and `metrics: <mIoU>`.
-`--model` takes the ported families (unet, deeplabv3plus, hrnet, fpn,
-pspnet, fastfcn, fcn, deeplabv3, danet, lraspp, segformer, upernet) and
-`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; segformer: b0..b5,
-tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, its cn-*, swin-*
-and vit-* exiting 2); a
-checkpoint of `train --aux-loss` loads without its train-only auxiliary
-heads. Another family, `--int8`, `--calib-batches`, `--scan-blocks` and
-`--moe` exit with status 2 and name their ROADMAP item. Runs on the card;
+`--model` takes every family but maskformer (unet, bisenetv2, danet,
+deeplabv3, deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet,
+pspnet, segformer, segmenter, segnext, upernet) and `--variant` a family's
+size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; ocrnet:
+w18, w32, w48; segnext: tiny, t, s, b; segformer: b0..b5, tiny, tiny-d4;
+segmenter: pico, b16, l16; upernet: r50, r34, mit-b0..mit-b5, mit-tiny,
+cn-*, swin-*, vit-*); a checkpoint of `train --aux-loss` loads without its
+train-only auxiliary heads (BiSeNetV2's booster heads too). MaskFormer,
+`--int8`, `--calib-batches`, `--scan-blocks` and `--moe` exit with status
+2 and name their ROADMAP item. Runs on the card;
 `run(opt, "cpu")` runs the same on the CPU.
 """
 

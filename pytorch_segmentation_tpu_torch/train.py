@@ -15,16 +15,19 @@ Prints the per-epoch images/s and loss, the eval table and
 `save best, miou: ...`.
 
 A flag whose machinery is not ported yet exits with status 2 and names its
-ROADMAP item; so does a `--model` that is not ported yet (ported: unet,
-the default, deeplabv3plus, hrnet, fpn, pspnet, fastfcn, fcn, deeplabv3,
-danet, lraspp, segformer and upernet; UNet, HRNet, FPN, SegFormer and
-UPerNet take sizes that are multiples of 32). `--aux-loss W` builds
-pspnet, fastfcn, fcn, deeplabv3, danet or upernet with its auxiliary heads
-(danet's two branch classifiers) and adds W times each head's loss; any
-other family exits with the JAX CLI's message. `--variant` takes a
-family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101;
-segformer: b0..b5, tiny, tiny-d4; upernet: r50, r34, mit-b0..mit-b5,
-mit-tiny, its cn-*, swin-* and vit-* exiting 2). Runs on the card
+ROADMAP item; so does a `--model` that is not ported yet (every name but
+maskformer is ported: unet, the default, bisenetv2, danet, deeplabv3,
+deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet,
+segformer, segmenter, segnext and upernet; UNet, BiSeNetV2, HRNet, OCRNet,
+FPN, SegFormer, SegNeXt and UPerNet take sizes that are multiples of 32).
+`--aux-loss W` builds pspnet, fastfcn, upernet, bisenetv2, ocrnet, fcn,
+deeplabv3 or danet with its auxiliary heads (danet's two branch
+classifiers, bisenetv2's four booster heads, ocrnet's soft-region head) and
+adds W times each head's loss; any other family exits with the JAX CLI's
+message. `--variant` takes a family's size variant (fpn: r50, r34; fcn,
+deeplabv3, danet: r50, r101; ocrnet: w18, w32, w48; segnext: tiny, t, s,
+b; segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16; upernet:
+r50, r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*). Runs on the card
 (`require_cuda`);
 `train(..., device="cpu")` runs the same on the CPU.
 """
@@ -58,9 +61,7 @@ DATASETS = {
     "idimg": (IdImgDataset, "train.txt", "val.txt"),
 }
 
-# the JAX CLI's families with an auxiliary head (--aux-loss); of them the
-# port has pspnet, fastfcn, upernet, fcn, deeplabv3 and danet; the others are
-# refused as unported models
+# the JAX CLI's families with an auxiliary head (--aux-loss), all ported
 AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
                      "fcn", "deeplabv3", "danet")
 

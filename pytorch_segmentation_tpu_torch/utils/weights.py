@@ -8,11 +8,13 @@ leaf's rank and its siblings where a name is not enough:
   - a conv `kernel` (4-D, HWIO) <-> `weight` OIHW;
   - a Dense `kernel` (2-D, (in, out)) <-> `nn.Linear.weight` (out, in);
   - a BatchNorm's scale/bias/mean/var <-> weight/bias/running_mean/
-    running_var;
-  - a LayerNorm's `scale` (a `scale` beside a `bias` and no `kernel`) <->
-    the port's `LayerNorm.weight`, a 1-D `weight` outside a BN;
+    running_var (a ConvNormAct's `bn`, or a lone BatchNorm such as
+    BiSeNetV2's `ce_bn` and SegNeXt's `norm1`: the module that has
+    running statistics);
+  - a LayerNorm's or GroupNorm's `scale` (a `scale` beside a `bias` and no
+    `kernel`) <-> the port's 1-D `weight` outside a BN;
   - a learned scale alone in its module (`<module>.scale`, DANet's residual
-    gates) keeps its name;
+    gates, SegNeXt's layer scales) keeps its name;
   - a bare parameter (`BARE_PARAMS`: ConvNeXt's layer scale `gamma` (C,),
     Swin's relative-position bias table `rpb` ((2ws-1)^2, heads), the ViT's
     `class_token` (1, 1, C) and `pos_embedding` (1, 1+g^2, C), Segmenter's
@@ -36,12 +38,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["BARE_PARAMS", "state_dict_from_jax", "jax_trees_from_state_dict",
+__all__ = ["BARE_PARAMS", "SCALE_INITS", "state_dict_from_jax", "jax_trees_from_state_dict",
            "load_state", "seeded_state_dict"]
 
 # parameters that are neither a kernel, a bias nor a norm's scale: carried
 # verbatim under their own names
 BARE_PARAMS = ("gamma", "rpb", "class_token", "pos_embedding", "cls_emb")
+# the JAX inits of the lone learned scales that do not start at 0, by module
+# name (SegNeXt's layer scales)
+SCALE_INITS = {"layer_scale_1": 1e-2, "layer_scale_2": 1e-2}
 
 
 def _conv_oihw(kernel) -> np.ndarray:
@@ -167,15 +172,18 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
     and Linear biases small normal; BN affines and running statistics
     non-trivial (weight 0.5..1.5, bias N(0, 0.1), mean N(0, 0.1),
     var 0.5..1.5), so eval-mode BN is exercised; LayerNorm weight 0.5..1.5,
-    bias N(0, 0.1); a learned scale outside a BN (DANet's residual gates)
-    0.5..1.5, so the branch it gates counts; the bare parameters
+    bias N(0, 0.1) (a GroupNorm's too); a lone BatchNorm (a module with
+    running statistics, not named `bn`) as a ConvNormAct's; a learned scale
+    outside a BN (DANet's residual gates, SegNeXt's layer scales) 0.5..1.5,
+    so the branch it gates counts; the bare parameters
     (`BARE_PARAMS`) of order 0.1-1: ConvNeXt's `gamma` 0.5..1.5, the others
     N(0, 0.5^2), so a ConvNeXt block's body, the relative-position bias and
     the position grid all count.
 
     'train': the JAX package's own start of training: the same kind of conv
     and Linear weights, but their biases 0, BN and LayerNorm weight 1, bias
-    0, running mean 0 and variance 1, learned scales 0, ConvNeXt's `gamma`
+    0, running mean 0 and variance 1, learned scales 0 (SegNeXt's layer
+    scales 1e-2: `SCALE_INITS`), ConvNeXt's `gamma`
     1e-6, the ViT's `class_token` 0 and the other bare parameters 0.02
     times a standard normal clipped to +-2 (the JAX inits: a constant, zeros
     and truncated normals of scale 0.02).
@@ -196,7 +204,9 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
         shape = tuple(t.shape)
         parts = name.split(".")
         leaf = parts[-1]
-        is_bn = len(parts) > 1 and parts[-2] == "bn"
+        is_bn = len(parts) > 1 and (
+            parts[-2] == "bn"
+            or ".".join(parts[:-1] + ["running_mean"]) in state)
         # a LayerNorm: a 1-D weight outside a BN, and its bias
         sibling = state.get(".".join(parts[:-1] + ["weight"]))
         is_ln = (not is_bn and leaf in ("weight", "bias")
@@ -217,6 +227,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
         elif is_ln:
             v = (np.zeros(shape) if init == "train"
                  else 0.1 * rng.standard_normal(shape))
+        elif leaf == "scale" and init == "train":
+            v = np.full(shape, SCALE_INITS.get(parts[-2], 0.0))
         elif init == "train" and (is_bn or leaf != "weight"):
             v = (np.ones if leaf in ("weight", "running_var")
                  else np.zeros)(shape)

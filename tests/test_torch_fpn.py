@@ -126,8 +126,9 @@ def test_variants_are_the_jax_packages():
         "r50": {}, "r34": {"block": "basic",
                            "backbone_layers": (3, 4, 6, 3)}}
     assert MODEL_VARIANTS == {name: JAX_MODEL_VARIANTS[name] for name in
-                              ("danet", "deeplabv3", "fcn", "fpn",
-                               "segformer", "segmenter", "upernet")}
+                              ("danet", "deeplabv3", "fcn", "fpn", "ocrnet",
+                               "segformer", "segmenter", "segnext",
+                               "upernet")}
     model = build_model("fpn", NC, **variant_kwargs("fpn", "R34"))
     assert model.block == "basic" and model.backbone.out_channels == 512
     assert variant_kwargs("fpn", "") == {}
@@ -136,10 +137,11 @@ def test_variants_are_the_jax_packages():
         variant_kwargs("fpn", "r18")
     with pytest.raises(ValueError, match=r"model 'pspnet' has no variants "
                        r"\(families with variants: \['danet', 'deeplabv3', "
-                       r"'fcn', 'fpn', 'segformer', 'segmenter', 'upernet'\]\)"):
+                       r"'fcn', 'fpn', 'ocrnet', 'segformer', 'segmenter', "
+                       r"'segnext', 'upernet'\]\)"):
         variant_kwargs("pspnet", "r50")
     with pytest.raises(NotImplementedError, match="not ported"):
-        variant_kwargs("segnext", "t")
+        variant_kwargs("maskformer", "r50")
 
 
 def _argv(cli, tmp_path, *extra):

@@ -6,15 +6,21 @@ step. 5 classes, 64x64 inputs, batch 2, `base_channels=8` (branches of
 `num_branches_list=(2, 3)`, where the JAX gradient compiles in a third of
 the time of the full depth. Each JAX program is compiled once."""
 
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from pytorch_segmentation_tpu.models import HRNet as JaxHRNet
+from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.models import HRNet, build_model
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.ops.kernels import fused_matmul_bn as fm
-from torch_family_util import (FamilyCase, assert_forward_matches_jax,
+from pytorch_segmentation_tpu_torch.utils.weights import (
+    jax_trees_from_state_dict, seeded_state_dict)
+from torch_family_util import (FAST_COMPILE, FamilyCase,
+                               assert_forward_matches_jax,
                                assert_mask_fn_matches_jax,
                                assert_step_matches, assert_weights_match_jax,
                                jax_train_step, port_trainer_step,
@@ -92,9 +98,34 @@ def test_trainer_step_matches_jax(tmp_path):
     assert_step_matches(loss, got, want_loss, want, case.sd, "final_layer")
 
 
-def test_feature_output_waits_for_ocrnet():
-    with pytest.raises(NotImplementedError, match="ocrnet"):
-        build_model("hrnet", NC, feature_output=True)
+def test_feature_output_waits_for_ocrnet(case):
+    """`feature_output=True`, the backbone OCRNet waits for: the last stage
+    keeps every branch (its fuse into branches 1-3 too), branches 1-3 are
+    resized onto branch 0 (align_corners=False) and concatenated, [2, 120,
+    16, 16] at width 8, against the JAX module's on the same seeded weights
+    within rtol = atol = 1e-4, in f32; neither builds `final_layer`."""
+    model = build_model("hrnet", NC, dtype=torch.float32, feature_output=True,
+                        base_channels=8)
+    assert not hasattr(model, "final_layer")
+    assert model.out_channels == 8 + 16 + 32 + 64
+    sd = seeded_state_dict(model, seed=0, init="uniform")
+    model.load_state_dict(sd, strict=True)
+    assert set(sd) - set(case.sd) == {
+        k for k in sd if k.startswith(("stage2.fuse1", "stage2.fuse2",
+                                       "stage2.fuse3"))} != set()
+    params, stats = jax_trees_from_state_dict(sd)
+    x = normalize_images(torch.from_numpy(case.images))
+    module = JaxHRNet(num_classes=NC, base_channels=8, dtype=jnp.float32,
+                      feature_output=True)
+    args = ({"params": params, "batch_stats": stats}, x.numpy())
+    want = np.asarray(jax.jit(
+        lambda v, x: module.apply(v, x, train=False)).lower(*args).compile(
+            compiler_options=FAST_COMPILE)(*args))
+    with torch.inference_mode():
+        got = model.eval()(x.permute(0, 3, 1, 2))
+    assert got.shape == (2, 120, HW // 4, HW // 4)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_switch_routes_the_stem_bottlenecks():

@@ -282,16 +282,50 @@ def test_aux_loss_on_a_family_without_the_head_exits(model):
                     device="cpu")
 
 
-def test_aux_loss_on_an_unported_family_exits_2(capsys):
+def test_aux_loss_on_an_unported_family_exits_2(capsys, monkeypatch):
+    """The one unported name, maskformer, exits 2 naming its ROADMAP item;
+    `--model bisenetv2 --aux-loss` parses, and `main` builds BiSeNetV2 with
+    its four booster heads (the run stopped there, before any data is
+    read)."""
     with pytest.raises(SystemExit) as err:
-        ttrain.parse_args(["data", "--model", "bisenetv2", "--aux-loss",
+        ttrain.parse_args(["data", "--model", "maskformer", "--aux-loss",
                            "0.4"])
     assert err.value.code == 2
-    assert ("--model bisenetv2 is not ported yet (ROADMAP queue 1 item 6"
+    assert ("--model maskformer is not ported yet (ROADMAP queue 1 item 6"
             in capsys.readouterr().err)
     opt = ttrain.parse_args(["data", "--model", "fastfcn", "--aux-loss",
                              "0.4"])
     assert (opt.model, opt.aux_loss) == ("fastfcn", 0.4)
+    opt = ttrain.parse_args(["data", "--model", "bisenetv2", "--aux-loss",
+                             "0.4"])
+    assert (opt.model, opt.aux_loss) == ("bisenetv2", 0.4)
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    class Data:
+        classes = ["background", "a", "b"]
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __len__(self):
+            return 4
+
+    def build(name, num_classes, **kwargs):
+        built.append(build_model(name, num_classes, **kwargs))
+        raise Stop
+
+    monkeypatch.setattr(ttrain, "build_model", build)
+    monkeypatch.setitem(ttrain.DATASETS, "coco", (Data, "train.json", ""))
+    with pytest.raises(Stop):
+        ttrain.main(["data", "--model", "bisenetv2", "--dataset", "coco",
+                     "--aux-loss", "0.4", "--notest"], device="cpu")
+    model, = built
+    assert type(model).__name__ == "BiSeNetV2" and model.aux
+    assert all(hasattr(model, f"aux{i}_{part}") for i in range(2, 6)
+               for part in ("conv", "cls"))
 
 
 def test_cli_train_aux_then_test_drops_the_head(tmp_path, monkeypatch,

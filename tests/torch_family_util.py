@@ -16,7 +16,8 @@ import torch
 from pytorch_segmentation_tpu.engine import steps as jsteps
 from pytorch_segmentation_tpu.ops.loss import compute_loss as jax_compute_loss
 from pytorch_segmentation_tpu.ops.resize import resize_bilinear as jax_resize
-from pytorch_segmentation_tpu.utils.port_torch import export_torch_state_dict
+from pytorch_segmentation_tpu.utils.port_torch import (convert_named,
+                                                       export_torch_state_dict)
 from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
@@ -238,6 +239,31 @@ def assert_mask_fn_matches_jax(case, f32, out_hw):
     assert_masks_agree(got.numpy(), up.argmax(-1), up)
 
 
+def assert_weights_match_convert_named(case):
+    """The JAX module's shape trees are those of the trees made from the
+    port's state_dict; `jax_trees_from_state_dict` equals the JAX package's
+    `convert_named` on every leaf, and `state_dict_from_jax` gives the
+    state_dict back bit for bit and loads strictly."""
+    params_shapes, stats_shapes = case.jax_shapes()
+    assert _shape_tree(case.params) == params_shapes
+    assert _shape_tree(case.stats) == stats_shapes
+    want = convert_named({k: v.numpy() for k, v in case.sd.items()})
+    for got_tree, want_tree in zip((case.params, case.stats), want):
+        flat_got = jax.tree_util.tree_flatten_with_path(got_tree)[0]
+        flat_want = jax.tree_util.tree_flatten_with_path(want_tree)[0]
+        assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+        for (path, g), (_, w) in zip(flat_got, flat_want):
+            assert g.dtype == w.dtype and np.array_equal(g, w), path
+    back = state_dict_from_jax(case.params, case.stats)
+    assert set(back) == set(case.sd)
+    for k, v in case.sd.items():
+        assert np.array_equal(back[k], v.numpy()), k
+    model = case.port_module()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in back.items()},
+                          strict=True)
+    return params_shapes, stats_shapes
+
+
 def numpy_tree(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
@@ -248,14 +274,17 @@ def train_batch(case, seed=4):
             rng.integers(0, case.nc, (2, case.hw, case.hw)).astype(np.int32))
 
 
-def jax_train_step(case, batch):
+def jax_train_step(case, batch, full_res_output=True):
     """One SGD-momentum step of the JAX package on the full-resolution
     module with compute_loss (its default step), whose resize to the
     labels takes the module's `up_align_corners`, as the JAX Trainer's
     deferred upsample does (`make_loss_fn(align_corners=...)`): an aux head
     left at low resolution upsamples as the main logits do. Returns the
-    loss and the final state as the port's state_dict."""
-    module = case.jax_module(full_res_output=True)
+    loss and the final state as the port's state_dict.
+    `full_res_output=False` steps the low-resolution module, as the JAX
+    Trainer does: where a model resizes its aux heads onto the main
+    logits' grid (BiSeNetV2's boosters), that grid is the loss's input."""
+    module = case.jax_module(full_res_output=full_res_output)
     tx = optax.sgd(LR, momentum=MOMENTUM)
     params = jax.tree.map(jnp.asarray, case.params)
     state = jsteps.TrainState(
