@@ -1266,6 +1266,8 @@ def serve_phase(device, name="deeplabv3plus", img=IMG):
     for lg, (batch, masks) in zip(logits, ran):
         if tuple(lg.shape[1:]) != (NUM_CLASSES, low, low):
             raise AssertionError(f"{name}: logits {tuple(lg.shape)}")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{name}: served logits not finite")
         if not torch.equal(mask_fn(batch), masks):
             raise AssertionError(f"{name}: make_mask_fn run directly on a "
                                  f"served batch gives another mask")
@@ -2730,6 +2732,8 @@ def serve_one_batch(device, name, variant, img):
     launches = ua.launch_count()
     hook.remove()
     nhwc = logits[0].permute(0, 2, 3, 1)
+    if not bool(torch.isfinite(nhwc).all()):
+        raise AssertionError(f"{name} {variant}: logits not finite")
     if launches != 1 or masks.shape != (BATCH, img, img):
         raise AssertionError(f"{name} {variant}: {launches} launches, mask "
                              f"{tuple(masks.shape)}")

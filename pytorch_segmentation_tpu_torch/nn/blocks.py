@@ -170,16 +170,17 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[:2]
         g = self.num_groups
-        xf = x.float().reshape(b, g, -1)
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True)
+        xf = x.float()
+        grouped = xf.reshape(b, g, -1)
+        mean = grouped.mean(dim=-1, keepdim=True)
+        var = ((grouped * grouped).mean(dim=-1, keepdim=True)
                - mean * mean).clamp(min=0.0)
         inv = torch.rsqrt(var + self.eps)
         shape = (b, c) + (1,) * (x.dim() - 2)
         mean = mean.repeat_interleave(c // g, dim=1).view(shape)
         mul = (inv.repeat_interleave(c // g, dim=1).view(shape)
                * self.weight.view((1, c) + shape[2:]))
-        y = (x.float() - mean) * mul + self.bias.view((1, c) + shape[2:])
+        y = (xf - mean) * mul + self.bias.view((1, c) + shape[2:])
         return y.to(self.compute_dtype)
 
 

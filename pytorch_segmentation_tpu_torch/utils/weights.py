@@ -174,8 +174,11 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
     var 0.5..1.5), so eval-mode BN is exercised; LayerNorm weight 0.5..1.5,
     bias N(0, 0.1) (a GroupNorm's too); a lone BatchNorm (a module with
     running statistics, not named `bn`) as a ConvNormAct's; a learned scale
-    outside a BN (DANet's residual gates, SegNeXt's layer scales) 0.5..1.5,
-    so the branch it gates counts; the bare parameters
+    outside a BN (DANet's residual gates) 0.5..1.5, so the branch it gates
+    counts, and one with a JAX init in `SCALE_INITS` (SegNeXt's layer
+    scales) that init times 0.5..1.5: at 0.5..1.5 the MSCA gate, which
+    multiplies its input by a function of it, grows a residual stream of
+    12 blocks (SegNeXt-B's stage 3) past bf16's range; the bare parameters
     (`BARE_PARAMS`) of order 0.1-1: ConvNeXt's `gamma` 0.5..1.5, the others
     N(0, 0.5^2), so a ConvNeXt block's body, the relative-position bias and
     the position grid all count.
@@ -189,7 +192,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
     and truncated normals of scale 0.02).
 
     'uniform': as 'serve', but the conv and Linear weights uniform in
-    +-1/sqrt(fan_in), torch's default init. Small f32 models whose deep
+    +-1/sqrt(fan_in), torch's default init, and every learned scale
+    0.5..1.5 (the small test models' block bodies count in full). Small f32 models whose deep
     stages normalize a few dozen values per channel train from it with
     well-conditioned gradients; under the He kernels two f32 runs that sum
     in another order part by 10% in single gradients within a step, which
@@ -238,6 +242,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
             v = 0.1 * rng.standard_normal(shape)
         elif leaf in ("running_var", "scale"):
             v = rng.uniform(0.5, 1.5, shape)
+            if leaf == "scale" and init == "serve":
+                v = v * SCALE_INITS.get(parts[-2], 1.0)
         elif leaf == "weight" and init == "uniform":  # conv OIHW, Linear
             bound = 1.0 / np.sqrt(int(np.prod(shape[1:])))
             v = rng.uniform(-bound, bound, shape)

@@ -18,6 +18,10 @@ import pytest
 import torch
 
 from pytorch_segmentation_tpu.models import BiSeNetV2 as JaxBiSeNetV2
+from pytorch_segmentation_tpu_torch import inference as tinference
+from pytorch_segmentation_tpu_torch import serve as tserve
+from pytorch_segmentation_tpu_torch import test as ttest
+from pytorch_segmentation_tpu_torch import train as ttrain
 from pytorch_segmentation_tpu_torch.engine.checkpoint import (
     TRAIN_ONLY_MODULES, load_model_bundle, save_checkpoint)
 from pytorch_segmentation_tpu_torch.models import build_model
@@ -178,3 +182,24 @@ def test_default_widths_and_remat():
                                                                    64)
     with pytest.raises(NotImplementedError, match="item 5"):
         build_model("bisenetv2", NC, remat=True)
+
+
+CLIS = {"train": ttrain, "test": ttest, "inference": tinference,
+        "serve": tserve}
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_command_lines_take_the_family(cli, tmp_path):
+    """Every command line takes `--model bisenetv2`, and `train` its
+    `--aux-loss`."""
+    weights = tmp_path / "w.pt"
+    weights.touch()
+    argv = {"train": ["data"], "test": ["val.json"],
+            "inference": ["in", "out"],
+            "serve": ["--weights", str(weights)]}[cli]
+    argv += ["--model", "bisenetv2"]
+    if cli == "train":
+        argv += ["--aux-loss", "0.4"]
+    opt = CLIS[cli].parse_args(argv)
+    assert opt.model == "bisenetv2"
+    assert cli != "train" or opt.aux_loss == 0.4

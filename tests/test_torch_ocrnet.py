@@ -18,6 +18,10 @@ import torch
 from pytorch_segmentation_tpu.models import (
     MODEL_VARIANTS as JAX_MODEL_VARIANTS)
 from pytorch_segmentation_tpu.models import OCRNet as JaxOCRNet
+from pytorch_segmentation_tpu_torch import inference as tinference
+from pytorch_segmentation_tpu_torch import serve as tserve
+from pytorch_segmentation_tpu_torch import test as ttest
+from pytorch_segmentation_tpu_torch import train as ttrain
 from pytorch_segmentation_tpu_torch.engine.checkpoint import (
     load_model_bundle, save_checkpoint)
 from pytorch_segmentation_tpu_torch.models import (MODEL_VARIANTS,
@@ -146,3 +150,24 @@ def test_variants(variant, width):
     assert model.aux_conv.conv.out_channels == 15 * width
     assert model.bottleneck.conv.out_channels == 512
     assert model.query1.conv.out_channels == 256
+
+
+CLIS = {"train": ttrain, "test": ttest, "inference": tinference,
+        "serve": tserve}
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_command_lines_take_the_family(cli, tmp_path):
+    """Every command line takes `--model ocrnet --variant w48`, and `train`
+    its `--aux-loss`."""
+    weights = tmp_path / "w.pt"
+    weights.touch()
+    argv = {"train": ["data"], "test": ["val.json"],
+            "inference": ["in", "out"],
+            "serve": ["--weights", str(weights)]}[cli]
+    argv += ["--model", "ocrnet", "--variant", "w48"]
+    if cli == "train":
+        argv += ["--aux-loss", "0.4"]
+    opt = CLIS[cli].parse_args(argv)
+    assert (opt.model, opt.variant) == ("ocrnet", "w48")
+    assert cli != "train" or opt.aux_loss == 0.4

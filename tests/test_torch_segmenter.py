@@ -27,7 +27,6 @@ from pytorch_segmentation_tpu.ops.resize import (
     _bicubic_weights as jax_bicubic_weights)
 from pytorch_segmentation_tpu.ops.resize import (
     resize_bicubic as jax_resize_bicubic)
-from pytorch_segmentation_tpu.utils.port_torch import convert_named
 from pytorch_segmentation_tpu_torch.models import build_model, variant_kwargs
 from pytorch_segmentation_tpu_torch.nn.backbones.vit import VIT_VARIANTS
 from pytorch_segmentation_tpu_torch.ops.resize import (_bicubic_weights,
@@ -37,7 +36,9 @@ from pytorch_segmentation_tpu_torch.utils.weights import (
     state_dict_from_jax)
 from torch_family_util import (FamilyCase, assert_forward_matches_jax,
                                assert_mask_fn_matches_jax,
-                               assert_step_matches, jax_train_step,
+                               assert_step_matches,
+                               assert_weights_match_convert_named,
+                               jax_train_step,
                                port_trainer_step, train_batch,
                                without_default_init)
 
@@ -175,10 +176,7 @@ def test_weights_map_like_convert_named(case):
     package's `convert_named` on every leaf (Dense kernels transposed, the
     bare parameters as they are); `state_dict_from_jax` gives the
     state_dict back bit for bit and loads strictly."""
-    params_shapes, stats_shapes = case.jax_shapes()
-    assert jax.tree_util.tree_map(lambda a: tuple(a.shape),
-                                  (case.params, case.stats)) == (
-        params_shapes, stats_shapes)
+    params_shapes, stats_shapes = assert_weights_match_convert_named(case)
     assert stats_shapes == {}
     vit, dec = params_shapes["backbone"], params_shapes["decoder"]
     assert (vit["class_token"], vit["pos_embedding"]) == ((1, 1, 32),
@@ -186,19 +184,7 @@ def test_weights_map_like_convert_named(case):
     assert dec["cls_emb"] == (1, NC, 32)
     assert dec["proj_patch"] == {"kernel": (32, 32)}
     assert dec["mask_norm"] == {"scale": (NC,), "bias": (NC,)}
-    want_p, _ = convert_named({k: v.numpy() for k, v in case.sd.items()})
-    flat_got = jax.tree_util.tree_flatten_with_path(case.params)[0]
-    flat_want = jax.tree_util.tree_flatten_with_path(want_p)[0]
-    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
-    for (path, g), (_, w) in zip(flat_got, flat_want):
-        assert np.array_equal(g, w), path
-    back = state_dict_from_jax(case.params, case.stats)
-    assert set(back) == set(case.sd)
-    for k, v in case.sd.items():
-        assert np.array_equal(back[k], v.numpy()), k
     model = case.port_module()
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in back.items()},
-                          strict=True)
     assert (model.output_stride, model.up_align_corners) == (16, False)
 
 

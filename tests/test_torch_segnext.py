@@ -22,6 +22,10 @@ from pytorch_segmentation_tpu.models import (
     MODEL_VARIANTS as JAX_MODEL_VARIANTS)
 from pytorch_segmentation_tpu.models import SegNeXt as JaxSegNeXt
 from pytorch_segmentation_tpu.models import segnext as jax_segnext
+from pytorch_segmentation_tpu_torch import inference as tinference
+from pytorch_segmentation_tpu_torch import serve as tserve
+from pytorch_segmentation_tpu_torch import test as ttest
+from pytorch_segmentation_tpu_torch import train as ttrain
 from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.models import (MODEL_VARIANTS,
                                                    build_model,
@@ -241,3 +245,20 @@ def test_variants(variant):
     assert tuple(model.hamburger.bases.shape) == (ham, rank)
     with pytest.raises(NotImplementedError, match="item 5"):
         build_model("segnext", NC, remat=True, **TINY)
+
+
+CLIS = {"train": ttrain, "test": ttest, "inference": tinference,
+        "serve": tserve}
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_command_lines_take_the_family(cli, tmp_path):
+    """Every command line takes `--model segnext --variant b`."""
+    weights = tmp_path / "w.pt"
+    weights.touch()
+    argv = {"train": ["data"], "test": ["val.json"],
+            "inference": ["in", "out"],
+            "serve": ["--weights", str(weights)]}[cli]
+    argv += ["--model", "segnext", "--variant", "b"]
+    opt = CLIS[cli].parse_args(argv)
+    assert (opt.model, opt.variant) == ("segnext", "b")
