@@ -25,8 +25,10 @@ step) beside the figures of the same run with the switch off. The layout
 benchmark `tools/bench_cmajor.py` runs once with its channels-major kernel.
 Last, the other families (`families`): UNet on MobileNetV2, HRNet-W32,
 FPN-R50, DANet, LR-ASPP (MobileNetV3-Large), SegFormer-B0, UPerNet-R50,
-Segmenter-B/16, UPerNet-Swin-T, BiSeNetV2, OCRNet-W32 and SegNeXt-T at
-512x512, PSPNet, FastFCN, FCN and DeepLabV3 at 513x513 (PSPNet, FastFCN,
+Segmenter-B/16, UPerNet-Swin-T, BiSeNetV2, OCRNet-W32, SegNeXt-T and
+MaskFormer-R50 at 512x512, PSPNet, FastFCN, FCN and DeepLabV3 at 513x513
+(MaskFormer on its set criterion: 100 queries, 6 supervised decoder
+layers, the Sinkhorn matcher; PSPNet, FastFCN,
 FCN, DeepLabV3, DANet, both UPerNets, BiSeNetV2 with its four boosters and
 OCRNet with its soft-region head trained with their auxiliary heads, each
 head's loss weighted 0.4), served at batch 8, trained at batch 32 and
@@ -35,12 +37,16 @@ version on the logits the run produced (stride 2, align_corners True;
 stride 4, False; stride 8, True, and FastFCN's aux logits at stride 16;
 stride 8, False: 65 -> 513 and 64 -> 512; UPerNet's aux logits at stride
 16, False: 32 -> 512; Segmenter's f32 logits at stride 16, False: 32 ->
-512; SegNeXt's f32 logits at stride 8, False: 64 -> 512); SegFormer's
-attention and
+512; SegNeXt's f32 logits at stride 8, False: 64 -> 512; MaskFormer's f32
+scores at stride 4, False: 128 -> 512); SegFormer's attention and
 Mix-FFN, Swin-T's window attention and MLP, and the ViT's attention and
-MLP timed alone; UNet, PSPNet, DANet and UPerNet trained with the fused
-1x1 switch on (UNet's 16 expand and 16 project products, ResNet-50's 16
-conv1 and 16 conv3, each distinct shape held against the plain versions);
+MLP timed alone; UNet, PSPNet, DANet, UPerNet and MaskFormer trained with
+the fused 1x1 switch on (UNet's 16 expand and 16 project products,
+ResNet-50's 16 conv1 and 16 conv3, each distinct shape held against the
+plain versions); MaskFormer's steps with the Hungarian matcher beside the
+Sinkhorn ones; SegFormer-B2 with scan_blocks=True on the unrolled model's
+weights stacked, one batch served (its logits equal the unrolled model's)
+and one train step;
 FPN-R34, FCN-R101, SegFormer-B2, UPerNet on MiT-B0, SegNeXt-B and
 OCRNet-W48 serving one batch,
 UPerNet on ConvNeXt-T and on ViT-B/16 serving one batch and taking one
@@ -49,8 +55,9 @@ unet -s 320 320 -bs 32 -a 2`, one epoch), with `--model pspnet --aux-loss
 0.4 -s 321 321`, with `--model fcn --aux-loss 0.4 -s 321 321`, with
 `--model upernet --aux-loss 0.4 -s 321 321`, with `--model segmenter -s
 320 320` (the bicubic position-grid resize: a 20 x 20 patch grid) and with
-`--model bisenetv2 --aux-loss 0.4 -s 320 320`, then the test command line
-on the checkpoint each wrote (PSPNet, FCN, UPerNet and BiSeNetV2 built
+`--model bisenetv2 --aux-loss 0.4 -s 320 320` and with `--model
+maskformer -s 320 320 -bs 32 -a 1`, then the test command line on the
+checkpoint each wrote (PSPNet, FCN, UPerNet and BiSeNetV2 built
 without the heads, whose entries it drops), kernels 1-4 held against their
 plain versions on tensors those runs handed them.
 
@@ -58,7 +65,7 @@ plain versions on tensors those runs handed them.
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
                                      # the train step (switch off and on),
                                      # the eval step and the augmentation
-    python3 chip_smoke.py --families bisenetv2 ocrnet segnext
+    python3 chip_smoke.py --families maskformer segformer_scan
                                      # the builds, then the families phase
                                      # for these entries alone
 
@@ -115,10 +122,16 @@ from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import (_tile_offsets,
                                                       make_mask_fn,
                                                       make_tiled_mask_fn)
-from pytorch_segmentation_tpu_torch.models import build_model, variant_kwargs
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   make_maskformer_loss,
+                                                   variant_kwargs)
+from pytorch_segmentation_tpu_torch.models import maskformer as mf
+from pytorch_segmentation_tpu_torch.models.segformer import (
+    stack_block_params)
 from pytorch_segmentation_tpu_torch.nn import blocks
 from pytorch_segmentation_tpu_torch.ops.boundary import (boundary_confusion,
                                                          boundary_pixels)
+from pytorch_segmentation_tpu_torch.ops.loss import compute_loss
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
 from pytorch_segmentation_tpu_torch.ops.kernels import build
 from pytorch_segmentation_tpu_torch.ops.kernels import cmajor_matmul as cm
@@ -1388,21 +1401,27 @@ def family_model(key, **kwargs):
                        **kwargs)
 
 
-def make_trainer(device, name, batch, tmp, **model_kwargs):
+def make_trainer(device, name, batch, tmp, loss_fn=compute_loss, weights="",
+                 **model_kwargs):
     """`family_model(name)` (bf16 compute over f32 parameters,
     full_res_output=True, so the Trainer's deferred upsample routes the loss
     through the upsample+CE kernels; `model_kwargs` to its constructor) in a
     Trainer on one fixed batch, SGD 1e-3 with momentum 0.9, the aux head's
     loss at the Trainer's default weight, from the seeded start: the same
-    weights on every call."""
+    weights on every call. `loss_fn` replaces the CE (MaskFormer's set
+    criterion: no deferred upsample then); `weights` is a checkpoint to
+    start from."""
     model = family_model(name, dtype=torch.bfloat16, full_res_output=True,
                          **model_kwargs)
-    trainer = Trainer(model, RepeatFetcher(batch, 1),
-                      workdir=os.path.join(tmp, "w"), lr=1e-3, momentum=0.9,
-                      seed=SEED, log=False, log_dir=os.path.join(tmp, "runs"),
-                      device=device)
-    if trainer._train_module.full_res_output is not False:
-        raise AssertionError("the Trainer did not defer the upsample")
+    trainer = Trainer(model, RepeatFetcher(batch, 1), loss_fn=loss_fn,
+                      weights=weights, workdir=os.path.join(tmp, "w"),
+                      lr=1e-3, momentum=0.9, seed=SEED, log=False,
+                      log_dir=os.path.join(tmp, "runs"), device=device)
+    if (trainer._train_module.full_res_output is not False) != (
+            loss_fn is not compute_loss):
+        raise AssertionError(f"{name}: the Trainer deferred the upsample "
+                             f"{not trainer._train_module.full_res_output} "
+                             f"for the loss {loss_fn}")
     return trainer
 
 
@@ -2263,18 +2282,20 @@ FAMILY_IMGS = {"unet": 512, "hrnet": 512, "fpn": 512, "pspnet": 513,
                "fastfcn": 513, "fcn": 513, "deeplabv3": 513, "danet": 512,
                "lraspp": 512, "segformer": 512, "upernet": 512,
                "segmenter": 512, "upernet_swin": 512, "bisenetv2": 512,
-               "ocrnet": 512, "segnext": 512}
+               "ocrnet": 512, "segnext": 512, "maskformer": 512}
 # family entries that are a --variant of a model: key -> (model, variant);
 # Segmenter runs at its default, ViT-B/16, OCRNet at W32 and SegNeXt at
 # MSCAN-T
 FAMILY_VARIANTS = {"upernet_swin": ("upernet", "swin-t"),
                    "upernet_cn": ("upernet", "cn-t"),
-                   "upernet_vit": ("upernet", "vit-b16")}
+                   "upernet_vit": ("upernet", "vit-b16"),
+                   "segformer_scan": ("segformer", "b2")}
 # the families whose upsampling taps are not short binary fractions, or
 # whose logits are f32 (Segmenter's and SegNeXt's: a tap of k/32 or k/16
 # times an f32 logit rounds, where times a bf16 one it is exact), so that
 # kernel 3's counts may differ from the plain version's by the near-tie
-# pixels; every other family's counts must equal exactly
+# pixels; every other family's counts must equal exactly (MaskFormer's f32
+# scores at 4x count equal on the card: not listed)
 NEAR_TIE_FAMILIES = ("unet", "fcn", "deeplabv3", "segmenter", "segnext")
 # the constructor arguments each family is trained with (the aux heads'
 # loss at the Trainer's and the train CLI's weight, AUX_WEIGHT)
@@ -2289,17 +2310,27 @@ FAMILY_HEADS = {"danet": 3, "bisenetv2": 5}
 # switch-off figures, and the distinct kernel-5 shapes of each (FCN's and
 # DeepLabV3's are PSPNet's; UPerNet's the non-dilated ResNet-50's at 512,
 # 524288 rows down to 8192)
-FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12, "upernet": 12}
+FUSED_FAMILIES = {"unet": 17, "pspnet": 12, "danet": 12, "upernet": 12,
+                  "maskformer": 12}
 # (family, variant) pairs that serve one batch
 ONE_BATCH_VARIANTS = (("fpn", "r34"), ("fcn", "r101"), ("segformer", "b2"),
                       ("upernet", "mit-b0"), ("segnext", "b"),
                       ("ocrnet", "w48"))
 # family entries that serve one batch and take one train step
 ONE_STEP_FAMILIES = ("upernet_cn", "upernet_vit")
+# SegFormer-B2 (FAMILY_VARIANTS) with scan_blocks=True on the unrolled
+# model's weights stacked (`stack_block_params`): one batch served, one
+# train step
+SCAN_ENTRIES = ("segformer_scan",)
+# the MaskFormer entry's steps with the Hungarian matcher (one checked,
+# then timed)
+HUNGARIAN_STEPS = 3
 ONE_STEP_IMG = 512
 AUX_WEIGHT = 0.4
 FAMILY_EVAL_IMAGES = 64
 FAMILY_WARMUP, FAMILY_STEPS, FAMILY_WINDOWS = 2, 5, 2
+# MaskFormer's step-1 loss on the card against its criterion on the CPU
+SET_LOSS_RTOL = 1e-4
 ROOT_BATCH, ROOT_ACCUMULATE = 32, 2   # the root train CLI's -bs and -a
 FUSED_PER_STEP = 32   # UNet's expand + project, ResNet-50's conv1 + conv3
 
@@ -2366,6 +2397,8 @@ def family_train(device, name, plain=None):
     against `plain`'s (the same weights and batch) and a folded BN's
     running statistics must move once a step. Returns the launches, the
     figures, the trained model and those shapes."""
+    if name == "maskformer":
+        return set_prediction_train(device, plain)
     fused = plain is not None
     hw = FAMILY_IMGS[name]
     aux = FAMILY_KWARGS.get(name, {}).get("aux", False)
@@ -2527,6 +2560,262 @@ def family_eval(device, name, model, eval_set):
     return launches, {"miou": miou, "images_per_s": len(eval_set) / eval_s,
                       "counts_l1_diff_plain_tail": l1,
                       "near_tie_pixels_where_counts_differ": ties}
+
+
+def step_outputs(out):
+    """A MaskFormer train-step dict, detached."""
+    return {k: v.detach() for k, v in out.items()}
+
+
+def set_prediction_loss_check(name, outputs, segs, matcher, loss):
+    """The step's loss against the same criterion on CPU copies of the
+    step's outputs and labels (rtol 1e-4). Returns the CPU loss."""
+    cpu_loss = float(make_maskformer_loss(NUM_CLASSES, matcher=matcher)(
+        {k: v.cpu() for k, v in outputs.items()}, segs.cpu()))
+    if not abs(loss - cpu_loss) <= SET_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"{name}: step 1's loss {loss} on the card, "
+                             f"{cpu_loss} on the CPU ({matcher})")
+    return cpu_loss
+
+
+def sinkhorn_figures(outputs, segs):
+    """The Sinkhorn matcher on the step's own cost matrices (every
+    supervised layer, from the step-1 outputs): on the card against the
+    same function on a CPU copy of the costs, assignment for assignment, a
+    class assigned otherwise allowed only where its matched cost is within
+    1e-3 of the card's (a near tie of the decode); and beside Hungarian's
+    exact optimum on the same costs: the queries given to two classes or
+    more (collisions) and the matched costs' difference. Returns those
+    figures."""
+    targets = mf._targets(segs, outputs["mask"].shape[2:], NUM_CLASSES)
+    present = targets[4]
+    layers = [(outputs["cls"], outputs["mask"])] + list(zip(
+        outputs["aux_cls"], outputs["aux_mask"]))
+    figures = {"collisions": [], "cost_minus_hungarian_sum": [],
+               "samples_equal_hungarian": [], "differs_cpu_near_ties": 0}
+    for cls, mask in layers:
+        cost = mf._layer_costs(cls, mask, targets, NUM_CLASSES)[3]
+        got = mf._sinkhorn_assign(cost, present)
+        want = mf._sinkhorn_assign(cost.cpu(), present.cpu()).to(cost.device)
+        differs = (got != want).any(-1) & present            # [B, C]
+        if bool(differs.any()):
+            cost_t = cost.transpose(1, 2)                     # [B, C, Q]
+            gap = (cost_t * got).sum(-1) - (cost_t * want).sum(-1)
+            if float(gap[differs].abs().max()) > 1e-3:
+                raise AssertionError(f"Sinkhorn on the card and on the CPU "
+                                     f"differ by matched costs up to "
+                                     f"{float(gap[differs].abs().max())}")
+            figures["differs_cpu_near_ties"] += int(differs.sum())
+        exact = mf._hungarian_assign(cost, present)
+        cost_t = cost.transpose(1, 2)
+        excess = (cost_t * got).sum((1, 2)) - (cost_t * exact).sum((1, 2))
+        figures["collisions"].append(int((got.sum(1) > 1).sum()))
+        figures["cost_minus_hungarian_sum"].append(float(excess.sum()))
+        figures["samples_equal_hungarian"].append(
+            int((got == exact).all(-1).all(-1).sum()))
+    return figures
+
+
+def set_prediction_train(device, plain=None, matcher="sinkhorn"):
+    """MaskFormer (FAMILY_IMGS' size, aux_loss: 6 supervised layers) on its
+    set criterion with `matcher` through `make_trainer` on the fixed batch
+    of 32: 2 warm-up steps, then 2 synchronised windows of 5. No CE kernel
+    runs in the step. Step 1's loss equals the criterion on CPU copies of
+    its outputs; the Sinkhorn matcher on the step's own cost matrices is
+    held against the CPU and set beside Hungarian's optimum
+    (`sinkhorn_figures`); the loss is finite and falls; a backbone BN's
+    running statistics move once a step. Given `plain` (the switch-off
+    figures), the fused 1x1 switch is on: the 1x1 products' shapes are
+    recorded and step 1's loss is held against `plain`'s. Returns
+    family_train's four results."""
+    name, fused = "maskformer", plain is not None
+    _, batch = train_batch(device, FAMILY_IMGS[name])
+    blocks.set_force_fused_1x1("on" if fused else None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = make_trainer(device, name, batch, tmp,
+                                   loss_fn=make_maskformer_loss(
+                                       NUM_CLASSES, matcher=matcher))
+            kept = []
+
+            def keep(mod, args, out):
+                if not kept:
+                    kept.append(step_outputs(out))
+
+            hooks = [trainer._train_module.register_forward_hook(keep)]
+            shapes = []
+            if fused:
+                shapes, handles = fused_product_shapes(trainer.model)
+                hooks += handles
+            bn = first_folded_bn(trainer.model)
+            before = (bn.running_mean.clone(), int(bn.num_batches_tracked))
+            losses, wall_ms, event_ms, launches, peak_gb = timed_steps(
+                trainer, FAMILY_WARMUP, FAMILY_WINDOWS)
+            for hook in hooks:
+                hook.remove()
+    finally:
+        blocks.set_force_fused_1x1(None)
+    steps = trainer.state.step
+    per_step = FUSED_PER_STEP if fused else 0
+    if (steps != FAMILY_WARMUP + FAMILY_WINDOWS * FAMILY_STEPS
+            or launches["softmax_ce"] != {"fwd": 0, "bwd": 0}
+            or set(launches["fused_matmul_bn"].values()) != {per_step * steps}
+            or len(shapes) != per_step * steps):
+        raise AssertionError(f"{name}: {steps} steps launched {launches}, "
+                             f"{len(shapes)} products recorded")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: train losses {losses}")
+    moved = (not torch.equal(bn.running_mean, before[0]),
+             int(bn.num_batches_tracked) - before[1])
+    if moved != (True, steps):
+        raise AssertionError(f"{name}: a BN's running statistics did not "
+                             f"move once per step: {moved}")
+    outputs, segs = kept[0], batch[1]
+    figures = {"matcher": matcher, "first_loss_cpu": set_prediction_loss_check(
+        name, outputs, segs, matcher, losses[0])}
+    if fused:
+        loss_diff = (abs(losses[0] - plain["first_loss"])
+                     / plain["first_loss"])
+        if not loss_diff <= FUSED_LOSS_RTOL:
+            raise AssertionError(f"{name}: step 1's loss {losses[0]} with "
+                                 f"the switch on, {plain['first_loss']} "
+                                 f"with it off")
+        figures["first_loss_rel_diff_switch_off"] = loss_diff
+    else:
+        figures["sinkhorn_step_costs"] = sinkhorn_figures(outputs, segs)
+    figures["outputs"] = {k: list(v.shape) for k, v in outputs.items()}
+    del kept, outputs
+    figures.update({
+        "first_loss": losses[0], "window_mean_losses": losses[-2:],
+        "ms_per_step_wall": wall_ms, "ms_per_step_cuda_events": event_ms,
+        "images_per_s": 1e3 * TRAIN_BATCH / min(wall_ms),
+        "peak_memory_mb": 1e3 * peak_gb})
+    return launches, figures, trainer.model, sorted(set(shapes))
+
+
+def hungarian_steps(device, sinkhorn_ms):
+    """The MaskFormer entry with the Hungarian matcher (scipy on the host,
+    one round trip a supervised layer) from the seeded start on the fixed
+    batch: step 1's loss finite and equal to the criterion on CPU copies of
+    its outputs; then HUNGARIAN_STEPS - 1 steps timed in one synchronised
+    window, beside the Sinkhorn run's ms a step. Returns the CE and fused
+    kernels' launches (none)."""
+    name = "maskformer"
+    _, batch = train_batch(device, FAMILY_IMGS[name])
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = make_trainer(device, name, batch, tmp,
+                               loss_fn=make_maskformer_loss(
+                                   NUM_CLASSES, matcher="hungarian"))
+        kept = []
+        hook = trainer._train_module.register_forward_hook(
+            lambda mod, args, out: kept.append(step_outputs(out))
+            if not kept else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ce.reset_launch_count()
+        fm.reset_launch_count()
+        losses = [trainer.step()]
+        hook.remove()
+        trainer.fetcher.n = HUNGARIAN_STEPS - 1
+        wall_ms, event_ms = step_windows(trainer, 1, losses)
+        launches = {"softmax_ce": ce.launch_count(),
+                    "fused_matmul_bn": fm.launch_count()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(losses).all()
+            and trainer.state.step == HUNGARIAN_STEPS
+            and launches["softmax_ce"] == {"fwd": 0, "bwd": 0}):
+        raise AssertionError(f"{name} hungarian: {trainer.state.step} "
+                             f"steps, losses {losses}, {launches}")
+    cpu_loss = set_prediction_loss_check(f"{name}_hungarian", kept[0],
+                                         batch[1], "hungarian", losses[0])
+    log("family_hungarian", model=name, img=FAMILY_IMGS[name],
+        batch=TRAIN_BATCH, first_loss=losses[0], first_loss_cpu=cpu_loss,
+        window_mean_loss=losses[-1], ms_per_step_wall=wall_ms,
+        ms_per_step_cuda_events=event_ms,
+        sinkhorn_ms_per_step_wall=sinkhorn_ms,
+        peak_memory_mb=1e3 * peak_gb, launches=launches)
+    return launches
+
+
+def scan_entry(device, key):
+    """SegFormer at `key`'s variant with scan_blocks=True, bf16, on
+    the unrolled model's seeded serving weights stacked by
+    `stack_block_params`: one batch of 8 smooth images through
+    make_mask_fn (kernel 1 held against the plain version), its stride-4
+    logits equal to the unrolled model's on the same batch, bit for bit;
+    then one train step at batch 32 from the same weights for each layout:
+    the CE kernels once each, the losses equal, the stacked parameters
+    after the step beside the unrolled ones. Returns the kernels'
+    launches."""
+    name, variant = FAMILY_VARIANTS[key]
+    hw = ONE_STEP_IMG
+    kw = dict(dtype=torch.bfloat16, full_res_output=False,
+              **variant_kwargs(name, variant))
+    unrolled = load_model_bundle(build_model(name, NUM_CLASSES, **kw), None,
+                                 device, seed=SEED)
+    stacked_sd = stack_block_params(
+        {k: v.cpu() for k, v in unrolled.state_dict().items()}, variant)
+    scan = build_model(name, NUM_CLASSES, scan_blocks=True, **kw)
+    scan.load_state_dict(stacked_sd, strict=True)
+    scan = scan.to(device, memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(SEED + 3)
+    images = np.stack([smooth_image(rng, hw, hw) for _ in range(BATCH)])
+    logits = {}
+    for label, model in (("unrolled", unrolled), ("scan", scan)):
+        hook = model.register_forward_hook(
+            lambda mod, args, out, label=label: logits.setdefault(
+                label, out.detach()))
+        ua.reset_launch_count()
+        masks = make_mask_fn(model, out_hw=(hw, hw))(images)
+        torch.cuda.synchronize()
+        hook.remove()
+    launches = ua.launch_count()
+    if not torch.equal(logits["scan"], logits["unrolled"]):
+        diff = float((logits["scan"].float()
+                      - logits["unrolled"].float()).abs().max())
+        raise AssertionError(f"{key}: the stacked model's logits differ from "
+                             f"the unrolled model's by up to {diff}")
+    nhwc = logits["scan"].permute(0, 2, 3, 1)
+    agreement, err = mask_check(
+        masks, ua.upsample_argmax_reference(nhwc, (hw, hw), align_corners=False),
+        resize_bilinear(nhwc.float(), (hw, hw), align_corners=False))
+    _, batch = train_batch(device, hw)
+    step = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, sd, scan_blocks in (
+                ("unrolled", unrolled.state_dict(), False),
+                ("scan", stacked_sd, True)):
+            path = os.path.join(tmp, f"{label}.pt")
+            torch.save({"model": sd}, path)
+            trainer = make_trainer(device, key, batch, tmp, weights=path,
+                                   scan_blocks=scan_blocks)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ce.reset_launch_count()
+            t0 = time.perf_counter()
+            loss = trainer.step()
+            torch.cuda.synchronize()
+            step[label] = {"loss": loss, "launches": ce.launch_count(),
+                           "ms_first_step_wall":
+                               1e3 * (time.perf_counter() - t0),
+                           "peak_memory_mb":
+                               1e-6 * torch.cuda.max_memory_allocated(),
+                           "state": {k: v.detach().cpu() for k, v in
+                                     trainer.module.state_dict().items()}}
+    after = stack_block_params(step["unrolled"].pop("state"), variant)
+    got = step["scan"].pop("state")
+    param_diff = max(float((got[k].float() - v.float()).abs().max())
+                     for k, v in after.items())
+    if (step["scan"]["launches"] != {"fwd": 1, "bwd": 1}
+            or not np.isfinite(step["scan"]["loss"])
+            or abs(step["scan"]["loss"] - step["unrolled"]["loss"])
+            > LOSS_RTOL * abs(step["unrolled"]["loss"])):
+        raise AssertionError(f"{key}: one step {step}")
+    log("scan_entry", model=name, variant=variant, img=hw,
+        logits_shape=list(logits["scan"].shape), logits_equal_unrolled=True,
+        mask_agreement=agreement, max_abs_err=err, serve_launches=launches,
+        train_step=step, params_after_step_max_abs_diff_unrolled=param_diff)
+    return {"upsample_argmax": launches, "softmax_ce": step["scan"]["launches"]}
 
 
 def danet_attention_ms(model, hw, step_ms):
@@ -2751,14 +3040,18 @@ def cli_kernel_checks(name, kept):
     """Kernels 1-4 held against their plain versions on the tensors the
     command lines' run handed them (`keeping_launches`): the upsample+CE
     kernels (forward and backward, `ce_check`) on the first train step's
-    logits and labels (and its aux logits, where the model has the head);
+    logits and labels (and its aux logits, where the model has the head;
+    MaskFormer's on the first eval batch's scores);
     the first eval batch's confusion counts (equal but for near-tie
     pixels); the first-batch picture's mask (the top-2-gap rule); both
     passes of the first augmented batch's warp (bit-equal)."""
     steps = []
     for i, ((x, y, align), _) in enumerate(kept["softmax_ce"]):
+        # an eval batch's tensors are inference tensors: their clones are
+        # not, and take part in autograd
         _, _, loss_err, grad_err, top = ce_check(
-            f"{name}_cli_step_logits_{i}", x.requires_grad_(True), y, align)
+            f"{name}_cli_step_logits_{i}", x.clone().requires_grad_(True),
+            y.clone(), align)
         steps.append({"logits": list(x.shape), "dtype": str(x.dtype),
                       "out_hw": list(y.shape[1:]), "align_corners": align,
                       "loss_abs_err": loss_err,
@@ -2832,6 +3125,13 @@ FAMILY_CLIS = {
                    "-s", "320", "320", "--epochs", "1"],
                   ["--model", "bisenetv2", "-s", "320", "320"],
                   "BiSeNetV2", 5),
+    # the set criterion: no CE in the train step (0 heads); f32 stride-4
+    # scores of 80 upsample to 320 with align_corners=False (taps of 1/8);
+    # -bs 32 -a 1: three updates an epoch
+    "maskformer": (["--model", "maskformer", "-s", "320", "320", "-bs",
+                    "32", "-a", "1", "--epochs", "1"],
+                   ["--model", "maskformer", "-s", "320", "320"],
+                   "MaskFormer", 0),
 }
 # what the test command line must print of each dropped aux head
 DROPPED_ENTRIES = {"fcn": ("'aux_head.aux_cls.bias'",),
@@ -2853,9 +3153,10 @@ def family_cli(device, name):
     say that it dropped the head's entries (DROPPED_ENTRIES: FCN's nested
     `aux_head.*`, UPerNet's `aux_conv.*` and `aux_cls.*`, BiSeNetV2's
     `aux2_*` ... `aux5_*`).
-    Returns the kernels' launches and the figures, with kernels 1-4 held
-    against their plain versions on tensors the run handed them
-    (`cli_kernel_checks`)."""
+    MaskFormer's train steps launch no CE kernel: its CE check runs on the
+    first eval batch's scores. Returns the kernels' launches and the
+    figures, with kernels 1-4 held against their plain versions on tensors
+    the run handed them (`cli_kernel_checks`)."""
     import io
     from pytorch_segmentation_tpu_torch import test as test_cli
     from pytorch_segmentation_tpu_torch import train as train_cli
@@ -2868,7 +3169,8 @@ def family_cli(device, name):
         for kernel in (ua, ce, br, ec, fm):
             kernel.reset_launch_count()
         t0 = time.perf_counter()
-        with keeping_launches({"softmax_ce": (ce, "_launch_fwd", heads),
+        with keeping_launches({"softmax_ce": (ce, "_launch_fwd",
+                                              max(heads, 1)),
                                "eval_confusion": (ec, "_launch", 1),
                                "upsample_argmax": (ua, "_launch", 1),
                                "banded_resample": (br, "_launch", 2)}
@@ -2896,10 +3198,12 @@ def family_cli(device, name):
         with open("runs/log.jsonl") as f:
             records = [json.loads(line) for line in f]
     micro = CLI_TRAIN // ROOT_BATCH
+    accumulate = (int(train_argv[train_argv.index("-a") + 1])
+                  if "-a" in train_argv else ROOT_ACCUMULATE)
     if not (type(trainer.model).__name__ == cls_name
             and getattr(trainer.model, "aux", False) == (heads > 1)
             and trainer.epoch == 1
-            and trainer.state.step == micro // ROOT_ACCUMULATE
+            and trainer.state.step == micro // accumulate
             and 0.0 <= trainer.metrics <= 1.0 and 0.0 <= miou <= 1.0):
         raise AssertionError(f"train --model {name}: epoch {trainer.epoch}, "
                              f"updates {trainer.state.step}, best "
@@ -2932,30 +3236,34 @@ def family_cli(device, name):
 def families_phase(device):
     """UNet (MobileNetV2), HRNet-W32, FPN-R50, DANet, LR-ASPP
     (MobileNetV3-Large), SegFormer-B0, UPerNet-R50, Segmenter-B/16,
-    UPerNet-Swin-T, BiSeNetV2, OCRNet-W32 and SegNeXt-T at 512x512, PSPNet,
-    FastFCN, FCN and DeepLabV3 at 513x513 (each with its aux heads in
-    training but LR-ASPP, UNet, HRNet, FPN, SegFormer, Segmenter and
-    SegNeXt), 21 classes, bf16 compute over f32 parameters (Segmenter's and
-    SegNeXt's logits f32), seeded weights: served at batch 8 (kernel 1),
-    trained at batch 32 (kernel 2; once a step for each head: twice for
-    PSPNet, FastFCN, FCN, DeepLabV3, both UPerNets and OCRNet, three times
-    for DANet, five for BiSeNetV2), evaluated over 64 images (kernels 2 and
-    3); UNet, PSPNet,
-    DANet and UPerNet trained again with the fused 1x1 switch on (kernel 5
-    on UNet's 16 expand and 16 project products and on ResNet-50's 16 conv1
-    and 16 conv3, each distinct (N, K, M, act) held against the plain
-    versions); FPN-R34, FCN-R101, SegFormer-B2, UPerNet-MiT-B0, SegNeXt-B
-    and OCRNet-W48 serve one batch, UPerNet-ConvNeXt-T and UPerNet-ViT-B/16
-    serve one batch and take
-    one train step; each kernel at each family's shape and dtype (and
-    kernels 2 and 3 at each aux head's other stride) on random inputs for
-    its times, once a shape; SegFormer's, Swin-T's and the ViT's blocks
-    timed alone; then the train command line with the root defaults (UNet),
-    with `--model pspnet --aux-loss 0.4 -s 321 321`, `--model fcn ...`,
-    `--model upernet ...`, `--model segmenter -s 320 320` and `--model
-    bisenetv2 --aux-loss 0.4 -s 320 320`, and the test
-    command line on the checkpoint each wrote, kernels 1-4 held against
-    their plain versions on tensors those runs handed them.
+    UPerNet-Swin-T, BiSeNetV2, OCRNet-W32, SegNeXt-T and MaskFormer-R50 at
+    512x512, PSPNet, FastFCN, FCN and DeepLabV3 at 513x513 (each with its
+    aux heads in training but LR-ASPP, UNet, HRNet, FPN, SegFormer,
+    Segmenter, SegNeXt and MaskFormer), 21 classes, bf16 compute over f32
+    parameters (Segmenter's and SegNeXt's logits f32, MaskFormer's scores
+    f32), seeded weights: served at batch 8 (kernel 1), trained at batch 32
+    (kernel 2; once a step for each head: twice for PSPNet, FastFCN, FCN,
+    DeepLabV3, both UPerNets and OCRNet, three times for DANet, five for
+    BiSeNetV2, never for MaskFormer, whose set criterion runs the Sinkhorn
+    matcher), evaluated over 64 images (kernels 2 and 3); UNet, PSPNet,
+    DANet, UPerNet and MaskFormer trained again with the fused 1x1 switch on
+    (kernel 5 on UNet's 16 expand and 16 project products and on
+    ResNet-50's 16 conv1 and 16 conv3, each distinct (N, K, M, act) held
+    against the plain versions); FPN-R34, FCN-R101, SegFormer-B2,
+    UPerNet-MiT-B0, SegNeXt-B and OCRNet-W48 serve one batch,
+    UPerNet-ConvNeXt-T and UPerNet-ViT-B/16 serve one batch and take one
+    train step; SegFormer-B2 with scan_blocks=True serves one batch and
+    takes one step (`scan_entry`); MaskFormer takes HUNGARIAN_STEPS steps
+    with the Hungarian matcher; each kernel at each family's shape and
+    dtype (and kernels 2 and 3 at each aux head's other stride) on random
+    inputs for its times, once a shape; SegFormer's, Swin-T's and the ViT's
+    blocks timed alone; then the train command line with the root defaults
+    (UNet), with `--model pspnet --aux-loss 0.4 -s 321 321`, `--model fcn
+    ...`, `--model upernet ...`, `--model segmenter -s 320 320`, `--model
+    bisenetv2 --aux-loss 0.4 -s 320 320` and `--model maskformer -s 320
+    320 -bs 32 -a 1`, and the test command line on the checkpoint each
+    wrote, kernels 1-4 held against their plain versions on tensors those
+    runs handed them.
     Returns each kernel's launches over the phase's main-path runs (in all
     and by model), each family's kernel figures and each fused shape's."""
     t_phase = time.perf_counter()
@@ -3047,6 +3355,12 @@ def families_phase(device):
         add({"upsample_argmax": serve_one_batch(device, name, variant,
                                                 ONE_STEP_IMG),
              **train_one_step(device, key)}, key)
+    for key in SCAN_ENTRIES:
+        add(scan_entry(device, key), key)
+    if "maskformer" in trained:
+        add(hungarian_steps(device, min(
+            trained["maskformer"]["ms_per_step_wall"])),
+            "maskformer_hungarian")
 
     fused_shapes = {}
     for name, n_shapes in FUSED_FAMILIES.items():
@@ -3085,14 +3399,16 @@ def only_families(keys):
     """Cut the families phase's tables down to the entries `keys` (a
     model's one-batch variants, fused run and command line go with it)."""
     global FAMILY_IMGS, ONE_BATCH_VARIANTS, ONE_STEP_FAMILIES
-    global FUSED_FAMILIES, FAMILY_CLIS
-    unknown = set(keys) - set(FAMILY_IMGS) - set(ONE_STEP_FAMILIES)
+    global FUSED_FAMILIES, FAMILY_CLIS, SCAN_ENTRIES
+    unknown = (set(keys) - set(FAMILY_IMGS) - set(ONE_STEP_FAMILIES)
+               - set(SCAN_ENTRIES))
     if unknown:
         raise SystemExit(f"--families: unknown entries {sorted(unknown)}")
     FAMILY_IMGS = {k: v for k, v in FAMILY_IMGS.items() if k in keys}
     ONE_BATCH_VARIANTS = tuple(p for p in ONE_BATCH_VARIANTS
                                if p[0] in keys)
     ONE_STEP_FAMILIES = tuple(k for k in ONE_STEP_FAMILIES if k in keys)
+    SCAN_ENTRIES = tuple(k for k in SCAN_ENTRIES if k in keys)
     FUSED_FAMILIES = {k: v for k, v in FUSED_FAMILIES.items() if k in keys}
     FAMILY_CLIS = {k: v for k, v in FAMILY_CLIS.items() if k in keys}
 

@@ -110,7 +110,10 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
     FastFCN with aux=True; `aux` one tensor or a tuple of them) is trained
     on `loss_fn(logits) + aux_weight * sum(loss_fn(a) for a in aux)`: the
     same criterion on each head, each at its own resolution (through
-    `make_loss_fn`, one fused upsample+CE forward and backward a head).
+    `make_loss_fn`, one fused upsample+CE forward and backward a head). A
+    model whose train-mode forward returns a dict (MaskFormer's
+    predictions) is trained on `loss_fn(outputs, segs)`, the dict as it is:
+    no layout change, no `aux_weight`.
 
     Not ported yet: `qat` (ROADMAP: quant.py), `distill_fn` (ROADMAP: losses
     and extras) and MoE load-balance losses (ROADMAP: other model families,
@@ -148,7 +151,9 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
         model.train()
         params = _trainable(model)
         logits = model(images.permute(0, 3, 1, 2))
-        if isinstance(logits, (tuple, list)):
+        if isinstance(logits, dict):
+            loss = loss_fn(logits, segs)
+        elif isinstance(logits, (tuple, list)):
             main, aux = logits
             auxs = aux if isinstance(aux, (tuple, list)) else (aux,)
             loss = loss_fn(main.permute(0, 2, 3, 1), segs) + aux_weight * sum(

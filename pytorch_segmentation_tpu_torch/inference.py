@@ -21,13 +21,14 @@ training resolution, logits summed on a canvas, one argmax.
 
 writes `<name>.png`, the VOC-palette colour mask of each PNG image of
 IMG_DIR at the image's own size (CUDA only). `--model` takes
-every family but maskformer (unet, bisenetv2, danet, deeplabv3,
-deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet,
-segformer, segmenter, segnext, upernet), deeplabv3plus the default;
-`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3,
-danet: r50, r101; ocrnet: w18, w32, w48; segnext: tiny, t, s, b;
-segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16; upernet: r50,
-r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*).
+every family (unet, bisenetv2, danet, deeplabv3, deeplabv3plus, fastfcn,
+fcn, fpn, hrnet, lraspp, maskformer, ocrnet, pspnet, segformer,
+segmenter, segnext, upernet), deeplabv3plus the default; `--variant` a
+family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101;
+ocrnet: w18, w32, w48; segnext: tiny, t, s, b; segformer: b0..b5, tiny,
+tiny-d4; segmenter: pico, b16, l16; maskformer: r50, tiny; upernet: r50,
+r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*); `--scan-blocks`
+segformer's stacked block stages (another family exits with status 2).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from .data.pipeline import normalize_images
 from .data.resize_host import resize_probs, resize_u8
 from .engine.checkpoint import load_model_bundle
 from .engine.steps import nhwc_forward, require_eval_mode
-from .models import MODEL_REGISTRY, build_model, variant_kwargs
+from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
+                     variant_kwargs)
 from .ops.kernels.upsample_argmax import fused_upsample_argmax
 from .ops.resize import resize_bilinear
 from .ops.tta import normalize_tta_scales, tta_logits
@@ -234,7 +236,7 @@ def _write_mask(path: str, segmap) -> None:
 
 def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
         legacy_preproc=False, batch_size=8, ema=False, tta=False, tile=None,
-        tta_scales=(), variant="", device=None):
+        tta_scales=(), variant="", scan_blocks=False, device=None):
     """The root inference CLI's `run` on `device` (None: the card): every
     image of `img_dir` whose suffix is in IMG_EXT (PNG is read; another
     format raises) -> `<output_dir>/<name>.png`. Returns the masks by name."""
@@ -243,7 +245,9 @@ def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
     shutil.rmtree(output_dir, ignore_errors=True)
     os.makedirs(output_dir, exist_ok=True)
     model = build_model(model_name, num_classes=num_classes,
-                        **variant_kwargs(model_name, variant))
+                        **apply_scan_blocks(
+                            model_name, variant_kwargs(model_name, variant),
+                            scan_blocks))
     model = load_model_bundle(model, weights, device, use_ema=ema)
     names = sorted(n for n in os.listdir(img_dir)
                    if osp.splitext(n)[1] in IMG_EXT)
@@ -272,7 +276,7 @@ def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
 # flags of the root CLI whose machinery is not ported: name -> (default,
 # ROADMAP queue 1 item)
 UNPORTED = {"show": (False, 11), "int8": (False, 9), "calib": (False, 9),
-            "scan_blocks": (False, 6), "moe": (0, 10)}
+            "moe": (0, 10)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -325,7 +329,7 @@ def main(argv=None, device=None):
                opt.weights, opt.model, opt.legacy_preproc, opt.batch_size,
                ema=opt.ema, tta=opt.tta, tile=opt.tile,
                tta_scales=tuple(opt.tta_scales), variant=opt.variant,
-               device=device)
+               scan_blocks=opt.scan_blocks, device=device)
 
 
 if __name__ == "__main__":

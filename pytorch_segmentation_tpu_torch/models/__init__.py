@@ -1,13 +1,12 @@
-"""Model registry of the port. `MODEL_REGISTRY` lists the JAX package's
-model names; UNet (MobileNetV2 encoder), BiSeNetV2, DeepLabV3+, HRNet,
-OCRNet (on HRNet), FPN, PSPNet, FastFCN, FCN, DeepLabV3, DANet, LR-ASPP
-(MobileNetV3-Large), SegFormer (MiT-B0...B5), SegNeXt (MSCAN + LightHam),
-UPerNet (ResNet, MiT, ConvNeXt, Swin and ViT encoders) and Segmenter (ViT)
-are ported so far (`ported_models()`), 16 of the 17; `build_model` raises
-NotImplementedError for MaskFormer, which follows as ROADMAP.md queue 1
-item 6 lists. `MODEL_VARIANTS` is the JAX package's
-table for the ported families. `UNPORTED_ENCODERS` (UPerNet encoders the
-port lacks) is empty."""
+"""Model registry of the port. `MODEL_REGISTRY` holds every model name of
+the JAX package, all 17 ported: UNet (MobileNetV2 encoder), BiSeNetV2,
+DeepLabV3+, HRNet, OCRNet (on HRNet), FPN, PSPNet, FastFCN, FCN, DeepLabV3,
+DANet, LR-ASPP (MobileNetV3-Large), SegFormer (MiT-B0...B5), SegNeXt (MSCAN
++ LightHam), UPerNet (ResNet, MiT, ConvNeXt, Swin and ViT encoders),
+Segmenter (ViT) and MaskFormer (trained on `make_maskformer_loss`).
+`MODEL_VARIANTS` is the JAX package's table; `apply_scan_blocks` its CLI
+gate of `--scan-blocks`. `UNPORTED_ENCODERS` (UPerNet encoders the port
+lacks) is empty."""
 
 from .bisenetv2 import BiSeNetV2
 from .danet import DANet
@@ -15,6 +14,7 @@ from .deeplabv3plus import DeepLabV3Plus
 from .fpn import FPN
 from .hrnet import HRNet
 from .lraspp import LRASPP
+from .maskformer import MaskFormer, make_maskformer_loss
 from .ocrnet import OCRNet
 from .pspnet import PSPNet
 from .segformer import SegFormer
@@ -25,12 +25,10 @@ from .unet import UNet
 from .upernet import UNPORTED_ENCODERS, UPerNet
 
 __all__ = ["BiSeNetV2", "DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN",
-           "HRNet", "LRASPP", "OCRNet", "PSPNet", "SegFormer", "Segmenter",
-           "SegNeXt", "UNet", "UPerNet", "UNPORTED_ENCODERS",
-           "MODEL_REGISTRY", "MODEL_VARIANTS", "UNPORTED_MODEL_ITEM",
-           "build_model", "ported_models", "variant_kwargs"]
-
-UNPORTED_MODEL_ITEM = "ROADMAP queue 1 item 6, other model families"
+           "HRNet", "LRASPP", "MaskFormer", "OCRNet", "PSPNet", "SegFormer",
+           "Segmenter", "SegNeXt", "UNet", "UPerNet", "UNPORTED_ENCODERS",
+           "MODEL_REGISTRY", "MODEL_VARIANTS", "apply_scan_blocks",
+           "build_model", "make_maskformer_loss", "variant_kwargs"]
 
 
 def _fastfcn(**kw):
@@ -39,7 +37,7 @@ def _fastfcn(**kw):
     return PSPNet(jpu=True, **kw)
 
 
-# every name the JAX package's --model takes; None: not ported yet
+# every name the JAX package's --model takes
 MODEL_REGISTRY = {
     "unet": UNet,
     "bisenetv2": BiSeNetV2,
@@ -53,7 +51,7 @@ MODEL_REGISTRY = {
     "segformer": SegFormer,
     "segnext": SegNeXt,
     "segmenter": Segmenter,
-    "maskformer": None,
+    "maskformer": MaskFormer,
     "upernet": UPerNet,
     "fcn": FCN,
     "deeplabv3": DeepLabV3,
@@ -61,28 +59,16 @@ MODEL_REGISTRY = {
 }
 
 
-def ported_models() -> list[str]:
-    return sorted(n for n, c in MODEL_REGISTRY.items() if c is not None)
-
-
-def _model_class(name: str):
+def build_model(name: str, num_classes: int, **kwargs):
     try:
         cls = MODEL_REGISTRY[name.lower()]
     except KeyError:
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{sorted(MODEL_REGISTRY)}") from None
-    if cls is None:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to the PyTorch package yet "
-            f"({UNPORTED_MODEL_ITEM}); ported: {ported_models()}")
-    return cls
+    return cls(num_classes=num_classes, **kwargs)
 
 
-def build_model(name: str, num_classes: int, **kwargs):
-    return _model_class(name)(num_classes=num_classes, **kwargs)
-
-
-# per-family size variants of the CLIs' --variant, for the ported families
+# per-family size variants of the CLIs' --variant
 MODEL_VARIANTS = {
     # tiny / tiny-d4 are not paper variants: the JAX package's test sizes
     "segformer": {v: {"variant": v} for v in
@@ -106,6 +92,13 @@ MODEL_VARIANTS = {
                "w48": {"base_channels": 48}},
     # pico is not a paper variant: the JAX package's test size
     "segmenter": {v: {"variant": v} for v in ("pico", "b16", "l16")},
+    "maskformer": {
+        "r50": {},  # the paper's R50 semantic configuration (Q 100, 6 layers)
+        # not a paper variant: the JAX package's test size
+        "tiny": {"backbone_layers": (1, 1, 1, 1), "dim": 64,
+                 "mask_dim": 64, "fpn_channels": 64, "num_queries": 8,
+                 "heads": 4, "dec_layers": 2},
+    },
     "fpn": {
         "r50": {},  # the default bottleneck (3, 4, 6, 3) backbone
         "r34": {"block": "basic", "backbone_layers": (3, 4, 6, 3)},
@@ -118,12 +111,10 @@ MODEL_VARIANTS = {
 
 def variant_kwargs(name: str, variant: str) -> dict:
     """Model-constructor kwargs for a CLI `--variant`; '' = the defaults.
-    Raises, with the valid choices, for a family that has no variants in
-    the port or an unknown variant name; NotImplementedError for a family
-    not ported yet."""
+    Raises, with the valid choices, for a family that has no variants or an
+    unknown variant name."""
     if not variant:
         return {}
-    _model_class(name)
     table = MODEL_VARIANTS.get(name.lower())
     if not table:
         raise ValueError(f"model {name!r} has no variants "
@@ -134,3 +125,15 @@ def variant_kwargs(name: str, variant: str) -> dict:
     except KeyError:
         raise ValueError(f"unknown {name} variant {variant!r}; "
                          f"available: {sorted(table)}") from None
+
+
+def apply_scan_blocks(name: str, model_kw: dict, enabled: bool) -> dict:
+    """The CLIs' `--scan-blocks`: SegFormer's stacked block stages
+    (`models/segformer._BlockStack`). Another family exits with the JAX
+    CLIs' message."""
+    if enabled:
+        if name.lower() != "segformer":
+            raise SystemExit("--scan-blocks targets the transformer "
+                             "family's stacked block stages (segformer)")
+        model_kw["scan_blocks"] = True
+    return model_kw

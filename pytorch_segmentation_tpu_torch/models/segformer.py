@@ -35,12 +35,23 @@ stride-4 logits to the INPUT size.
 The attention and decoder products are plain `torch.matmul`, as the JAX
 module's einsums and `dot_general` run outside any kernel; not
 `F.scaled_dot_product_attention`, whose fused softmax rounds elsewhere.
-`scan_blocks`, `pp_mesh`, `moe_experts` and `remat` are not ported and
-raise.
+
+`scan_blocks=True` (the JAX `_BlockStack` layout): a stage deeper than one
+block is `blocks{i}`, whose `stack` module is one `_Block` holding each
+parameter with a leading layer axis (`backbone.blocks{i}.stack.<leaf>`
+[depth, ...]); the block body runs once a layer on that layer's slices
+(`torch.func.functional_call`), so the gradient of each layer lands in its
+slice of the stack. Stages of depth 1 keep `block{i}_0`.
+`stack_block_params` / `unstack_block_params` convert state_dicts between
+the two layouts. `pp_mesh`, `moe_experts` (with or without scan blocks)
+and `remat` are not ported and raise.
 """
 
 from __future__ import annotations
 
+import re
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -48,7 +59,8 @@ import torch.nn.functional as F
 from ..nn.blocks import ConvNormAct, LayerNorm, Linear, conv2d
 from ..ops.resize import resize_bilinear, resize_bilinear_nchw
 
-__all__ = ["SegFormer", "SEGFORMER_VARIANTS"]
+__all__ = ["SegFormer", "SEGFORMER_VARIANTS", "stack_block_params",
+           "unstack_block_params"]
 
 # embed_dims, depths, num_heads, decoder_dim (the JAX package's table:
 # paper Table 6, plus its 'tiny' and 'tiny-d4' test sizes)
@@ -137,45 +149,86 @@ class _Block(nn.Module):
         return x + self.ffn(self.ln2(x), h, w)
 
 
+class _BlockStack(nn.Module):
+    """`depth` blocks of one stage as one `_Block` (`stack`) whose every
+    parameter carries a leading layer axis; the block body runs once a
+    layer on that layer's slices."""
+
+    def __init__(self, dim: int, heads: int, sr: int, mlp_ratio: int,
+                 depth: int, dtype: torch.dtype):
+        super().__init__()
+        self.depth = depth
+        self.stack = _Block(dim, heads, sr, mlp_ratio, dtype)
+        for name, p in list(self.stack.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.stack.get_submodule(owner), leaf, nn.Parameter(
+                p.detach()[None].repeat(depth, *(1,) * p.dim())))
+
+    def _apply(self, fn, recurse=True):
+        # `Module.to(memory_format=torch.channels_last)` refuses a 5-D
+        # tensor: the stacked conv kernels [depth, O, I, kh, kw] are
+        # converted one layer at a time (each slice then has the unrolled
+        # block's layout)
+        def by_layer(t):
+            if t.dim() != 5:
+                return fn(t)
+            return torch.stack([fn(layer) for layer in t.unbind(0)])
+        return super()._apply(by_layer, recurse)
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        params = dict(self.stack.named_parameters())
+        for j in range(self.depth):
+            x = torch.func.functional_call(
+                self.stack, {n: p[j] for n, p in params.items()}, (x, h, w))
+        return x
+
+
 class _MiT(nn.Module):
     """Mix Transformer encoder; returns the four stage maps, NCHW."""
 
     def __init__(self, embed_dims, depths, num_heads, sr_ratios=(8, 4, 2, 1),
                  mlp_ratio: int = 4, in_channels: int = 3,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 scan_blocks: bool = False):
         super().__init__()
         self.depths, self.dtype = tuple(depths), dtype
         cin = in_channels
+        self._stages: list[list[str]] = []
         for i, (dim, depth, heads) in enumerate(zip(embed_dims, depths,
                                                     num_heads)):
             k, s = (7, 4) if i == 0 else (3, 2)
             self.add_module(f"patch_embed{i + 1}_proj", nn.Conv2d(
                 cin, dim, k, stride=s, padding=k // 2, bias=True))
             self.add_module(f"patch_embed{i + 1}_ln", LayerNorm(dim, dtype))
-            for j in range(depth):
-                self.add_module(f"block{i + 1}_{j}", _Block(
-                    dim, heads, sr_ratios[i], mlp_ratio, dtype))
+            if scan_blocks and depth > 1:
+                names = [f"blocks{i + 1}"]
+                self.add_module(names[0], _BlockStack(
+                    dim, heads, sr_ratios[i], mlp_ratio, depth, dtype))
+            else:
+                names = [f"block{i + 1}_{j}" for j in range(depth)]
+                for name in names:
+                    self.add_module(name, _Block(
+                        dim, heads, sr_ratios[i], mlp_ratio, dtype))
+            self._stages.append(names)
             self.add_module(f"norm{i + 1}", LayerNorm(dim, dtype))
             cin = dim
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         feats = []
-        for i, depth in enumerate(self.depths):
+        for i, names in enumerate(self._stages):
             y = conv2d(getattr(self, f"patch_embed{i + 1}_proj"), x,
                        self.dtype)
             h, w = y.shape[2:]
             t = getattr(self, f"patch_embed{i + 1}_ln")(_to_tokens(y))
-            for j in range(depth):
-                t = getattr(self, f"block{i + 1}_{j}")(t, h, w)
+            for name in names:
+                t = getattr(self, name)(t, h, w)
             x = _to_map(getattr(self, f"norm{i + 1}")(t), h, w)
             feats.append(x)
         return feats
 
 
-def _refuse_unported(remat=False, scan_blocks=False, pp_mesh=None,
-                     moe_experts=0):
+def _refuse_unported(remat=False, pp_mesh=None, moe_experts=0):
     for on, what, item in (
-            (scan_blocks, "scan_blocks=True (stacked block parameters)", 6),
             (pp_mesh is not None, "pp_mesh (pipeline parallelism)", 10),
             (moe_experts > 0, "moe_experts > 0 (nn/moe.py)", 10),
             (remat, "remat=True", 5)):
@@ -213,14 +266,15 @@ class SegFormer(nn.Module):
                  remat: bool = False, scan_blocks: bool = False,
                  pp_mesh=None, moe_experts: int = 0):
         super().__init__()
-        _refuse_unported(remat, scan_blocks, pp_mesh, moe_experts)
+        _refuse_unported(remat, pp_mesh, moe_experts)
         dims, depths, heads, dec_dim = SEGFORMER_VARIANTS[variant]
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output
         self.up_align_corners = up_align_corners
         self.split_fuse = split_fuse
-        self.backbone = _MiT(dims, depths, heads, dtype=dtype)
+        self.backbone = _MiT(dims, depths, heads, dtype=dtype,
+                             scan_blocks=scan_blocks)
         for i, dim in enumerate(dims):
             self.add_module(f"linear_c{i + 1}", Linear(dim, dec_dim, dtype))
         self.fuse = _SplitFuse(4 * dec_dim, dec_dim, 1, dtype=dtype)
@@ -246,3 +300,46 @@ class SegFormer(nn.Module):
         if self.full_res_output:
             y = resize_bilinear_nchw(y, in_hw, align_corners=False)
         return y
+
+
+def _stack(layers):
+    if isinstance(layers[0], torch.Tensor):
+        return torch.stack(layers)
+    return np.stack(layers)
+
+
+def stack_block_params(sd: dict, variant: str) -> dict:
+    """An unrolled SegFormer state_dict (`backbone.block{i}_{j}.<leaf>`,
+    tensors or numpy arrays) -> the `scan_blocks` layout
+    (`backbone.blocks{i}.stack.<leaf>`, the layers stacked on a leading
+    axis). Stages of depth 1 keep their names."""
+    depths = SEGFORMER_VARIANTS[variant][1]
+    out, stacks = {}, {}
+    for name, value in sd.items():
+        found = re.fullmatch(r"backbone\.block(\d+)_(\d+)\.(.+)", name)
+        if found and depths[int(found[1]) - 1] > 1:
+            key = f"backbone.blocks{found[1]}.stack.{found[3]}"
+            stacks.setdefault(key, {})[int(found[2])] = value
+            out.setdefault(key, None)   # keeps the entries' order
+        else:
+            out[name] = value
+    for key, layers in stacks.items():
+        out[key] = _stack([layers[j] for j in range(len(layers))])
+    return out
+
+
+def unstack_block_params(sd: dict, variant: str) -> dict:
+    """The inverse of `stack_block_params`."""
+    depths = SEGFORMER_VARIANTS[variant][1]
+    out = {}
+    for name, value in sd.items():
+        found = re.fullmatch(r"backbone\.blocks(\d+)\.stack\.(.+)", name)
+        if not found:
+            out[name] = value
+            continue
+        for j in range(depths[int(found[1]) - 1]):
+            layer = value[j]
+            out[f"backbone.block{found[1]}_{j}.{found[2]}"] = (
+                layer.clone() if isinstance(layer, torch.Tensor)
+                else np.array(layer))
+    return out

@@ -9,17 +9,18 @@
 `port_weights.py --reverse` writes from a JAX checkpoint (`--ema` serves its
 `'ema'` entry). `--tta` and `--tta-scales 0.75 1.25` add flip and
 multi-scale test-time augmentation. Requests are PNG images. `--model`
-takes every family but maskformer (unet, bisenetv2, danet, deeplabv3,
-deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet,
-segformer, segmenter, segnext, upernet), deeplabv3plus the default;
-`--variant` a family's size variant (fpn: r50, r34; fcn, deeplabv3,
-danet: r50, r101; ocrnet: w18, w32, w48; segnext: tiny, t, s, b;
-segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16; upernet: r50,
-r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*), which must
-match the checkpoint. A checkpoint of `train --aux-loss` loads without its
-train-only auxiliary heads. `--int8`, `--moe`, `--moe-top-k`,
-`--scan-blocks` and `--dp` (the root CLI's) exit with status 2 and name
-their ROADMAP item.
+takes every family (unet, bisenetv2, danet, deeplabv3, deeplabv3plus,
+fastfcn, fcn, fpn, hrnet, lraspp, maskformer, ocrnet, pspnet, segformer,
+segmenter, segnext, upernet), deeplabv3plus the default; `--variant` a
+family's size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101;
+ocrnet: w18, w32, w48; segnext: tiny, t, s, b; segformer: b0..b5, tiny,
+tiny-d4; segmenter: pico, b16, l16; maskformer: r50, tiny; upernet: r50,
+r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*), and `--scan-blocks`
+segformer's stacked block stages (another family exits with status 2),
+which must match the checkpoint. A checkpoint of `train --aux-loss` loads
+without its train-only auxiliary heads. `--int8`, `--moe`, `--moe-top-k`
+and `--dp` (the root CLI's) exit with status 2 and name their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -30,15 +31,16 @@ import os
 import torch
 
 from .engine.checkpoint import load_model_bundle
-from .models import MODEL_REGISTRY, build_model, variant_kwargs
+from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
+                     variant_kwargs)
 from .serving import MaskServer
 from .utils.cli import refuse_unported
 
 __all__ = ["UNPORTED", "parse_args", "build_server", "main"]
 
 # name -> (default, ROADMAP queue 1 item)
-UNPORTED = {"int8": (False, 9), "scan_blocks": (False, 6), "moe": (0, 10),
-            "moe_top_k": (2, 10), "dp": (False, 10)}
+UNPORTED = {"int8": (False, 9), "moe": (0, 10), "moe_top_k": (2, 10),
+            "dp": (False, 10)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -54,8 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="model size variant (fpn: r50/r34; fcn, "
                              "deeplabv3, danet: r50/r101; ocrnet: "
                              "w18/w32/w48; segnext: tiny/t/s/b; segformer: "
-                             "b0..b5; upernet: r50/r34/mit-b0..b5/cn-*/"
-                             "swin-*/vit-*); must match the checkpoint")
+                             "b0..b5; maskformer: r50/tiny; upernet: "
+                             "r50/r34/mit-b0..b5/cn-*/swin-*/vit-*); must "
+                             "match the checkpoint")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8500)
     parser.add_argument("--max-batch", type=int, default=8,
@@ -77,7 +80,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="mixture-of-experts FFNs (not ported yet)")
     parser.add_argument("--moe-top-k", type=int, default=2, metavar="K")
     parser.add_argument("--scan-blocks", action="store_true",
-                        help="a stacked-params checkpoint (not ported yet)")
+                        help="a stacked-params segformer checkpoint")
     parser.add_argument("--dp", action="store_true",
                         help="data-parallel serving (not ported yet)")
     opt = parser.parse_args(argv)
@@ -93,7 +96,9 @@ def build_server(opt: argparse.Namespace, device) -> MaskServer:
     options' batching, preprocessing and TTA. Not started."""
     model = build_model(opt.model, num_classes=opt.num_classes,
                         dtype=torch.bfloat16, full_res_output=False,
-                        **variant_kwargs(opt.model, opt.variant))
+                        **apply_scan_blocks(
+                            opt.model, variant_kwargs(opt.model, opt.variant),
+                            opt.scan_blocks))
     model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
     return MaskServer(model, img_size=tuple(opt.img_size),
                       max_batch=opt.max_batch,

@@ -8,16 +8,18 @@ JSON, or a `segimg` / `idimg` list file; PNG images) through the port's
 `load_model_bundle` and `engine.test`, with `--ema`, `--tta`,
 `--tta-scales`, `--tile`, `--tile-overlap`, `--boundary-iou`, `--report`
 and `--ignore-index`. Prints the per-class table and `metrics: <mIoU>`.
-`--model` takes every family but maskformer (unet, bisenetv2, danet,
-deeplabv3, deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet,
+`--model` takes every family (unet, bisenetv2, danet, deeplabv3,
+deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, maskformer, ocrnet,
 pspnet, segformer, segmenter, segnext, upernet) and `--variant` a family's
 size variant (fpn: r50, r34; fcn, deeplabv3, danet: r50, r101; ocrnet:
 w18, w32, w48; segnext: tiny, t, s, b; segformer: b0..b5, tiny, tiny-d4;
-segmenter: pico, b16, l16; upernet: r50, r34, mit-b0..mit-b5, mit-tiny,
-cn-*, swin-*, vit-*); a checkpoint of `train --aux-loss` loads without its
-train-only auxiliary heads (BiSeNetV2's booster heads too). MaskFormer,
-`--int8`, `--calib-batches`, `--scan-blocks` and `--moe` exit with status
-2 and name their ROADMAP item. Runs on the card;
+segmenter: pico, b16, l16; maskformer: r50, tiny; upernet: r50, r34,
+mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*); `--scan-blocks` builds
+segformer's stacked block stages (a checkpoint of `train --scan-blocks`;
+another family exits with status 2); a checkpoint of `train --aux-loss`
+loads without its train-only auxiliary heads (BiSeNetV2's booster heads
+too). `--int8`, `--calib-batches` and `--moe` exit with status 2 and name
+their ROADMAP item. Runs on the card;
 `run(opt, "cpu")` runs the same on the CPU.
 """
 
@@ -31,7 +33,8 @@ from .data import (CocoDataset, DataLoader, Fetcher, IdImgDataset, PostFetch,
                    SegImgDataset)
 from .engine import test
 from .engine.checkpoint import load_model_bundle
-from .models import MODEL_REGISTRY, build_model, variant_kwargs
+from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
+                     variant_kwargs)
 from .utils.cli import refuse_unported
 from .utils.runtime import require_cuda
 
@@ -42,8 +45,7 @@ DATASETS = {"coco": CocoDataset, "segimg": SegImgDataset,
             "idimg": IdImgDataset}
 
 # name -> (default, ROADMAP queue 1 item)
-UNPORTED = {"int8": (False, 9), "calib_batches": (0, 9),
-            "scan_blocks": (False, 6), "moe": (0, 10)}
+UNPORTED = {"int8": (False, 9), "calib_batches": (0, 9), "moe": (0, 10)}
 
 
 def run(opt: argparse.Namespace, device=None) -> float:
@@ -57,7 +59,9 @@ def run(opt: argparse.Namespace, device=None) -> float:
                             num_workers=opt.num_workers)
     val_fetcher = Fetcher(val_loader, PostFetch(device=device))
     model = build_model(opt.model, num_classes=len(val_data.classes),
-                        **variant_kwargs(opt.model, opt.variant))
+                        **apply_scan_blocks(
+                            opt.model, variant_kwargs(opt.model, opt.variant),
+                            opt.scan_blocks))
     model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
     return test(model, val_fetcher, tta_flip=opt.tta,
                 tta_scales=opt.tta_scales, report_path=opt.report or None,

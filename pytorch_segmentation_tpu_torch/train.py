@@ -15,19 +15,26 @@ Prints the per-epoch images/s and loss, the eval table and
 `save best, miou: ...`.
 
 A flag whose machinery is not ported yet exits with status 2 and names its
-ROADMAP item; so does a `--model` that is not ported yet (every name but
-maskformer is ported: unet, the default, bisenetv2, danet, deeplabv3,
-deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet,
-segformer, segmenter, segnext and upernet; UNet, BiSeNetV2, HRNet, OCRNet,
-FPN, SegFormer, SegNeXt and UPerNet take sizes that are multiples of 32).
+ROADMAP item. `--model` takes every name of the root CLI: unet, the
+default, bisenetv2, danet, deeplabv3, deeplabv3plus, fastfcn, fcn, fpn,
+hrnet, lraspp, maskformer, ocrnet, pspnet, segformer, segmenter, segnext
+and upernet (UNet, BiSeNetV2, HRNet, OCRNet, FPN, MaskFormer, SegFormer,
+SegNeXt and UPerNet take sizes that are multiples of 32). MaskFormer
+trains on its set-prediction criterion (`make_maskformer_loss`, the
+query-to-class matcher of `--matcher`: sinkhorn on the card, or
+hungarian, scipy's on the host); `--ignore-index` then counts in the eval
+only, as in the root CLI (labels of K and above are left out of the
+criterion anyway). `--scan-blocks` builds segformer's stacked block stages;
+another family exits with status 2.
 `--aux-loss W` builds pspnet, fastfcn, upernet, bisenetv2, ocrnet, fcn,
 deeplabv3 or danet with its auxiliary heads (danet's two branch
 classifiers, bisenetv2's four booster heads, ocrnet's soft-region head) and
 adds W times each head's loss; any other family exits with the JAX CLI's
 message. `--variant` takes a family's size variant (fpn: r50, r34; fcn,
 deeplabv3, danet: r50, r101; ocrnet: w18, w32, w48; segnext: tiny, t, s,
-b; segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16; upernet:
-r50, r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*). Runs on the card
+b; segformer: b0..b5, tiny, tiny-d4; segmenter: pico, b16, l16;
+maskformer: r50, tiny; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, cn-*,
+swin-*, vit-*). Runs on the card
 (`require_cuda`);
 `train(..., device="cpu")` runs the same on the CPU.
 """
@@ -44,8 +51,8 @@ from .data import (CocoDataset, CocoInstance, DataLoader, Fetcher,
                    repeat_factors)
 from .data.resize_host import multi_scale_sizes
 from .engine import Trainer, test
-from .models import (MODEL_REGISTRY, build_model, ported_models,
-                     variant_kwargs)
+from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
+                     make_maskformer_loss, variant_kwargs)
 from .ops.loss import compute_loss, softmax_cross_entropy
 from .ops.resize import resize_bilinear
 from .utils.cli import refuse_unported, unported_options
@@ -69,7 +76,7 @@ AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
 # item). `train()` raises for them; the CLI exits with status 2.
 UNPORTED = {
     "remat": (False, 5), "bn_subsample": (1, 5),
-    "debug_nans": (False, 5), "scan_blocks": (False, 6),
+    "debug_nans": (False, 5),
     "loss": ("ce", 7), "class_weights": ("", 7), "label_smoothing": (0.0, 7),
     "ohem": (0.0, 7), "cutmix": (0.0, 7), "mosaic": (0.0, 7),
     "distill": ("", 7), "distill_model": ("", 7), "distill_variant": ("", 7),
@@ -118,6 +125,7 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
             raise SystemExit("--aux-loss is only supported by the "
                              + "/".join(AUX_LOSS_FAMILIES) + " families")
         model_kw["aux"] = True
+    apply_scan_blocks(model_name, model_kw, scan_blocks)
     device = require_cuda() if device is None else torch.device(device)
     ds_cls, train_file, val_file = DATASETS[dataset]
     train_data = ds_cls(osp.join(data_dir, train_file), img_size=img_size,
@@ -159,7 +167,11 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
     model = build_model(model_name, num_classes=len(train_data.classes),
                         dtype=feed_dtype, **model_kw)
     loss_fn = compute_loss
-    if ignore_index is not None:
+    if model_name == "maskformer":
+        # mask classification trains on the set-prediction criterion
+        loss_fn = make_maskformer_loss(len(train_data.classes),
+                                       matcher=matcher)
+    elif ignore_index is not None:
         loss_fn = _ignore_index_loss(
             ignore_index, getattr(model, "up_align_corners", True))
     trainer = Trainer(model, train_fetcher, loss_fn=loss_fn,
@@ -209,8 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("data", type=str, default="data/voc")
     p.add_argument("--model", type=str, default="unet",
-                   choices=sorted(MODEL_REGISTRY),
-                   help="ported so far: " + ", ".join(ported_models()))
+                   choices=sorted(MODEL_REGISTRY))
     p.add_argument("--dataset", type=str, default="cocoinstance",
                    choices=sorted(DATASETS))
     p.add_argument("--epochs", type=int, default=100)

@@ -6,15 +6,13 @@ from __future__ import annotations
 
 import argparse
 
-from ..models import (MODEL_REGISTRY, UNPORTED_MODEL_ITEM, ported_models,
-                      variant_kwargs)
+from ..models import apply_scan_blocks, variant_kwargs
 
 __all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
 
 # ROADMAP.md queue 1, by item number
 ROADMAP_ITEMS = {
     5: "ROADMAP queue 1 item 5, train step rest",
-    6: UNPORTED_MODEL_ITEM,
     7: "ROADMAP queue 1 item 7, losses and extras",
     8: "ROADMAP queue 1 item 8, augmentation rest",
     9: "ROADMAP queue 1 item 9, quant.py",
@@ -35,19 +33,20 @@ def unported_options(values: dict, table: dict) -> list[str]:
 def refuse_unported(parser: argparse.ArgumentParser,
                     opt: argparse.Namespace, table: dict) -> None:
     """Exit through `parser.error` (status 2) if `opt` sets an option of
-    `table`, names a model that is not ported yet, or a `--variant` that
-    its family lacks."""
+    `table`, names a `--variant` that its family lacks, or sets
+    `--scan-blocks` for a family other than segformer."""
     problems = unported_options(vars(opt), table)
     model = getattr(opt, "model", None)
     variant = getattr(opt, "variant", "")
-    if model is not None and MODEL_REGISTRY.get(model) is None:
-        problems.append(f"--model {model} is not ported yet "
-                        f"({UNPORTED_MODEL_ITEM}); ported: "
-                        f"{', '.join(ported_models())}")
-    elif model is not None and variant:
+    if model is not None and variant:
         try:
             variant_kwargs(model, variant)
         except ValueError as e:
+            problems.append(str(e))
+    if model is not None and getattr(opt, "scan_blocks", False):
+        try:
+            apply_scan_blocks(model, {}, True)
+        except SystemExit as e:
             problems.append(str(e))
     if problems:
         parser.error("; ".join(problems))

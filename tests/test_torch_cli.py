@@ -39,7 +39,7 @@ from pytorch_segmentation_tpu_torch.data.resize_host import resize_u8
 from pytorch_segmentation_tpu_torch.engine import test as engine_test
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
-from pytorch_segmentation_tpu_torch.models import DeepLabV3Plus
+from pytorch_segmentation_tpu_torch.models import DeepLabV3Plus, build_model
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.utils.png import imread
 from pytorch_segmentation_tpu_torch.utils.synthetic import make_synthetic_coco
@@ -115,10 +115,12 @@ def test_unported_flag_exits_2_naming_its_item(filename, name, capsys):
 
 @pytest.mark.parametrize("filename", sorted(CLIS))
 def test_unported_model_and_shapes_exit_2(filename, capsys):
+    """A variant a family lacks and (train) non-square sizes exit 2; every
+    one of the JAX CLIs' 17 model names parses, maskformer with its r50
+    and tiny variants."""
     base = [a for a in _POSITIONAL[filename] if a not in ("--model",
                                                           "deeplabv3plus")]
-    refused = [base + ["--model", "maskformer"],
-               base + ["--model", "deeplabv3plus", "--variant", "r50"]]
+    refused = [base + ["--model", "deeplabv3plus", "--variant", "r50"]]
     if filename == "train.py":
         refused += [base + ["--model", "deeplabv3plus", "-s", "64", "48"]]
     for argv in refused:
@@ -126,17 +128,80 @@ def test_unported_model_and_shapes_exit_2(filename, capsys):
             CLIS[filename].parse_args(argv)
         assert err.value.code == 2
     err = capsys.readouterr().err
-    assert ("--model maskformer is not ported yet (ROADMAP queue 1 item 6, "
-            "other model families); ported: bisenetv2, danet, deeplabv3, "
-            "deeplabv3plus, fastfcn, fcn, fpn, hrnet, lraspp, ocrnet, pspnet, "
-            "segformer, segmenter, segnext, unet, upernet") in err
     assert "has no variants" in err
     if filename == "train.py":
         assert "square images only so far (ROADMAP queue 1 item 8" in err
         assert CLIS[filename].parse_args(base).model == "unet"  # the default
-    for model in ("deeplabv3plus", "hrnet", "unet"):
+    names = [a.choices for a in CLIS[filename].build_parser()._actions
+             if a.dest == "model"][0]
+    assert len(names) == 17
+    for model in names:
         opt = CLIS[filename].parse_args(base + ["--model", model])
         assert opt.model == model
+    for variant in ("r50", "tiny"):
+        opt = CLIS[filename].parse_args(base + ["--model", "maskformer",
+                                                "--variant", variant])
+        assert (opt.model, opt.variant) == ("maskformer", variant)
+
+
+@pytest.mark.parametrize("cli", ["train", "test", "inference", "serve"])
+def test_scan_blocks_takes_segformer_only(cli, tmp_path, capsys,
+                                          monkeypatch):
+    """Each command line takes `--scan-blocks` with `--model segformer` and
+    builds the stacked layout from it; with another family it exits 2 with
+    the JAX CLIs' message."""
+    from pytorch_segmentation_tpu_torch import serve as tserve
+    weights = tmp_path / "w.pt"
+    weights.touch()
+    head = {"train": ["data"], "test": ["val.json"], "inference": ["in", "out"],
+            "serve": ["--weights", str(weights)]}[cli]
+    module = {"train": ttrain, "test": ttest, "inference": tinference,
+              "serve": tserve}[cli]
+    argv = head + ["--model", "segformer", "--variant", "tiny-d4",
+                   "--scan-blocks"]
+    opt = module.parse_args(argv)
+    assert (opt.model, opt.scan_blocks) == ("segformer", True)
+    with pytest.raises(SystemExit) as err:
+        module.parse_args(head + ["--model", "pspnet", "--scan-blocks"])
+    assert err.value.code == 2
+    assert ("--scan-blocks targets the transformer family's stacked block "
+            "stages (segformer)" in capsys.readouterr().err)
+
+    class Built(Exception):
+        pass
+
+    class Data:
+        classes = ["background", "a"]
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __len__(self):
+            return 4
+
+    def build(name, num_classes, **kwargs):
+        raise Built(build_model(name, num_classes, **kwargs))
+
+    monkeypatch.setattr(module, "build_model", build)
+    monkeypatch.setitem(ttrain.DATASETS, "coco", (Data, "train.json", ""))
+    monkeypatch.setitem(ttest.DATASETS, "coco", Data)
+    with pytest.raises(Built) as built:
+        if cli == "train":
+            ttrain.train("d", "segformer", 1, (64, 64), 2, 1, 1e-3, False,
+                         False, "", 0, False, False, False, True, True,
+                         variant="tiny-d4", scan_blocks=True,
+                         dataset="coco", device="cpu")
+        elif cli == "test":
+            ttest.run(opt, "cpu")
+        elif cli == "inference":
+            tinference.run("in", str(tmp_path / "out"), (64, 64), 2, "",
+                           "segformer", variant="tiny-d4", scan_blocks=True,
+                           device="cpu")
+        else:
+            tserve.build_server(opt, "cpu")
+    model = built.value.args[0]
+    assert hasattr(model.backbone, "blocks3")
+    assert not hasattr(model.backbone, "block3_0")
 
 
 def test_train_main_passes_every_train_keyword():

@@ -126,9 +126,9 @@ def test_variants_are_the_jax_packages():
         "r50": {}, "r34": {"block": "basic",
                            "backbone_layers": (3, 4, 6, 3)}}
     assert MODEL_VARIANTS == {name: JAX_MODEL_VARIANTS[name] for name in
-                              ("danet", "deeplabv3", "fcn", "fpn", "ocrnet",
-                               "segformer", "segmenter", "segnext",
-                               "upernet")}
+                              ("danet", "deeplabv3", "fcn", "fpn",
+                               "maskformer", "ocrnet", "segformer",
+                               "segmenter", "segnext", "upernet")}
     model = build_model("fpn", NC, **variant_kwargs("fpn", "R34"))
     assert model.block == "basic" and model.backbone.out_channels == 512
     assert variant_kwargs("fpn", "") == {}
@@ -137,11 +137,13 @@ def test_variants_are_the_jax_packages():
         variant_kwargs("fpn", "r18")
     with pytest.raises(ValueError, match=r"model 'pspnet' has no variants "
                        r"\(families with variants: \['danet', 'deeplabv3', "
-                       r"'fcn', 'fpn', 'ocrnet', 'segformer', 'segmenter', "
-                       r"'segnext', 'upernet'\]\)"):
+                       r"'fcn', 'fpn', 'maskformer', 'ocrnet', 'segformer', "
+                       r"'segmenter', 'segnext', 'upernet'\]\)"):
         variant_kwargs("pspnet", "r50")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        variant_kwargs("maskformer", "r50")
+    # the last family ported, maskformer: its r50 and tiny resolve
+    assert variant_kwargs("maskformer", "r50") == {}
+    assert variant_kwargs("maskformer", "tiny") == \
+        JAX_MODEL_VARIANTS["maskformer"]["tiny"]
 
 
 def _argv(cli, tmp_path, *extra):

@@ -22,14 +22,18 @@ from pytorch_segmentation_tpu.models import (
 from pytorch_segmentation_tpu.models import SegFormer as JaxSegFormer
 from pytorch_segmentation_tpu.models.segformer import (
     SEGFORMER_VARIANTS as JAX_SEGFORMER_VARIANTS)
+from pytorch_segmentation_tpu.models.segformer import (
+    stack_block_params as jax_stack_block_params)
 from pytorch_segmentation_tpu.utils.port_torch import convert_named
 from pytorch_segmentation_tpu_torch.models import build_model, variant_kwargs
 from pytorch_segmentation_tpu_torch.models.segformer import (
-    SEGFORMER_VARIANTS)
+    SEGFORMER_VARIANTS, stack_block_params, unstack_block_params)
+from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.nn.blocks import LayerNorm, Linear
 from pytorch_segmentation_tpu_torch.utils.weights import (
     jax_trees_from_state_dict, seeded_state_dict, state_dict_from_jax)
-from torch_family_util import (FamilyCase, assert_forward_matches_jax,
+from torch_family_util import (FAST_COMPILE, FamilyCase,
+                               assert_forward_matches_jax,
                                assert_mask_fn_matches_jax,
                                assert_step_matches, jax_train_step,
                                port_trainer_step, train_batch)
@@ -273,10 +277,13 @@ def test_trainer_step_matches_jax(case, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"scan_blocks": True}, "item 6,"), ({"moe_experts": 4}, "item 10,"),
+    ({"scan_blocks": True, "moe_experts": 4}, "item 10,"),
+    ({"moe_experts": 4}, "item 10,"),
     ({"pp_mesh": object()}, "item 10,"), ({"remat": True}, "item 5,")],
     ids=["scan_blocks", "moe_experts", "pp_mesh", "remat"])
 def test_unported_options_raise(kwargs, item):
+    """MoE (with scan blocks too), pipeline parallelism and remat raise,
+    naming their ROADMAP item."""
     with pytest.raises(NotImplementedError,
                        match=f"not ported yet \\(ROADMAP queue 1 {item}"):
         build_model("segformer", NC, **TINY, **kwargs)
@@ -300,3 +307,111 @@ def test_variants_build_at_their_widths():
         assert model.fuse.conv.weight.shape == (dec, 4 * dec, 1, 1)
         assert model.cls_conv.out_channels == 21
 
+
+
+@pytest.fixture(scope="module")
+def deep(tmp_path_factory):
+    """The tiny-d4 variant (stage 3 four blocks deep), unrolled, on the
+    harness's seeded weights."""
+    return FamilyCase("segformer", JaxSegFormer, NC, HW,
+                      tmp_path_factory.mktemp("segformer_d4"),
+                      variant="tiny-d4")
+
+
+def _scan_model(deep, sd=None):
+    model = build_model("segformer", NC, dtype=torch.float32,
+                        full_res_output=False, variant="tiny-d4",
+                        scan_blocks=True)
+    model.load_state_dict(sd or stack_block_params(deep.sd, "tiny-d4"),
+                          strict=True)
+    # as the Trainer and load_model_bundle move it: the stacked 5-D
+    # kernels layer by layer
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def test_stacked_layout_maps_like_jax(deep):
+    """`stack_block_params` / `unstack_block_params` are inverses on a
+    state_dict (tensors or numpy arrays): stage 3's four blocks become
+    `backbone.blocks3.stack.<leaf>` [4, ...], the depth-1 stages keep
+    `block{i}_0`; the stacked state_dict maps to the JAX package's
+    `stack_block_params` of the unrolled trees and back, bit for bit, and
+    loads strictly into the scan_blocks model, whose own seeded start has
+    the same entries and shapes."""
+    stacked = stack_block_params(deep.sd, "tiny-d4")
+    assert stacked["backbone.blocks3.stack.attn.q.weight"].shape == (
+        4, 64, 64)
+    assert "backbone.block1_0.attn.q.weight" in stacked
+    assert not any(k.startswith("backbone.block3_") for k in stacked)
+    back = unstack_block_params(stacked, "tiny-d4")
+    assert set(back) == set(deep.sd)
+    for k, v in deep.sd.items():
+        assert torch.equal(back[k], v), k
+    numpy_sd = {k: v.numpy() for k, v in deep.sd.items()}
+    for k, v in unstack_block_params(stack_block_params(
+            numpy_sd, "tiny-d4"), "tiny-d4").items():
+        assert np.array_equal(v, numpy_sd[k]), k
+    want = jax_stack_block_params(deep.params, "tiny-d4")
+    params, stats = jax_trees_from_state_dict(stacked)
+    assert stats.keys() == deep.stats.keys()
+    got, want = dict(_leaves(params)), dict(_leaves(want))
+    assert got.keys() == want.keys()
+    assert "/backbone/blocks3/stack/attn/q/kernel" in got
+    for k, v in want.items():
+        assert np.array_equal(got[k], np.asarray(v)), k
+    again = state_dict_from_jax(params, stats)
+    assert set(again) == set(stacked)
+    for k, v in stacked.items():
+        assert np.array_equal(again[k], v.numpy()), k
+    model = _scan_model(deep)
+    seeded = seeded_state_dict(model, seed=0, init="train")
+    assert {k: v.shape for k, v in seeded.items()} == {
+        k: v.shape for k, v in model.state_dict().items()}
+    w = seeded["backbone.blocks3.stack.ffn.fc1.weight"]   # (4, 256, 64)
+    assert all(0.8 < float(w[j].std()) * 8 < 1.2 for j in range(4))
+    assert torch.equal(seeded["backbone.blocks3.stack.ln1.weight"],
+                       torch.ones(4, 64))
+
+
+def test_scan_blocks_matches_jax(deep):
+    """The scan_blocks model on the stacked weights against the JAX
+    `scan_blocks=True` module (`lax.scan` over the stacked tree) on the
+    JAX `stack_block_params` of the same weights: f32 stride-4 logits
+    within rtol = atol = 1e-4."""
+    module = JaxSegFormer(num_classes=NC, dtype=jnp.float32,
+                          full_res_output=False, variant="tiny-d4",
+                          scan_blocks=True)
+    x = normalize_images(torch.from_numpy(deep.images))
+    args = ({"params": jax_stack_block_params(deep.params, "tiny-d4"),
+             "batch_stats": deep.stats}, x.numpy())
+    want = jax.jit(module.apply).lower(*args).compile(
+        compiler_options=FAST_COMPILE)(*args)
+    with torch.no_grad():
+        got = _scan_model(deep)(x.permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_scan_blocks_equal_the_unrolled_model(deep):
+    """On the same weights the scan_blocks model's f32 logits equal the
+    unrolled model's, and the gradient of a loss on them to each stacked
+    parameter equals the unrolled blocks' gradients stacked."""
+    unrolled = deep.loaded().to(memory_format=torch.channels_last)
+    scan = _scan_model(deep)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 3, HW, HW)).astype(np.float32))
+    want, got = unrolled(x), scan(x)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    weights = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        tuple(want.shape)).astype(np.float32))
+    want_grads = dict(zip(
+        [n for n, _ in unrolled.named_parameters()],
+        torch.autograd.grad((want * weights).sum(),
+                            list(unrolled.parameters()))))
+    got_grads = dict(zip(
+        [n for n, _ in scan.named_parameters()],
+        torch.autograd.grad((got * weights).sum(), list(scan.parameters()))))
+    want_grads = stack_block_params(want_grads, "tiny-d4")
+    assert set(got_grads) == set(want_grads)
+    for k, g in want_grads.items():
+        torch.testing.assert_close(got_grads[k], g, rtol=1e-5, atol=1e-6,
+                                   msg=k)

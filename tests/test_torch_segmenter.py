@@ -101,12 +101,12 @@ def test_resize_bicubic_matches_jax(size, out):
 
 def test_bare_params_round_trip_both_ways():
     """ConvNeXt's `gamma` (C,), Swin's `rpb` ((2ws-1)^2, heads), the ViT's
-    `class_token` (1, 1, C) and `pos_embedding` (1, 1+g^2, C) and
-    Segmenter's `cls_emb` (1, K, C) keep their names and layouts both ways,
-    beside a depthwise kernel (7, 7, 1, C) <-> (C, 1, 7, 7):
-    `jax_trees_from_state_dict(state_dict_from_jax(p)) == p`; a 2-D `rpb` is
-    not transposed as a Dense kernel and a 1-D `gamma` is not taken for a
-    LayerNorm scale."""
+    `class_token` (1, 1, C) and `pos_embedding` (1, 1+g^2, C), Segmenter's
+    `cls_emb` (1, K, C) and MaskFormer's `query_embed` (Q, C) keep their
+    names and layouts both ways, beside a depthwise kernel (7, 7, 1, C) <->
+    (C, 1, 7, 7): `jax_trees_from_state_dict(state_dict_from_jax(p)) == p`;
+    a 2-D `rpb` or `query_embed` is not transposed as a Dense kernel and a
+    1-D `gamma` is not taken for a LayerNorm scale."""
     rng = np.random.default_rng(0)
     params = {"blk": {"gamma": rng.standard_normal(8),
                       "dwconv": {"kernel": rng.standard_normal((7, 7, 1, 8)),
@@ -114,19 +114,20 @@ def test_bare_params_round_trip_both_ways():
                       "attn": {"rpb": rng.standard_normal((49, 3))}},
               "vit": {"class_token": rng.standard_normal((1, 1, 8)),
                       "pos_embedding": rng.standard_normal((1, 17, 8))},
-              "decoder": {"cls_emb": rng.standard_normal((1, 5, 8))}}
+              "decoder": {"cls_emb": rng.standard_normal((1, 5, 8))},
+              "query_embed": rng.standard_normal((6, 8))}
     params = jax.tree.map(lambda a: a.astype(np.float32), params)
     sd = state_dict_from_jax(params, {})
     assert set(sd) == {"blk.gamma", "blk.dwconv.weight", "blk.dwconv.bias",
                        "blk.attn.rpb", "vit.class_token", "vit.pos_embedding",
-                       "decoder.cls_emb"}
+                       "decoder.cls_emb", "query_embed"}
     assert sd["blk.dwconv.weight"].shape == (8, 1, 7, 7)
     np.testing.assert_array_equal(sd["blk.dwconv.weight"][:, 0],
                                   params["blk"]["dwconv"]["kernel"][:, :, 0]
                                   .transpose(2, 0, 1))
     for name in BARE_PARAMS:
         (path, value), = [(k, v) for k, v in sd.items()
-                          if k.endswith(f".{name}")]
+                          if k.split(".")[-1] == name]
         *parts, leaf = path.split(".")
         node = params
         for part in parts:

@@ -27,7 +27,7 @@ from pytorch_segmentation_tpu_torch.data.colormap import VOC_COLORMAP
 from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import MODEL_REGISTRY, build_model
 from pytorch_segmentation_tpu_torch.serving import MaskServer
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.weights import (load_state,
@@ -132,8 +132,11 @@ def test_checkpoint_loads_strict(weights):
     want = state_dict_from_jax(params, stats)
     for k, v in model.state_dict().items():
         assert np.array_equal(v.numpy(), want[k]), k
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model("maskformer", NC)
+    # every model name of the JAX package builds, maskformer the last
+    with torch.device("meta"):
+        for name in MODEL_REGISTRY:
+            assert build_model(name, NC).num_classes == NC, name
+    assert len(MODEL_REGISTRY) == 17
 
 
 @pytest.mark.parametrize("full_res_output,dtype", [
@@ -313,20 +316,28 @@ def test_serve_cli_needs_weights(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--int8"], 9), (["--moe", "4"], 10), (["--moe-top-k", "1"], 10),
-    (["--scan-blocks"], 6), (["--dp"], 10)],
+    (["--scan-blocks"], None), (["--dp"], 10)],
     ids=["int8", "moe", "moe-top-k", "scan-blocks", "dp"])
 def test_serve_cli_refuses_unported_flags(argv, item, tmp_path, capsys):
     """The root serve CLI's flags whose machinery is not ported exit 2 and
-    name their ROADMAP item (not argparse's 'unrecognized arguments')."""
+    name their ROADMAP item (not argparse's 'unrecognized arguments').
+    `--scan-blocks`, ported for segformer, exits 2 with the JAX CLI's
+    message for the default model, deeplabv3plus."""
     from pytorch_segmentation_tpu_torch import serve
     weights = tmp_path / "w.pt"
     weights.touch()
     with pytest.raises(SystemExit) as err:
         serve.parse_args(["--weights", str(weights)] + argv)
     assert err.value.code == 2
+    name = argv[0][2:].replace("-", "_")
+    if item is None:
+        assert ("--scan-blocks targets the transformer family's stacked "
+                "block stages (segformer)" in capsys.readouterr().err)
+        assert name not in serve.UNPORTED
+        return
     assert (f"{argv[0]} is not ported yet (ROADMAP queue 1 item {item}"
             in capsys.readouterr().err)
-    assert serve.UNPORTED[argv[0][2:].replace("-", "_")][1] == item
+    assert serve.UNPORTED[name][1] == item
 
 
 def test_serve_cli_wires_tta_and_ema(tmp_path, monkeypatch):

@@ -411,12 +411,11 @@ def _encoder_sizes(backbone, encoder):
 
 
 @pytest.mark.parametrize("variant", ["cn-t", "swin-t", "vit-b16"])
-def test_unported_encoders_are_refused(variant, tmp_path, capsys):
+def test_unported_encoders_are_refused(variant, tmp_path):
     """The encoders once refused are ported: `variant_kwargs` returns the
     JAX table's entry, the model builds (on the meta device) at the JAX
-    table's sizes and every command line parses the variant. `--variant`
-    of a family not ported yet (maskformer's r50) still exits 2 on each,
-    naming the item."""
+    table's sizes and every command line parses the variant, as it parses
+    maskformer's r50, the last family ported."""
     kwargs = variant_kwargs("upernet", variant)
     assert kwargs == JAX_MODEL_VARIANTS["upernet"][variant]
     encoder = kwargs["encoder"]
@@ -432,12 +431,9 @@ def test_unported_encoders_are_refused(variant, tmp_path, capsys):
         opt = module.parse_args(_cli_argv(cli, tmp_path, "--model", "upernet",
                                           "--variant", variant))
         assert (opt.model, opt.variant) == ("upernet", variant), cli
-        with pytest.raises(SystemExit) as err:
-            module.parse_args(_cli_argv(cli, tmp_path, "--model",
-                                        "maskformer", "--variant", "r50"))
-        assert err.value.code == 2, cli
-        assert ("--model maskformer is not ported yet (ROADMAP queue 1 "
-                "item 6" in capsys.readouterr().err), cli
+        opt = module.parse_args(_cli_argv(cli, tmp_path, "--model",
+                                          "maskformer", "--variant", "r50"))
+        assert (opt.model, opt.variant) == ("maskformer", "r50"), cli
 
 
 def test_ported_variants_and_aux_loss_parse(tmp_path):

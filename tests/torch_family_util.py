@@ -274,7 +274,7 @@ def train_batch(case, seed=4):
             rng.integers(0, case.nc, (2, case.hw, case.hw)).astype(np.int32))
 
 
-def jax_train_step(case, batch, full_res_output=True):
+def jax_train_step(case, batch, full_res_output=True, loss_fn=None):
     """One SGD-momentum step of the JAX package on the full-resolution
     module with compute_loss (its default step), whose resize to the
     labels takes the module's `up_align_corners`, as the JAX Trainer's
@@ -283,7 +283,8 @@ def jax_train_step(case, batch, full_res_output=True):
     loss and the final state as the port's state_dict.
     `full_res_output=False` steps the low-resolution module, as the JAX
     Trainer does: where a model resizes its aux heads onto the main
-    logits' grid (BiSeNetV2's boosters), that grid is the loss's input."""
+    logits' grid (BiSeNetV2's boosters), that grid is the loss's input.
+    `loss_fn` replaces compute_loss (MaskFormer's set criterion)."""
     module = case.jax_module(full_res_output=full_res_output)
     tx = optax.sgd(LR, momentum=MOMENTUM)
     params = jax.tree.map(jnp.asarray, case.params)
@@ -292,7 +293,7 @@ def jax_train_step(case, batch, full_res_output=True):
         batch_stats=jax.tree.map(jnp.asarray, case.stats),
         opt_state=tx.init(params), tx=tx, apply_fn=module.apply,
         grad_acc=None, micro_step=jnp.zeros((), jnp.int32), ema_params=None)
-    step = jsteps.make_train_step(loss_fn=functools.partial(
+    step = jsteps.make_train_step(loss_fn=loss_fn or functools.partial(
         jax_compute_loss, align_corners=module.up_align_corners),
         donate=False)
     args = (state, jnp.asarray(batch[0]), jnp.asarray(batch[1]))
