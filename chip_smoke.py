@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
-kernels from the sources in this checkout, holds each against its plain
-PyTorch version, serves full-width DeepLabV3+ (ResNet-50, 21 classes,
-513x513, bf16, batch 8, weights made from a seed) through the port's
-MaskServer, trains the same model (batch 32, SGD with momentum) through the
-port's Trainer on one fixed batch, serves masks from the checkpoint it saved,
+kernels and the host's C++ (the polygon fill and colour map, the JPEG codec)
+from the sources in this checkout, holds the JPEG codec against the OpenCV
+outputs committed in tests/torch_jpeg_fixtures (decodes, encodes, refused
+files) and times it, holds each kernel against its plain PyTorch version,
+serves full-width DeepLabV3+ (ResNet-50, 21 classes, 513x513, bf16, batch
+8, weights made from a seed) through the port's MaskServer (PNG bodies,
+then JPEG bodies beside PNG bodies of their decoded pixels and one
+EXIF-rotated body), trains the same model (batch 32, SGD with momentum)
+through the port's Trainer on one fixed batch, serves masks from the
+checkpoint it saved,
 evaluates it (`engine.test`: 80 images at batch 32 through the eval step,
 whose loss and confusion counts come from the upsample+CE and
 upsample+argmax+confusion kernels; train -> eval -> save(best) -> reload ->
@@ -14,7 +19,8 @@ it end to end from u8 host batches (an in-memory dataset -> DataLoader ->
 Fetcher -> PostFetch, the default augmentation policy on the card, whose
 warp runs the row-resample kernel twice per batch -> Trainer), drives the
 command lines from files on disk (a seeded synthetic COCO set written as
-PNG, 96 + 32 images at 640x480 with 21 classes: `train` for 2 epochs with
+JPEG, 96 + 32 images at 640x480 with 21 classes, four of the train images
+rewritten as PNG with row filters 1-4: `train` for 2 epochs with
 the per-epoch eval, `train --resume` to epoch 3, `test` on best.pt and
 `inference` on the val images, held against `engine.test` and
 `inference()` in the same process; the host's records/s beside), and then
@@ -97,6 +103,7 @@ import tempfile
 import struct
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -149,7 +156,8 @@ from pytorch_segmentation_tpu_torch.tools import bench_cmajor
 # sleep kernel
 from pytorch_segmentation_tpu_torch.tools.bench_eval_confusion import (
     queued_ms)
-from pytorch_segmentation_tpu_torch.utils import png
+from pytorch_segmentation_tpu_torch.utils import imgcodecs, jpeg, png
+from pytorch_segmentation_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
 from pytorch_segmentation_tpu_torch.utils.synthetic import make_synthetic_coco
@@ -1187,6 +1195,80 @@ def small_augment_check(device):
         order=params["order"])
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_jpeg_fixtures")
+
+
+def host_ms(fn, reps=20):
+    """Median host ms of `fn` over `reps` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def jpeg_phase():
+    """The JPEG codec on the card's host (no OpenCV there): every committed
+    fixture (tests/torch_jpeg_fixtures, written by tests/torch_jpeg_util.py)
+    decoded in colour and gray equal to the cv2 decodes committed beside it;
+    `encode_jpeg` of each encode source equal to the bytes cv2 wrote; each
+    corrupt, truncated or unsupported file raising ValueError with its own
+    code. Then decode and encode ms per 640x480 and 513x513 image on one
+    host thread (a smooth image with noise, quality 95, 4:2:0)."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    def read(name):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            return f.read()
+
+    for case in manifest["decode"]:
+        data = read(case["jpeg"])
+        for flags, key in ((imgcodecs.IMREAD_COLOR, "color"),
+                           (imgcodecs.IMREAD_GRAYSCALE, "gray")):
+            want = imgcodecs.imdecode(read(case[key]), flags)
+            got = imgcodecs.imdecode(data, flags)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"jpeg {case['name']} ({key}): the "
+                                     f"decode differs from cv2's")
+    for case in manifest["encode"]:
+        flags = (imgcodecs.IMREAD_GRAYSCALE if case["name"].startswith("gray")
+                 else imgcodecs.IMREAD_COLOR)
+        src = imgcodecs.imdecode(read(case["source"]), flags)
+        if encode_jpeg(src, case["quality"]) != read(case["jpeg"]):
+            raise AssertionError(f"jpeg encode {case['name']}: the bytes "
+                                 f"differ from cv2's")
+    for case in manifest["refuse"]:
+        try:
+            jpeg.decode_jpeg(read(case["jpeg"]))
+        except ValueError as e:
+            if getattr(e, "code", None) != case["code"]:
+                raise AssertionError(f"jpeg {case['name']}: {e!r}, want "
+                                     f"code {case['code']}") from None
+        else:
+            raise AssertionError(f"jpeg {case['name']} was decoded")
+    rng = np.random.default_rng(SEED + 9)
+    figures = {}
+    for h, w in ((480, 640), (513, 513)):
+        bgr = (smooth_image(rng, h, w).astype(np.float32)
+               + rng.normal(0, 8, (h, w, 3))).clip(0, 255).astype(np.uint8)
+        data = encode_jpeg(bgr)
+        if decode_jpeg(data).shape != (h, w, 3):
+            raise AssertionError("jpeg timing image")
+        figures[f"decode_ms_{w}x{h}"] = host_ms(lambda: decode_jpeg(data))
+        figures[f"decode_gray_ms_{w}x{h}"] = host_ms(
+            lambda: decode_jpeg(data, jpeg.IMREAD_GRAYSCALE))
+        figures[f"encode_ms_{w}x{h}"] = host_ms(lambda: encode_jpeg(bgr))
+        figures[f"bytes_{w}x{h}"] = len(data)
+    log("jpeg", decode_cases=len(manifest["decode"]),
+        encode_cases=len(manifest["encode"]),
+        refused_cases=len(manifest["refuse"]), threads=1, **figures)
+    return figures
+
+
 def post(url, body, timeout=120):
     req = urllib.request.Request(url, data=body, method="POST")
     with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -1202,10 +1284,74 @@ def smooth_image(rng, h, w):
             .round().clamp(0, 255).to(torch.uint8).numpy())
 
 
-def serve_phase(device, name="deeplabv3plus", img=IMG):
+def exif_rotated(data, orientation):
+    """JPEG bytes with an APP1 Exif segment after the SOI whose one IFD
+    entry is the orientation tag (little-endian TIFF)."""
+    tiff = (b"II" + struct.pack("<HIH", 42, 8, 1)
+            + struct.pack("<HHIHH", 0x0112, 3, 1, orientation, 0)
+            + struct.pack("<I", 0))
+    body = b"Exif\x00\x00" + tiff
+    return (data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+            + data[2:])
+
+
+def serve_jpeg_bodies(base, imgs):
+    """JPEG request bodies beside PNG ones, one request at a time: each of
+    `imgs` (RGB) as the `encode_jpeg` bytes, its raw mask equal to the mask
+    of a PNG body that holds the JPEG's decoded pixels; the latency of the
+    colorized JPEG request beside the PNG one's; one body EXIF-rotated
+    (orientation 6) answered at the rotated size. Returns the figures."""
+    lat = {"jpeg": [], "png": []}
+    jpeg_bytes = []
+    for image in imgs:
+        body = encode_jpeg(np.ascontiguousarray(image[:, :, ::-1]))
+        pixels = np.ascontiguousarray(decode_jpeg(body)[:, :, ::-1])
+        as_png = encode_png(pixels)
+        jpeg_bytes.append(len(body))
+        masks = []
+        for kind, data in (("jpeg", body), ("png", as_png)):
+            masks.append(decode_png(post(base + "/predict?format=raw",
+                                         data)[2]))
+            t1 = time.perf_counter()
+            status, _, out = post(base + "/predict", data)
+            lat[kind].append(time.perf_counter() - t1)
+            if status != 200 or decode_png(out).shape != image.shape:
+                raise AssertionError(f"{kind} body: {status}")
+        if masks[0].shape != image.shape[:2] or not np.array_equal(*masks):
+            raise AssertionError(f"a JPEG body's mask differs from its "
+                                 f"decoded pixels' PNG body's at "
+                                 f"{int((masks[0] != masks[1]).sum())} "
+                                 f"pixels")
+    h, w = imgs[-1].shape[:2]
+    rotated = exif_rotated(encode_jpeg(np.ascontiguousarray(
+        imgs[-1][:, :, ::-1])), 6)
+    mask = decode_png(post(base + "/predict?format=raw", rotated)[2])
+    if mask.shape != (w, h):
+        raise AssertionError(f"EXIF orientation 6 on {h}x{w}: mask "
+                             f"{mask.shape}")
+    for bad in (rotated[:len(rotated) // 2], b"\xff\xd8\xff\xe0 no body"):
+        try:
+            post(base + "/predict", bad)
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+        else:
+            raise AssertionError("a corrupt JPEG body got a 200")
+    return {"jpeg_request_latency_ms_median":
+            1e3 * statistics.median(lat["jpeg"]),
+            "png_request_latency_ms_median":
+            1e3 * statistics.median(lat["png"]),
+            "jpeg_body_bytes_median": statistics.median(jpeg_bytes),
+            "jpeg_requests": 2 * len(imgs) + 1,
+            "exif_rotated_mask_shape": list(mask.shape)}
+
+
+def serve_phase(device, name="deeplabv3plus", img=IMG, jpeg_bodies=False):
     """`name` (bf16, seeded weights, its stride-`output_stride` logits)
     behind MaskServer at batch 8: a burst of 12 requests from threads (10 at
-    img x img, two of other sizes), then 5 one at a time, colorized. Each
+    img x img, two of other sizes), then 5 one at a time, colorized; with
+    `jpeg_bodies`, then JPEG bodies beside PNG ones (`serve_jpeg_bodies`:
+    three images, one of them 400 x 600, and an EXIF-rotated body). Each
     batch the server ran gives the same mask when make_mask_fn runs it
     directly (on the card, bf16 logits of an image change with its position
     in the batch; a repeat of the same batch is bit-exact), and that mask
@@ -1264,6 +1410,8 @@ def serve_phase(device, name="deeplabv3plus", img=IMG):
             if status != 200 or color.shape != (img, img, 3):
                 raise AssertionError(f"colorized response {status} "
                                      f"{color.shape}")
+        jpeg_figures = (serve_jpeg_bodies(base, [imgs[0], imgs[1], imgs[10]])
+                        if jpeg_bodies else {})
     finally:
         server.stop()
         hook.remove()
@@ -1342,7 +1490,7 @@ def serve_phase(device, name="deeplabv3plus", img=IMG):
                "ms_per_batch8": 1e3 * best,
                "logits_shape": [BATCH, NUM_CLASSES, low, low],
                "logits_dtype": str(logits[0].dtype).replace("torch.", ""),
-               "align_corners": align}
+               "align_corners": align, **jpeg_figures}
     log("serve", model=name, img=img, requests=len(imgs), **figures,
         launches=launches, classes_present=n_classes,
         batches=server.stats["batches"], modules=len(modules),
@@ -2078,16 +2226,20 @@ def encode_png_filtered(rgb, filter_type):
 
 def host_record_rates(dataset, first, n):
     """Records/s of the host's per-record work on one thread, split into
-    PNG decode, rasterize and the cubic (image) + nearest (labels) resize,
-    over records first..first+n-1; and the whole record (decode to resized
-    RGB) through the DataLoader's worker threads, over the dataset."""
+    decode (the set's JPEG files), rasterize and the cubic (image) +
+    nearest (labels) resize, over records first..first+n-1; the decode
+    alone of the same records through CLI_WORKERS threads, and on one
+    thread from PNG bytes of the same pixels (unfiltered rows, as
+    `encode_png` writes them); and the whole record (decode to resized RGB)
+    through the DataLoader's worker threads, over the dataset."""
     seconds = {"decode": 0.0, "rasterize": 0.0, "resize": 0.0}
     tw, th = dataset.img_size
     records = dataset.data[first:first + n]
     n = len(records)
+    pngs = []
     for path, anns in records:
         t0 = time.perf_counter()
-        img = png.imread(path)
+        img = imgcodecs.imread(path)
         t1 = time.perf_counter()
         seg = rasterize_annotations(img.shape[0], img.shape[1], anns)
         t2 = time.perf_counter()
@@ -2097,8 +2249,20 @@ def host_record_rates(dataset, first, n):
         seconds["decode"] += t1 - t0
         seconds["rasterize"] += t2 - t1
         seconds["resize"] += t3 - t2
+        pngs.append(encode_png(np.ascontiguousarray(img[:, :, ::-1])))
     rates = {f"{k}_records_per_s": n / v for k, v in seconds.items()}
     rates["one_thread_records_per_s"] = n / sum(seconds.values())
+    paths = [path for path, _ in records]
+    with ThreadPoolExecutor(CLI_WORKERS) as pool:
+        list(pool.map(imgcodecs.imread, paths))  # warm the page cache
+        t0 = time.perf_counter()
+        list(pool.map(imgcodecs.imread, paths * 4))
+        rates[f"jpeg_decode_{CLI_WORKERS}_threads_records_per_s"] = (
+            4 * n / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for data in pngs:
+        imgcodecs.imdecode(data)
+    rates["png_decode_records_per_s"] = n / (time.perf_counter() - t0)
     loader = DataLoader(dataset, TRAIN_BATCH, num_workers=CLI_WORKERS)
     t0 = time.perf_counter()
     count = sum(batch.valid for batch in loader)
@@ -2120,9 +2284,10 @@ def working_dir(path):
 
 def cli_phase(device, e2e_ms_per_step):
     """The command lines from files on disk, at full width: a seeded
-    synthetic COCO set written as PNG (96 train and 32 val images at
-    640x480, 20 categories + background; four train files re-encoded with
-    row filters 1-4), then `train` (2 epochs, the per-epoch eval),
+    synthetic COCO set written as JPEG (96 train and 32 val images at
+    640x480, 20 categories + background; four train images rewritten as PNG
+    files with row filters 1-4, train.json pointing at them, so the CLIs
+    read both codecs), then `train` (2 epochs, the per-epoch eval),
     `train --resume` (to epoch 3), `test` on best.pt and `inference` on the
     val images, each through its module's `main` as `python -m` runs it.
     Checks: the resumed run starts at epoch 2 with the saved best mIoU and
@@ -2139,23 +2304,34 @@ def cli_phase(device, e2e_ms_per_step):
         data = make_synthetic_coco(os.path.join(tmp, "coco"), CLI_TRAIN,
                                    CLI_VAL, CLI_WH, seed=SEED,
                                    num_classes=CLI_CATEGORIES)
-        for k in range(4):   # rows filtered with types 1..4
-            path = os.path.join(data, f"train_{k:04d}.png")
-            rgb = png.decode_png(open(path, "rb").read())
+        train_json = os.path.join(data, "train.json")
+        with open(train_json) as f:
+            coco = json.load(f)
+        for k in range(4):   # PNG files, rows filtered with types 1..4
+            info = coco["images"][k]
+            jpg = os.path.join(data, info["file_name"])
+            bgr = imgcodecs.imread(jpg)
+            info["file_name"] = f"train_{k:04d}.png"
+            path = os.path.join(data, info["file_name"])
             with open(path, "wb") as f:
-                f.write(encode_png_filtered(rgb, k + 1))
-            if not np.array_equal(png.decode_png(open(path, "rb").read()),
-                                  rgb):
+                f.write(encode_png_filtered(
+                    np.ascontiguousarray(bgr[:, :, ::-1]), k + 1))
+            os.unlink(jpg)
+            if not np.array_equal(imgcodecs.imread(path), bgr):
                 raise AssertionError(f"filter {k + 1}: the decode differs")
+        with open(train_json, "w") as f:
+            json.dump(coco, f)
         write_s = time.perf_counter() - t0
         train_set = CocoDataset(os.path.join(data, "train.json"),
                                 img_size=(IMG, IMG))
-        # filter-0 files (the generator's) one by one; the filtered four
-        # apart
+        if [os.path.splitext(p)[1] for p, _ in train_set.data[:5]] != [
+                ".png"] * 4 + [".jpg"]:
+            raise AssertionError("the train set's first files")
+        # the generator's JPEG files one by one; the filtered PNG four apart
         rates = host_record_rates(train_set, 4, 16)
         t0 = time.perf_counter()
         for path, _ in train_set.data[:4]:
-            png.imread(path)
+            imgcodecs.imread(path)
         filtered_decode_ms = 1e3 * (time.perf_counter() - t0) / 4
         os.makedirs("imgs")
         for info in json.load(open(os.path.join(data, "val.json")))["images"]:
@@ -2244,7 +2420,7 @@ def cli_phase(device, e2e_ms_per_step):
         t0 = time.perf_counter()
         for start in range(0, len(names), BATCH):
             chunk = names[start:start + BATCH]
-            imgs = [png.imread(os.path.join("imgs", n)) for n in chunk]
+            imgs = [imgcodecs.imread(os.path.join("imgs", n)) for n in chunk]
             for name, img, mask in zip(chunk, imgs, infer_cli.inference(
                     model, imgs, (IMG, IMG))):
                 if not mask.shape == img.shape[:2] == masks[name].shape:
@@ -2253,7 +2429,8 @@ def cli_phase(device, e2e_ms_per_step):
                     raise AssertionError(f"{name}: the CLI's mask differs")
         torch.cuda.synchronize()
         infer_images_s = len(names) / (time.perf_counter() - t0)
-        written = png.imread(os.path.join("out", names[0]))
+        written = imgcodecs.imread(os.path.join(
+            "out", os.path.splitext(names[0])[0] + ".png"))
         if not np.array_equal(written, colorize_mask(masks[names[0]])):
             raise AssertionError("the written mask differs")
     step_ms = [1e3 * r["seconds"] / r["steps"] for r in epochs]
@@ -3504,15 +3681,16 @@ def main():
         build.load_kernel_library(name)
         return time.perf_counter() - t0
 
-    def build_native():  # the datasets' polygon fill and colour map
+    def build_native(load):  # the polygon fill and colour map; the codec
         t0 = time.perf_counter()
-        native.lib()
+        load()
         return time.perf_counter() - t0
 
     names = ("upsample_argmax", "softmax_ce", "banded_resample",
              "eval_confusion", "fused_matmul_bn")
-    with ThreadPoolExecutor(len(names) + 1) as pool:
-        native_seconds = pool.submit(build_native)
+    with ThreadPoolExecutor(len(names) + 2) as pool:
+        native_seconds = pool.submit(build_native, native.lib)
+        codec_seconds = pool.submit(build_native, native.jpeg_lib)
         for name, seconds in zip(names, pool.map(build_one, names)):
             ptxas = build.BUILD_LOGS.get(name, "")  # what ptxas -v printed
             extra = {}
@@ -3527,10 +3705,14 @@ def main():
         log("build", kernel="pseg_native", compiler="g++",
             seconds=native_seconds.result(),
             flags=" ".join(native.CXX_FLAGS))
+        log("build", kernel="jpeg_codec", compiler="g++",
+            seconds=codec_seconds.result(),
+            flags=" ".join(native.JPEG_CXX_FLAGS))
     if args.families:
         only_families(args.families)
         families_phase(device)
         return
+    jpeg_phase()
 
     path = kernel_case("path_bf16", (BATCH, 129, 129, NUM_CLASSES),
                        (IMG, IMG), torch.bfloat16, True, device)
@@ -3598,7 +3780,7 @@ def main():
     small_eval_check(device)
     small_augment_check(device)
     small_train_check(device, fused=True)
-    launches, _ = serve_phase(device)
+    launches, _ = serve_phase(device, jpeg_bodies=True)
     eval_set = dataset.first(EVAL_IMAGES)
     ce_launches, ce_strides, train_figures, trained = train_phase(
         device, eval_set, profile=args.profile)

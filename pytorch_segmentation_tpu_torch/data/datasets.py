@@ -8,8 +8,9 @@ device runs the augmentation policy (data/augment.py) and the normalization
 [H, W]).
 
 What the JAX package does through OpenCV runs here through the port's own
-code: `cv2.imread` through `utils/png.imread` (PNG only: a dataset whose
-files are not PNG raises when it is constructed), `cv2.resize` through
+code: `cv2.imread` through `utils/imgcodecs.imread` (PNG and JPEG, each
+equal to cv2's decode; a dataset with files of the other suffixes of
+`IMG_EXT` raises when it is constructed), `cv2.resize` through
 `data/resize_host.resize_u8` (labels bit-equal, images within one level),
 the polygon fill and the colour map through the native library
 (`_native.py`). `CocoInstance` makes the same `random` calls in the same
@@ -25,32 +26,36 @@ import random
 
 import numpy as np
 
-from ..utils.png import IMREAD_COLOR, IMREAD_GRAYSCALE, JPEG_ITEM, imread
+from ..utils.imgcodecs import IMREAD_COLOR, IMREAD_GRAYSCALE, imread
 from .colormap import VOC_COLORMAP, mask_from_colors
 from .rasterize import fill_polygon, rasterize_annotations
 from .resize_host import resize_u8
 
 __all__ = [
-    "IMG_EXT", "IMAGENET_MEAN", "IMAGENET_STD",
+    "IMG_EXT", "READ_EXT", "IMAGENET_MEAN", "IMAGENET_STD",
     "BasicDataset", "CocoDataset", "CocoInstance", "IdImgDataset",
     "SegImgDataset",
 ]
 
 # the image suffixes the JAX package lists (its IMG_EXT); of these the port
-# reads PNG
+# reads PNG and JPEG (READ_EXT)
 IMG_EXT = (".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".dng", ".webp")
+READ_EXT = (".jpg", ".jpeg", ".png")
+# where the other formats stand in the work still to do
+OTHER_FORMATS_ITEM = "ROADMAP queue 1 item 13, BMP, TIFF, DNG and WebP"
 
 # ImageNet statistics on the 0..255 scale, RGB order
 IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], dtype=np.float32)
 IMAGENET_STD = np.array([58.395, 57.12, 57.375], dtype=np.float32)
 
 
-def _require_png(paths) -> None:
-    """Raise at construction for a file the port cannot decode."""
+def _require_readable(paths) -> None:
+    """Raise at construction for a file the port cannot decode, by its
+    suffix (the decode itself goes by the bytes' signature, as cv2's)."""
     for path in paths:
-        if osp.splitext(path)[1].lower() != ".png":
-            raise ValueError(f"{path}: only PNG files are read so far "
-                             f"({JPEG_ITEM})")
+        if osp.splitext(path)[1].lower() not in READ_EXT:
+            raise ValueError(f"{path}: only PNG and JPEG files are read so "
+                             f"far ({OTHER_FORMATS_ITEM})")
 
 
 class BasicDataset:
@@ -97,7 +102,7 @@ class BasicDataset:
         return None
 
     def _imread(self, path, flags=IMREAD_COLOR):
-        """`utils/png.imread` with the opt-in decode cache (GIL-safe dict
+        """`utils/imgcodecs.imread` with the opt-in decode cache (GIL-safe dict
         ops; cached arrays are read-only — callers copy before mutating)."""
         if not self.cache_images:
             return imread(path, flags)
@@ -174,7 +179,7 @@ class SegImgDataset(BasicDataset):
              osp.join(label_dir, osp.splitext(name)[0] + ".png"))
             for name in names if osp.splitext(name)[1] in IMG_EXT
         ]
-        _require_png(p for pair in self.data for p in pair)
+        _require_readable(p for pair in self.data for p in pair)
 
     def get_data(self, idx):
         img = self._imread(self.data[idx][0])
@@ -255,7 +260,7 @@ class _CocoBase(BasicDataset):
             entry[2].append(ann)
         self.data = [(by_id[i][0], by_id[i][2]) for i in order]
         self.data = self._filter(self.data)
-        _require_png(path for path, _ in self.data)
+        _require_readable(path for path, _ in self.data)
 
     def _keep_ann(self, ann, img_info):
         return True

@@ -19,8 +19,8 @@ training resolution, logits summed on a canvas, one argmax.
     python -m pytorch_segmentation_tpu_torch.inference IMG_DIR OUT_DIR \
         --weights weights/best.pt -s 513 513 -nc 21 -bs 8
 
-writes `<name>.png`, the VOC-palette colour mask of each PNG image of
-IMG_DIR at the image's own size (CUDA only). `--model` takes
+writes `<name>.png`, the VOC-palette colour mask of each PNG or JPEG image
+of IMG_DIR at the image's own size (CUDA only). `--model` takes
 every family (unet, bisenetv2, danet, deeplabv3, deeplabv3plus, fastfcn,
 fcn, fpn, hrnet, lraspp, maskformer, ocrnet, pspnet, segformer,
 segmenter, segnext, upernet), deeplabv3plus the default; `--variant` a
@@ -54,7 +54,8 @@ from .ops.kernels.upsample_argmax import fused_upsample_argmax
 from .ops.resize import resize_bilinear
 from .ops.tta import normalize_tta_scales, tta_logits
 from .utils.cli import refuse_unported
-from .utils.png import encode_png, imread
+from .utils.imgcodecs import imread
+from .utils.png import encode_png
 
 __all__ = ["make_infer_fn", "inference", "make_mask_fn", "make_tiled_mask_fn",
            "sum_tile_logits", "run", "build_parser", "parse_args", "main"]
@@ -238,8 +239,9 @@ def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
         legacy_preproc=False, batch_size=8, ema=False, tta=False, tile=None,
         tta_scales=(), variant="", scan_blocks=False, device=None):
     """The root inference CLI's `run` on `device` (None: the card): every
-    image of `img_dir` whose suffix is in IMG_EXT (PNG is read; another
-    format raises) -> `<output_dir>/<name>.png`. Returns the masks by name."""
+    image of `img_dir` whose suffix is in IMG_EXT (PNG and JPEG are read;
+    another format raises) -> `<output_dir>/<name>.png`. Returns the masks
+    by name."""
     from .utils.runtime import require_cuda
     device = require_cuda() if device is None else torch.device(device)
     shutil.rmtree(output_dir, ignore_errors=True)

@@ -8,16 +8,20 @@
 - The device path is inference.make_mask_fn: normalize -> forward ->
   fused upsample+argmax.
 - Requests are decoded, resized to the model size, and masks resized back
-  and encoded, on the host in numpy and torch, with the port's own PNG codec
-  (utils/png.py): no OpenCV.
+  and encoded, on the host in numpy and torch, with the port's own codecs:
+  a body is read by its signature as cv2.imdecode(..., IMREAD_COLOR) reads
+  it (utils/imgcodecs.py: PNG, or JPEG through csrc/jpeg_codec.cpp with its
+  EXIF orientation applied) and masks are written as PNG (utils/png.py):
+  no OpenCV.
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", "model": ..., ...}
-  POST /predict            -> body: PNG image (8-bit gray/RGB/RGBA, any
-                              size); response: VOC-palette PNG mask at the
-                              image's own resolution
+  POST /predict            -> body: PNG (8-bit gray/RGB/RGBA) or JPEG
+                              (baseline or progressive, gray or colour)
+                              image, any size; response: VOC-palette PNG
+                              mask at the image's own (upright) resolution
   POST /predict?format=raw -> response: PNG with raw class ids (grayscale)
-A body that is not a readable PNG (JPEG included, for now) gets a 400; a
+A body that is neither a readable PNG nor a readable JPEG gets a 400; a
 failure on the device gets a 500.
 """
 
@@ -35,7 +39,8 @@ import torch
 from .data.colormap import VOC_COLORMAP, colorize_mask
 from .inference import make_mask_fn
 from .ops.resize import resize_bilinear, resize_nearest
-from .utils.png import decode_png, encode_png
+from .utils.imgcodecs import IMREAD_COLOR, imdecode
+from .utils.png import encode_png
 
 __all__ = ["MaskServer"]
 
@@ -48,14 +53,6 @@ class _Pending:
         self.done = threading.Event()
         self.mask = None
         self.error = None
-
-
-def _to_rgb(img: np.ndarray) -> np.ndarray:
-    """Decoded PNG (gray, gray + alpha, RGB or RGBA) -> [H, W, 3] RGB; alpha
-    is dropped and gray repeated, as OpenCV's IMREAD_COLOR does."""
-    if img.ndim == 2 or img.shape[2] == 2:
-        return np.repeat(img.reshape(*img.shape[:2], -1)[:, :, :1], 3, axis=2)
-    return img[:, :, :3]
 
 
 def _resize_u8(img: np.ndarray, size_wh) -> np.ndarray:
@@ -156,9 +153,10 @@ class MaskServer:
     # -- request side -----------------------------------------------------
 
     def predict_bytes(self, body: bytes, timeout: float = 60.0):
-        """Decode a PNG, run the batched device path, return the int32
-        class-id mask at the image's ORIGINAL resolution."""
-        img = _to_rgb(decode_png(body))
+        """Decode a PNG or JPEG body, run the batched device path, return
+        the int32 class-id mask at the image's ORIGINAL (upright)
+        resolution. A body the codecs do not read raises ValueError."""
+        img = np.ascontiguousarray(imdecode(body, IMREAD_COLOR)[:, :, ::-1])
         oh, ow = img.shape[:2]
         pending = _Pending(_resize_u8(img, self.img_size))
         self._queue.put(pending)

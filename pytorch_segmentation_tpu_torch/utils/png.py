@@ -1,11 +1,11 @@
 """A small PNG codec on the standard library's zlib and numpy.
 
-The serving path decodes request bodies and encodes masks with it, and the
-datasets read their files through `imread`, so a GPU host needs no OpenCV.
-Read: grayscale at bit depths 1, 2, 4 and 8, palette at 1, 2, 4 and 8,
-grayscale + alpha, RGB and RGBA at 8, non-interlaced, all five row filter
-types. Anything else (16-bit, interlaced, JPEG) raises ValueError, which the
-server answers with a 400.
+The serving path decodes PNG request bodies and encodes masks with it, and
+`utils/imgcodecs.imread` hands it the datasets' PNG files, so a GPU host
+needs no OpenCV. Read: grayscale at bit depths 1, 2, 4 and 8, palette at 1,
+2, 4 and 8, grayscale + alpha, RGB and RGBA at 8, non-interlaced, all five
+row filter types. Anything else (16-bit, interlaced, JPEG bytes, which go to
+`utils/jpeg`) raises ValueError, which the server answers with a 400.
 """
 
 from __future__ import annotations
@@ -15,22 +15,13 @@ import zlib
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png", "imread",
-           "IMREAD_COLOR", "IMREAD_GRAYSCALE", "JPEG_ITEM"]
+__all__ = ["decode_png", "encode_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples per pixel, bit depths read
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
 _MAX_PIXELS = 1 << 26
-# the flags of cv2.imread that `imread` takes, with cv2's values
-IMREAD_GRAYSCALE = 0
-IMREAD_COLOR = 1
-# where a JPEG decoder stands in the work still to do
-JPEG_ITEM = "ROADMAP queue 1 item 12, a JPEG decoder"
-# libpng's RGB -> gray weights over 2^15 (truncated sums): what
-# cv2.imread(..., IMREAD_GRAYSCALE) gives for a colour PNG
-_GRAY_WEIGHTS = (9797, 19234, 3737)  # R, G, B
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -122,7 +113,8 @@ def decode_png(data: bytes) -> np.ndarray:
     Gray below 8 bits is scaled to 0..255 as libpng expands it. Raises
     ValueError on anything this codec does not read."""
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"JPEG is not decoded yet ({JPEG_ITEM}); use PNG")
+        raise ValueError("JPEG bytes, not PNG: utils/jpeg.decode_jpeg (or "
+                         "utils/imgcodecs.imdecode) reads them")
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG image")
     pos, header, idat, palette = 8, None, [], None
@@ -187,26 +179,3 @@ def decode_png(data: bytes) -> np.ndarray:
     img = img.reshape(h, w, channels)
     return img[:, :, 0] if channels == 1 else img
 
-
-def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """What `cv2.imread(path, flags)` returns for a PNG file:
-    IMREAD_COLOR: BGR uint8 [H, W, 3] (gray repeated, alpha dropped);
-    IMREAD_GRAYSCALE: uint8 [H, W] (alpha dropped; colour through libpng's
-    weights, as cv2 reads it). Unlike cv2 it raises (OSError, ValueError)
-    instead of returning None."""
-    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
-        raise ValueError(f"imread: flags {flags}: IMREAD_COLOR or "
-                         "IMREAD_GRAYSCALE only")
-    with open(path, "rb") as f:
-        img = decode_png(f.read())
-    if img.ndim == 3 and img.shape[2] == 2:
-        img = img[:, :, 0]  # gray + alpha: the alpha is dropped
-    if flags == IMREAD_GRAYSCALE:
-        if img.ndim == 2:
-            return img
-        rgb = img[:, :, :3].astype(np.uint32)
-        gray = sum(rgb[:, :, i] * wt for i, wt in enumerate(_GRAY_WEIGHTS))
-        return (gray >> 15).astype(np.uint8)
-    if img.ndim == 2:
-        return np.repeat(img[:, :, None], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, 2::-1])

@@ -3,13 +3,14 @@ pytorch_segmentation_tpu/utils/synthetic.py without OpenCV).
 
 Small images of coloured shapes (even category ids are squares, odd ones
 triangles) with matching COCO polygon annotations, laid out as the train CLI
-reads them: train.json / val.json beside the image files. The JSON and every
-numpy draw are the JAX package's. The one deliberate difference: the images
-are PNG files (`file_name` ends in `.png`, not `.jpg`), since the port reads
-PNG only. The shapes are filled by the port's `fill_polygon`, and each
-`area` is the polygon's shoelace area (what `cv2.contourArea` gives).
-`img_size` may also be (width, height) for non-square images; an int is the
-JAX package's square size.
+reads them: train.json / val.json beside the `{name}_{i:04d}.jpg` files.
+Every numpy draw is the JAX package's, each shape is drawn as
+`cv2.fillPoly(img, [pts], color)` draws it (`fill_poly`), each `area` is
+the polygon's shoelace area (what `cv2.contourArea` gives) and each image is
+written by `utils/jpeg.encode_jpeg` (the bytes of `cv2.imwrite`), so the
+JSON and every file equal the JAX generator's byte for byte. `img_size` may
+also be (width, height) for non-square images; an int is the JAX package's
+square size.
 """
 
 from __future__ import annotations
@@ -20,10 +21,69 @@ import os.path as osp
 
 import numpy as np
 
-from ..data.rasterize import fill_polygon
-from .png import encode_png
+from .jpeg import encode_jpeg
 
-__all__ = ["make_synthetic_coco"]
+__all__ = ["make_synthetic_coco", "fill_poly"]
+
+_XY_SHIFT = 16  # OpenCV's drawing fixed point
+
+
+def _line8(img, x0, y0, x1, y1, color):
+    """OpenCV's Line with an 8-connected LineIterator (left to right):
+    the major axis steps every pixel, the minor one when the error term
+    is negative; step k has taken floor((2 * minor * k + major - 1) /
+    (2 * major)) minor steps."""
+    if x1 < x0:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, y1 - y0
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    major, minor = max(dx, dy), min(dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    m = (2 * minor * k + major - 1) // (2 * major) if major else k
+    if dy > dx:
+        xs, ys = x0 + m, y0 + sy * k
+    else:
+        xs, ys = x0 + k, y0 + sy * m
+    keep = ((xs >= 0) & (xs < img.shape[1]) & (ys >= 0)
+            & (ys < img.shape[0]))
+    img[ys[keep], xs[keep]] = color
+
+
+def fill_poly(img: np.ndarray, pts, color) -> None:
+    """`cv2.fillPoly(img, [pts], color)` in place, for int points inside the
+    image (LINE_8, shift 0), as OpenCV draws it: each edge's outline by
+    `_line8`, then the scanline fill of CollectPolyEdges /
+    FillEdgeCollection: 16-bit fixed-point edges (x << 16, dx truncated
+    toward zero), active for y0 <= y < y1; on each row the sorted crossings
+    are filled in pairs from round(x_left) (half up) to floor(x_right)."""
+    pts = np.asarray(pts, dtype=np.int64).reshape(-1, 2)
+    n = len(pts)
+    edges = []
+    for i in range(n):
+        (x0, y0), (x1, y1) = pts[i - 1], pts[i]
+        _line8(img, int(x0), int(y0), int(x1), int(y1), color)
+        if y0 == y1:
+            continue
+        fx0, fx1 = int(x0) << _XY_SHIFT, int(x1) << _XY_SHIFT
+        num, den = fx1 - fx0, int(y1 - y0)
+        step = abs(num) // abs(den) * (1 if (num < 0) == (den < 0) else -1)
+        if y0 < y1:
+            edges.append((int(y0), int(y1), fx0, step))
+        else:
+            edges.append((int(y1), int(y0), fx1, step))
+    if len(edges) < 2:
+        return
+    y_lo = max(min(e[0] for e in edges), 0)
+    y_hi = min(max(e[1] for e in edges), img.shape[0])
+    for y in range(y_lo, y_hi):
+        xs = sorted(x + (y - top) * step for top, bottom, x, step in edges
+                    if top <= y < bottom)
+        for left, right in zip(xs[0::2], xs[1::2]):
+            a = max((left + (1 << (_XY_SHIFT - 1))) >> _XY_SHIFT, 0)
+            b = min(right >> _XY_SHIFT, img.shape[1] - 1)
+            if a <= b:
+                img[y, a:b + 1] = color
 
 
 def _shoelace(pts: np.ndarray) -> float:
@@ -39,7 +99,7 @@ def _make_split(root, name, num_images, img_wh, rng, num_cats):
     annotations = []
     ann_id = 1
     for i in range(num_images):
-        fname = f"{name}_{i:04d}.png"
+        fname = f"{name}_{i:04d}.jpg"
         img = np.full((height, width, 3),
                       rng.integers(40, 216, size=3, dtype=np.int64),
                       dtype=np.uint8)
@@ -60,8 +120,7 @@ def _make_split(root, name, num_images, img_wh, rng, num_cats):
             pts = np.asarray(poly, dtype=np.int32).reshape(-1, 2)
             color = (int(rng.integers(0, 255)), int(rng.integers(0, 255)),
                      int(rng.integers(0, 255)))
-            shape = fill_polygon(np.zeros((height, width), np.uint8), pts, 1)
-            img[shape.astype(bool)] = color  # BGR, as the JAX package draws
+            fill_poly(img, pts, color)  # BGR, as the JAX package draws
             xs, ys = pts[:, 0], pts[:, 1]
             annotations.append({
                 "id": ann_id,
@@ -75,7 +134,7 @@ def _make_split(root, name, num_images, img_wh, rng, num_cats):
             })
             ann_id += 1
         with open(osp.join(root, fname), "wb") as f:
-            f.write(encode_png(np.ascontiguousarray(img[:, :, ::-1])))
+            f.write(encode_jpeg(img))
         images.append({"id": i, "file_name": fname,
                        "width": width, "height": height})
     coco = {

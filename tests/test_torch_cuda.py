@@ -1021,7 +1021,7 @@ def test_cli_train_resume_test_inference_on_card(device, tmp_path,
     from pytorch_segmentation_tpu_torch.data import (CocoDataset, DataLoader,
                                                      Fetcher, PostFetch)
     from pytorch_segmentation_tpu_torch.engine import test as engine_test
-    from pytorch_segmentation_tpu_torch.utils.png import imread
+    from pytorch_segmentation_tpu_torch.utils.imgcodecs import imread
     from pytorch_segmentation_tpu_torch.utils.synthetic import (
         make_synthetic_coco)
 
@@ -1039,7 +1039,7 @@ def test_cli_train_resume_test_inference_on_card(device, tmp_path,
     miou = test_cli.main([os.path.join(data, "val.json"), "--weights",
                           "weights/best.pt", "-s", "64", "64", "-bs", "4"])
     os.makedirs("imgs")
-    for name in ("val_0000.png", "val_0001.png", "val_0002.png"):
+    for name in ("val_0000.jpg", "val_0001.jpg", "val_0002.jpg"):
         os.symlink(os.path.join(data, name), os.path.join("imgs", name))
     masks = infer_cli.main(["imgs", "out", "-s", "64", "64", "-nc", "5",
                             "--weights", "weights/best.pt", "-bs", "3"])

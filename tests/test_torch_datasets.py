@@ -1,11 +1,13 @@
 """PyTorch port: the file-reading side of the data path against the JAX
-package and OpenCV on the same files (CPU): `utils/png.imread` against
-`cv2.imread`, the numpy resizes against `cv2.resize`, the rasterizer (native
+package and OpenCV on the same files (CPU): `utils/imgcodecs.imread`
+against `cv2.imread`, the numpy resizes against `cv2.resize`, the rasterizer (native
 and numpy) and `mask_from_colors` against the JAX functions,
 `make_synthetic_coco`'s JSON against the JAX one's, and the dataset classes'
-records against the JAX classes' records.
+records against the JAX classes' records (the JPEG codec's own tests are in
+test_torch_jpeg.py).
 
-Tolerances, fixed before the comparison: PNG decoding, nearest resizes, the
+Tolerances, fixed before the comparison: PNG and JPEG decoding, nearest
+resizes, the
 polygon fill, the colour map and every label are bit-equal. Images resized
 with cubic (datasets) or u8 linear (inference input) interpolation are
 within one level of cv2's, on at most CUBIC_SHARE / LINEAR_SHARE of the
@@ -35,7 +37,7 @@ from pytorch_segmentation_tpu_torch.data import datasets as tdatasets
 from pytorch_segmentation_tpu_torch.data import rasterize as trasterize
 from pytorch_segmentation_tpu_torch.data.resize_host import (resize_probs,
                                                              resize_u8)
-from pytorch_segmentation_tpu_torch.utils import png
+from pytorch_segmentation_tpu_torch.utils import imgcodecs, png
 from pytorch_segmentation_tpu_torch.utils import synthetic as tsynthetic
 
 torch.set_num_threads(1)
@@ -90,26 +92,36 @@ def test_imread_matches_cv2(tmp_path, color, depth, flags):
     path = str(tmp_path / "img.png")
     _write_png(path, samples, color, depth, palette)
     want = cv2.imread(path, flags)
-    got = png.imread(path, flags)
-    assert png.IMREAD_COLOR == cv2.IMREAD_COLOR
-    assert png.IMREAD_GRAYSCALE == cv2.IMREAD_GRAYSCALE
+    got = imgcodecs.imread(path, flags)
+    assert imgcodecs.IMREAD_COLOR == cv2.IMREAD_COLOR
+    assert imgcodecs.IMREAD_GRAYSCALE == cv2.IMREAD_GRAYSCALE
     assert got.dtype == np.uint8 and got.shape == want.shape
     assert np.array_equal(got, want)
 
 
 def test_imread_refuses_what_it_cannot_read(tmp_path):
+    """A JPEG is read now (as cv2 reads it, whatever its suffix: the bytes'
+    signature decides); 16-bit and interlaced PNGs, bytes of another format
+    and a missing file still raise."""
     img = np.random.default_rng(0).integers(0, 256, (9, 11, 3), np.uint8)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
+    (tmp_path / "a.png").write_bytes((tmp_path / "a.jpg").read_bytes())
     cv2.imwrite(str(tmp_path / "b.png"), img.astype(np.uint16) * 257)
     _write_png(str(tmp_path / "c.png"), img, 2, 8, interlace=1)
-    with pytest.raises(ValueError, match="JPEG.*ROADMAP queue 1 item 12"):
-        png.imread(str(tmp_path / "a.jpg"))
+    cv2.imwrite(str(tmp_path / "d.bmp"), img)
+    for name in ("a.jpg", "a.png"):
+        for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+            assert np.array_equal(
+                imgcodecs.imread(str(tmp_path / name), flags),
+                cv2.imread(str(tmp_path / "a.jpg"), flags))
     with pytest.raises(ValueError, match="bit depth 16"):
-        png.imread(str(tmp_path / "b.png"))
+        imgcodecs.imread(str(tmp_path / "b.png"))
     with pytest.raises(ValueError, match="interlace 1"):
-        png.imread(str(tmp_path / "c.png"))
+        imgcodecs.imread(str(tmp_path / "c.png"))
+    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+        imgcodecs.imread(str(tmp_path / "d.bmp"))
     with pytest.raises(FileNotFoundError):
-        png.imread(str(tmp_path / "missing.png"))
+        imgcodecs.imread(str(tmp_path / "missing.png"))
     assert tdatasets.IMG_EXT == jdatasets.IMG_EXT
 
 
@@ -200,7 +212,8 @@ def test_mask_from_colors_matches_jax():
 
 
 def test_synthetic_coco_json_matches_jax(tmp_path):
-    """Same JSON and numpy draws; only the image suffix differs (.png)."""
+    """The same JSON, `.jpg` names included (the files themselves are held
+    byte for byte in test_torch_jpeg.py)."""
     jsynthetic.make_synthetic_coco(str(tmp_path / "j"), 5, 3, 48, seed=4,
                                    num_classes=5)
     tsynthetic.make_synthetic_coco(str(tmp_path / "t"), 5, 3, 48, seed=4,
@@ -208,17 +221,16 @@ def test_synthetic_coco_json_matches_jax(tmp_path):
     for split in ("train", "val"):
         want = json.loads((tmp_path / "j" / f"{split}.json").read_text())
         got = json.loads((tmp_path / "t" / f"{split}.json").read_text())
-        for info in want["images"]:
-            info["file_name"] = info["file_name"][:-4] + ".png"
         assert got == want
         for info in got["images"]:
-            img = png.imread(str(tmp_path / "t" / info["file_name"]))
-            assert img.shape == (48, 48, 3)
+            path = str(tmp_path / "t" / info["file_name"])
+            assert info["file_name"].endswith(".jpg")
+            assert np.array_equal(imgcodecs.imread(path), cv2.imread(path))
 
 
 @pytest.fixture(scope="module")
 def coco_dir(tmp_path_factory):
-    """Non-square PNG COCO files written by the port's generator."""
+    """Non-square JPEG COCO files written by the port's generator."""
     root = tmp_path_factory.mktemp("coco")
     tsynthetic.make_synthetic_coco(str(root), 6, 2, (120, 90), seed=2,
                                    num_classes=4)
@@ -322,9 +334,18 @@ def test_segimg_and_idimg_records_match_jax(segimg_dir, rect):
 
 
 def test_a_jpeg_dataset_fails_when_constructed(tmp_path):
-    coco = {"images": [{"id": 0, "file_name": "a.jpg", "width": 8,
-                        "height": 8}],
-            "annotations": [], "categories": [{"id": 0, "name": "x"}]}
-    (tmp_path / "train.json").write_text(json.dumps(coco))
-    with pytest.raises(ValueError, match="a.jpg: only PNG.*item 12"):
-        tdata.CocoDataset(str(tmp_path / "train.json"))
+    """A JPEG dataset is built and read now, as cv2 reads its files; one
+    whose files have a suffix of IMG_EXT the port does not read (BMP, TIFF,
+    DNG, WebP) still fails when it is constructed."""
+    img = np.random.default_rng(1).integers(0, 256, (8, 8, 3), np.uint8)
+    cv2.imwrite(str(tmp_path / "a.jpg"), img)
+    for name in ("a.jpg", "a.webp"):
+        coco = {"images": [{"id": 0, "file_name": name, "width": 8,
+                            "height": 8}],
+                "annotations": [], "categories": [{"id": 0, "name": "x"}]}
+        (tmp_path / f"{name}.json").write_text(json.dumps(coco))
+    tds = tdata.CocoDataset(str(tmp_path / "a.jpg.json"), img_size=8)
+    want = cv2.imread(str(tmp_path / "a.jpg"))[:, :, ::-1]
+    assert np.array_equal(tds[0][0], want)  # 8x8 to 8x8: no resampling
+    with pytest.raises(ValueError, match="a.webp: only PNG and JPEG.*item 13"):
+        tdata.CocoDataset(str(tmp_path / "a.webp.json"))

@@ -29,6 +29,7 @@ from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import MODEL_REGISTRY, build_model
 from pytorch_segmentation_tpu_torch.serving import MaskServer
+from pytorch_segmentation_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
 from pytorch_segmentation_tpu_torch.utils.weights import (load_state,
                                                           state_dict_from_jax)
@@ -231,7 +232,18 @@ def test_mask_server_round_trip(weights, images):
                                 encode_png(other)))
         assert mask.shape == (40, 50) and mask.max() < NC
 
-        for body in (b"not an image", b"\xff\xd8\xff\xe0 jpeg body"):
+        # a JPEG body: the mask of a PNG body holding its decoded pixels
+        jpg = encode_jpeg(np.ascontiguousarray(images[1][:, :, ::-1]))
+        pixels = np.ascontiguousarray(decode_jpeg(jpg)[:, :, ::-1])
+        from_jpeg = decode_png(_post(base + "/predict?format=raw", jpg))
+        from_png = decode_png(_post(base + "/predict?format=raw",
+                                    encode_png(pixels)))
+        assert from_jpeg.shape == (HW, HW)
+        assert np.array_equal(from_jpeg, from_png)
+
+        # a corrupt JPEG body and bytes of no image: 400
+        for body in (b"not an image", b"\xff\xd8\xff\xe0 jpeg body",
+                     jpg[:len(jpg) // 2]):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _post(base + "/predict", body)
             assert err.value.code == 400
