@@ -23,7 +23,14 @@ JPEG, 96 + 32 images at 640x480 with 21 classes, four of the train images
 rewritten as PNG with row filters 1-4: `train` for 2 epochs with
 the per-epoch eval, `train --resume` to epoch 3, `test` on best.pt and
 `inference` on the val images, held against `engine.test` and
-`inference()` in the same process; the host's records/s beside), and then
+`inference()` in the same process; the host's records/s beside), runs the
+train CLI's losses and extras (`losses`: every `--loss` choice and the CE
+with class weights, label smoothing and OHEM held against the CPU on the
+same f32 logits and trained for 4 steps beside the default CE, CutMix and
+Mosaic bit-equal to the CPU, end to end from u8 batches through
+PostFetch(mix_fn=..., augment_fn=...), distillation from a seeded
+SegFormer-B0 `.pt` teacher, the `train` command line with every loss, mix
+and distillation flag on the cli phase's set, then `test`), and then
 trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
 conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
@@ -74,12 +81,15 @@ plain versions on tensors those runs handed them.
     python3 chip_smoke.py --families maskformer segformer_scan
                                      # the builds, then the families phase
                                      # for these entries alone
+    python3 chip_smoke.py --losses   # the builds, then the losses phase
+                                     # alone, on a set of its own
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
 main-path run (serving, training, evaluation, training end to end, training
 with the fused 1x1 switch on, or the layout benchmark) and, for the four it
-runs, on the command lines' run (`cli_launches`), on the families phase's
+runs, on the command lines' run (`cli_launches`), on the losses phase's
+runs (`losses_launches`), on the families phase's
 runs (`families_launches`, and by model in `families_launches_by_model`,
 with each family's shape's figures under `families` for kernels 1-3), its
 error against
@@ -115,6 +125,7 @@ from pytorch_segmentation_tpu_torch import _native as native
 from pytorch_segmentation_tpu_torch.data import augment as taug
 from pytorch_segmentation_tpu_torch.data.colormap import colorize_mask
 from pytorch_segmentation_tpu_torch.data.loader import DataLoader, Fetcher
+from pytorch_segmentation_tpu_torch.data.mix import make_mix_fn
 from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
                                                           normalize_images)
 from pytorch_segmentation_tpu_torch.data.rasterize import (
@@ -138,7 +149,8 @@ from pytorch_segmentation_tpu_torch.models.segformer import (
 from pytorch_segmentation_tpu_torch.nn import blocks
 from pytorch_segmentation_tpu_torch.ops.boundary import (boundary_confusion,
                                                          boundary_pixels)
-from pytorch_segmentation_tpu_torch.ops.loss import compute_loss
+from pytorch_segmentation_tpu_torch.ops.loss import (LOSSES, build_loss,
+                                                    compute_loss)
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
 from pytorch_segmentation_tpu_torch.ops.kernels import build
 from pytorch_segmentation_tpu_torch.ops.kernels import cmajor_matmul as cm
@@ -2282,7 +2294,7 @@ def working_dir(path):
         os.chdir(before)
 
 
-def cli_phase(device, e2e_ms_per_step):
+def cli_phase(device, e2e_ms_per_step, tmp):
     """The command lines from files on disk, at full width: a seeded
     synthetic COCO set written as JPEG (96 train and 32 val images at
     640x480, 20 categories + background; four train images rewritten as PNG
@@ -2293,13 +2305,15 @@ def cli_phase(device, e2e_ms_per_step):
     Checks: the resumed run starts at epoch 2 with the saved best mIoU and
     update count; the test CLI's mIoU is `engine.test`'s on the same weights
     and files; the inference CLI's masks are at each image's size and equal
-    to `inference()`'s on the same batches. Kernels 1-4 must all launch."""
+    to `inference()`'s on the same batches. Kernels 1-4 must all launch.
+    `tmp`: the directory the set (`tmp/coco`) and the CLIs' outputs go to,
+    the caller's, so that the losses phase trains on the same set."""
     from pytorch_segmentation_tpu_torch import inference as infer_cli
     from pytorch_segmentation_tpu_torch import test as test_cli
     from pytorch_segmentation_tpu_torch import train as train_cli
     from pytorch_segmentation_tpu_torch.data import CocoDataset
 
-    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+    with working_dir(tmp):
         t0 = time.perf_counter()
         data = make_synthetic_coco(os.path.join(tmp, "coco"), CLI_TRAIN,
                                    CLI_VAL, CLI_WH, seed=SEED,
@@ -2445,6 +2459,355 @@ def cli_phase(device, e2e_ms_per_step):
         inference_images_per_s=infer_images_s,
         seconds={"train": first_s, "resume": resume_s, "test": test_s,
                  "inference": infer_s}, launches=launches)
+    return launches
+
+
+# the losses phase (train --loss / --cutmix / --mosaic / --distill*): each
+# loss and its gradient on the card against the CPU on the same f32 logits.
+# The loss to LOSS_CARD_RTOL (sums of 10^7 terms in another order; Dice's
+# per-class sums are atomic adds on the card), the gradient elementwise to
+# LOSS_GRAD_SHARE of its largest entry on the CPU, except on at most
+# LOSS_GRAD_MISMATCH of the elements: a pixel whose true-class probability
+# rounds to the other side of the OHEM cutoff, or whose rectangle bound
+# rounds apart, changes its gradient entirely. Lovász's gradient is a
+# function of the order of the errors, and the two devices' softmaxes differ
+# in the last bit, so a foreground and a background pixel whose errors are
+# that close swap their (different) gradients: on random logits its terms
+# may differ on LOVASZ_GRAD_MISMATCH of the elements; on `lovasz_exact`
+# logits (0 or -200: every probability is 0 or 1/k on both devices, so the
+# errors and their stable sort are the same) on none
+LOSS_CHECK_SHAPE = (TRAIN_BATCH, 129, 129, NUM_CLASSES)
+LOSS_CARD_RTOL = 1e-4
+LOSS_GRAD_SHARE = 1e-3
+LOSS_GRAD_MISMATCH = 1e-5
+LOVASZ_GRAD_MISMATCH = 1e-4
+LOSS_STEPS = 3        # timed Trainer steps a loss, after one warm-up step
+# the CE knobs of the `ce_knobs` runs (ignore_index in the card check only:
+# the train batch has no ignored label)
+LOSS_KNOBS = dict(label_smoothing=0.1, ohem_frac=0.3, ohem_thresh=0.7)
+MIX_P = 0.5           # CutMix's and Mosaic's probabilities
+DISTILL = ("segformer", "b0", 1.0, 2.0)   # teacher, variant, weight, T
+
+
+def class_weights():
+    """NUM_CLASSES seeded weights in [0.5, 2)."""
+    rng = np.random.default_rng(SEED + 8)
+    return [round(float(v), 3) for v in rng.uniform(0.5, 2.0, NUM_CLASSES)]
+
+
+def loss_functions():
+    """name -> loss_fn(logits, labels) of every `build_loss` choice, the CE
+    with every knob, and distill_loss against fixed teacher logits on
+    another grid (65 x 65, resized to the student's)."""
+    from pytorch_segmentation_tpu_torch.engine.steps import distill_loss
+    fns = {name: build_loss(name) for name in LOSSES}
+    fns["ce_knobs"] = build_loss("ce", class_weights=class_weights(),
+                                 ignore_index=255, **LOSS_KNOBS)
+    rng = np.random.default_rng(SEED + 10)
+    teacher = torch.from_numpy((2.0 * rng.standard_normal(
+        (TRAIN_BATCH, 65, 65, NUM_CLASSES))).astype(np.float32))
+    on = {}   # the teacher's logits on each device, copied once
+
+    def distill(logits, labels):
+        if logits.device not in on:
+            on[logits.device] = teacher.to(logits.device)
+        return distill_loss(logits, on[logits.device], DISTILL[3])
+    fns["distill"] = distill
+    return fns
+
+
+def loss_card_checks(device):
+    """Each loss and its gradient on the card against the CPU on the same
+    f32 logits [32, 129, 129, 21] (labels: a 9x9 grid of classes a sample,
+    nearest-upsampled; 5% of the pixels 255 for ce_knobs; `lovasz_exact`
+    on logits 0 or -200), and one forward and backward's ms on the card
+    (CUDA events, the median of 3). Every case is checked, then any
+    failure raises."""
+    rng = np.random.default_rng(SEED + 9)
+    x = (2.0 * rng.standard_normal(LOSS_CHECK_SHAPE)).astype(np.float32)
+    exact = np.where(rng.random(LOSS_CHECK_SHAPE) < 0.2, 0.0,
+                     -200.0).astype(np.float32)
+    grid = torch.from_numpy(rng.integers(0, NUM_CLASSES, (
+        TRAIN_BATCH, 9, 9)).astype(np.int32))
+    labels = resize_nearest(grid, LOSS_CHECK_SHAPE[1:3])
+    ignored = torch.where(torch.from_numpy(
+        rng.random(labels.shape) < 0.05), 255, labels)
+    fns = loss_functions()
+    cases = {name: (fn, x, ignored if name == "ce_knobs" else labels)
+             for name, fn in fns.items()}
+    cases["lovasz_exact"] = (fns["lovasz"], exact, labels)
+    figures, failed = {}, []
+    for name, (fn, logits, y) in cases.items():
+        results = []
+        for dev in ("cpu", device):
+            xt = torch.from_numpy(logits).to(dev).requires_grad_(True)
+            value = fn(xt, y.to(dev))
+            (grad,) = torch.autograd.grad(value, [xt])
+            results.append((float(value.detach()), grad.cpu()))
+        (want, want_g), (got, got_g) = results
+        scale = float(want_g.abs().max())
+        diff = (got_g - want_g).abs()
+        mismatched = int((diff > LOSS_GRAD_SHARE * scale).sum())
+        allowed = {"lovasz": LOVASZ_GRAD_MISMATCH, "ce+lovasz":
+                   LOVASZ_GRAD_MISMATCH, "lovasz_exact": 0.0}.get(
+                       name, LOSS_GRAD_MISMATCH)
+        if not (abs(got - want) <= LOSS_CARD_RTOL * abs(want)
+                and mismatched <= allowed * diff.numel()):
+            failed.append(name)
+        xt = torch.from_numpy(logits).to(device).requires_grad_(True)
+        yt = y.to(device)
+        ms = cuda_median_ms(lambda: torch.autograd.grad(fn(xt, yt), [xt]),
+                            warmup=1, reps=3)
+        figures[name] = {"card": got, "cpu": want,
+                         "grad_max_abs_err": float(diff.max()),
+                         "grad_max_abs": scale,
+                         "grad_entries_beyond": mismatched,
+                         "grad_entries_allowed": allowed * diff.numel(),
+                         "fwd_bwd_ms": ms}
+    log("losses_card_vs_cpu", shape=list(LOSS_CHECK_SHAPE),
+        loss_rtol=LOSS_CARD_RTOL, grad_share=LOSS_GRAD_SHARE,
+        losses=figures)
+    if failed:
+        raise AssertionError(f"losses on the card against the CPU: {failed} "
+                             f"beyond their bounds (losses_card_vs_cpu "
+                             f"line)")
+
+
+def mix_card_check(device, dataset):
+    """CutMix and Mosaic (make_mix_fn) on the card against the CPU on one
+    u8 batch of 32 at 513^2, the draws made once on the CPU: bit-equal."""
+    mix = make_mix_fn(cutmix_p=MIX_P, mosaic_p=MIX_P)
+    draws = mix.draw(torch.Generator().manual_seed(SEED), TRAIN_BATCH)
+    images = torch.from_numpy(dataset.images[:TRAIN_BATCH])
+    segs = torch.from_numpy(dataset.segs[:TRAIN_BATCH])
+    cpu = mix.apply(draws, images, segs)
+    on_card = to_device(draws, device)
+    images_d, segs_d = images.to(device), segs.to(device)
+    card = mix.apply(on_card, images_d, segs_d)
+    equal = [torch.equal(c.cpu(), w) for c, w in zip(card, cpu)]
+    changed = float((cpu[1] != segs).float().mean())
+    if equal != [True, True] or changed == 0.0:
+        raise AssertionError(f"mix on the card: images and labels equal "
+                             f"{equal}, {changed} of the labels changed")
+    ms = cuda_median_ms(lambda: mix.apply(on_card, images_d, segs_d))
+    log("losses_mix", batch=TRAIN_BATCH, bit_equal=True,
+        gated={k: int(v["gate"].sum()) for k, v in draws.items()},
+        labels_changed_share=changed, mix_ms_cuda_events=ms)
+
+
+def write_teacher(path):
+    """A seeded SegFormer-B0 `.pt` (21 classes), the distillation teacher."""
+    name, variant = DISTILL[:2]
+    teacher = build_model(name, NUM_CLASSES, **variant_kwargs(name, variant))
+    torch.save({"model": seeded_state_dict(teacher, SEED + 1)}, path)
+
+
+def loss_steps(device, model, batch, tmp, loss_fn, distill_fn=None):
+    """One warm-up Trainer step and LOSS_STEPS timed ones of `model` on the
+    fixed batch (SGD 1e-3, momentum 0.9, from the seeded start): the
+    losses, wall and CUDA-event ms per step, the CE kernels' launches and
+    the peak memory, GB."""
+    trainer = Trainer(model, RepeatFetcher(batch, 1), loss_fn=loss_fn,
+                      workdir=os.path.join(tmp, "w"), lr=1e-3, momentum=0.9,
+                      seed=SEED, log=False, log_dir=os.path.join(tmp, "runs"),
+                      distill_fn=distill_fn,
+                      distill_weight=DISTILL[2] if distill_fn else 0.0,
+                      distill_temp=DISTILL[3], device=device)
+    if (trainer._train_module.full_res_output is False) != (
+            loss_fn is compute_loss):
+        raise AssertionError(f"the Trainer deferred the upsample "
+                             f"{not trainer._train_module.full_res_output} "
+                             f"for the loss {loss_fn}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce.reset_launch_count()
+    losses = [trainer.step()]
+    trainer.fetcher.n = LOSS_STEPS
+    wall_ms, event_ms = step_windows(trainer, 1, losses)
+    launches = ce.launch_count()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    steps = 1 + LOSS_STEPS
+    fused = loss_fn is compute_loss
+    want = {"fwd": steps, "bwd": steps} if fused else {"fwd": 0, "bwd": 0}
+    if launches != want:
+        raise AssertionError(f"{steps} steps launched {launches}, want "
+                             f"{want}")
+    return {"losses": losses, "ms_per_step_wall": wall_ms[0],
+            "ms_per_step_cuda_events": event_ms[0],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "ce_launches": launches}
+
+
+def losses_phase(device, dataset, cli_data):
+    """The train CLI's losses and extras at full width (DeepLabV3+ R50,
+    513^2, batch 32, bf16): each loss against the CPU; Trainer steps of
+    every `--loss` choice and of the CE with class weights, smoothing and
+    OHEM beside the default CE; CutMix and Mosaic on the card against the
+    CPU; end to end from u8 batches through PostFetch(mix_fn=...,
+    augment_fn=...); distillation from a seeded SegFormer-B0 `.pt`; and the
+    `train` command line with the item-7 flags on the cli phase's synthetic
+    set (`cli_data`), then `test`. Returns each kernel's launches in the
+    phase's main-path runs (the Trainer steps, end to end, distillation and
+    the command lines)."""
+    from pytorch_segmentation_tpu_torch import test as test_cli
+    from pytorch_segmentation_tpu_torch import train as train_cli
+    t_phase = time.perf_counter()
+    loss_card_checks(device)
+    mix_card_check(device, dataset)
+    launches = {"upsample_argmax": 0, "softmax_ce": {"fwd": 0, "bwd": 0},
+                "banded_resample": 0, "eval_confusion": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            if isinstance(v, dict):
+                for part, n in v.items():
+                    launches[k][part] += n
+            else:
+                launches[k] += v
+
+    _, batch = train_batch(device)
+    model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=True)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = {name: build_loss(name) for name in LOSSES}
+        configs["ce_knobs"] = build_loss("ce", class_weights=class_weights(),
+                                         **LOSS_KNOBS)
+        for name, loss_fn in configs.items():
+            runs[name] = loss_steps(device, model, batch, tmp, loss_fn)
+            add({"softmax_ce": runs[name]["ce_launches"]})
+            log("losses_train", loss=name, batch=TRAIN_BATCH,
+                **runs[name])
+
+        # distillation: the default CE (deferred upsample, kernel 2) plus
+        # the KL term against a seeded SegFormer-B0 teacher read from .pt
+        teacher_path = os.path.join(tmp, "teacher.pt")
+        write_teacher(teacher_path)
+        name, variant = DISTILL[:2]
+        teacher = load_model_bundle(
+            build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=False,
+                        **variant_kwargs(name, variant)),
+            teacher_path, device)
+        teacher_fn = nhwc_forward(teacher)
+        run = loss_steps(device, model, batch, tmp, compute_loss,
+                         teacher_fn)
+        add({"softmax_ce": run["ce_launches"]})
+        with torch.no_grad():
+            teacher_ms = cuda_median_ms(lambda: teacher_fn(batch[0]),
+                                        warmup=1, reps=5)
+            teacher_hw = list(teacher_fn(batch[0]).shape[1:3])
+        run["teacher_ms"] = teacher_ms
+        run["teacher_share_of_step"] = (teacher_ms
+                                        / run["ms_per_step_cuda_events"])
+        runs["distill"] = run
+        log("losses_train", loss="ce+distill", teacher=f"{name}-{variant}",
+            teacher_logits_hw=teacher_hw, distill_weight=DISTILL[2],
+            distill_temp=DISTILL[3], batch=TRAIN_BATCH, **run)
+        del teacher, teacher_fn
+
+        # end to end: u8 batches -> PostFetch(mix, then augmentation) ->
+        # Trainer, one warm-up epoch and one timed
+        mix = make_mix_fn(cutmix_p=MIX_P, mosaic_p=MIX_P)
+        mixes = []
+
+        def counted_mix(gen, images, segs):
+            mixes.append(images.shape[0])
+            return mix(gen, images, segs)
+        post = PostFetch(taug.make_augment_fn(), dtype=torch.bfloat16,
+                         seed=SEED, mix_fn=counted_mix, device=device)
+        loader = DataLoader(dataset, TRAIN_BATCH, shuffle=True,
+                            drop_last=True, seed=SEED)
+        trainer = Trainer(model, Fetcher(loader, post),
+                          workdir=os.path.join(tmp, "w"), lr=1e-3,
+                          momentum=0.9, seed=SEED, log=False,
+                          log_dir=os.path.join(tmp, "runs"), device=device)
+        br.reset_launch_count()
+        ce.reset_launch_count()
+        losses = [trainer.step()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step())
+        torch.cuda.synchronize()
+        epoch_ms = 1e3 * (time.perf_counter() - t0)
+        steps = trainer.state.step
+        e2e = {"banded_resample": br.launch_count(),
+               "softmax_ce": ce.launch_count()}
+        if not (e2e == {"banded_resample": 2 * steps,
+                        "softmax_ce": {"fwd": steps, "bwd": steps}}
+                and mixes == [TRAIN_BATCH] * steps
+                and all(np.isfinite(losses))):
+            raise AssertionError(f"mix end to end: {steps} steps, "
+                                 f"{len(mixes)} mixes, launches {e2e}, "
+                                 f"losses {losses}")
+        add(e2e)
+        log("losses_mix_train", batch=TRAIN_BATCH, steps=steps,
+            epoch_mean_losses=losses,
+            ms_per_step_end_to_end=epoch_ms * TRAIN_BATCH / len(dataset),
+            mixes=len(mixes), launches=e2e)
+        del trainer, model
+
+        # the train command line with the item-7 flags, then test
+        work = os.path.join(tmp, "cli")
+        os.makedirs(work)
+        argv = [cli_data, "--model", "deeplabv3plus", "--dataset", "coco",
+                "-s", str(IMG), str(IMG), "-bs", str(TRAIN_BATCH), "-a", "1",
+                "-mp", "--num-workers", str(CLI_WORKERS), "--epochs", "1",
+                "--loss", "ce+dice", "--class-weights",
+                ",".join(map(str, class_weights())),
+                "--label-smoothing", str(LOSS_KNOBS["label_smoothing"]),
+                "--ohem", str(LOSS_KNOBS["ohem_frac"]), "--ohem-thresh",
+                str(LOSS_KNOBS["ohem_thresh"]), "--cutmix", str(MIX_P),
+                "--mosaic", str(MIX_P), "--distill", teacher_path,
+                "--distill-model", name, "--distill-variant", variant,
+                "--distill-weight", str(DISTILL[2]), "--distill-temp",
+                str(DISTILL[3])]
+        for kernel in (ua, ce, br, ec):
+            kernel.reset_launch_count()
+        with working_dir(work):
+            t0 = time.perf_counter()
+            trainer = train_cli.main(argv)
+            train_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            miou = test_cli.main([os.path.join(cli_data, "val.json"),
+                                  "--model", "deeplabv3plus", "--weights",
+                                  "weights/last.pt", "-s", str(IMG),
+                                  str(IMG), "-bs", str(EVAL_BATCH),
+                                  "--num-workers", str(CLI_WORKERS)])
+            test_s = time.perf_counter() - t0
+            with open("runs/log.jsonl") as f:
+                records = [json.loads(line) for line in f]
+        cli = {"upsample_argmax": ua.launch_count(),
+               "softmax_ce": ce.launch_count(),
+               "banded_resample": br.launch_count(),
+               "eval_confusion": ec.launch_count()}
+        steps = CLI_TRAIN // TRAIN_BATCH
+        evals = 2 * -(-CLI_VAL // EVAL_BATCH)   # the epoch's eval and test
+        want = {"upsample_argmax": 2,
+                "softmax_ce": {"fwd": evals, "bwd": 0},
+                "banded_resample": 2 * steps, "eval_confusion": evals}
+        epoch = [r for r in records if "steps" in r]
+        if not (cli == want and trainer.state.step == steps
+                and len(epoch) == 1 and np.isfinite(epoch[0]["loss"])
+                and 0.0 <= miou <= 1.0):
+            raise AssertionError(f"train CLI with the item-7 flags: launches "
+                                 f"{cli} (want {want}), step "
+                                 f"{trainer.state.step}, epochs {epoch}, "
+                                 f"test mIoU {miou}")
+        add(cli)
+        del trainer
+    log("losses_cli", flags=" ".join(argv[argv.index("--loss"):]),
+        steps=steps, loss=epoch[0]["loss"],
+        ms_per_step_cli=1e3 * epoch[0]["seconds"] / steps,
+        test_miou=miou, seconds={"train": train_s, "test": test_s},
+        launches=cli)
+    log("losses", seconds=time.perf_counter() - t_phase,
+        ms_per_step_cuda_events={k: v["ms_per_step_cuda_events"]
+                                 for k, v in runs.items()},
+        peak_memory_gb={k: v["peak_memory_gb"] for k, v in runs.items()},
+        teacher_share_of_step=runs["distill"]["teacher_share_of_step"],
+        launches=launches)
     return launches
 
 
@@ -3665,6 +4028,10 @@ def main():
                              "for these FAMILY_IMGS entries (their one-batch "
                              "variants, fused runs and command lines too) "
                              "and stop: no kernels line, no last line")
+    parser.add_argument("--losses", action="store_true",
+                        help="after the builds, run only the losses phase "
+                             "(on a synthetic set of its own) and stop: no "
+                             "kernels line, no last line")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -3711,6 +4078,14 @@ def main():
     if args.families:
         only_families(args.families)
         families_phase(device)
+        return
+    if args.losses:
+        dataset = MemoryDataset(4 * TRAIN_BATCH,
+                                np.random.default_rng(SEED + 6))
+        with tempfile.TemporaryDirectory() as tmp:
+            losses_phase(device, dataset, make_synthetic_coco(
+                os.path.join(tmp, "coco"), CLI_TRAIN, CLI_VAL, CLI_WH,
+                seed=SEED, num_classes=CLI_CATEGORIES))
         return
     jpeg_phase()
 
@@ -3790,7 +4165,10 @@ def main():
     resample_launches, e2e_ms_per_step = augment_phase(
         device, dataset, train_figures["images_per_s"],
         resample_path.pop("pass_ms"), profile=args.profile)
-    cli_launches = cli_phase(device, e2e_ms_per_step)
+    with tempfile.TemporaryDirectory() as cli_tmp:
+        cli_launches = cli_phase(device, e2e_ms_per_step, cli_tmp)
+        losses_launches = losses_phase(device, dataset,
+                                       os.path.join(cli_tmp, "coco"))
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
     family_launches, family_by_model, family_cases, family_fused = (
@@ -3828,6 +4206,7 @@ def main():
                    "kernel's arithmetic (mask bit-equal)",
          "launches": launches,
          "cli_launches": cli_launches["upsample_argmax"],
+         "losses_launches": losses_launches["upsample_argmax"],
          "families_launches": family_launches["upsample_argmax"],
          "families_launches_by_model": by_model("upsample_argmax"),
          "families": {name: c["upsample_argmax"]
@@ -3843,6 +4222,7 @@ def main():
                    "bit-equal), no atomics",
          "launches": ce_launches["fwd"],
          "cli_launches": cli_launches["softmax_ce"]["fwd"],
+         "losses_launches": losses_launches["softmax_ce"]["fwd"],
          "families_launches": family_launches["softmax_ce"]["fwd"],
          "families_launches_by_model": by_model("softmax_ce", "fwd"),
          "families": {name: c["softmax_ce"]["fwd"]
@@ -3858,6 +4238,7 @@ def main():
                    "atomics",
          "launches": ce_launches["bwd"],
          "cli_launches": cli_launches["softmax_ce"]["bwd"],
+         "losses_launches": losses_launches["softmax_ce"]["bwd"],
          "families_launches": family_launches["softmax_ce"]["bwd"],
          "families_launches_by_model": by_model("softmax_ce", "bwd"),
          "families": {name: c["softmax_ce"]["bwd"]
@@ -3875,6 +4256,7 @@ def main():
                    "measured no faster; bit-equal to the plain version",
          "launches": resample_launches,
          "cli_launches": cli_launches["banded_resample"],
+         "losses_launches": losses_launches["banded_resample"],
          "families_launches": family_launches["banded_resample"],
          "families_launches_by_model": by_model("banded_resample"),
          **resample_path},
@@ -3893,6 +4275,7 @@ def main():
                    "warp-grouped shared-memory counts",
          "launches": eval_launches["eval_confusion"],
          "cli_launches": cli_launches["eval_confusion"],
+         "losses_launches": losses_launches["eval_confusion"],
          "families_launches": family_launches["eval_confusion"],
          "families_launches_by_model": by_model("eval_confusion"),
          "families": {name: c["eval_confusion"]

@@ -1,5 +1,5 @@
 """Data: colour maps, the file-reading datasets, the host loader, the
-device-side augmentation and the batch pipeline."""
+device-side mixes and augmentation and the batch pipeline."""
 
 from .augment import AugmentConfig, make_augment_fn
 from .colormap import (VOC_COLORMAP, colorize_mask, mask_from_colors,
@@ -8,6 +8,7 @@ from .datasets import (IMAGENET_MEAN, IMAGENET_STD, IMG_EXT, BasicDataset,
                        CocoDataset, CocoInstance, IdImgDataset,
                        SegImgDataset)
 from .loader import Batch, DataLoader, Fetcher, repeat_factors
+from .mix import make_mix_fn
 from .pipeline import PostFetch, multi_scale_sizes, normalize_images
 
 __all__ = [
@@ -17,5 +18,5 @@ __all__ = [
     "SegImgDataset",
     "DataLoader", "Fetcher", "Batch", "repeat_factors",
     "PostFetch", "normalize_images", "multi_scale_sizes",
-    "AugmentConfig", "make_augment_fn",
+    "AugmentConfig", "make_augment_fn", "make_mix_fn",
 ]

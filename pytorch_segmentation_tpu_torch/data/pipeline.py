@@ -2,9 +2,10 @@
 multi-scale resize (port of pytorch_segmentation_tpu/data/pipeline.py).
 
 `PostFetch` is what a `Fetcher` applies to each host `Batch`: the u8 batch is
-copied to the device, augmented there (`data/augment.py`), normalized, and
-optionally resized to a size drawn on the host. The randomness of batch `k`
-is a function of `(seed, k)` only, so a resumed run can redraw any batch.
+copied to the device, mixed there (CutMix / Mosaic, `data/mix.py`), augmented
+(`data/augment.py`), normalized, and optionally resized to a size drawn on
+the host. The randomness of batch `k` is a function of `(seed, k)` only, so a
+resumed run can redraw any batch.
 
 Multi-scale: one of the sizes of `multi_scale_sizes(base_hw)` (a random
 0.7-1.5 scale of the base size snapped to multiples of 32) is picked per
@@ -57,17 +58,18 @@ class PostFetch:
     `torch.no_grad()` on the device's current stream, whichever thread calls
     (a `Fetcher` calls from its producer thread).
 
-    Not ported yet: `mix_fn` (ROADMAP: Losses and extras, data/mix.py) and
-    `sharding` (ROADMAP: parallel/)."""
+    `mix_fn` (`data.mix.make_mix_fn`) runs on the u8 batch before
+    `augment_fn`, so the augmentation warps the mixed canvas, and draws from
+    a generator of its own (`mix_generator`): the mix's stream is disjoint
+    from the augmentation's at every batch. It runs without an `augment_fn`
+    as well.
+
+    Not ported yet: `sharding` (ROADMAP: parallel/)."""
 
     def __init__(self, augment_fn=None, multi_scale: bool = False,
                  base_hw=None, seed: int = 0,
                  dtype: torch.dtype = torch.float32, sharding=None,
                  mix_fn=None, device=None):
-        if mix_fn is not None:
-            raise NotImplementedError(
-                "PostFetch(mix_fn=...) is not ported yet (ROADMAP: Losses "
-                "and extras, data/mix.py)")
         if sharding is not None:
             raise NotImplementedError(
                 "PostFetch(sharding=...) is not ported yet (ROADMAP: "
@@ -75,6 +77,7 @@ class PostFetch:
         self.device = (require_cuda() if device is None
                        else torch.device(device))
         self.augment_fn = augment_fn
+        self.mix_fn = mix_fn
         self.multi_scale = multi_scale
         self.base_hw = base_hw
         self.dtype = dtype
@@ -95,6 +98,12 @@ class PostFetch:
         host_gen.manual_seed(_batch_seed(self.seed, step, 1))
         return gen, host_gen
 
+    def mix_generator(self, step: int) -> torch.Generator:
+        """The device generator of batch `step`'s mix: a stream of its own."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_batch_seed(self.seed, step, 2))
+        return gen
+
     @torch.no_grad()
     def __call__(self, batch: Batch):
         # the calling thread (a Fetcher's producer) works on this device
@@ -112,6 +121,9 @@ class PostFetch:
         self._step += 1
         images = self._to_device(batch.images)
         segs = self._to_device(batch.segs)
+        if self.mix_fn is not None:
+            images, segs = self.mix_fn(self.mix_generator(step), images,
+                                       segs)
         if self.augment_fn is not None:
             gen, host_gen = self.generators(step)
             images, segs = self.augment_fn(gen, images, segs,

@@ -42,7 +42,8 @@ from ..ops.metrics import sample_valid_mask
 from ..ops.resize import resize_bilinear
 from ..ops.tta import normalize_tta_scales, tta_logits
 
-__all__ = ["TrainState", "create_train_state", "make_train_step",
+__all__ = ["TrainState", "create_train_state", "distill_loss",
+           "make_train_step",
            "sample_valid_mask", "nhwc_forward", "tiled_logits",
            "require_eval_mode", "make_eval_step", "make_predict_step"]
 
@@ -93,10 +94,28 @@ def create_train_state(model: torch.nn.Module, optimizer,
                       ema_params=ema_params)
 
 
+def distill_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                 temp: float = 2.0) -> torch.Tensor:
+    """Hinton et al.'s knowledge distillation: T^2 * KL(softmax(t/T) ||
+    softmax(s/T)), the mean over pixels. Logits are [B, h, w, C]; the
+    teacher's grid is bilinearly resized (align_corners=False) to the
+    student's where the two differ. f32 softmaxes."""
+    if tuple(teacher_logits.shape[1:3]) != tuple(student_logits.shape[1:3]):
+        teacher_logits = resize_bilinear(teacher_logits.float(),
+                                         student_logits.shape[1:3],
+                                         align_corners=False)
+    t = teacher_logits.float() / temp
+    s = student_logits.float() / temp
+    kl = (torch.softmax(t, dim=-1) * (torch.log_softmax(t, dim=-1)
+                                      - torch.log_softmax(s, dim=-1))).sum(-1)
+    return (temp * temp) * kl.mean()
+
+
 def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                     qat: bool = False, ema_decay: float = 0.0,
                     aux_weight: float = 0.4,
-                    distill_fn: Callable | None = None):
+                    distill_fn: Callable | None = None,
+                    distill_weight: float = 0.0, distill_temp: float = 2.0):
     """Returns `(state, images, segs) -> (state, loss)` over ONE loader
     batch. images: [B, H, W, 3] normalized float, segs: [B, H, W] int, both
     on the model's device; the model sees the images as a channels_last NCHW
@@ -115,15 +134,19 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
     predictions) is trained on `loss_fn(outputs, segs)`, the dict as it is:
     no layout change, no `aux_weight`.
 
-    Not ported yet: `qat` (ROADMAP: quant.py), `distill_fn` (ROADMAP: losses
-    and extras) and MoE load-balance losses (ROADMAP: other model families,
-    nn/moe.py)."""
+    distill_fn(images) -> a frozen teacher's NHWC logits enables knowledge
+    distillation: with distill_weight > 0 the loss gains distill_weight *
+    `distill_loss(main logits, teacher logits, distill_temp)`. The teacher
+    runs under `torch.no_grad()` on the step's images; the term applies to
+    the main head's logits only, never to an aux head's.
+
+    Not ported yet: `qat` (ROADMAP: quant.py) and the MoE load-balance
+    losses (ROADMAP: parallel/ and nn/moe.py)."""
     if qat:
         raise NotImplementedError("quantization-aware training is not ported "
                                   "yet (ROADMAP: quant.py)")
-    if distill_fn is not None:
-        raise NotImplementedError("distillation is not ported yet (ROADMAP: "
-                                  "losses and extras, distill_loss)")
+    distill = distill_fn is not None and distill_weight > 0
+    distill_weight = float(distill_weight)
     accumulate = max(1, int(accumulate))
     ema_decay = float(ema_decay)
     aux_weight = float(aux_weight)
@@ -152,14 +175,25 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
         params = _trainable(model)
         logits = model(images.permute(0, 3, 1, 2))
         if isinstance(logits, dict):
+            if distill:
+                raise ValueError("distillation needs per-pixel logits; this "
+                                 "model's train-mode forward returned a "
+                                 "dict")
             loss = loss_fn(logits, segs)
         elif isinstance(logits, (tuple, list)):
             main, aux = logits
+            main = main.permute(0, 2, 3, 1)
             auxs = aux if isinstance(aux, (tuple, list)) else (aux,)
-            loss = loss_fn(main.permute(0, 2, 3, 1), segs) + aux_weight * sum(
+            loss = loss_fn(main, segs) + aux_weight * sum(
                 loss_fn(a.permute(0, 2, 3, 1), segs) for a in auxs)
         else:
-            loss = loss_fn(logits.permute(0, 2, 3, 1), segs)
+            main = logits.permute(0, 2, 3, 1)
+            loss = loss_fn(main, segs)
+        if distill:
+            with torch.no_grad():
+                teacher = distill_fn(images)
+            loss = loss + distill_weight * distill_loss(main, teacher,
+                                                        distill_temp)
         grads = torch.autograd.grad(loss, [p for _, p in params])
         loss = loss.detach()
         if accumulate == 1:

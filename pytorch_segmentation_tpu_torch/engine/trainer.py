@@ -9,8 +9,7 @@ The model is an `nn.Module` with f32 parameters whose compute dtype is its
 own (`dtype=torch.bfloat16` for mixed precision); bf16 needs no loss scaling.
 Checkpoints are the port's `.pt` files (engine/checkpoint.py).
 
-Not ported yet: `mesh` and `zero` (ROADMAP: parallel/), `qat` and
-distillation.
+Not ported yet: `mesh` and `zero` (ROADMAP: parallel/) and `qat`.
 """
 
 from __future__ import annotations
@@ -137,9 +136,7 @@ def make_optimizer(params, lr: float = 1e-3, adam: bool = False,
                           weight_decay=weight_decay, clip_grad=clip_grad)
 
 
-_UNPORTED = {
-    "mesh": "parallel/", "zero": "parallel/", "qat": "quant.py",
-    "distill_fn": "losses and extras"}
+_UNPORTED = {"mesh": "parallel/", "zero": "parallel/", "qat": "quant.py"}
 
 
 class Trainer:
@@ -166,11 +163,17 @@ class Trainer:
     (`weights`) from a checkpoint without the head leaves the head at its
     seeded start.
 
-    Taken as the JAX Trainer takes them, so that the train CLI's call
-    works: `mixed_precision` (ignored: the model's `dtype` decides the
-    compute dtype, as in the JAX package), `distill_weight` and
-    `distill_temp` (inert until distillation is ported; without a
-    `distill_fn` the JAX Trainer ignores them as well).
+    `distill_fn(images) -> teacher logits` (NHWC, from a frozen teacher on
+    `device`) adds `distill_weight` times the T^2-scaled KL term at
+    temperature `distill_temp` to the main head's loss (`make_train_step`).
+    With the default CE the deferred upsample stays on, so the student's
+    main logits are the low-resolution ones: build the teacher with
+    `full_res_output=False` too (`distill_loss` resizes a teacher grid that
+    differs).
+
+    `mixed_precision` is taken as the JAX Trainer takes it, so that the
+    train CLI's call works, and ignored: the model's `dtype` decides the
+    compute dtype, as in the JAX package.
     """
 
     def __init__(self, model: torch.nn.Module, fetcher,
@@ -183,8 +186,9 @@ class Trainer:
                  defer_upsample: bool = True, lr_schedule: str = "constant",
                  warmup_steps: int = 0, total_steps: int | None = None,
                  ema_decay: float = 0.0, mixed_precision: bool = False,
-                 aux_weight: float = 0.4, distill_weight: float = 0.0,
-                 distill_temp: float = 2.0, device=None, **unported):
+                 aux_weight: float = 0.4, distill_fn: Callable | None = None,
+                 distill_weight: float = 0.0, distill_temp: float = 2.0,
+                 device=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Trainer got an unknown option {name!r}")
@@ -263,7 +267,10 @@ class Trainer:
         self._train_step = make_train_step(loss_fn=loss_fn,
                                            accumulate=self.accumulate,
                                            ema_decay=self.ema_decay,
-                                           aux_weight=aux_weight)
+                                           aux_weight=aux_weight,
+                                           distill_fn=distill_fn,
+                                           distill_weight=distill_weight,
+                                           distill_temp=distill_temp)
 
     @property
     def model(self) -> torch.nn.Module:

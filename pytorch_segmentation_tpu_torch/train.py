@@ -7,9 +7,15 @@
 
 The same flags, names and defaults as the root CLI. Files are read from
 disk by the port's datasets (PNG images; COCO JSON, or the segimg / idimg
-layouts), batches are augmented on the card (`PostFetch(make_augment_fn())`)
-and trained by `Trainer`; after each epoch the validation set is evaluated
-(`engine.test`), `<log_dir>/log.jsonl` gets the val mIoU, and
+layouts), batches are mixed (`--cutmix` / `--mosaic`, `data/mix.py`) and
+augmented on the card (`PostFetch(make_augment_fn(), mix_fn=...)`) and
+trained by `Trainer` on the loss of `--loss` (`ops/loss.build_loss`; its CE
+term takes `--class-weights`, `--label-smoothing`, `--ohem` /
+`--ohem-thresh` and `--ignore-index`), plus, under `--distill CKPT`, the
+distillation term of a frozen teacher (`--distill-model`,
+`--distill-variant`, a `.pt` checkpoint of the port). After each epoch the
+validation set is evaluated (`engine.test`), `<log_dir>/log.jsonl` gets the
+val mIoU, and
 `weights/last.pt` (and `weights/best.pt` when the mIoU rose) is written.
 Prints the per-epoch images/s and loss, the eval table and
 `save best, miou: ...`.
@@ -22,10 +28,11 @@ and upernet (UNet, BiSeNetV2, HRNet, OCRNet, FPN, MaskFormer, SegFormer,
 SegNeXt and UPerNet take sizes that are multiples of 32). MaskFormer
 trains on its set-prediction criterion (`make_maskformer_loss`, the
 query-to-class matcher of `--matcher`: sinkhorn on the card, or
-hungarian, scipy's on the host); `--ignore-index` then counts in the eval
-only, as in the root CLI (labels of K and above are left out of the
-criterion anyway). `--scan-blocks` builds segformer's stacked block stages;
-another family exits with status 2.
+hungarian, scipy's on the host); `--loss` other than ce exits there, and
+`--ignore-index` then counts in the eval only, as in the root CLI (labels
+of K and above are left out of the criterion anyway). `--scan-blocks`
+builds segformer's stacked block stages; another family exits with status
+2.
 `--aux-loss W` builds pspnet, fastfcn, upernet, bisenetv2, ocrnet, fcn,
 deeplabv3 or danet with its auxiliary heads (danet's two branch
 classifiers, bisenetv2's four booster heads, ocrnet's soft-region head) and
@@ -42,24 +49,25 @@ swin-*, vit-*). Runs on the card
 from __future__ import annotations
 
 import argparse
+import json
 import os.path as osp
 
 import torch
 
 from .data import (CocoDataset, CocoInstance, DataLoader, Fetcher,
                    IdImgDataset, PostFetch, SegImgDataset, make_augment_fn,
-                   repeat_factors)
+                   make_mix_fn, repeat_factors)
 from .data.resize_host import multi_scale_sizes
-from .engine import Trainer, test
+from .engine import Trainer, load_model_bundle, test
+from .engine.steps import nhwc_forward
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
                      make_maskformer_loss, variant_kwargs)
-from .ops.loss import compute_loss, softmax_cross_entropy
-from .ops.resize import resize_bilinear
+from .ops.loss import build_loss
 from .utils.cli import refuse_unported, unported_options
 from .utils.runtime import require_cuda
 
-__all__ = ["DATASETS", "UNPORTED", "train", "build_parser", "parse_args",
-           "main"]
+__all__ = ["DATASETS", "UNPORTED", "parse_class_weights", "train",
+           "build_parser", "parse_args", "main"]
 
 DATASETS = {
     "cocoinstance": (CocoInstance, "train.json", "val.json"),
@@ -77,27 +85,30 @@ AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
 UNPORTED = {
     "remat": (False, 5), "bn_subsample": (1, 5),
     "debug_nans": (False, 5),
-    "loss": ("ce", 7), "class_weights": ("", 7), "label_smoothing": (0.0, 7),
-    "ohem": (0.0, 7), "cutmix": (0.0, 7), "mosaic": (0.0, 7),
-    "distill": ("", 7), "distill_model": ("", 7), "distill_variant": ("", 7),
-    "distill_weight": (1.0, 7), "distill_temp": (2.0, 7),
     "fast_augment": (False, 8), "qat": (False, 9),
     "tp": (1, 10), "pp": (1, 10), "ep": (1, 10), "spatial": (1, 10),
     "zero": (False, 10), "moe": (0, 10),
 }
 
 
-def _ignore_index_loss(ignore_index: int, align_corners: bool):
-    """The CE with `ignore_index` on full-resolution logits (the JAX
-    package's `build_loss("ce", ignore_index=...)`): a custom loss, so the
-    Trainer keeps the model's own upsample."""
-    def loss_fn(logits, targets):
-        if tuple(logits.shape[1:3]) != tuple(targets.shape[1:3]):
-            logits = resize_bilinear(logits.float(), targets.shape[1:3],
-                                     align_corners=align_corners)
-        return softmax_cross_entropy(logits, targets,
-                                     ignore_index=ignore_index)
-    return loss_fn
+def parse_class_weights(spec: str, num_classes: int):
+    """--class-weights: 'w1,w2,...' (C floats) or a JSON file holding a list
+    (or {'weights': [...]}). Returns a float list of length C, or None for
+    an empty spec; exits when the count is not the dataset's."""
+    if not spec:
+        return None
+    if osp.exists(spec):
+        with open(spec) as f:
+            data = json.load(f)
+        if isinstance(data, dict):
+            data = data["weights"]
+        weights = [float(v) for v in data]
+    else:
+        weights = [float(v) for v in spec.split(",")]
+    if len(weights) != num_classes:
+        raise SystemExit(f"--class-weights has {len(weights)} entries, "
+                         f"dataset has {num_classes} classes")
+    return weights
 
 
 def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
@@ -151,7 +162,8 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
     feed_dtype = torch.bfloat16 if mixed_precision else torch.float32
     train_fetcher = Fetcher(train_loader, PostFetch(
         augment_fn=make_augment_fn(), multi_scale=multi_scale,
-        base_hw=(h, w), seed=seed, dtype=feed_dtype, device=device))
+        base_hw=(h, w), seed=seed, dtype=feed_dtype,
+        mix_fn=make_mix_fn(cutmix_p=cutmix, mosaic_p=mosaic), device=device))
 
     if not notest:
         val_data = ds_cls(osp.join(data_dir, val_file), img_size=img_size,
@@ -166,14 +178,33 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
                          "work with --notest")
     model = build_model(model_name, num_classes=len(train_data.classes),
                         dtype=feed_dtype, **model_kw)
-    loss_fn = compute_loss
+
+    distill_fn = None
+    if distill:
+        # a frozen teacher of any family, in eval mode on the device; its
+        # logits stay at its own stride, as the student's do under the
+        # deferred upsample (distill_loss resizes a grid that differs)
+        tname = distill_model or model_name
+        teacher = load_model_bundle(
+            build_model(tname, num_classes=len(train_data.classes),
+                        dtype=feed_dtype, full_res_output=False,
+                        **variant_kwargs(tname, distill_variant)),
+            distill, device)
+        distill_fn = nhwc_forward(teacher)
+
+    cw = parse_class_weights(class_weights, len(train_data.classes))
     if model_name == "maskformer":
         # mask classification trains on the set-prediction criterion
+        if loss != "ce":
+            raise SystemExit("--loss is fixed to the set-prediction "
+                             "criterion for --model maskformer")
         loss_fn = make_maskformer_loss(len(train_data.classes),
                                        matcher=matcher)
-    elif ignore_index is not None:
-        loss_fn = _ignore_index_loss(
-            ignore_index, getattr(model, "up_align_corners", True))
+    else:
+        loss_fn = build_loss(loss, align_corners=getattr(
+            model, "up_align_corners", True), class_weights=cw,
+            label_smoothing=label_smoothing, ohem_frac=ohem,
+            ohem_thresh=ohem_thresh, ignore_index=ignore_index)
     trainer = Trainer(model, train_fetcher, loss_fn=loss_fn,
                       workdir="weights", accumulate=accumulate, adam=adam,
                       lr=lr, weights=weights, resume=resume,
@@ -186,7 +217,7 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
                       total_steps=epochs * len(train_loader)
                       // max(1, accumulate),
                       ema_decay=ema, aux_weight=aux_loss,
-                      distill_weight=distill_weight,
+                      distill_fn=distill_fn, distill_weight=distill_weight,
                       distill_temp=distill_temp, device=device)
     if precompile:
         sizes = multi_scale_sizes((h, w)) if multi_scale else [(h, w)]

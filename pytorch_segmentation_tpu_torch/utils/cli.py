@@ -13,7 +13,6 @@ __all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
 # ROADMAP.md queue 1, by item number
 ROADMAP_ITEMS = {
     5: "ROADMAP queue 1 item 5, train step rest",
-    7: "ROADMAP queue 1 item 7, losses and extras",
     8: "ROADMAP queue 1 item 8, augmentation rest",
     9: "ROADMAP queue 1 item 9, quant.py",
     10: "ROADMAP queue 1 item 10, parallel/ and nn/moe.py",

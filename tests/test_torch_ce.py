@@ -59,12 +59,13 @@ def test_plain_ce_matches_jax_reference_and_kernel(case):
     assert ce.launch_count() == before  # CPU tensor: plain version
 
     jl, jy = jnp.asarray(logits), jnp.asarray(labels)
-    ref, ref_grad = jax.value_and_grad(
-        lambda l: jloss.compute_loss(l, jy, align_corners=align))(jl)
+    # each reference one compiled program (eagerly, every op compiles)
+    ref, ref_grad = jax.jit(jax.value_and_grad(
+        lambda l: jloss.compute_loss(l, jy, align_corners=align)))(jl)
     with pltpu.force_tpu_interpret_mode():
-        ker, ker_grad = jax.value_and_grad(
+        ker, ker_grad = jax.jit(jax.value_and_grad(
             lambda l: jce.fused_upsample_ce(l, jy, align_corners=align,
-                                            tile=8, interpret=True))(jl)
+                                            tile=8, interpret=True)))(jl)
     # f32 on all sides; only the summation order differs
     for want, want_grad in ((ref, ref_grad), (ker, ker_grad)):
         np.testing.assert_allclose(got, float(want), rtol=1e-5)
@@ -79,8 +80,8 @@ def test_plain_ce_150_classes():
     got, got_grad = _torch_value_and_grad(ce.fused_upsample_ce, logits,
                                           labels)
     jy = jnp.asarray(labels)
-    ref, ref_grad = jax.value_and_grad(
-        lambda l: jce.fused_upsample_ce(l, jy, tile=8, interpret=True))(
+    ref, ref_grad = jax.jit(jax.value_and_grad(
+        lambda l: jce.fused_upsample_ce(l, jy, tile=8, interpret=True)))(
             jnp.asarray(logits))
     np.testing.assert_allclose(got, float(ref), rtol=1e-5)
     np.testing.assert_allclose(got_grad.numpy(), np.asarray(ref_grad),
@@ -109,8 +110,9 @@ def test_bf16_logits_give_bf16_gradient():
     jl = jnp.asarray(logits, jnp.bfloat16)
     jy = jnp.asarray(labels)
     with pltpu.force_tpu_interpret_mode():
-        want, want_grad = jax.value_and_grad(
-            lambda l: jce.fused_upsample_ce(l, jy, tile=8, interpret=True))(jl)
+        want, want_grad = jax.jit(jax.value_and_grad(
+            lambda l: jce.fused_upsample_ce(l, jy, tile=8,
+                                            interpret=True)))(jl)
     assert want_grad.dtype == jnp.bfloat16
     exact = np.array(jl.astype(jnp.float32))
     got, got_grad = _torch_value_and_grad(ce.fused_upsample_ce, exact, labels,
@@ -128,8 +130,8 @@ def test_labels_outside_the_classes_match_no_class():
     labels[0, 4:6] = -1
     jl, jy = jnp.asarray(logits), jnp.asarray(labels)
     with pltpu.force_tpu_interpret_mode():
-        want, want_grad = jax.value_and_grad(
-            lambda l: jce._fused_ce(l, jy, (19, 23), True, 8))(jl)
+        want, want_grad = jax.jit(jax.value_and_grad(
+            lambda l: jce._fused_ce(l, jy, (19, 23), True, 8)))(jl)
     got, got_grad = _torch_value_and_grad(ce.fused_upsample_ce, logits,
                                           labels)
     np.testing.assert_allclose(got, float(want), rtol=1e-5)
@@ -474,9 +476,9 @@ def test_softmax_cross_entropy_matches_jax(ignore_index):
     rng = np.random.default_rng(7)
     logits = rng.standard_normal((2, 6, 7, 5)).astype(np.float32)
     labels = rng.integers(0, 5, (2, 6, 7)).astype(np.int32)
-    want, want_grad = jax.value_and_grad(
+    want, want_grad = jax.jit(jax.value_and_grad(
         lambda l: jloss.softmax_cross_entropy(
-            l, jnp.asarray(labels), ignore_index=ignore_index))(
+            l, jnp.asarray(labels), ignore_index=ignore_index)))(
                 jnp.asarray(logits))
     got, got_grad = _torch_value_and_grad(
         lambda x, y: tloss.softmax_cross_entropy(x, y,

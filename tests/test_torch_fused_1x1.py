@@ -186,7 +186,7 @@ def test_gradients_match_jax_and_autograd(act):
         return (jnp.sum(y * jcts[0]) + jnp.sum(s * jcts[1])
                 + jnp.sum(ss * jcts[2]))
 
-    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(
         *[jnp.asarray(a) for a in data])
     for g, a, j, name in zip(got, auto, want,
                              ("dx", "dscale", "dshift", "dw")):
@@ -426,8 +426,9 @@ def test_batchnorm_fold_matches_jax():
                                       mutable=["batch_stats"])
         return jnp.sum(inv * r[0]) + jnp.sum(shift * r[1]), (inv, shift, mut)
 
-    (_, (jinv, jshift, mut)), jgrads = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(s), jnp.asarray(ss))
+    (_, (jinv, jshift, mut)), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(s),
+                                              jnp.asarray(ss))
     ts, tss = _torch((s, ss), grad=True)
     inv, shift = tbn.train().fold(ts, tss, n)
     grads = torch.autograd.grad(

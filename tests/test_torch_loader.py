@@ -216,8 +216,8 @@ def test_postfetch_randomness_is_a_function_of_seed_and_step():
 
 
 def test_postfetch_device_and_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP: Losses and extras"):
-        PostFetch(mix_fn=lambda *a: a, device="cpu")
+    mix = tdata.make_mix_fn(cutmix_p=0.5)
+    assert PostFetch(mix_fn=mix, device="cpu").mix_fn is mix
     with pytest.raises(NotImplementedError, match="ROADMAP: parallel/"):
         PostFetch(sharding=object(), device="cpu")
     if not torch.cuda.is_available():
@@ -226,7 +226,8 @@ def test_postfetch_device_and_unported_options():
     assert PostFetch(device="cpu").device == torch.device("cpu")
     assert set(tdata.__all__) >= {"DataLoader", "Fetcher", "Batch",
                                   "PostFetch", "normalize_images",
-                                  "AugmentConfig", "make_augment_fn"}
+                                  "AugmentConfig", "make_augment_fn",
+                                  "make_mix_fn"}
 
 
 def test_trainer_fed_by_loader_fetcher_postfetch_with_augmentation(tmp_path):

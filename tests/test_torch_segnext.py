@@ -124,8 +124,10 @@ def test_nmf2d_and_its_one_step_gradient_match_jax(steps):
     def jax_loss(xx):
         return jnp.sum(jax_segnext.nmf2d(xx, 4, steps) * w)
 
-    want = np.asarray(jax_segnext.nmf2d(jnp.asarray(x), 4, steps))
-    want_grad = np.asarray(jax.grad(jax_loss)(jnp.asarray(x)))
+    # each JAX side one compiled program (eagerly, every op compiles)
+    want = np.asarray(jax.jit(lambda xx: jax_segnext.nmf2d(xx, 4, steps))(
+        jnp.asarray(x)))
+    want_grad = np.asarray(jax.jit(jax.grad(jax_loss))(jnp.asarray(x)))
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
     out = nmf2d(xt, 4, steps)
     assert out.shape == xt.shape and out.dtype == torch.float32
@@ -153,7 +155,7 @@ def test_nmf2d_and_its_one_step_gradient_match_jax(steps):
         out = jnp.einsum("bdr,bnr->bnd", bases, coef)
         return jnp.sum(out.reshape(xx.shape) * w)
 
-    full = np.asarray(jax.grad(full_loss)(jnp.asarray(x)))
+    full = np.asarray(jax.jit(jax.grad(full_loss))(jnp.asarray(x)))
     assert (np.linalg.norm(full - want_grad)
             > 0.1 * np.linalg.norm(want_grad))
 

@@ -200,7 +200,12 @@ def test_optimizer_chain_matches_optax(adam):
     tx = optax.chain(optax.add_decayed_weights(1e-2), tx)
     tx = optax.chain(optax.clip_by_global_norm(1.0), tx)
     jparams = {k: jnp.asarray(v) for k, v in values.items()}
-    opt_state = tx.init(jparams)
+    opt_state = jax.jit(tx.init)(jparams)
+
+    @jax.jit
+    def update(g, opt_state, params):  # one program, not one per op
+        updates, opt_state = tx.update(g, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
 
     tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
                for k, v in values.items()}
@@ -208,10 +213,9 @@ def test_optimizer_chain_matches_optax(adam):
                                     momentum=0.9, weight_decay=1e-2,
                                     clip_grad=1.0, **kw)
     for count, g in enumerate(grads):
-        updates, opt_state = tx.update({k: jnp.asarray(v)
-                                        for k, v in g.items()},
-                                       opt_state, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        jparams, opt_state = update({k: jnp.asarray(v)
+                                     for k, v in g.items()},
+                                    opt_state, jparams)
         for k, p in tparams.items():
             p.grad = torch.from_numpy(g[k].copy())
         chain.apply(count)
@@ -252,7 +256,8 @@ def _jax_state(module, variables, tx, accumulate=1, ema=False):
     return jsteps.TrainState(
         step=jnp.zeros((), jnp.int32), params=params,
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
-        opt_state=tx.init(params), tx=tx, apply_fn=module.apply,
+        # one program: eager, optax's init compiles a zeros per shape
+        opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=module.apply,
         grad_acc=(jax.tree.map(jnp.zeros_like, params) if accumulate > 1
                   else None),
         micro_step=jnp.zeros((), jnp.int32),
@@ -281,8 +286,9 @@ def test_accumulate_and_ema_match_jax():
     parameters, BN statistics, EMA weights and counters equal the JAX
     state's after every call."""
     module = _JaxTiny()
-    variables = _numpy_tree(module.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)), train=False))
+    variables = _numpy_tree(jax.jit(functools.partial(
+        module.init, train=False))(jax.random.PRNGKey(0),
+                                   jnp.zeros((1, 16, 16, 3))))
     tx = optax.sgd(0.1, momentum=MOMENTUM)
     jstate = _jax_state(module, variables, tx, accumulate=2, ema=True)
     jstep = jsteps.make_train_step(accumulate=2, donate=False, ema_decay=0.9)
@@ -602,12 +608,15 @@ def test_seeded_state_dict_starts(init):
 def test_unported_train_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_train_step(qat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(distill_fn=lambda x: x)
-    for option in ("mesh", "zero", "qat", "distill_fn"):
+    for option in ("mesh", "zero", "qat"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
                              **{option: object()})
+    # distillation is ported: the Trainer and the step take a teacher
+    teacher = tsteps.nhwc_forward(_TorchTiny().eval())
+    tsteps.make_train_step(distill_fn=teacher, distill_weight=1.0)
+    ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
+                     distill_fn=teacher, distill_weight=1.0)
     with pytest.raises(TypeError, match="unknown option"):
         ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu", typo=1)
 

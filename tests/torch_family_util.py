@@ -291,7 +291,8 @@ def jax_train_step(case, batch, full_res_output=True, loss_fn=None):
     state = jsteps.TrainState(
         step=jnp.zeros((), jnp.int32), params=params,
         batch_stats=jax.tree.map(jnp.asarray, case.stats),
-        opt_state=tx.init(params), tx=tx, apply_fn=module.apply,
+        # one program: eager, optax's init compiles a zeros per shape
+        opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=module.apply,
         grad_acc=None, micro_step=jnp.zeros((), jnp.int32), ema_params=None)
     step = jsteps.make_train_step(loss_fn=loss_fn or functools.partial(
         jax_compute_loss, align_corners=module.up_align_corners),
