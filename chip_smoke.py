@@ -30,7 +30,14 @@ same f32 logits and trained for 4 steps beside the default CE, CutMix and
 Mosaic bit-equal to the CPU, end to end from u8 batches through
 PostFetch(mix_fn=..., augment_fn=...), distillation from a seeded
 SegFormer-B0 `.pt` teacher, the `train` command line with every loss, mix
-and distillation flag on the cli phase's set, then `test`), and then
+and distillation flag on the cli phase's set, then `test`), runs the path on
+non-square frames (`nonsquare`: H x W = 512 x 1024, the Cityscapes crop,
+batch 16; the policy of every AugmentConfig option on the card against the
+CPU, none launching the row resampler; the train step alone; `test()` over
+32 images and one served batch of 8; end to end from u8 host batches
+through the gather warp and the rectangular filter; kernels 1-3 at the
+path's shapes; `train -s 1024 512 -bs 16` on the cli phase's set, then
+`test`, and `train --fast-augment`), and then
 trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
 conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
@@ -83,13 +90,18 @@ plain versions on tensors those runs handed them.
                                      # for these entries alone
     python3 chip_smoke.py --losses   # the builds, then the losses phase
                                      # alone, on a set of its own
+    python3 chip_smoke.py --nonsquare
+                                     # the builds, then the nonsquare
+                                     # phase alone, on a set of its own
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
 main-path run (serving, training, evaluation, training end to end, training
 with the fused 1x1 switch on, or the layout benchmark) and, for the four it
 runs, on the command lines' run (`cli_launches`), on the losses phase's
-runs (`losses_launches`), on the families phase's
+runs (`losses_launches`), on the nonsquare phase's runs
+(`nonsquare_launches`, every kernel; kernels 1-3's figures at its shapes
+under `nonsquare`), on the families phase's
 runs (`families_launches`, and by model in `families_launches_by_model`,
 with each family's shape's figures under `families` for kernels 1-3), its
 error against
@@ -104,6 +116,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -1171,23 +1184,37 @@ def to_device(obj, device):
 
 
 def small_augment_check(device):
-    """The default policy on a small batch, its parameters drawn once (on
-    the CPU) and applied on the card (kernel) and on the CPU (plain
-    version): see AUG_* above for the bounds and their reason."""
+    """The default policy on a small square batch: `augment_card_check`,
+    the two-pass warp through the row resampler (2 launches)."""
+    augment_card_check(device, "default_65x65", taug.AugmentConfig(), 8,
+                       (65, 65), 2)
+
+
+def augment_card_check(device, name, config, b, hw, resample_launches):
+    """The policy `config` on a u8 batch [b, *hw], its parameters drawn once
+    (on the CPU) and applied on the card (kernels) and on the CPU (plain
+    versions): see AUG_* above for the bounds and their reason. The card's
+    apply must launch the row resampler `resample_launches` times: 2 on the
+    square two-pass warp, 0 on every path that bypasses it."""
+    h, w = hw
     rng = np.random.default_rng(SEED + 5)
-    imgs = torch.from_numpy(np.stack([smooth_image(rng, 65, 65)
-                                      for _ in range(8)]))
+    imgs = torch.from_numpy(np.stack([smooth_image(rng, h, w)
+                                      for _ in range(b)]))
     segs = resize_nearest(torch.from_numpy(rng.integers(
-        1, NUM_CLASSES, (8, 5, 5)).astype(np.uint8)), (65, 65))
-    fn = taug.make_augment_fn()
-    params = fn.draw(torch.Generator().manual_seed(SEED), 8, 65, 65)
+        1, NUM_CLASSES, (b, 5, 5)).astype(np.uint8)), (h, w))
+    fn = taug.make_augment_fn(config)
+    params = fn.draw(torch.Generator().manual_seed(SEED), b, h, w)
+    t0 = time.perf_counter()
     cpu_img, cpu_seg = fn.apply(params, imgs, segs)
+    cpu_s = time.perf_counter() - t0
     before = br.launch_count()
     gpu_img, gpu_seg = fn.apply(to_device(params, device), imgs.to(device),
                                 segs.to(device))
-    if br.launch_count() != before + 2:
-        raise AssertionError("the policy on the card did not launch the "
-                             "resampler twice")
+    launches = br.launch_count() - before
+    if launches != resample_launches:
+        raise AssertionError(f"{name}: the policy on the card launched the "
+                             f"resampler {launches} times, not "
+                             f"{resample_launches}")
     gpu_img, gpu_seg = gpu_img.cpu(), gpu_seg.cpu()
     label_share = float((gpu_seg != cpu_seg).float().mean())
     diff = (gpu_img - cpu_img).abs()
@@ -1196,14 +1223,19 @@ def small_augment_check(device):
     if not (label_share <= AUG_LABEL_SHARE and image_share <= AUG_IMAGE_SHARE
             and image_mean <= AUG_IMAGE_MEAN):
         raise AssertionError(
-            f"small augment: labels differ on {label_share}, image elements "
-            f"on {image_share} (mean {image_mean}, max {float(diff.max())})")
+            f"{name}: labels differ on {label_share}, image elements on "
+            f"{image_share} (mean {image_mean}, max {float(diff.max())})")
     if torch.equal(cpu_img, imgs.float()) or len(cpu_seg.unique()) < 3:
-        raise AssertionError("the drawn policy changed nothing")
-    log("small_augment", labels_differing_share=label_share,
+        raise AssertionError(f"{name}: the drawn policy changed nothing")
+    log("small_augment", case=name, shape=[b, h, w],
+        config={f.name: getattr(config, f.name)
+                for f in dataclasses.fields(config)
+                if getattr(config, f.name) != f.default},
+        warp=taug._warp(config, h, w), resample_launches=launches,
+        labels_differing_share=label_share,
         image_elements_differing_share=image_share,
         image_mean_abs_diff=image_mean, image_max_abs_diff=float(diff.max()),
-        gates_per_sample=params["gates"].sum(1).tolist(),
+        cpu_apply_s=cpu_s, gates_per_sample=params["gates"].sum(1).tolist(),
         order=params["order"])
 
 
@@ -1523,10 +1555,10 @@ class RepeatFetcher:
         return (self.batch for _ in range(self.n))
 
 
-def eval_report(model, dataset, device, tmp, **options):
-    """`test()` over `dataset` at batch 32 (bf16 images, no augmentation, the
+def eval_report(model, dataset, device, tmp, batch=EVAL_BATCH, **options):
+    """`test()` over `dataset` at `batch` (bf16 images, no augmentation, the
     last batch padded): the mIoU and the parsed report."""
-    fetcher = Fetcher(DataLoader(dataset, EVAL_BATCH),
+    fetcher = Fetcher(DataLoader(dataset, batch),
                       PostFetch(dtype=torch.bfloat16, device=device))
     path = os.path.join(tmp, "report.json")
     miou = run_eval(model, fetcher, log=False, report_path=path,
@@ -1535,21 +1567,22 @@ def eval_report(model, dataset, device, tmp, **options):
         return miou, json.load(f)
 
 
-def train_batch(device, hw=IMG):
-    """The train phases' fixed batch: 32 smooth u8 images at hw x hw and, as
-    labels, a 9x9 grid of classes per image, nearest-upsampled. Returns the
-    u8 images (host) and the (images, segs, valid) batch on the card:
-    loading is not part of the train-step slices."""
+def train_batch(device, hw=IMG, batch=TRAIN_BATCH):
+    """The train phases' fixed batch: `batch` smooth u8 images at hw x hw
+    (or an (h, w) pair) and, as labels, a 9x9 grid of classes per image,
+    nearest-upsampled. Returns the u8 images (host) and the (images, segs,
+    valid) batch on the card: loading is not part of the train-step
+    slices."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.default_rng(SEED + 4)
-    imgs_u8 = np.stack([smooth_image(rng, hw, hw)
-                        for _ in range(TRAIN_BATCH)])
+    imgs_u8 = np.stack([smooth_image(rng, h, w) for _ in range(batch)])
     grid = torch.from_numpy(rng.integers(0, NUM_CLASSES,
-                                         (TRAIN_BATCH, 9, 9)).astype(np.int32))
-    segs = resize_nearest(grid, (hw, hw))
+                                         (batch, 9, 9)).astype(np.int32))
+    segs = resize_nearest(grid, (h, w))
     if len(torch.unique(segs)) < 3:
         raise AssertionError("labels have fewer than 3 classes")
     return imgs_u8, (normalize_images(torch.from_numpy(imgs_u8).to(device)),
-                     segs.to(device), TRAIN_BATCH)
+                     segs.to(device), batch)
 
 
 def family_model(key, **kwargs):
@@ -2082,14 +2115,16 @@ def eval_options(device, twin, images, segs, eval_set):
 
 class MemoryDataset:
     """Seeded u8 images and labels held in host memory: smooth images and,
-    as labels, a 9x9 grid of classes per image, nearest-upsampled."""
+    as labels, a 9x9 grid of classes per image, nearest-upsampled. `hw` is
+    a side or an (h, w) pair."""
 
     def __init__(self, n, rng, hw=IMG, num_classes=NUM_CLASSES):
+        h, w = (hw, hw) if isinstance(hw, int) else hw
         self.classes = [f"class{i}" for i in range(num_classes)]
-        self.images = np.stack([smooth_image(rng, hw, hw) for _ in range(n)])
+        self.images = np.stack([smooth_image(rng, h, w) for _ in range(n)])
         grid = torch.from_numpy(rng.integers(0, num_classes,
                                              (n, 9, 9)).astype(np.uint8))
-        self.segs = resize_nearest(grid, (hw, hw)).numpy()
+        self.segs = resize_nearest(grid, (h, w)).numpy()
 
     def first(self, n):
         """The same dataset cut to its first `n` samples (no copy)."""
@@ -2112,21 +2147,49 @@ def label_sets(segs):
     return present.scatter_(1, flat, True)
 
 
+def add_launches(total, counts):
+    """Add a run's launch counts (nested per kernel part) into `total`."""
+    for k, v in counts.items():
+        if isinstance(v, dict):
+            for part, n in v.items():
+                total[k][part] += n
+        else:
+            total[k] += v
+
+
+def kernel_counts():
+    return {"upsample_argmax": ua.launch_count(),
+            "softmax_ce": ce.launch_count(),
+            "banded_resample": br.launch_count(),
+            "eval_confusion": ec.launch_count()}
+
+
+def reset_kernel_counts():
+    for kernel in (ua, ce, br, ec):
+        kernel.reset_launch_count()
+
+
 def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
-                  profile=False):
+                  profile=False, batch_size=TRAIN_BATCH,
+                  phase="augment_train"):
     """The end-to-end train path at full width: u8 host batches from the
-    in-memory dataset -> DataLoader(batch 32, shuffle, drop_last) -> Fetcher
-    (a producer thread) -> PostFetch(default AugmentConfig, bf16) ->
+    in-memory dataset -> DataLoader(batch_size, shuffle, drop_last) ->
+    Fetcher (a producer thread) -> PostFetch(default AugmentConfig, bf16) ->
     Trainer.step(). One warm-up epoch whose batches are checked, then timed
-    epochs, each synchronised at its end."""
-    n_batches = len(dataset) // TRAIN_BATCH
+    epochs, each synchronised at its end. The row resampler must launch
+    twice a batch on square frames (the two-pass warp) and never on others
+    (the gather samplers). Returns the main path's launches of the
+    resampler and the CE kernels, and its ms per step end to end."""
+    n_batches = len(dataset) // batch_size
+    h, w = dataset.images.shape[1:3]
+    resample_per_step = 2 if h == w else 0
     fn = taug.make_augment_fn(taug.AugmentConfig())
     post = PostFetch(fn, dtype=torch.bfloat16, seed=SEED, device=device)
 
     # the augmentation alone on one host batch: device time (CUDA events,
     # the copy to the card included), host time to enqueue it, and both
     # together with a synchronise at the end
-    batch = next(iter(DataLoader(dataset, TRAIN_BATCH)))
+    batch = next(iter(DataLoader(dataset, batch_size)))
     for _ in range(2):
         post(batch)
     event_ms, enqueue_ms, wall_ms = [], [], []
@@ -2144,7 +2207,7 @@ def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
         event_ms.append(start.elapsed_time(end))
     augment_peak_mb = peak_mb(lambda: post(batch))
     if profile:
-        profile_table("profile_augment", lambda: post(batch), 3)
+        profile_table("profile_" + phase, lambda: post(batch), 3)
 
     # the main path, with every count at 0 and its own batch counter
     post = PostFetch(fn, dtype=torch.bfloat16, seed=SEED, device=device)
@@ -2163,7 +2226,7 @@ def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
                                         ~stray]))
         return images, segs, valid
 
-    loader = DataLoader(dataset, TRAIN_BATCH, shuffle=True, drop_last=True,
+    loader = DataLoader(dataset, batch_size, shuffle=True, drop_last=True,
                         seed=SEED)
     model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
                         full_res_output=True)
@@ -2193,17 +2256,18 @@ def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
     if ok != [True, True]:
         raise AssertionError(f"augmented batches: images finite {ok[0]}, "
                              f"labels from the input {ok[1]}")
-    if steps != 4 * n_batches or resample_launches != 2 * steps:
+    if (steps != 4 * n_batches
+            or resample_launches != resample_per_step * steps):
         raise AssertionError(f"{steps} steps, {resample_launches} resampler "
-                             f"launches: not two per batch")
+                             f"launches: not {resample_per_step} per batch")
     if ce_launches != {"fwd": steps, "bwd": steps}:
         raise AssertionError(f"{steps} steps launched {ce_launches}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"end-to-end epoch losses {losses}")
     best = min(epoch_ms) / n_batches
-    log("augment_train", batch=TRAIN_BATCH, steps=steps,
+    log(phase, batch=batch_size, image_hw=[h, w], steps=steps,
         epoch_mean_losses=losses,
-        images_per_s_end_to_end=1e3 * TRAIN_BATCH / best,
+        images_per_s_end_to_end=1e3 * batch_size / best,
         ms_per_step_end_to_end=[ms / n_batches for ms in epoch_ms],
         images_per_s_train_only=train_images_per_s,
         augment_ms_per_batch_cuda_events=statistics.median(event_ms),
@@ -2212,7 +2276,9 @@ def augment_phase(device, dataset, train_images_per_s, resample_pass_ms,
         resample_kernel_ms_per_pass=resample_pass_ms,
         augment_peak_memory_mb=augment_peak_mb, peak_memory_gb=peak_gb,
         resample_launches=resample_launches, ce_launches=ce_launches)
-    return resample_launches, [ms / n_batches for ms in epoch_ms]
+    return ({"banded_resample": resample_launches,
+             "softmax_ce": ce_launches},
+            [ms / n_batches for ms in epoch_ms])
 
 
 def encode_png_filtered(rgb, filter_type):
@@ -2356,8 +2422,7 @@ def cli_phase(device, e2e_ms_per_step, tmp):
         argv = [data, "--model", "deeplabv3plus", "--dataset", "coco",
                 "-s", str(IMG), str(IMG), "-bs", str(TRAIN_BATCH), "-a", "1",
                 "-mp", "--num-workers", str(CLI_WORKERS)]
-        for kernel in (ua, ce, br, ec):
-            kernel.reset_launch_count()
+        reset_kernel_counts()
         t0 = time.perf_counter()
         first = train_cli.main(argv + ["--epochs", "2"])
         saved = torch.load("weights/last.pt", weights_only=True)
@@ -2378,10 +2443,7 @@ def cli_phase(device, e2e_ms_per_step, tmp):
                                 str(NUM_CLASSES), "--weights",
                                 "weights/best.pt", "-bs", str(BATCH)])
         infer_s = time.perf_counter() - t0
-        launches = {"upsample_argmax": ua.launch_count(),
-                    "softmax_ce": ce.launch_count(),
-                    "banded_resample": br.launch_count(),
-                    "eval_confusion": ec.launch_count()}
+        launches = kernel_counts()
 
         with open("runs/log.jsonl") as f:
             records = [json.loads(line) for line in f]
@@ -2659,12 +2721,7 @@ def losses_phase(device, dataset, cli_data):
                 "banded_resample": 0, "eval_confusion": 0}
 
     def add(counts):
-        for k, v in counts.items():
-            if isinstance(v, dict):
-                for part, n in v.items():
-                    launches[k][part] += n
-            else:
-                launches[k] += v
+        add_launches(launches, counts)
 
     _, batch = train_batch(device)
     model = build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
@@ -2763,8 +2820,7 @@ def losses_phase(device, dataset, cli_data):
                 "--distill-model", name, "--distill-variant", variant,
                 "--distill-weight", str(DISTILL[2]), "--distill-temp",
                 str(DISTILL[3])]
-        for kernel in (ua, ce, br, ec):
-            kernel.reset_launch_count()
+        reset_kernel_counts()
         with working_dir(work):
             t0 = time.perf_counter()
             trainer = train_cli.main(argv)
@@ -2778,10 +2834,7 @@ def losses_phase(device, dataset, cli_data):
             test_s = time.perf_counter() - t0
             with open("runs/log.jsonl") as f:
                 records = [json.loads(line) for line in f]
-        cli = {"upsample_argmax": ua.launch_count(),
-               "softmax_ce": ce.launch_count(),
-               "banded_resample": br.launch_count(),
-               "eval_confusion": ec.launch_count()}
+        cli = kernel_counts()
         steps = CLI_TRAIN // TRAIN_BATCH
         evals = 2 * -(-CLI_VAL // EVAL_BATCH)   # the epoch's eval and test
         want = {"upsample_argmax": 2,
@@ -2809,6 +2862,224 @@ def losses_phase(device, dataset, cli_data):
         teacher_share_of_step=runs["distill"]["teacher_share_of_step"],
         launches=launches)
     return launches
+
+
+# the nonsquare phase: the path at the Cityscapes crop, H x W = 512 x 1024,
+# batch 16 (8.39 M pixels a batch, as 513^2 at batch 32: 8.42 M)
+NS_HW = (512, 1024)
+NS_BATCH = 16
+NS_EVAL_IMAGES = 32
+# the policy on the card against the CPU, parameters drawn on the CPU:
+# (case, config, batch, (h, w), the row resampler's launches). Every case
+# bypasses the resampler: non-square frames take the gather samplers, and
+# so do square ones with banded_warp=False; separable_warp=True takes the
+# lane gathers; fast_geometric the matrix products
+NS_AUGMENT_CASES = [
+    ("default_65x97", taug.AugmentConfig(), 8, (65, 97), 0),
+    ("default_512x1024", taug.AugmentConfig(), NS_BATCH, NS_HW, 0),
+    ("order1_65x97", taug.AugmentConfig(image_warp_order=1), 4, (65, 97), 0),
+    ("banded_off_65x65", taug.AugmentConfig(banded_warp=False), 4, (65, 65),
+     0),
+    ("separable_65x65", taug.AugmentConfig(banded_warp=False,
+                                           separable_warp=True), 4, (65, 65),
+     0),
+    ("fast_65x65", taug.AugmentConfig(fast_geometric=True), 4, (65, 65), 0),
+    ("fast_65x97", taug.AugmentConfig(fast_geometric=True), 4, (65, 97), 0),
+    ("per_sample_order_65x97",
+     taug.AugmentConfig(per_sample_photo_order=True), 8, (65, 97), 0),
+]
+
+
+def nonsquare_phase(device, cli_data, profile=False):
+    """The path on non-square frames at full width: DeepLabV3+ R50, 21
+    classes, bf16 over f32 parameters, H x W = 512 x 1024 (NS_HW), batch 16.
+    The policy of every AugmentConfig option on the card against the CPU
+    (NS_AUGMENT_CASES); the train step alone on one fixed batch; `test()`
+    over 32 images at batch 16 and one `make_mask_fn` batch of 8 (kernels
+    2-3, then 1); end to end from u8 host batches (the gather warp and the
+    rectangular filter, no resampler launch); kernels 1-3 at the path's
+    shapes against their plain versions; then `train -s 1024 512 -bs 16 -a
+    1 -mp` for one epoch on the cli phase's set (`cli_data`) and `test` on
+    its checkpoint, and the same train with `--fast-augment` (`--notest
+    --nosave`). Returns each kernel's launches in the phase's main-path
+    runs and the kernel cases' figures."""
+    from pytorch_segmentation_tpu_torch import test as test_cli
+    from pytorch_segmentation_tpu_torch import train as train_cli
+    t_phase = time.perf_counter()
+    fm.reset_launch_count()
+    cm.reset_launch_count()
+    for case in NS_AUGMENT_CASES:
+        augment_card_check(device, *case)
+    launches = {"upsample_argmax": 0, "softmax_ce": {"fwd": 0, "bwd": 0},
+                "banded_resample": 0, "eval_confusion": 0}
+    dataset = MemoryDataset(4 * NS_BATCH, np.random.default_rng(SEED + 8),
+                            hw=NS_HW)
+    imgs_u8, batch = train_batch(device, NS_HW, NS_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the train step alone on one fixed batch
+        trainer = make_trainer(device, "deeplabv3plus", batch, tmp)
+        losses, wall_ms, event_ms, counts, peak_gb = timed_steps(trainer, 2,
+                                                                 2)
+        steps = trainer.state.step
+        if counts["softmax_ce"] != {"fwd": steps, "bwd": steps}:
+            raise AssertionError(f"{steps} steps launched {counts}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"non-square train losses {losses}")
+        add_launches(launches, {"softmax_ce": counts["softmax_ce"]})
+        train_images_per_s = 1e3 * NS_BATCH / min(wall_ms)
+        log("nonsquare_train", batch=NS_BATCH, image_hw=list(NS_HW),
+            steps=steps, first_loss=losses[0], window_mean_losses=losses[2:],
+            images_per_s=train_images_per_s, ms_per_step_wall=wall_ms,
+            ms_per_step_cuda_events=event_ms, peak_memory_gb=peak_gb,
+            launches=counts["softmax_ce"])
+
+        # eval, then serving from the saved weights
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, report = eval_report(trainer.model,
+                                   dataset.first(NS_EVAL_IMAGES), device,
+                                   tmp, batch=NS_BATCH,
+                                   show_first_batch=False)
+        eval_s = time.perf_counter() - t0
+        evals = NS_EVAL_IMAGES // NS_BATCH
+        eval_counts = kernel_counts()
+        if eval_counts != {"upsample_argmax": 0,
+                           "softmax_ce": {"fwd": evals, "bwd": 0},
+                           "banded_resample": 0, "eval_confusion": evals}:
+            raise AssertionError(f"non-square eval launched {eval_counts}")
+        if not (np.isfinite(report["val_loss"]) and 0.0 <= miou <= 1.0):
+            raise AssertionError(f"non-square eval: {report}")
+        trainer.save()
+        served = load_model_bundle(
+            build_model("deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+                        full_res_output=False),
+            os.path.join(tmp, "w", "last.pt"), device)
+        mask_fn = make_mask_fn(served, out_hw=NS_HW)
+        masks = mask_fn(imgs_u8[:BATCH])
+        torch.cuda.synchronize()
+        eval_counts["upsample_argmax"] = ua.launch_count()
+        if eval_counts["upsample_argmax"] != 1:
+            raise AssertionError(f"one served batch launched kernel 1 "
+                                 f"{eval_counts['upsample_argmax']} times")
+        classes = len(torch.unique(masks))
+        if (masks.shape != (BATCH, *NS_HW) or masks.dtype != torch.int32
+                or classes < 2 or int(masks.max()) >= NUM_CLASSES):
+            raise AssertionError(f"served masks {masks.dtype} "
+                                 f"{tuple(masks.shape)}, {classes} classes")
+        add_launches(launches, eval_counts)
+        # timed after the checks: a second pass of the same eval, and the
+        # served batch from host memory (as a server gets it) and from the
+        # card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_report(trainer.model, dataset.first(NS_EVAL_IMAGES), device,
+                    tmp, batch=NS_BATCH, show_first_batch=False)
+        eval_again_s = time.perf_counter() - t0
+        on_card = torch.from_numpy(imgs_u8[:BATCH]).to(device)
+        serve_ms = cuda_median_ms(lambda: mask_fn(imgs_u8[:BATCH]), reps=10)
+        serve_card_ms = cuda_median_ms(lambda: mask_fn(on_card), reps=10)
+        log("nonsquare_eval_serve", eval_images=NS_EVAL_IMAGES,
+            batch=NS_BATCH, miou=miou, val_loss=report["val_loss"],
+            eval_images_per_s=[NS_EVAL_IMAGES / eval_s,
+                               NS_EVAL_IMAGES / eval_again_s],
+            serve_batch=BATCH, serve_ms_per_batch_from_host=serve_ms,
+            serve_ms_per_batch_from_card=serve_card_ms,
+            serve_images_per_s=1e3 * BATCH / serve_ms,
+            served_classes=classes, launches=eval_counts)
+        del trainer, served, mask_fn
+
+    # end to end from u8 host batches
+    e2e, _ = augment_phase(device, dataset, train_images_per_s, None,
+                           profile=profile, batch_size=NS_BATCH,
+                           phase="nonsquare_augment_train")
+    add_launches(launches, e2e)
+
+    # kernels 1-3 at the path's shapes against their plain versions
+    logits = (128, 256, NUM_CLASSES)
+    cases = {
+        "upsample_argmax": kernel_case("nonsquare_argmax_bf16",
+                                       (BATCH, *logits), NS_HW,
+                                       torch.bfloat16, True, device),
+        "softmax_ce": ce_case("ce_nonsquare_bf16", (NS_BATCH, *logits),
+                              NS_HW, torch.bfloat16, True, device),
+        "eval_confusion": eval_case("eval_nonsquare_bf16",
+                                    (NS_BATCH, *logits), NS_HW,
+                                    torch.bfloat16, True, device)}
+
+    # the command lines: train -s W H on the cli set, then test; then
+    # train --fast-augment
+    argv = [cli_data, "--model", "deeplabv3plus", "--dataset", "coco",
+            "-s", str(NS_HW[1]), str(NS_HW[0]), "-bs", str(NS_BATCH), "-a",
+            "1", "-mp", "--num-workers", str(CLI_WORKERS), "--epochs", "1"]
+    steps = CLI_TRAIN // NS_BATCH
+    evals = -(-CLI_VAL // NS_BATCH)
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        seconds["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        miou = test_cli.main([os.path.join(cli_data, "val.json"), "--model",
+                              "deeplabv3plus", "--weights", "weights/last.pt",
+                              "-s", str(NS_HW[1]), str(NS_HW[0]), "-bs",
+                              str(NS_BATCH), "--num-workers",
+                              str(CLI_WORKERS)])
+        seconds["test"] = time.perf_counter() - t0
+        with open("runs/log.jsonl") as f:
+            epoch = [r for r in map(json.loads, f) if "steps" in r]
+        cli = kernel_counts()
+        want = {"upsample_argmax": 2,
+                "softmax_ce": {"fwd": steps + 2 * evals, "bwd": steps},
+                "banded_resample": 0, "eval_confusion": 2 * evals}
+        if not (cli == want and trainer.state.step == steps
+                and len(epoch) == 1 and np.isfinite(epoch[0]["loss"])
+                and 0.0 <= miou <= 1.0):
+            raise AssertionError(f"train -s {NS_HW[1]} {NS_HW[0]}: launches "
+                                 f"{cli} (want {want}), step "
+                                 f"{trainer.state.step}, epochs {epoch}, "
+                                 f"test mIoU {miou}")
+        add_launches(launches, cli)
+        del trainer
+
+        reset_kernel_counts()
+        os.makedirs("fast")
+        with working_dir("fast"):
+            t0 = time.perf_counter()
+            trainer = train_cli.main(argv + ["--fast-augment", "--notest",
+                                             "--nosave"])
+            seconds["train_fast_augment"] = time.perf_counter() - t0
+            with open("runs/log.jsonl") as f:
+                fast_epoch = [r for r in map(json.loads, f) if "steps" in r]
+        fast = kernel_counts()
+        want = {"upsample_argmax": 0,
+                "softmax_ce": {"fwd": steps, "bwd": steps},
+                "banded_resample": 0, "eval_confusion": 0}
+        config = trainer.fetcher.post_fetch_fn.augment_fn.config
+        if not (fast == want and trainer.state.step == steps
+                and config.fast_geometric and len(fast_epoch) == 1
+                and np.isfinite(fast_epoch[0]["loss"])):
+            raise AssertionError(f"train --fast-augment: launches {fast} "
+                                 f"(want {want}), step {trainer.state.step},"
+                                 f" fast_geometric {config.fast_geometric}, "
+                                 f"epochs {fast_epoch}")
+        add_launches(launches, fast)
+        del trainer
+    log("nonsquare_cli", flags=" ".join(argv[argv.index("-s"):]),
+        steps=steps, loss=epoch[0]["loss"],
+        ms_per_step_cli=1e3 * epoch[0]["seconds"] / steps, test_miou=miou,
+        fast_augment_loss=fast_epoch[0]["loss"],
+        fast_augment_ms_per_step_cli=1e3 * fast_epoch[0]["seconds"] / steps,
+        seconds=seconds, launches=cli, fast_augment_launches=fast)
+    # the fused 1x1 switch stays off on this path
+    launches["fused_matmul_bn"] = fm.launch_count()
+    launches["cmajor_matmul"] = cm.launch_count()
+    if any(launches["fused_matmul_bn"].values()) or launches["cmajor_matmul"]:
+        raise AssertionError(f"the non-square path launched {launches}")
+    log("nonsquare", seconds=time.perf_counter() - t_phase,
+        launches=launches)
+    return launches, cases
 
 
 # the families' input sizes, as the JAX tools/bench_models.py sizes them:
@@ -4032,6 +4303,10 @@ def main():
                         help="after the builds, run only the losses phase "
                              "(on a synthetic set of its own) and stop: no "
                              "kernels line, no last line")
+    parser.add_argument("--nonsquare", action="store_true",
+                        help="after the builds, run only the nonsquare "
+                             "phase (on a synthetic set of its own) and "
+                             "stop: no kernels line, no last line")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -4079,13 +4354,17 @@ def main():
         only_families(args.families)
         families_phase(device)
         return
-    if args.losses:
-        dataset = MemoryDataset(4 * TRAIN_BATCH,
-                                np.random.default_rng(SEED + 6))
+    if args.losses or args.nonsquare:
         with tempfile.TemporaryDirectory() as tmp:
-            losses_phase(device, dataset, make_synthetic_coco(
+            cli_data = make_synthetic_coco(
                 os.path.join(tmp, "coco"), CLI_TRAIN, CLI_VAL, CLI_WH,
-                seed=SEED, num_classes=CLI_CATEGORIES))
+                seed=SEED, num_classes=CLI_CATEGORIES)
+            if args.losses:
+                losses_phase(device, MemoryDataset(
+                    4 * TRAIN_BATCH, np.random.default_rng(SEED + 6)),
+                    cli_data)
+            else:
+                nonsquare_phase(device, cli_data, profile=args.profile)
         return
     jpeg_phase()
 
@@ -4162,13 +4441,16 @@ def main():
     eval_launches = eval_phase(device, trained, eval_set,
                                profile=args.profile)
     del trained
-    resample_launches, e2e_ms_per_step = augment_phase(
+    e2e_launches, e2e_ms_per_step = augment_phase(
         device, dataset, train_figures["images_per_s"],
         resample_path.pop("pass_ms"), profile=args.profile)
+    resample_launches = e2e_launches["banded_resample"]
     with tempfile.TemporaryDirectory() as cli_tmp:
         cli_launches = cli_phase(device, e2e_ms_per_step, cli_tmp)
         losses_launches = losses_phase(device, dataset,
                                        os.path.join(cli_tmp, "coco"))
+        nonsquare_launches, nonsquare_cases = nonsquare_phase(
+            device, os.path.join(cli_tmp, "coco"))
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
     family_launches, family_by_model, family_cases, family_fused = (
@@ -4207,6 +4489,8 @@ def main():
          "launches": launches,
          "cli_launches": cli_launches["upsample_argmax"],
          "losses_launches": losses_launches["upsample_argmax"],
+         "nonsquare_launches": nonsquare_launches["upsample_argmax"],
+         "nonsquare": nonsquare_cases["upsample_argmax"],
          "families_launches": family_launches["upsample_argmax"],
          "families_launches_by_model": by_model("upsample_argmax"),
          "families": {name: c["upsample_argmax"]
@@ -4223,6 +4507,8 @@ def main():
          "launches": ce_launches["fwd"],
          "cli_launches": cli_launches["softmax_ce"]["fwd"],
          "losses_launches": losses_launches["softmax_ce"]["fwd"],
+         "nonsquare_launches": nonsquare_launches["softmax_ce"]["fwd"],
+         "nonsquare": nonsquare_cases["softmax_ce"]["fwd"],
          "families_launches": family_launches["softmax_ce"]["fwd"],
          "families_launches_by_model": by_model("softmax_ce", "fwd"),
          "families": {name: c["softmax_ce"]["fwd"]
@@ -4239,6 +4525,8 @@ def main():
          "launches": ce_launches["bwd"],
          "cli_launches": cli_launches["softmax_ce"]["bwd"],
          "losses_launches": losses_launches["softmax_ce"]["bwd"],
+         "nonsquare_launches": nonsquare_launches["softmax_ce"]["bwd"],
+         "nonsquare": nonsquare_cases["softmax_ce"]["bwd"],
          "families_launches": family_launches["softmax_ce"]["bwd"],
          "families_launches_by_model": by_model("softmax_ce", "bwd"),
          "families": {name: c["softmax_ce"]["bwd"]
@@ -4257,6 +4545,7 @@ def main():
          "launches": resample_launches,
          "cli_launches": cli_launches["banded_resample"],
          "losses_launches": losses_launches["banded_resample"],
+         "nonsquare_launches": nonsquare_launches["banded_resample"],
          "families_launches": family_launches["banded_resample"],
          "families_launches_by_model": by_model("banded_resample"),
          **resample_path},
@@ -4276,6 +4565,8 @@ def main():
          "launches": eval_launches["eval_confusion"],
          "cli_launches": cli_launches["eval_confusion"],
          "losses_launches": losses_launches["eval_confusion"],
+         "nonsquare_launches": nonsquare_launches["eval_confusion"],
+         "nonsquare": nonsquare_cases["eval_confusion"],
          "families_launches": family_launches["eval_confusion"],
          "families_launches_by_model": by_model("eval_confusion"),
          "families": {name: c["eval_confusion"]
@@ -4287,6 +4578,7 @@ def main():
          "design": "hop::fwd_wgmma_kernel: TMA ring + wgmma, A = x K-major "
                    "through the prologue in shared memory",
          "launches": fused_launches["fwd"],
+         "nonsquare_launches": nonsquare_launches["fused_matmul_bn"]["fwd"],
          "families_launches": family_launches["fused_matmul_bn"]["fwd"],
          "families_launches_by_model": by_model("fused_matmul_bn", "fwd"),
          "families_shapes": len(family_fused), **fused_path["fwd"]},
@@ -4295,6 +4587,8 @@ def main():
          "design": "hop::dx_dy_tot_wgmma_kernel + hop::dx_dz_wgmma_kernel: "
                    "two full grids, K-major operands",
          "launches": fused_launches["bwd_dx"],
+         "nonsquare_launches":
+             nonsquare_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dx"),
          "families_shapes": len(family_fused), **fused_path["bwd_dx"]},
@@ -4304,6 +4598,8 @@ def main():
                    "B = dy_tot MN-major, N split over blocks (dw_split), "
                    "f32 partials summed by partials.sum(0)",
          "launches": fused_launches["bwd_dw"],
+         "nonsquare_launches":
+             nonsquare_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dw"),
          "families_shapes": len(family_fused), **fused_path["bwd_dw"]},
@@ -4312,7 +4608,9 @@ def main():
          "design": "hop::cmajor_wgmma_kernel: TMA ring + wgmma, W K-major, "
                    "X MN-major, 64-row tiles split over the pixels where "
                    "co <= 64, f32 epilogue of 16-byte stores",
-         "launches": cmajor_launches, **cmajor_path}]}),
+         "launches": cmajor_launches,
+         "nonsquare_launches": nonsquare_launches["cmajor_matmul"],
+         **cmajor_path}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

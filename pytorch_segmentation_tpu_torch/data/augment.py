@@ -4,14 +4,26 @@ tensor code over the whole uint8 batch.
 
   * The geometric members (flips, crop-and-pad, affine, perspective, elastic
     jitter, piecewise-affine) compose into one homography per sample plus a
-    displacement field, applied to image and labels alike by a two-pass
-    (Catmull-Smith) warp: rows, then columns, each pass one call of the
-    hand-written row resampler (`ops/kernels/banded_resample.py`). Labels
-    always take the nearest tap and 0 fill; the image's interpolation order
-    is drawn per sample from {nearest, bilinear}.
+    displacement field, applied to image and labels alike. Labels always
+    take the nearest tap and 0 fill; the image's interpolation order is
+    drawn per sample from {nearest, bilinear} (`image_warp_order` forces
+    one). The warp is chosen as the JAX package chooses it:
+      - square frames, `banded_warp=True` (the default): a two-pass
+        (Catmull-Smith) warp, rows then columns, each pass one call of the
+        hand-written row resampler (`ops/kernels/banded_resample.py`);
+      - square frames, `separable_warp=True`: the same two passes by
+        gathers along the last axis, the first pass requantised to u8;
+      - otherwise (every non-square frame): the gather samplers, one tap
+        per pixel (bilinear as a stochastic tap drawn with its weight) or,
+        with `image_warp_order=1`, four taps and exact bilinear;
+      - `fast_geometric=True`: flips, a quarter turn (square frames) and a
+        per-axis scale / translate / crop-and-pad as interpolation-matrix
+        products; no rotation by other angles, shear, perspective, elastic
+        or piecewise warp.
   * The SomeOf(0..5) pool has 16 members: 13 photometric ops, applied after
-    the warp in one random order per batch, plus elastic / piecewise /
-    perspective, whose gates feed the warp.
+    the warp in one random order per batch (per sample with
+    `per_sample_photo_order=True`), plus elastic / piecewise / perspective,
+    whose gates feed the warp.
 
 Every function here is either a *draw* (`_draw_*`: takes a
 `torch.Generator`, returns a dict of tensors with a leading batch axis) or
@@ -27,9 +39,8 @@ pass's output stays bf16, pool ops compute in `pool_compute` where the JAX
 op does and in f32 elsewhere, and the pool's carry is requantised to u8
 after every op (`photo_carry="u8"`).
 
-Not ported (each raises NotImplementedError; ROADMAP "Augmentation, rest"):
-`fast_geometric`, `separable_warp`, `banded_warp=False`, non-square images,
-`per_sample_photo_order`, `legacy_ops`.
+Not ported: `legacy_ops=True`, a benchmark mode of the JAX package (raises
+NotImplementedError; ROADMAP "Augmentation, rest").
 """
 
 from __future__ import annotations
@@ -39,10 +50,11 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.kernels.banded_resample import banded_resample_rows
 from ..ops.resize import resize_bilinear
-from ..utils.runtime import device_constant
+from ..utils.runtime import device_constant, host_to_device
 
 __all__ = ["AugmentConfig", "AugmentFn", "make_augment_fn"]
 
@@ -58,15 +70,17 @@ _N_PHOTO = 13
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     """Same fields and defaults as the JAX package's AugmentConfig."""
-    # an axis-aligned warp by matrix products; not ported (raises)
+    # an axis-aligned warp by interpolation-matrix products (flips, quarter
+    # turns on square frames, per-axis scale / translate / crop-and-pad)
     fast_geometric: bool = False
     # interpolation order of the image warp: None draws it per sample from
     # {0: nearest, 1: bilinear}; 0 or 1 force it. Labels are always nearest.
     image_warp_order: int | None = None
-    # the two-pass warp through the row resampler kernel: the only warp the
-    # port has (False raises). Square images only.
+    # the two-pass warp through the row resampler kernel, on square frames;
+    # other frames (or False) take the gather samplers
     banded_warp: bool = True
-    # the two-pass warp by lane gathers; not ported (raises)
+    # the two-pass warp by gathers along the last axis, on square frames
+    # when banded_warp is False
     separable_warp: bool = False
     # dtype the photometric pool carries between ops: "u8" rounds and clips
     # every op's output to 0..255 as imgaug does, "bf16" and "f32" do not
@@ -76,8 +90,7 @@ class AugmentConfig:
     pool_compute: str = "bf16"
     # a benchmark mode of the JAX package; not ported (raises)
     legacy_ops: bool = False
-    # the pool's order drawn per sample instead of per batch; not ported
-    # (raises)
+    # the pool's order drawn per sample instead of per batch
     per_sample_photo_order: bool = False
     # names a JAX generator; kept so that the configs read alike, ignored
     # here (torch.Generator has one implementation per device)
@@ -113,29 +126,28 @@ _ROADMAP_QUEUE = "ROADMAP: Augmentation, rest"
 
 
 def _check_config(cfg: AugmentConfig) -> None:
-    unported = {
-        "fast_geometric=True": cfg.fast_geometric,
-        "separable_warp=True": cfg.separable_warp,
-        "banded_warp=False": not cfg.banded_warp,
-        "per_sample_photo_order=True": cfg.per_sample_photo_order,
-        "legacy_ops=True": cfg.legacy_ops}
-    for option, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"AugmentConfig({option}) is not ported yet "
-                f"({_ROADMAP_QUEUE})")
+    if cfg.legacy_ops:
+        raise NotImplementedError(
+            f"AugmentConfig(legacy_ops=True) is not ported yet "
+            f"({_ROADMAP_QUEUE})")
     if cfg.photo_carry not in ("u8", "bf16", "f32"):
         raise ValueError(f"photo_carry {cfg.photo_carry!r}")
     if cfg.pool_compute not in ("bf16", "f32"):
         raise ValueError(f"pool_compute {cfg.pool_compute!r}")
 
 
-def _require_square(h: int, w: int) -> None:
-    if h != w:
-        raise NotImplementedError(
-            f"the two-pass warp and the pool's filters need square images, "
-            f"got {(h, w)}: the gather samplers and the rectangular filter "
-            f"are not ported yet ({_ROADMAP_QUEUE})")
+def _warp(cfg: AugmentConfig, h: int, w: int) -> str:
+    """The warp `apply` runs on [h, w] frames, chosen as the JAX package
+    chooses it: "fast" (matrix products), "banded" or "lane" (the two-pass
+    warp through the row resampler or by gathers; square frames only), else
+    "packed" (the gather samplers)."""
+    if cfg.fast_geometric:
+        return "fast"
+    if h == w and cfg.banded_warp:
+        return "banded"
+    if h == w and cfg.separable_warp:
+        return "lane"
+    return "packed"
 
 
 # ---------------------------------------------------------------------------
@@ -167,10 +179,18 @@ def _draw_gates(gen, cfg: AugmentConfig, b: int) -> torch.Tensor:
 
 
 def _draw_geometry(gen, cfg: AugmentConfig, b: int, h: int, w: int) -> dict:
-    """Every random value of the warp, per sample. The two jitter fields are
-    raw bf16 uniforms in [0, 1), one per pass."""
+    """Every random value of the warp that `apply` runs on [h, w] frames
+    (`_warp`), per sample, in the order in which the JAX package draws them
+    (`_twopass_coords`, `_geometric_coords`, `_fast_geometric_one`). The
+    two-pass warps take two jitter fields, raw bf16 uniforms in [0, 1), one
+    per pass; the gather samplers one f32 elastic field in [-1, 1) and, when
+    the order is drawn, two dither fields in [0, 1)."""
+    warp = _warp(cfg, h, w)
+    if warp == "fast":
+        return _draw_fast_geometry(gen, cfg, b, h, w)
     u = functools.partial(_uniform, gen, (b,))
-    return {
+    g = {
+        "sometimes": _bernoulli(gen, cfg.p_sometimes, (b, 3)),
         "flip_lr": _bernoulli(gen, cfg.p_fliplr, (b,)),
         "flip_ud": _bernoulli(gen, cfg.p_flipud, (b,)),
         "do_cap": _bernoulli(gen, cfg.p_crop_pad, (b,)),
@@ -182,16 +202,42 @@ def _draw_geometry(gen, cfg: AugmentConfig, b: int, h: int, w: int) -> dict:
         "persp_scale": u(*cfg.perspective_scale),
         "persp_jitter": _normal(gen, (b, 4, 2)),
         "perm": torch.argsort(_uniform(gen, (b, 5)), dim=1),
-        "sometimes": _bernoulli(gen, cfg.p_sometimes, (b, 3)),
-        "alpha": u(*cfg.elastic_alpha),
-        "pw_scale": u(*cfg.piecewise_scale),
-        "pw_grid": _normal(gen, (b, 5, 5, 2)),
-        "jitter_x": _uniform(gen, (b, h, w), dtype=torch.bfloat16),
-        "jitter_v": _uniform(gen, (b, w, h), dtype=torch.bfloat16),
-        "mode": _randint(gen, 0, 4, (b,)),
-        "cval": u(0.0, 255.0),
-        "order_bil": _bernoulli(gen, 0.5, (b,)),
-    }
+        "alpha": u(*cfg.elastic_alpha)}
+    if warp == "packed":
+        g["elastic"] = _uniform(gen, (b, h, w, 2), -1.0, 1.0)
+    g["pw_scale"] = u(*cfg.piecewise_scale)
+    g["pw_grid"] = _normal(gen, (b, 5, 5, 2))
+    if warp != "packed":
+        g["jitter_x"] = _uniform(gen, (b, h, w), dtype=torch.bfloat16)
+        g["jitter_v"] = _uniform(gen, (b, w, h), dtype=torch.bfloat16)
+    g["mode"] = _randint(gen, 0, 4, (b,))
+    g["cval"] = u(0.0, 255.0)
+    if cfg.image_warp_order is None:
+        g["order_bil"] = _bernoulli(gen, 0.5, (b,))
+        if warp == "packed":
+            g["dither_y"] = _uniform(gen, (b, h, w))
+            g["dither_x"] = _uniform(gen, (b, h, w))
+    return g
+
+
+def _draw_fast_geometry(gen, cfg: AugmentConfig, b: int, h: int,
+                        w: int) -> dict:
+    """The random values of `fast_geometric`, per sample: flips, a quarter
+    turn (square frames only), and per axis ("y" then "x") a crop-and-pad
+    gate and its two sides, an affine gate, a scale and a translation."""
+    u = functools.partial(_uniform, gen, (b,))
+    g = {"flip_lr": _bernoulli(gen, cfg.p_fliplr, (b,)),
+         "flip_ud": _bernoulli(gen, cfg.p_flipud, (b,))}
+    if h == w:
+        g["do_rot"] = _bernoulli(gen, cfg.p_affine, (b,))
+        g["quarter"] = _randint(gen, 0, 4, (b,))
+    for axis in ("y", "x"):
+        g[axis + "_do_cap"] = _bernoulli(gen, cfg.p_crop_pad, (b,))
+        g[axis + "_side"] = _uniform(gen, (b, 2), *cfg.crop_pad_percent)
+        g[axis + "_do_aff"] = _bernoulli(gen, cfg.p_affine, (b,))
+        g[axis + "_scale"] = u(*cfg.scale_range)
+        g[axis + "_trans"] = u(*cfg.translate_range)
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +389,7 @@ def _twopass_fields(hinv: torch.Tensor, grid: torch.Tensor, h: int, w: int):
     swapped = torch.stack([hinv[:, 1], hinv[:, 0], hinv[:, 2]], 1)
     hinv = torch.where(tf[:, None, None], swapped, hinv)
     grid = torch.where(tf[:, None, None, None], grid.flip(-1), grid)
-    a, b, c, d, e, f, g, h2, w2 = (
-        hinv.reshape(-1, 9)[:, k].reshape(-1, 1, 1) for k in range(9))
+    a, b, c, d, e, f, g, h2, w2 = _entries(hinv)
 
     # output-grid source coordinates (second pass + boundary masks)
     ig = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
@@ -382,26 +427,43 @@ def _twopass_fields(hinv: torch.Tensor, grid: torch.Tensor, h: int, w: int):
     return tf, sx, sy_msk, vh + pwy
 
 
-def _twopass_coords(g: dict, gates: torch.Tensor, cfg: AugmentConfig,
-                    h: int, w: int):
-    """The warp's fields and sampling parameters from the draws `g` and the
-    pool's gates. `inv_ex` does not check for singularity (no host sync)."""
+def _entries(hinv: torch.Tensor):
+    """The nine entries of [B, 3, 3] matrices, each [B, 1, 1], row-major."""
+    return (hinv.reshape(-1, 9)[:, k].reshape(-1, 1, 1) for k in range(9))
+
+
+def _homography(g: dict, gates: torch.Tensor, cfg: AugmentConfig, h: int,
+                w: int):
+    """The composed homographies [B, 3, 3] and the gates of the elastic and
+    piecewise members: each budgeted warp member of the pool still carries
+    its inner Sometimes(0.5). Returns (hinv, elastic, piecewise); `inv_ex`
+    does not check for singularity (no host sync)."""
     some = g["sometimes"]
     elastic = gates[:, 13] & some[:, 0]
     piecewise = gates[:, 14] & some[:, 1]
     persp = gates[:, 15] & some[:, 2]
-
     mats = _component_matrices(g, cfg, h, w, persp)
     hmat = _compose_permuted(g["perm"], mats)
-    hinv = torch.linalg.inv_ex(hmat).inverse
+    return torch.linalg.inv_ex(hmat).inverse, elastic, piecewise
 
-    alpha = torch.where(elastic, g["alpha"], torch.zeros_like(g["alpha"]))
+
+def _piecewise_grid(g: dict, piecewise: torch.Tensor, h: int, w: int):
+    """[B, 5, 5, 2] piecewise-affine control grids in pixels (x, y), zeros
+    where the member is not gated."""
     grid = (g["pw_grid"] * g["pw_scale"][:, None, None, None]
-            * device_constant((w, h), gates.device))
-    grid = torch.where(piecewise[:, None, None, None], grid,
+            * device_constant((w, h), piecewise.device))
+    return torch.where(piecewise[:, None, None, None], grid,
                        torch.zeros_like(grid))
 
-    tf, sx, sy_msk, vt = _twopass_fields(hinv, grid, h, w)
+
+def _twopass_coords(g: dict, gates: torch.Tensor, cfg: AugmentConfig,
+                    h: int, w: int):
+    """The warp's fields and sampling parameters from the draws `g` and the
+    pool's gates."""
+    hinv, elastic, piecewise = _homography(g, gates, cfg, h, w)
+    alpha = torch.where(elastic, g["alpha"], torch.zeros_like(g["alpha"]))
+    tf, sx, sy_msk, vt = _twopass_fields(
+        hinv, _piecewise_grid(g, piecewise, h, w), h, w)
     # iid elastic jitter, one field per pass, drawn and scaled in bf16 and
     # added in f32
     a16 = alpha.to(torch.bfloat16)[:, None, None]
@@ -417,6 +479,24 @@ def _twopass_coords(g: dict, gates: torch.Tensor, cfg: AugmentConfig,
     return vt, sx, sy_msk, g["mode"], g["cval"], use_bil, tf
 
 
+def _in_range(sy: torch.Tensor, sx: torch.Tensor, h: int, w: int):
+    """(img_in, seg_in) [B, H, W]: where the source coordinates lie in
+    [0, n-1] (the image's range) and in [-0.5, n-0.5] (the labels')."""
+    img_in = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+    seg_in = ((sx >= -0.5) & (sx <= w - 0.5)
+              & (sy >= -0.5) & (sy <= h - 0.5))
+    return img_in, seg_in
+
+
+def _fill(rgb, seg, img_in, seg_in, m, cval):
+    """Constant mode (0) fills the image outside its range with `cval`;
+    labels outside theirs are 0 in every mode."""
+    out_img = torch.where(((m == 0) & ~img_in)[..., None],
+                          cval[:, None, None, None], rgb)
+    out_seg = torch.where(seg_in, seg, torch.zeros_like(seg))
+    return out_img, out_seg
+
+
 def _sample_two_pass_banded(imgs_u8, segs_u8, vt, sx, sy_msk, mode, cval,
                             use_bil, tf, out_dtype=torch.bfloat16):
     """Two-pass warp through the row resampler: source rows first (in
@@ -424,7 +504,10 @@ def _sample_two_pass_banded(imgs_u8, segs_u8, vt, sx, sy_msk, mode, cval,
     pass's output stays bf16 and is not requantised to u8. Both transposes
     are views: the resampler reads its planes through their strides."""
     n = segs_u8.shape[1]
-    _require_square(n, segs_u8.shape[2])
+    if segs_u8.shape[2] != n:
+        raise ValueError(f"the two-pass warp factors out quarter turns, so "
+                         f"it needs square frames, got "
+                         f"{tuple(segs_u8.shape[1:])}")
     planes = torch.cat([imgs_u8.permute(0, 3, 1, 2).to(torch.bfloat16),
                         segs_u8[:, None].to(torch.bfloat16)], 1)  # [B,4,H,W]
     # first-pass input = (effective source)^T: src^T normally, src itself
@@ -441,24 +524,261 @@ def _sample_two_pass_banded(imgs_u8, segs_u8, vt, sx, sy_msk, mode, cval,
     seg2 = out2[:, 3].float().round().to(torch.int32)
     # constant-mode fill from the total source coordinates; sy_msk omits the
     # elastic jitter
-    img_in = (sx >= 0) & (sx <= n - 1) & (sy_msk >= 0) & (sy_msk <= n - 1)
-    seg_in = ((sx >= -0.5) & (sx <= n - 0.5)
-              & (sy_msk >= -0.5) & (sy_msk <= n - 0.5))
-    out_img = torch.where(((m == 0) & ~img_in)[..., None],
-                          cval[:, None, None, None], rgb2)
-    out_seg = torch.where(seg_in, seg2, torch.zeros_like(seg2))
-    return out_img, out_seg
+    return _fill(rgb2, seg2, *_in_range(sy_msk, sx, n, n), m, cval)
+
+
+# ---------------------------------------------------------------------------
+# the gather samplers: one word per pixel holds its 3 image bytes and its
+# label byte, so that one index fetches all four
+# ---------------------------------------------------------------------------
+
+def _pack(imgs_u8: torch.Tensor, segs_u8: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] int32 words: the bytes R, G, B, label of each pixel, by a
+    bit view (no arithmetic on the word, so a label of 128 or more is no
+    trouble)."""
+    return torch.cat([imgs_u8, segs_u8[..., None]], -1).view(
+        torch.int32)[..., 0]
+
+
+def _bytes(words: torch.Tensor) -> torch.Tensor:
+    """[..., 4] uint8: the bytes R, G, B, label of int32 words [...]."""
+    return words.contiguous()[..., None].view(torch.uint8)
+
+
+def _rgb(words: torch.Tensor) -> torch.Tensor:
+    return _bytes(words)[..., :3].float()
+
+
+def _label(words: torch.Tensor) -> torch.Tensor:
+    return _bytes(words)[..., 3].to(torch.int32)
+
+
+def _gather_packed(packed: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor):
+    """The words of `packed` [B, H, W] at per-element integer coordinates
+    [B, H, W] (in range: the samplers clip or take them from coordinates in
+    [0, n-1]), by one flat gather over the batch."""
+    b, h, w = packed.shape
+    base = (torch.arange(b, device=packed.device) * (h * w))[:, None, None]
+    return torch.take(packed, base + yi * w + xi)
+
+
+def _sample_nearest_packed(imgs_u8, segs_u8, sy, sx, mode, cval,
+                           dither_y=None, dither_x=None):
+    """One tap a pixel from the packed words: imgs [B, H, W, 3] u8, segs
+    [B, H, W] u8, coordinates [B, H, W] f32, mode / cval [B]. The dither
+    fields (U(-.5, .5), or None) pick the tap stochastically with its
+    bilinear weight (the expectation is exact bilinear); they are added
+    after the boundary handling, so the range masks stay those of the true
+    coordinates. `round` is half to even, as jnp.round."""
+    h, w = segs_u8.shape[1], segs_u8.shape[2]
+    m = mode[:, None, None]
+    bx = _boundary(sx, w, m)
+    by = _boundary(sy, h, m)
+    if dither_x is not None:
+        bx = bx + dither_x
+        by = by + dither_y
+    xi = bx.round().clamp(0, w - 1).long()
+    yi = by.round().clamp(0, h - 1).long()
+    g = _gather_packed(_pack(imgs_u8, segs_u8), yi, xi)
+    return _fill(_rgb(g), _label(g), *_in_range(sy, sx, h, w), m, cval)
+
+
+def _sample_packed(imgs_u8, segs_u8, sy, sx, mode, cval, use_bilinear):
+    """Four taps a pixel from the packed words: the bilinear image
+    interpolates them; the nearest image and the labels take the nearest of
+    the four (a fraction of 0.5 rounds up). `use_bilinear` [B] picks the
+    image's interpolation per sample."""
+    h, w = segs_u8.shape[1], segs_u8.shape[2]
+    packed = _pack(imgs_u8, segs_u8)
+    m = mode[:, None, None]
+    bx = _boundary(sx, w, m)
+    by = _boundary(sy, h, m)
+    x0, y0 = bx.floor(), by.floor()
+    fx, fy = bx - x0, by - y0
+    wx, wy = fx[..., None], fy[..., None]
+    x0i, y0i = x0.long(), y0.long()
+    x1i, y1i = (x0i + 1).clamp_max(w - 1), (y0i + 1).clamp_max(h - 1)
+    g00 = _gather_packed(packed, y0i, x0i)
+    g01 = _gather_packed(packed, y0i, x1i)
+    g10 = _gather_packed(packed, y1i, x0i)
+    g11 = _gather_packed(packed, y1i, x1i)
+    bil = (_rgb(g00) * (1 - wy) * (1 - wx) + _rgb(g01) * (1 - wy) * wx
+           + _rgb(g10) * wy * (1 - wx) + _rgb(g11) * wy * wx)
+    right, down = fx >= 0.5, fy >= 0.5
+    near = torch.where(down, torch.where(right, g11, g10),
+                       torch.where(right, g01, g00))
+    rgb = torch.where(use_bilinear[:, None, None, None], bil, _rgb(near))
+    return _fill(rgb, _label(near), *_in_range(sy, sx, h, w), m, cval)
+
+
+def _lane_taps2(words: torch.Tensor, coord: torch.Tensor, use_bil):
+    """Two taps along the last axis of packed words [B, R, C] at coordinates
+    [B, R, C] in [0, C-1]. Returns (the image, bilinear or nearest per
+    use_bil[b], f32 [B, R, C, 3]; the nearest word)."""
+    c = words.shape[-1]
+    i0f = coord.floor()
+    frac = coord - i0f
+    i0 = i0f.clamp(0, c - 1).long()
+    i1 = (i0 + 1).clamp_max(c - 1)
+    g0 = torch.gather(words, 2, i0)
+    g1 = torch.gather(words, 2, i1)
+    up = frac >= 0.5
+    near = torch.where(up, g1, g0)
+    wimg = torch.where(use_bil[:, None, None], frac, up.float())[..., None]
+    return _rgb(g0) * (1 - wimg) + _rgb(g1) * wimg, near
+
+
+def _sample_two_pass(imgs_u8, segs_u8, vt, sx, sy_msk, mode, cval, use_bil,
+                     tf):
+    """The two-pass warp by gathers along the last axis
+    (`separable_warp=True`; square frames): rows in transposed layout, the
+    intermediate requantised to u8 as truncate(clip(rgb + 0.5)) (round half
+    up) with the label byte of the nearest tap, then columns. Same fields as
+    the banded warp."""
+    n = segs_u8.shape[1]
+    packed = _pack(imgs_u8, segs_u8)
+    pt = torch.where(tf[:, None, None], packed, packed.transpose(1, 2))
+    m = mode[:, None, None]
+    rgb1, near1 = _lane_taps2(pt, _boundary(vt, n, m), use_bil)
+    rgb1_u8 = (rgb1 + 0.5).clamp(0, 255).to(torch.uint8)
+    mid = torch.cat([rgb1_u8, _bytes(near1)[..., 3:]], -1).view(
+        torch.int32)[..., 0].transpose(1, 2)    # [B, out-row i, x]
+    rgb2, near2 = _lane_taps2(mid, _boundary(sx, n, m), use_bil)
+    return _fill(rgb2, _label(near2), *_in_range(sy_msk, sx, n, n), m, cval)
+
+
+def _displacement_field(g: dict, h: int, w: int, elastic, piecewise):
+    """[B, H, W, 2] additive sampling-coordinate field (x, y): the elastic
+    jitter (uniform, amplitude alpha) and the piecewise-affine 5x5 grid,
+    bilinearly upsampled, each where its gate is set."""
+    el = g["elastic"] * g["alpha"][:, None, None, None]
+    el = torch.where(elastic[:, None, None, None], el, torch.zeros_like(el))
+    pw = resize_bilinear(_piecewise_grid(g, piecewise, h, w), (h, w),
+                         align_corners=True)
+    return el + pw
+
+
+def _warp_coords(hinv: torch.Tensor, disp: torch.Tensor, h: int, w: int):
+    """Source coordinates (sy, sx) [B, H, W] of the inverse warp `hinv`
+    plus the displacement field."""
+    a, b, c, d, e, f, g, h2, w2 = _entries(hinv)
+    ys = torch.arange(h, dtype=torch.float32, device=hinv.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=hinv.device)[None, :]
+    px = a * xs + b * ys + c
+    py = d * xs + e * ys + f
+    pz = g * xs + h2 * ys + w2
+    return py / pz + disp[..., 1], px / pz + disp[..., 0]
+
+
+def _geometric_coords(g: dict, gates: torch.Tensor, cfg: AugmentConfig,
+                      h: int, w: int):
+    """The gather samplers' coordinates and parameters from the draws `g`
+    and the pool's gates: (sy, sx, mode, cval, use_bil, dither_y,
+    dither_x); the dithers are None unless the order is drawn, and 0 for a
+    nearest sample."""
+    hinv, elastic, piecewise = _homography(g, gates, cfg, h, w)
+    sy, sx = _warp_coords(
+        hinv, _displacement_field(g, h, w, elastic, piecewise), h, w)
+    if cfg.image_warp_order in (0, 1):
+        use_bil = torch.full_like(elastic, cfg.image_warp_order == 1)
+        return sy, sx, g["mode"], g["cval"], use_bil, None, None
+    use_bil = g["order_bil"]
+    scale = use_bil.float()[:, None, None]
+    return (sy, sx, g["mode"], g["cval"], use_bil,
+            scale * (g["dither_y"] - 0.5), scale * (g["dither_x"] - 0.5))
 
 
 def _geometric_batch(g: dict, imgs_u8, segs_u8, gates, cfg: AugmentConfig):
-    """The warp of the whole batch: fields from the draws, then the two
-    resampling passes."""
+    """The warp of the whole batch (`_warp`): the two-pass fields and two
+    resampling passes on square frames, else the gather samplers."""
     h, w = segs_u8.shape[1], segs_u8.shape[2]
-    _require_square(h, w)
-    vt, sx, sy_msk, mode, cval, use_bil, tf = _twopass_coords(
-        g, gates, cfg, h, w)
-    return _sample_two_pass_banded(imgs_u8, segs_u8, vt, sx, sy_msk, mode,
-                                   cval, use_bil, tf)
+    warp = _warp(cfg, h, w)
+    if warp in ("banded", "lane"):
+        coords = _twopass_coords(g, gates, cfg, h, w)
+        sample = (_sample_two_pass_banded if warp == "banded"
+                  else _sample_two_pass)
+        return sample(imgs_u8, segs_u8, *coords)
+    sy, sx, mode, cval, use_bil, dy, dx = _geometric_coords(g, gates, cfg,
+                                                            h, w)
+    if cfg.image_warp_order == 1:
+        return _sample_packed(imgs_u8, segs_u8, sy, sx, mode, cval, use_bil)
+    return _sample_nearest_packed(imgs_u8, segs_u8, sy, sx, mode, cval,
+                                  dither_y=dy, dither_x=dx)
+
+
+# ---------------------------------------------------------------------------
+# the fast path: flips, quarter turns and per-axis matrix products
+# ---------------------------------------------------------------------------
+
+def _separable_coords(g: dict, axis: str, n: int) -> torch.Tensor:
+    """[B, n] source coordinates along one axis ("y" or "x") of the scale
+    about the centre, the translation and the crop-and-pad."""
+    do_aff = g[axis + "_do_aff"]
+    one = torch.ones_like(g[axis + "_scale"])
+    scale = torch.where(do_aff, g[axis + "_scale"], one)[:, None]
+    trans = torch.where(do_aff, g[axis + "_trans"] * n, one * 0.0)[:, None]
+    out = torch.arange(n, dtype=torch.float32, device=do_aff.device)[None]
+    c = (n - 1) / 2.0
+    # inverse affine, output -> source: scale about the centre, translate
+    src = (out - c - trans) / scale + c
+    # crop-and-pad: the output [0, n) maps to the source [l, n - r)
+    side = g[axis + "_side"] * n
+    left, right = side[:, :1], side[:, 1:]
+    src_cap = src * ((n - left - right).clamp_min(1.0) / n) + left
+    return torch.where(g[axis + "_do_cap"][:, None], src_cap, src)
+
+
+def _axis_interp_matrix(src: torch.Tensor, n: int, nearest: bool):
+    """[B, n_out, n] interpolation matrices of the source coordinates `src`
+    [B, n_out]: two bilinear weights a row, or a 1 at the nearest column
+    (`round`, half to even); rows whose coordinate lies outside
+    [-0.5, n-0.5] are 0."""
+    cols = torch.arange(n, dtype=torch.float32, device=src.device)
+    if nearest:
+        near = src.round().clamp(0, n - 1)[..., None]
+        m = (cols == near).float()
+    else:
+        m = (1.0 - (src[..., None] - cols).abs()).clamp_min(0.0)
+    in_range = (src >= -0.5) & (src <= n - 0.5)
+    return m * in_range[..., None].float()
+
+
+def _fast_geometric(g: dict, imgs_u8, segs_u8):
+    """`fast_geometric=True`: images f32 [B, H, W, 3] and labels int32
+    [B, H, W]. Flips, then a quarter turn (square frames), then the
+    axis-aligned scale / translate / crop-and-pad as products with [H, H]
+    and [W, W] interpolation matrices (f32: TF32 must be off on the card,
+    which `require_cuda` sees to); labels through the nearest matrices,
+    rounded."""
+    h, w = segs_u8.shape[1], segs_u8.shape[2]
+    img = imgs_u8.float()
+    seg = segs_u8.to(torch.int32)
+    lr, ud = g["flip_lr"], g["flip_ud"]
+    img = torch.where(lr[:, None, None, None], img.flip(2), img)
+    seg = torch.where(lr[:, None, None], seg.flip(2), seg)
+    img = torch.where(ud[:, None, None, None], img.flip(1), img)
+    seg = torch.where(ud[:, None, None], seg.flip(1), seg)
+    if h == w:
+        quarter = torch.where(g["do_rot"], g["quarter"],
+                              torch.zeros_like(g["quarter"]))
+        img0, seg0 = img, seg
+        for k in (1, 2, 3):
+            turn = quarter == k
+            img = torch.where(turn[:, None, None, None],
+                              torch.rot90(img0, k, (1, 2)), img)
+            seg = torch.where(turn[:, None, None],
+                              torch.rot90(seg0, k, (1, 2)), seg)
+    sy = _separable_coords(g, "y", h)
+    sx = _separable_coords(g, "x", w)
+    img = torch.einsum("bij,bjwc->biwc",
+                       _axis_interp_matrix(sy, h, False), img)
+    img = torch.einsum("bxw,bhwc->bhxc",
+                       _axis_interp_matrix(sx, w, False), img)
+    segf = torch.einsum("bij,bjw->biw", _axis_interp_matrix(sy, h, True),
+                        seg.float())
+    segf = torch.einsum("bxw,bhw->bhx", _axis_interp_matrix(sx, w, True),
+                        segf)
+    return img, segf.round().to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -496,20 +816,46 @@ def _band_matrix(kernel: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 
 def _sep_filter(img: torch.Tensor, kh: torch.Tensor, kw: torch.Tensor):
-    """Separable filter on square [B, N, N, C] in the dtype of `img`: the
-    1-D kernels kh [B, k] along H and kw along W, as two products with the
-    banded matrices (edge boundary). Each product accumulates in f32 and
-    rounds once to the compute dtype. The products run as f32 matmuls on
-    values already rounded to that dtype (exact products for bf16), so an
-    f32 pool needs TF32 off on the card, which `require_cuda` sees to."""
+    """Separable filter on [B, H, W, C] in the dtype of `img`: the 1-D
+    kernels kh [B, k] along H and kw [B, k'] along W (edge boundary). Each
+    pass accumulates in f32 and rounds once to the compute dtype. On square
+    frames the passes are products with the banded matrices, whose entries
+    sum the weights of the taps clipped to an edge before they are rounded;
+    on others `_sep_filter_rect`, which weights every tap apart, as the JAX
+    package's rectangular fallback does. Both run in f32 on values already
+    rounded to that dtype (exact products for bf16), so an f32 pool needs
+    TF32 off on the card, which `require_cuda` sees to."""
     n, dt = img.shape[1], img.dtype
-    _require_square(n, img.shape[2])
+    if img.shape[2] != n:
+        return _sep_filter_rect(img, kh, kw)
     kmh = _band_matrix(kh, n, dt).float()
     kmw = kmh if kw is kh else _band_matrix(kw, n, dt).float()
     x = img.permute(0, 3, 1, 2).float()                     # [B, C, H, W]
     tmp = (kmh[:, None] @ x).to(dt).float()
     out = (tmp @ kmw.transpose(1, 2)[:, None]).to(dt)
     return out.permute(0, 2, 3, 1)
+
+
+def _sep_filter_rect(img: torch.Tensor, kh: torch.Tensor, kw: torch.Tensor):
+    """The separable filter as two depthwise convolutions, one channel a
+    (sample, colour) pair so that each sample takes its own kernel: edge
+    padding by each kernel's own half length, then the taps summed in f32
+    and rounded to the dtype of `img`, along H and then along W."""
+    b, h, w, c = img.shape
+    dt = img.dtype
+    x = img.permute(0, 3, 1, 2).reshape(1, b * c, h, w).float()
+    for kernel, along_h in ((kh, True), (kw, False)):
+        k = kernel.shape[1]
+        weight = kernel.float().repeat_interleave(c, 0)
+        if along_h:
+            weight, pad = weight.reshape(b * c, 1, k, 1), (0, 0, k // 2,
+                                                          k // 2)
+        else:
+            weight, pad = weight.reshape(b * c, 1, 1, k), (k // 2, k // 2,
+                                                          0, 0)
+        x = F.conv2d(F.pad(x, pad, mode="replicate"), weight,
+                     groups=b * c).to(dt).float()
+    return x.reshape(b, c, h, w).permute(0, 2, 3, 1).to(dt)
 
 
 def _gaussian_kernel(sigma: torch.Tensor, size: int = 13) -> torch.Tensor:
@@ -835,12 +1181,15 @@ assert len(_PHOTO_OPS) == _N_PHOTO
 
 def _photometric_batch(order, photo: list, x: torch.Tensor,
                        gates: torch.Tensor, cfg: AugmentConfig):
-    """Apply the 13 photometric members to the batch in the order `order`
-    (13 host integers: one order per batch; the gates stay per sample).
-    Every op runs on the whole batch and is kept per sample where its gate
-    is set. With the u8 carry every op's output is rounded (half to even)
-    and clipped to 0..255, as imgaug requantises after every augmenter; the
-    carry itself is quantised once on entry."""
+    """Apply the 13 photometric members to the batch in the order `order`:
+    13 host integers (one order per batch), or with
+    `per_sample_photo_order` one such list per sample. The gates stay per
+    sample: an op's output is kept where its gate is set. One order: every
+    op runs on the whole batch. Per sample: at position s, op i runs on the
+    samples whose s-th entry is i (gathered, applied, put back), so every
+    sample still meets each op once. With the u8 carry every op's output is
+    rounded (half to even) and clipped to 0..255, as imgaug requantises
+    after every augmenter; the carry itself is quantised once on entry."""
     carry_dt = {"u8": torch.uint8, "bf16": torch.bfloat16,
                 "f32": torch.float32}[cfg.photo_carry]
     u8 = cfg.photo_carry == "u8"
@@ -848,11 +1197,30 @@ def _photometric_batch(order, photo: list, x: torch.Tensor,
     def quant(v):
         return v.round().clamp(0.0, 255.0) if u8 else v
 
+    def run(i, params, carry, g):
+        img = carry.float()
+        out = quant(_PHOTO_OPS[i][1](params, img, cfg))
+        return torch.where(_bc(g[:, i]), out, img).to(carry_dt)
+
     x = quant(x).to(carry_dt)
-    for i in order:
-        img = x.float()
-        out = quant(_PHOTO_OPS[i][1](photo[i], img, cfg))
-        x = torch.where(_bc(gates[:, i]), out, img).to(carry_dt)
+    if not cfg.per_sample_photo_order:
+        for i in order:
+            x = run(i, photo[i], x, gates)
+        return x.float().clamp(0.0, 255.0)
+    groups = [(i, [j for j, o in enumerate(order) if o[s] == i])
+              for s in range(_N_PHOTO) for i in range(_N_PHOTO)]
+    groups = [(i, samples) for i, samples in groups if samples]
+    # every group's sample indices in one copy to the device
+    index = host_to_device(torch.tensor(
+        [j for _, samples in groups for j in samples]), x.device)
+    x = x.clone()                   # written in place below
+    start = 0
+    for i, samples in groups:
+        sel = index[start:start + len(samples)]
+        start += len(samples)
+        params = {k: v.index_select(0, sel) for k, v in photo[i].items()}
+        x.index_copy_(0, sel, run(i, params, x.index_select(0, sel),
+                                  gates.index_select(0, sel)))
     return x.float().clamp(0.0, 255.0)
 
 
@@ -881,21 +1249,31 @@ class AugmentFn:
              host_gen: torch.Generator | None = None) -> dict:
         """Every random value of one batch: `gates` [B, 16], `geometry` (see
         `_draw_geometry`), `photo` (one dict per pool member) and `order`
-        (13 host integers)."""
+        (13 host integers, or a list of them per sample with
+        `per_sample_photo_order`)."""
         cfg = self.config
         if host_gen is None:
             host_gen = gen if gen.device.type == "cpu" else (
                 torch.Generator().manual_seed(gen.initial_seed()))
+
+        def order():
+            return torch.randperm(_N_PHOTO, generator=host_gen).tolist()
         return {
             "gates": _draw_gates(gen, cfg, b),
             "geometry": _draw_geometry(gen, cfg, b, h, w),
             "photo": [draw(gen, cfg, b, h, w) for draw, _ in _PHOTO_OPS],
-            "order": torch.randperm(_N_PHOTO, generator=host_gen).tolist()}
+            "order": ([order() for _ in range(b)]
+                      if cfg.per_sample_photo_order else order())}
 
     @torch.no_grad()
     def apply(self, params: dict, images: torch.Tensor, segs: torch.Tensor):
-        imgs, out_segs = _geometric_batch(params["geometry"], images, segs,
-                                          params["gates"], self.config)
+        if self.config.fast_geometric:
+            imgs, out_segs = _fast_geometric(params["geometry"], images,
+                                             segs)
+        else:
+            imgs, out_segs = _geometric_batch(params["geometry"], images,
+                                              segs, params["gates"],
+                                              self.config)
         imgs = _photometric_batch(params["order"], params["photo"], imgs,
                                   params["gates"], self.config)
         return imgs, out_segs

@@ -6,9 +6,11 @@
     python -m pytorch_segmentation_tpu_torch.train data/coco  # unet, 320^2
 
 The same flags, names and defaults as the root CLI. Files are read from
-disk by the port's datasets (PNG images; COCO JSON, or the segimg / idimg
-layouts), batches are mixed (`--cutmix` / `--mosaic`, `data/mix.py`) and
-augmented on the card (`PostFetch(make_augment_fn(), mix_fn=...)`) and
+disk by the port's datasets (PNG and JPEG images; COCO JSON, or the segimg
+/ idimg layouts) at `-s W H` (any W and H), batches are mixed (`--cutmix` /
+`--mosaic`, `data/mix.py`) and augmented on the card
+(`PostFetch(make_augment_fn(), mix_fn=...)`; `--fast-augment` takes the
+axis-aligned warp, `AugmentConfig(fast_geometric=True)`) and
 trained by `Trainer` on the loss of `--loss` (`ops/loss.build_loss`; its CE
 term takes `--class-weights`, `--label-smoothing`, `--ohem` /
 `--ohem-thresh` and `--ignore-index`), plus, under `--distill CKPT`, the
@@ -54,9 +56,9 @@ import os.path as osp
 
 import torch
 
-from .data import (CocoDataset, CocoInstance, DataLoader, Fetcher,
-                   IdImgDataset, PostFetch, SegImgDataset, make_augment_fn,
-                   make_mix_fn, repeat_factors)
+from .data import (AugmentConfig, CocoDataset, CocoInstance, DataLoader,
+                   Fetcher, IdImgDataset, PostFetch, SegImgDataset,
+                   make_augment_fn, make_mix_fn, repeat_factors)
 from .data.resize_host import multi_scale_sizes
 from .engine import Trainer, load_model_bundle, test
 from .engine.steps import nhwc_forward
@@ -84,8 +86,7 @@ AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
 # item). `train()` raises for them; the CLI exits with status 2.
 UNPORTED = {
     "remat": (False, 5), "bn_subsample": (1, 5),
-    "debug_nans": (False, 5),
-    "fast_augment": (False, 8), "qat": (False, 9),
+    "debug_nans": (False, 5), "qat": (False, 9),
     "tp": (1, 10), "pp": (1, 10), "ep": (1, 10), "spatial": (1, 10),
     "zero": (False, 10), "moe": (0, 10),
 }
@@ -160,8 +161,11 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
     # bf16 feed when the model computes bf16: its first convolution casts
     # the input anyway
     feed_dtype = torch.bfloat16 if mixed_precision else torch.float32
+    # --fast-augment: the axis-aligned warp by matrix products
+    augment_fn = make_augment_fn(
+        AugmentConfig(fast_geometric=True) if fast_augment else None)
     train_fetcher = Fetcher(train_loader, PostFetch(
-        augment_fn=make_augment_fn(), multi_scale=multi_scale,
+        augment_fn=augment_fn, multi_scale=multi_scale,
         base_hw=(h, w), seed=seed, dtype=feed_dtype,
         mix_fn=make_mix_fn(cutmix_p=cutmix, mosaic_p=mosaic), device=device))
 
@@ -331,10 +335,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = build_parser()
     opt = parser.parse_args(argv)
     refuse_unported(parser, opt, UNPORTED)
-    if opt.img_size[0] != opt.img_size[1]:
-        parser.error("-s W H with W != H: the augmentation takes square "
-                     "images only so far (ROADMAP queue 1 item 8, "
-                     "augmentation rest)")
     return opt
 
 

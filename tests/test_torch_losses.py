@@ -424,7 +424,7 @@ def test_postfetch_mixes_before_the_augmentation_on_its_own_stream():
     output from `mix_generator(k)`: the mix comes first and does not move
     the augmentation's draws. Without an augment_fn the mixed batch is
     normalized as it is."""
-    images, segs = _mix_batch((16, 16))   # the augmentation: square only
+    images, segs = _mix_batch((16, 16))
     batch = Batch(images, segs, MIX_B)
     aug = taug.make_augment_fn()
     mix = tmix.make_mix_fn(cutmix_p=0.5, mosaic_p=0.5)
