@@ -37,7 +37,15 @@ CPU, none launching the row resampler; the train step alone; `test()` over
 32 images and one served batch of 8; end to end from u8 host batches
 through the gather warp and the rectangular filter; kernels 1-3 at the
 path's shapes; `train -s 1024 512 -bs 16` on the cli phase's set, then
-`test`, and `train --fast-augment`), and then
+`test`, and `train --fast-augment`), runs its int8 path (`int8`, quant.py:
+the int8dyn forward at batch 8 with every distinct quantized layer shape
+held bit for bit against the host, calibration, make_quant_mask_fn on the
+card against the CPU, a MaskServer(int8=True) burst of PNG and JPEG bodies
+and an int8 + flip-TTA request, `test(int8=True)` and `test(quant_stats=)`
+over 80 images, Trainer(qat=True) beside the plain Trainer, two QAT steps
+with the fused 1x1 switch on, `train --qat`, `test --int8 --calib-batches
+2`, `inference --int8 --calib` and `serve --int8`'s server; the int8
+products against cuDNN's bf16 convolutions at the same shapes), and then
 trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
 conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
@@ -93,6 +101,8 @@ plain versions on tensors those runs handed them.
     python3 chip_smoke.py --nonsquare
                                      # the builds, then the nonsquare
                                      # phase alone, on a set of its own
+    python3 chip_smoke.py --int8     # the builds, then the int8 phase
+                                     # alone, on a set of its own
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
@@ -101,7 +111,8 @@ with the fused 1x1 switch on, or the layout benchmark) and, for the four it
 runs, on the command lines' run (`cli_launches`), on the losses phase's
 runs (`losses_launches`), on the nonsquare phase's runs
 (`nonsquare_launches`, every kernel; kernels 1-3's figures at its shapes
-under `nonsquare`), on the families phase's
+under `nonsquare`), on the int8 phase's runs (`int8_launches`, every
+kernel), on the families phase's
 runs (`families_launches`, and by model in `families_launches_by_model`,
 with each family's shape's figures under `families` for kernels 1-3), its
 error against
@@ -151,6 +162,7 @@ from pytorch_segmentation_tpu_torch.engine.steps import (make_eval_step,
                                                          require_eval_mode)
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import (_tile_offsets,
+                                                      make_infer_fn,
                                                       make_mask_fn,
                                                       make_tiled_mask_fn)
 from pytorch_segmentation_tpu_torch.models import (build_model,
@@ -162,6 +174,8 @@ from pytorch_segmentation_tpu_torch.models.segformer import (
 from pytorch_segmentation_tpu_torch.nn import blocks
 from pytorch_segmentation_tpu_torch.ops.boundary import (boundary_confusion,
                                                          boundary_pixels)
+from pytorch_segmentation_tpu_torch.ops.int8 import (int8_conv2d,
+                                                     int8_conv2d_plain)
 from pytorch_segmentation_tpu_torch.ops.loss import (LOSSES, build_loss,
                                                     compute_loss)
 from pytorch_segmentation_tpu_torch.ops.kernels import banded_resample as br
@@ -175,6 +189,10 @@ from pytorch_segmentation_tpu_torch.ops.metrics import (confusion_update,
                                                         sample_valid_mask)
 from pytorch_segmentation_tpu_torch.ops.resize import (resize_bilinear,
                                                        resize_nearest)
+from pytorch_segmentation_tpu_torch.quant import (calibrate,
+                                                  calibrate_from_u8,
+                                                  make_quant_mask_fn,
+                                                  quantized_forward)
 from pytorch_segmentation_tpu_torch.serving import MaskServer
 from pytorch_segmentation_tpu_torch.tools import bench_cmajor
 # device ms of a call without the host's enqueue: calls queued behind a
@@ -1390,9 +1408,12 @@ def serve_jpeg_bodies(base, imgs):
             "exif_rotated_mask_shape": list(mask.shape)}
 
 
-def serve_phase(device, name="deeplabv3plus", img=IMG, jpeg_bodies=False):
+def serve_phase(device, name="deeplabv3plus", img=IMG, jpeg_bodies=False,
+                int8=False):
     """`name` (bf16, seeded weights, its stride-`output_stride` logits)
-    behind MaskServer at batch 8: a burst of 12 requests from threads (10 at
+    behind MaskServer at batch 8 (with `int8`, MaskServer(int8=True): the
+    int8 forward with dynamic scales, and make_quant_mask_fn where
+    make_mask_fn stands below): a burst of 12 requests from threads (10 at
     img x img, two of other sizes), then 5 one at a time, colorized; with
     `jpeg_bodies`, then JPEG bodies beside PNG ones (`serve_jpeg_bodies`:
     three images, one of them 400 x 600, and an EXIF-rotated body). Each
@@ -1414,7 +1435,7 @@ def serve_phase(device, name="deeplabv3plus", img=IMG, jpeg_bodies=False):
     logits, ran = [], []
     hook = model.register_forward_hook(
         lambda mod, args, out: logits.append(out.detach()))
-    server = MaskServer(model, img_size=hw, max_batch=BATCH)
+    server = MaskServer(model, img_size=hw, max_batch=BATCH, int8=int8)
     serve_fn = server._mask_fn
 
     def recording(images_u8):
@@ -1465,7 +1486,8 @@ def serve_phase(device, name="deeplabv3plus", img=IMG, jpeg_bodies=False):
                              f"the argmax kernel {launches} times")
     if any(r is None for r in results):
         raise AssertionError("a request got no response")
-    mask_fn = make_mask_fn(model, out_hw=hw)
+    mask_fn = (make_quant_mask_fn(model, out_hw=hw) if int8
+               else make_mask_fn(model, out_hw=hw))
     low = -(-img // model.output_stride)  # 513 -> 129 at stride 4
     agreement = 1.0
     for lg, (batch, masks) in zip(logits, ran):
@@ -1535,7 +1557,8 @@ def serve_phase(device, name="deeplabv3plus", img=IMG, jpeg_bodies=False):
                "logits_shape": [BATCH, NUM_CLASSES, low, low],
                "logits_dtype": str(logits[0].dtype).replace("torch.", ""),
                "align_corners": align, **jpeg_figures}
-    log("serve", model=name, img=img, requests=len(imgs), **figures,
+    log("int8_serve" if int8 else "serve", model=name, img=img,
+        requests=len(imgs), **figures,
         launches=launches, classes_present=n_classes,
         batches=server.stats["batches"], modules=len(modules),
         eval_mode_check_us=check_us[0], eval_mode_check_walk_us=check_us[1])
@@ -2861,6 +2884,541 @@ def losses_phase(device, dataset, cli_data):
         peak_memory_gb={k: v["peak_memory_gb"] for k, v in runs.items()},
         teacher_share_of_step=runs["distill"]["teacher_share_of_step"],
         launches=launches)
+    return launches
+
+
+# the int8 phase: quant.py on DeepLabV3+ R50 at 513^2, 21 classes, bf16
+INT8_TENSOR_OPS = 1979e12   # int8 dense tensor-core peak, H100 SXM
+INT8_CPU_HW = 129           # the card's int8 masks against the CPU's here
+INT8_BAND_ROWS = 8          # output rows of a layer recomputed on the host
+INT8_CALIB_BATCHES = 2
+INT8_VAL_IMAGES = 8         # the inference CLI's images
+
+
+def int8_product_check(device, model, images_u8):
+    """Check 1: the int8dyn forward of `model` at batch 8 on the card, every
+    quantized ConvNormAct's input, int8 operands, int32 product and
+    rescaled output captured; for the first layer of each distinct (k,
+    stride, dilation, Cin, Cout), the first image recomputed on the host
+    (the quantize by `blocks.int8_operands`, the product by
+    `int8_conv2d_plain` over a band of INT8_BAND_ROWS output rows and the
+    input window they read): the int8 operands, the int32 product and the
+    bf16 rescaled output bit-equal. Returns the quantized layers'
+    (x_q shape, w_q shape, stride, padding, dilation) and the counts."""
+    names = {m: n for n, m in model.named_modules()}
+    current, eligible, layers, kept = [None], [0], [], {}
+    real = blocks.int8_conv2d
+
+    def pre_hook(mod, args):
+        current[0] = mod
+        if mod.conv.groups != 1:
+            return
+        eligible[0] += 1
+        conv = mod.conv
+        key = (conv.kernel_size[0], conv.stride[0], conv.dilation[0],
+               conv.in_channels, conv.out_channels)
+        if key not in kept:
+            kept[key] = {"module": mod, "x": args[0][:1].cpu(),
+                         "amax": args[0].abs().amax().float().cpu()}
+
+    def bn_hook(mod, args):
+        entry = kept.get(current[0].__dict__.get("_int8_key"))
+        if entry is not None and "y" in entry and "pre_bn" not in entry:
+            entry["pre_bn"] = args[0][:1].cpu()
+
+    def record(x_q, w_q, stride, padding, dilation):
+        y = real(x_q, w_q, stride, padding, dilation)
+        mod = current[0]
+        layers.append((tuple(x_q.shape), tuple(w_q.shape), stride, padding,
+                       dilation))
+        conv = mod.conv
+        key = (conv.kernel_size[0], stride, dilation, conv.in_channels,
+               conv.out_channels)
+        entry = kept[key]
+        if entry["module"] is mod and "y" not in entry:
+            entry.update(x_q=x_q[:1].cpu(), w_q=w_q.cpu(), y=y[:1].cpu())
+            mod._int8_key = key
+        return y
+
+    convs = [m for m in model.modules() if isinstance(m, blocks.ConvNormAct)]
+    hooks = [m.register_forward_pre_hook(pre_hook) for m in convs]
+    hooks += [m.bn.register_forward_pre_hook(bn_hook) for m in convs]
+    blocks.int8_conv2d = record
+    try:
+        make_quant_mask_fn(model)(images_u8)
+        torch.cuda.synchronize()
+    finally:
+        blocks.int8_conv2d = real
+        for h in hooks:
+            h.remove()
+        for m in convs:
+            m.__dict__.pop("_int8_key", None)
+    checked = []
+    for key, entry in sorted(kept.items()):
+        if "y" not in entry:
+            continue                                    # gated off
+        mod = entry["module"]
+        k, stride, dilation = key[:3]
+        pad = mod.conv.padding[0]
+        weight = mod.conv.weight.detach().cpu()
+        x_q, w_q, rescale = blocks.int8_operands(entry["x"], weight,
+                                                 entry["amax"])
+        if not (torch.equal(x_q, entry["x_q"]) and torch.equal(
+                w_q, entry["w_q"])):
+            raise AssertionError(f"{names[mod]}: int8 operands differ from "
+                                 f"the host's")
+        ho = entry["y"].shape[2]
+        o0 = max(0, ho // 2 - INT8_BAND_ROWS // 2)
+        o1 = min(ho, o0 + INT8_BAND_ROWS)
+        padded = torch.nn.functional.pad(x_q, (pad, pad, pad, pad))
+        band = padded[:, :, o0 * stride:(o1 - 1) * stride
+                      + dilation * (k - 1) + 1]
+        want = int8_conv2d_plain(band, w_q, stride, 0, dilation)
+        got = entry["y"][:, :, o0:o1]
+        if not torch.equal(got, want):
+            raise AssertionError(f"{names[mod]}: the card's int32 product "
+                                 f"differs from int8_conv2d_plain's at "
+                                 f"{int((got != want).sum())} entries")
+        out = (want.float() * rescale).to(torch.bfloat16)
+        if not torch.equal(entry["pre_bn"][:, :, o0:o1], out):
+            raise AssertionError(f"{names[mod]}: the rescaled output "
+                                 f"differs from the host's")
+        checked.append({"layer": names[mod], "k": k, "stride": stride,
+                        "dilation": dilation, "cin": key[3],
+                        "cout": key[4], "rows": [o0, o1],
+                        "int32_max": int(want.abs().max())})
+    return layers, {"eligible": eligible[0], "quantized": len(layers),
+                    "gated_off": eligible[0] - len(layers),
+                    "distinct_shapes_checked": checked}
+
+
+def int8_product_times(device, layers):
+    """The quantized layers' int8 products (`int8_conv2d`: im2col and
+    torch._int_mm) against cuDNN bf16 convolutions at the same shapes
+    (channels_last), each distinct shape timed once and counted as often
+    as the forward runs it, random operands; and the int8 ops' bound."""
+    shapes = {}
+    for shape in layers:
+        shapes[shape] = shapes.get(shape, 0) + 1
+    g = torch.Generator(device=device).manual_seed(SEED)
+    int8_ms = bf16_ms = ops = 0.0
+    for (xs, ws, stride, pad, dil), n in shapes.items():
+        x = torch.randint(-127, 128, xs, generator=g, device=device,
+                          dtype=torch.int8).contiguous(
+            memory_format=torch.channels_last)
+        w = torch.randint(-127, 128, ws, generator=g, device=device,
+                          dtype=torch.int8)
+        xb = x.to(torch.bfloat16)
+        wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        int8_ms += n * cuda_median_ms(
+            lambda: int8_conv2d(x, w, stride, pad, dil))
+        bf16_ms += n * cuda_median_ms(
+            lambda: torch.nn.functional.conv2d(xb, wb, None, stride, pad,
+                                               dil))
+        y = int8_conv2d(x, w, stride, pad, dil)
+        ops += n * 2.0 * y.numel() * ws[1] * ws[2] * ws[3]
+    return {"int8_products_ms": int8_ms, "cudnn_bf16_convs_ms": bf16_ms,
+            "distinct_shapes": len(shapes), "layers": len(layers),
+            "int8_ops_bound_ms": 1e3 * ops / INT8_TENSOR_OPS}
+
+
+def int8_cpu_masks(device, model, stats):
+    """make_quant_mask_fn on the card against the same function on the
+    CPU (a copy of the model) for two images at INT8_CPU_HW^2, int8dyn and
+    calibrated: equal wherever the top-2 gap of the card's upsampled
+    logits is above twice the two devices' largest logit difference plus
+    `tie_gap`. Returns the figures."""
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(SEED + 9)
+    images = np.stack([smooth_image(rng, INT8_CPU_HW, INT8_CPU_HW)
+                       for _ in range(2)])
+    hw = (INT8_CPU_HW, INT8_CPU_HW)
+    figures = {}
+    for label, qs in (("int8dyn", None), ("int8", stats)):
+        cpu_qs = None if qs is None else {n: v.cpu() for n, v in qs.items()}
+        got = make_quant_mask_fn(model, quant_stats=qs)(images).cpu()
+        want = make_quant_mask_fn(cpu_model, quant_stats=cpu_qs)(images)
+        logits = []
+        for m, s in ((model, qs), (cpu_model, cpu_qs)):
+            x = normalize_images(torch.from_numpy(images).to(
+                next(m.parameters()).device))
+            with torch.inference_mode():
+                logits.append(quantized_forward(nhwc_forward(m), m, s)(
+                    x).float().cpu())
+        diff = float((logits[0] - logits[1]).abs().max())
+        up = resize_bilinear(logits[0], hw,
+                             align_corners=model.up_align_corners)
+        gap = 2.0 * diff + tie_gap(up)
+        top2 = up.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > gap
+        wrong = int(((got != want) & clear).sum())
+        if wrong:
+            raise AssertionError(f"{label}: {wrong} clear pixels differ "
+                                 f"between the card and the CPU")
+        figures[label] = {"agreement": float((got == want).float().mean()),
+                          "clear_share": float(clear.float().mean()),
+                          "max_logit_diff": diff,
+                          "max_abs_logit": float(logits[1].abs().max())}
+    return figures
+
+
+def int8_phase(device, dataset, cli_data):
+    """The int8 path (quant.py) of DeepLabV3+ R50 at 513^2, 21 classes,
+    bf16, seeded weights: (1) the int8dyn forward at batch 8 with every
+    distinct quantized layer shape held bit for bit against the host; (2)
+    serving: calibrate_from_u8 on two batches, make_quant_mask_fn int8dyn
+    and calibrated on the card against the CPU, a MaskServer(int8=True)
+    burst of PNG and JPEG bodies (kernel 1 against its plain version on
+    each served batch's int8 logits), one int8 + flip-TTA request, the int8
+    masks' agreement with the bf16 ones (reported only: the weights are
+    seeded); (3) test(int8=True) and test(quant_stats=) over 80 images at
+    batch 32, kernel 3's counts against the plain tail's on each batch's
+    int8 logits; (4) Trainer(qat=True) at batch 32 for the train phase's
+    windows beside the plain Trainer, kernel 2 forward and backward on a
+    QAT step's logits, two QAT steps with the fused 1x1 switch on, and
+    the command lines: `train --qat` for one epoch on `cli_data` (its eval
+    int8), `test --int8 --calib-batches 2`, `inference --int8 --calib` and
+    `serve --int8`'s server on the checkpoint it wrote; (5) the times.
+    Returns each kernel's launches in the phase's main-path runs."""
+    from pytorch_segmentation_tpu_torch import inference as infer_cli
+    from pytorch_segmentation_tpu_torch import serve as serve_cli
+    from pytorch_segmentation_tpu_torch import test as test_cli
+    from pytorch_segmentation_tpu_torch import train as train_cli
+    t_phase = time.perf_counter()
+    launches = {"upsample_argmax": 0, "softmax_ce": {"fwd": 0, "bwd": 0},
+                "banded_resample": 0, "eval_confusion": 0,
+                "fused_matmul_bn": {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}}
+    cm.reset_launch_count()
+    model = load_model_bundle(build_model(
+        "deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+        full_res_output=False), None, device, seed=SEED)
+    rng = np.random.default_rng(SEED + 8)
+    batches = [np.stack([smooth_image(rng, IMG, IMG) for _ in range(BATCH)])
+               for _ in range(INT8_CALIB_BATCHES)]
+
+    # (1) the int8 product of every distinct layer shape
+    layers, counts = int8_product_check(device, model, batches[0])
+    log("int8_product", batch=BATCH, **counts)
+
+    # (2) serving
+    stats = calibrate_from_u8(model, batches)
+    if len(stats) != counts["eligible"]:
+        raise AssertionError(f"{len(stats)} statistics for "
+                             f"{counts['eligible']} eligible convs")
+    cpu_figures = int8_cpu_masks(device, model, stats)
+    reset_kernel_counts()
+    serve_launches, serve_figures = serve_phase(device, jpeg_bodies=True,
+                                                int8=True)
+    add_launches(launches, {"upsample_argmax": serve_launches})
+    on_card = torch.from_numpy(batches[0]).to(device)
+    fns = {"bf16": make_mask_fn(model),
+           "int8dyn": make_quant_mask_fn(model),
+           "int8": make_quant_mask_fn(model, quant_stats=stats)}
+    masks = {k: f(on_card) for k, f in fns.items()}
+    agreement = {k: float((masks[k] == masks["bf16"]).float().mean())
+                 for k in ("int8dyn", "int8")}
+    served_ms = {k: cuda_median_ms(lambda f=f: f(on_card))
+                 for k, f in fns.items()}
+    # one int8 + flip-TTA request: the host argmax of make_infer_fn's
+    # probabilities (stride 4), resized to the request
+    server = MaskServer(model, img_size=(IMG, IMG), max_batch=BATCH,
+                        int8=True, tta_flip=True)
+    host, port = server.start(port=0)[:2]
+    try:
+        status, _, body = post(f"http://{host}:{port}/predict?format=raw",
+                               encode_png(batches[1][0]))
+    finally:
+        server.stop()
+    padded = np.zeros_like(batches[1])
+    padded[0] = batches[1][0]
+    probs = make_infer_fn(model, int8=True, tta_flip=True)(padded)
+    want = resize_nearest(probs[0].argmax(-1).to(torch.int32).cpu(),
+                          (IMG, IMG)).numpy()
+    if status != 200 or not np.array_equal(decode_png(body), want):
+        raise AssertionError("the int8 + flip-TTA response differs from "
+                             "make_infer_fn's host argmax")
+    log("int8_serving", calibrated_layers=len(stats),
+        card_vs_cpu_at=INT8_CPU_HW, card_vs_cpu=cpu_figures,
+        agreement_with_bf16=agreement, served_batch8_ms=served_ms,
+        burst=serve_figures, tta_flip_request_equal=True)
+
+    # (3) evaluation: test(int8=True) and test(quant_stats=)
+    evaluated = load_model_bundle(build_model(
+        "deeplabv3plus", NUM_CLASSES, dtype=torch.bfloat16,
+        full_res_output=True), None, device, seed=SEED)
+    eval_set = dataset.first(EVAL_IMAGES)
+    fetcher = Fetcher(DataLoader(eval_set, EVAL_BATCH),
+                      PostFetch(dtype=torch.bfloat16, device=device))
+    calib = []
+    for i, (images, _, _) in enumerate(fetcher):
+        if i >= INT8_CALIB_BATCHES:
+            break
+        calib.append(images)
+    eval_stats = calibrate(evaluated, calib)
+    steps = -(-EVAL_IMAGES // EVAL_BATCH)
+    eval_figures = {}
+    for label, options in (("int8dyn", {"int8": True}),
+                           ("int8", {"quant_stats": eval_stats})):
+        captured, seen = [], []
+        hook = evaluated.register_forward_hook(
+            lambda mod, args, out: captured.append(out))
+
+        class Recording:
+            loader = fetcher.loader
+
+            def __len__(self):
+                return len(fetcher)
+
+            def __iter__(self):
+                for batch in fetcher:
+                    seen.append(batch)
+                    yield batch
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            miou = run_eval(evaluated, Recording(), log=False,
+                            report_path="report.json", device=device,
+                            **options)
+            run = kernel_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            hook.remove()
+            with open("report.json") as f:
+                report = json.load(f)
+        if (run["eval_confusion"], run["softmax_ce"]["fwd"],
+                run["upsample_argmax"]) != (steps, steps, 1):
+            raise AssertionError(f"test({options}) launched {run}")
+        add_launches(launches, run)
+        # the first batch's picture is the plain forward's (captured[1])
+        logits = captured[:1] + captured[2:]
+        fused_step = make_eval_step(NUM_CLASSES)
+        plain_step = make_eval_step(NUM_CLASSES, use_kernels=False)
+        worst = 0.0
+        for lg, (images, segs, valid) in zip(logits, seen):
+            fixed = FixedLogits(lg).eval()
+            fused = fused_step(fixed, images, segs, valid)
+            plain = plain_step(fixed, images, segs, valid)
+            nhwc = lg.permute(0, 2, 3, 1)
+            ties = near_ties(nhwc, (IMG, IMG), True,
+                             sample_valid_mask(valid, lg.shape[0], device))
+            close, diff = counts_close(fused[1:], plain[1:], ties)
+            loss_err = abs(float(fused[0]) - float(plain[0]))
+            if not (close and loss_err <= LOSS_RTOL * abs(float(plain[0]))):
+                raise AssertionError(f"{label}: kernel 3's counts differ "
+                                     f"by {diff} ({ties} near ties), loss "
+                                     f"by {loss_err}")
+            worst = max(worst, diff)
+        if not (0.0 <= miou <= 1.0 and np.isfinite(report["val_loss"])):
+            raise AssertionError(f"{label} eval: {miou} {report}")
+        eval_figures[label] = {"miou": miou, "val_loss": report["val_loss"],
+                               "counts_max_l1_vs_plain": worst,
+                               "peak_memory_gb": peak_gb}
+    twin = copy.copy(evaluated)
+    twin.full_res_output = False
+    images, segs, _ = seen[0]
+    quant_step = make_eval_step(NUM_CLASSES, quant=True)
+    plain_step = make_eval_step(NUM_CLASSES)
+    step_ms = {
+        "bf16": cuda_median_ms(lambda: plain_step(twin, images, segs,
+                                                  EVAL_BATCH), reps=10),
+        "int8dyn": cuda_median_ms(lambda: quant_step(twin, images, segs,
+                                                     EVAL_BATCH), reps=10),
+        "int8": cuda_median_ms(lambda: quant_step(
+            twin, images, segs, EVAL_BATCH, eval_stats), reps=10)}
+    # the quantized forward's parts at batch 8: its int8 products against
+    # cuDNN's bf16 convs at the same shapes, and what the rest costs
+    with torch.inference_mode():
+        x8 = normalize_images(on_card)
+        fwd = nhwc_forward(model)
+        forward_ms = {"bf16": cuda_median_ms(lambda: fwd(x8)),
+                      "int8dyn": cuda_median_ms(
+                          lambda: quantized_forward(fwd, model)(x8))}
+    products = int8_product_times(device, layers)
+    # int8 forward = products + quantize/rescale passes + the rest, where
+    # the rest is the bf16 forward without the quantized layers' convs
+    quantize_ms = (forward_ms["int8dyn"] - products["int8_products_ms"]
+                   - (forward_ms["bf16"] - products["cudnn_bf16_convs_ms"]))
+    log("int8_eval", images=EVAL_IMAGES, batch=EVAL_BATCH, steps=steps,
+        results=eval_figures, eval_step_ms=step_ms,
+        forward_batch8_ms=forward_ms, **products,
+        quantize_rescale_ms_derived=quantize_ms,
+        quantize_rescale_share_of_forward=quantize_ms
+        / forward_ms["int8dyn"])
+    del twin, evaluated, fetcher, seen, captured
+
+    # (4) quantization-aware training
+    _, batch = train_batch(device)
+    fake = []
+    real_fake = blocks.ConvNormAct._fake_quant_conv
+
+    def counting(self, x):
+        fake.append(self)
+        return real_fake(self, x)
+
+    def fake_names(module):
+        seen = set(fake)
+        return {n for n, m in module.named_modules() if m in seen}
+
+    blocks.ConvNormAct._fake_quant_conv = counting
+    qat_figures = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, qat, warm, windows in (("qat", True, 3, 3),
+                                              ("plain", False, 1, 1)):
+                logits = []
+                trainer = Trainer(
+                    build_model("deeplabv3plus", NUM_CLASSES,
+                                dtype=torch.bfloat16, full_res_output=True),
+                    RepeatFetcher(batch, 1), workdir=os.path.join(tmp, "w"),
+                    lr=1e-3, momentum=0.9, seed=SEED, log=False,
+                    log_dir=os.path.join(tmp, "runs"), qat=qat,
+                    device=device)
+                hook = trainer._train_module.register_forward_hook(
+                    lambda mod, args, out: logits.append(out.detach()))
+                fake.clear()
+                reset_kernel_counts()
+                losses, wall_ms, event_ms, run, peak_gb = timed_steps(
+                    trainer, warm, windows)
+                hook.remove()
+                n = trainer.state.step
+                if not (all(np.isfinite(losses)) and run["softmax_ce"] == {
+                        "fwd": n, "bwd": n}):
+                    raise AssertionError(f"{label}: losses {losses}, "
+                                         f"launches {run}")
+                if qat:
+                    add_launches(launches, {"softmax_ce": run["softmax_ce"]})
+                    qat_per_step = len(fake) // n
+                    qat_names = fake_names(trainer.module)
+                    x = logits[-1].permute(0, 2, 3, 1).detach(
+                        ).requires_grad_(True)
+                    _, loss_value, loss_err, grad_err, top = ce_check(
+                        "int8_qat_logits", x, batch[1], True)
+                elif fake:
+                    raise AssertionError("the plain step fake-quantized")
+                qat_figures[label] = {
+                    "steps": n, "losses": losses,
+                    "ms_per_step_wall": wall_ms,
+                    "ms_per_step_cuda_events": event_ms,
+                    "peak_memory_gb": peak_gb}
+                del trainer, logits, hook
+            # two QAT steps with the fused 1x1 switch on: each bottleneck's
+            # conv1-3 leave the fake quant for the folded path (conv1 and
+            # conv3 through the fused kernels), every other conv keeps it
+            blocks.set_force_fused_1x1("on")
+            try:
+                fake.clear()
+                trainer = Trainer(
+                    build_model("deeplabv3plus", NUM_CLASSES,
+                                dtype=torch.bfloat16, full_res_output=True),
+                    RepeatFetcher(batch, 2), workdir=os.path.join(tmp, "f"),
+                    lr=1e-3, momentum=0.9, seed=SEED, log=False,
+                    log_dir=os.path.join(tmp, "runs"), qat=True,
+                    device=device)
+                reset_kernel_counts()
+                fm.reset_launch_count()
+                fused_loss = trainer.step()
+                fused_run = {"fused_matmul_bn": fm.launch_count(),
+                             "softmax_ce": ce.launch_count()}
+                fused_names = fake_names(trainer.module)
+                del trainer
+            finally:
+                blocks.set_force_fused_1x1(None)
+            expected = {n for n in qat_names
+                        if not ("_block" in n and n.endswith(
+                            ("conv1", "conv2", "conv3")))}
+            want_fm = 2 * FUSED_PER_STEP                 # two steps
+            if not (np.isfinite(fused_loss)
+                    and fused_run["fused_matmul_bn"] == {
+                        "fwd": want_fm, "bwd_dx": want_fm,
+                        "bwd_dw": want_fm}
+                    and fused_names == expected
+                    and len(fake) == 2 * len(expected)):
+                raise AssertionError(f"QAT with the fused switch: loss "
+                                     f"{fused_loss}, launches {fused_run}, "
+                                     f"{len(fake)} fake quants of "
+                                     f"{sorted(fused_names ^ expected)}")
+            add_launches(launches, fused_run)
+    finally:
+        blocks.ConvNormAct._fake_quant_conv = real_fake
+    log("int8_qat", batch=TRAIN_BATCH, fake_quantized_per_step=qat_per_step,
+        kernel2_on_qat_logits={"loss": loss_value, "loss_err": loss_err,
+                               "grad_err": grad_err, "grad_max": top},
+        fused_switch={"loss": fused_loss, "launches": fused_run,
+                      "fake_quantized_per_step": len(expected)},
+        qat_vs_plain_step=qat_figures["qat"]["ms_per_step_cuda_events"][-1]
+        / qat_figures["plain"]["ms_per_step_cuda_events"][-1],
+        **qat_figures)
+
+    # the command lines: train --qat (its eval int8), then test --int8
+    # --calib-batches 2, inference --int8 --calib and serve --int8 on the
+    # checkpoint it wrote
+    evals = []
+    real_test = train_cli.test
+
+    def recording_test(*args, **kwargs):
+        evals.append(kwargs.get("int8"))
+        return real_test(*args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as work, working_dir(work):
+        reset_kernel_counts()
+        train_cli.test = recording_test
+        try:
+            t0 = time.perf_counter()
+            trainer = train_cli.main([
+                cli_data, "--model", "deeplabv3plus", "--dataset", "coco",
+                "-s", str(IMG), str(IMG), "-bs", str(TRAIN_BATCH), "-a",
+                "1", "-mp", "--num-workers", str(CLI_WORKERS), "--epochs",
+                "1", "--qat"])
+            train_s = time.perf_counter() - t0
+        finally:
+            train_cli.test = real_test
+        val_json = os.path.join(cli_data, "val.json")
+        t0 = time.perf_counter()
+        miou = test_cli.main([val_json, "--model", "deeplabv3plus",
+                              "--weights", "weights/last.pt", "-s", str(IMG),
+                              str(IMG), "-bs", str(EVAL_BATCH),
+                              "--num-workers", str(CLI_WORKERS), "--int8",
+                              "--calib-batches", str(INT8_CALIB_BATCHES)])
+        test_s = time.perf_counter() - t0
+        os.makedirs("imgs")
+        for info in json.load(open(val_json))["images"][:INT8_VAL_IMAGES]:
+            os.symlink(os.path.join(cli_data, info["file_name"]),
+                       os.path.join("imgs", info["file_name"]))
+        t0 = time.perf_counter()
+        written = infer_cli.main(["imgs", "out", "--weights",
+                                  "weights/last.pt", "-s", str(IMG), str(IMG),
+                                  "-nc", str(CLI_CATEGORIES + 1), "-bs",
+                                  str(INT8_VAL_IMAGES), "--int8", "--calib"])
+        infer_s = time.perf_counter() - t0
+        server = serve_cli.build_server(serve_cli.parse_args(
+            ["--weights", "weights/last.pt", "-nc", str(CLI_CATEGORIES + 1),
+             "--int8"]), device)
+        served = server._run_batch(batches[0])
+        cli = kernel_counts()
+        with open("runs/log.jsonl") as f:
+            records = [json.loads(line) for line in f]
+    steps = CLI_TRAIN // TRAIN_BATCH
+    evals_run = 2 * -(-CLI_VAL // EVAL_BATCH)   # the epoch's eval and test
+    want = {"upsample_argmax": 2 + 1,           # two pictures, one batch
+            "softmax_ce": {"fwd": steps + evals_run, "bwd": steps},
+            "banded_resample": 2 * steps, "eval_confusion": evals_run}
+    epoch = [r for r in records if "steps" in r]
+    if not (cli == want and trainer.qat and evals == [True]
+            and trainer.state.step == steps and len(epoch) == 1
+            and np.isfinite(epoch[0]["loss"]) and 0.0 <= miou <= 1.0
+            and len(written) == INT8_VAL_IMAGES
+            and served.shape == (BATCH, IMG, IMG)):
+        raise AssertionError(f"int8 command lines: launches {cli} (want "
+                             f"{want}), evals {evals}, step "
+                             f"{trainer.state.step}, epochs {epoch}, test "
+                             f"mIoU {miou}, {len(written)} masks")
+    add_launches(launches, cli)
+    log("int8_cli", train_qat_s=train_s, loss=epoch[0]["loss"],
+        ms_per_step_cli=1e3 * epoch[0]["seconds"] / steps,
+        test_int8_calib_miou=miou, test_s=test_s, inference_s=infer_s,
+        launches=cli)
+    launches["cmajor_matmul"] = cm.launch_count()
+    log("int8", seconds=time.perf_counter() - t_phase, launches=launches)
     return launches
 
 
@@ -4307,6 +4865,10 @@ def main():
                         help="after the builds, run only the nonsquare "
                              "phase (on a synthetic set of its own) and "
                              "stop: no kernels line, no last line")
+    parser.add_argument("--int8", action="store_true",
+                        help="after the builds, run only the int8 phase "
+                             "(on a synthetic set of its own) and stop: no "
+                             "kernels line, no last line")
     args = parser.parse_args()
     device = require_cuda()
     smi = subprocess.run(
@@ -4354,17 +4916,19 @@ def main():
         only_families(args.families)
         families_phase(device)
         return
-    if args.losses or args.nonsquare:
+    if args.losses or args.nonsquare or args.int8:
         with tempfile.TemporaryDirectory() as tmp:
             cli_data = make_synthetic_coco(
                 os.path.join(tmp, "coco"), CLI_TRAIN, CLI_VAL, CLI_WH,
                 seed=SEED, num_classes=CLI_CATEGORIES)
+            dataset = MemoryDataset(4 * TRAIN_BATCH,
+                                    np.random.default_rng(SEED + 6))
             if args.losses:
-                losses_phase(device, MemoryDataset(
-                    4 * TRAIN_BATCH, np.random.default_rng(SEED + 6)),
-                    cli_data)
-            else:
+                losses_phase(device, dataset, cli_data)
+            elif args.nonsquare:
                 nonsquare_phase(device, cli_data, profile=args.profile)
+            else:
+                int8_phase(device, dataset, cli_data)
         return
     jpeg_phase()
 
@@ -4451,6 +5015,8 @@ def main():
                                        os.path.join(cli_tmp, "coco"))
         nonsquare_launches, nonsquare_cases = nonsquare_phase(
             device, os.path.join(cli_tmp, "coco"))
+        int8_launches = int8_phase(device, dataset,
+                                   os.path.join(cli_tmp, "coco"))
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
     family_launches, family_by_model, family_cases, family_fused = (
@@ -4490,6 +5056,7 @@ def main():
          "cli_launches": cli_launches["upsample_argmax"],
          "losses_launches": losses_launches["upsample_argmax"],
          "nonsquare_launches": nonsquare_launches["upsample_argmax"],
+         "int8_launches": int8_launches["upsample_argmax"],
          "nonsquare": nonsquare_cases["upsample_argmax"],
          "families_launches": family_launches["upsample_argmax"],
          "families_launches_by_model": by_model("upsample_argmax"),
@@ -4508,6 +5075,7 @@ def main():
          "cli_launches": cli_launches["softmax_ce"]["fwd"],
          "losses_launches": losses_launches["softmax_ce"]["fwd"],
          "nonsquare_launches": nonsquare_launches["softmax_ce"]["fwd"],
+         "int8_launches": int8_launches["softmax_ce"]["fwd"],
          "nonsquare": nonsquare_cases["softmax_ce"]["fwd"],
          "families_launches": family_launches["softmax_ce"]["fwd"],
          "families_launches_by_model": by_model("softmax_ce", "fwd"),
@@ -4526,6 +5094,7 @@ def main():
          "cli_launches": cli_launches["softmax_ce"]["bwd"],
          "losses_launches": losses_launches["softmax_ce"]["bwd"],
          "nonsquare_launches": nonsquare_launches["softmax_ce"]["bwd"],
+         "int8_launches": int8_launches["softmax_ce"]["bwd"],
          "nonsquare": nonsquare_cases["softmax_ce"]["bwd"],
          "families_launches": family_launches["softmax_ce"]["bwd"],
          "families_launches_by_model": by_model("softmax_ce", "bwd"),
@@ -4546,6 +5115,7 @@ def main():
          "cli_launches": cli_launches["banded_resample"],
          "losses_launches": losses_launches["banded_resample"],
          "nonsquare_launches": nonsquare_launches["banded_resample"],
+         "int8_launches": int8_launches["banded_resample"],
          "families_launches": family_launches["banded_resample"],
          "families_launches_by_model": by_model("banded_resample"),
          **resample_path},
@@ -4566,6 +5136,7 @@ def main():
          "cli_launches": cli_launches["eval_confusion"],
          "losses_launches": losses_launches["eval_confusion"],
          "nonsquare_launches": nonsquare_launches["eval_confusion"],
+         "int8_launches": int8_launches["eval_confusion"],
          "nonsquare": nonsquare_cases["eval_confusion"],
          "families_launches": family_launches["eval_confusion"],
          "families_launches_by_model": by_model("eval_confusion"),
@@ -4579,6 +5150,7 @@ def main():
                    "through the prologue in shared memory",
          "launches": fused_launches["fwd"],
          "nonsquare_launches": nonsquare_launches["fused_matmul_bn"]["fwd"],
+         "int8_launches": int8_launches["fused_matmul_bn"]["fwd"],
          "families_launches": family_launches["fused_matmul_bn"]["fwd"],
          "families_launches_by_model": by_model("fused_matmul_bn", "fwd"),
          "families_shapes": len(family_fused), **fused_path["fwd"]},
@@ -4589,6 +5161,7 @@ def main():
          "launches": fused_launches["bwd_dx"],
          "nonsquare_launches":
              nonsquare_launches["fused_matmul_bn"]["bwd_dx"],
+         "int8_launches": int8_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dx"),
          "families_shapes": len(family_fused), **fused_path["bwd_dx"]},
@@ -4600,6 +5173,7 @@ def main():
          "launches": fused_launches["bwd_dw"],
          "nonsquare_launches":
              nonsquare_launches["fused_matmul_bn"]["bwd_dw"],
+         "int8_launches": int8_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dw"),
          "families_shapes": len(family_fused), **fused_path["bwd_dw"]},
@@ -4610,6 +5184,7 @@ def main():
                    "co <= 64, f32 epilogue of 16-byte stores",
          "launches": cmajor_launches,
          "nonsquare_launches": nonsquare_launches["cmajor_matmul"],
+         "int8_launches": int8_launches["cmajor_matmul"],
          **cmajor_path}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -81,14 +81,18 @@ def test(model: torch.nn.Module, fetcher, show_first_batch: bool = True,
     width as a fraction of the image diagonal, official default 0.02),
     printed as a mean and per class in the report.
 
-    Not ported yet: `mesh` (ROADMAP: parallel/), `int8` and `quant_stats`
-    (ROADMAP: quant.py)."""
+    int8=True evaluates the int8 forward (quant.py), the mIoU a quantized
+    serving deployment gets: dynamic activation scales, or the calibrated
+    ones when `quant_stats` (from quant.calibrate, which implies int8) is
+    passed. The first batch's picture stays the plain forward's, as in the
+    JAX package.
+
+    Not ported yet: `mesh` (ROADMAP: parallel/)."""
     if mesh is not None:
         raise NotImplementedError("multi-card evaluation is not ported yet "
                                   "(ROADMAP: parallel/)")
-    if int8 or quant_stats is not None:
-        raise NotImplementedError("int8 evaluation is not ported yet "
-                                  "(ROADMAP: quant.py)")
+    if quant_stats is not None:
+        int8 = True
     device = require_cuda() if device is None else torch.device(device)
     at = next(model.parameters()).device
     if (at.type, at.index or 0) != (device.type, device.index or 0):
@@ -104,7 +108,8 @@ def test(model: torch.nn.Module, fetcher, show_first_batch: bool = True,
         module = copy.copy(module)
         module.full_res_output = False
     eval_step = make_eval_step(num_classes, align_corners=align,
-                               tta_flip=tta_flip, tta_scales=tta_scales,
+                               quant=int8, tta_flip=tta_flip,
+                               tta_scales=tta_scales,
                                ignore_index=ignore_index, tile=tile,
                                tile_overlap=tile_overlap,
                                boundary_ratio=boundary_ratio)
@@ -128,7 +133,7 @@ def test(model: torch.nn.Module, fetcher, show_first_batch: bool = True,
     for n_batches, (images, segs, valid) in enumerate(fetcher, start=1):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         segs = torch.as_tensor(segs).to(device, non_blocking=True)
-        res = eval_step(module, images, segs, valid)
+        res = eval_step(module, images, segs, valid, quant_stats)
         if n_batches == 1 and show_first_batch:
             # predictions are needed only for the first batch's picture;
             # computed separately on <= 8 samples

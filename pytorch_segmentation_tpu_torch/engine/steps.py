@@ -41,6 +41,7 @@ from ..ops.loss import compute_loss
 from ..ops.metrics import sample_valid_mask
 from ..ops.resize import resize_bilinear
 from ..ops.tta import normalize_tta_scales, tta_logits
+from ..quant import quant_mode, quantized_forward
 
 __all__ = ["TrainState", "create_train_state", "distill_loss",
            "make_train_step",
@@ -140,11 +141,13 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
     runs under `torch.no_grad()` on the step's images; the term applies to
     the main head's logits only, never to an aux head's.
 
-    Not ported yet: `qat` (ROADMAP: quant.py) and the MoE load-balance
-    losses (ROADMAP: parallel/ and nn/moe.py)."""
-    if qat:
-        raise NotImplementedError("quantization-aware training is not ported "
-                                  "yet (ROADMAP: quant.py)")
+    qat=True runs the forward in "qat" mode (quant.py): every eligible
+    ConvNormAct convolves straight-through fake-quantized operands, so the
+    loss sees the int8 serving path's rounding while the gradients pass it
+    unchanged.
+
+    Not ported yet: the MoE load-balance losses (ROADMAP: parallel/ and
+    nn/moe.py)."""
     distill = distill_fn is not None and distill_weight > 0
     distill_weight = float(distill_weight)
     accumulate = max(1, int(accumulate))
@@ -173,7 +176,8 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
         model = state.model
         model.train()
         params = _trainable(model)
-        logits = model(images.permute(0, 3, 1, 2))
+        with quant_mode("qat" if qat else None):
+            logits = model(images.permute(0, 3, 1, 2))
         if isinstance(logits, dict):
             if distill:
                 raise ValueError("distillation needs per-pixel logits; this "
@@ -288,11 +292,9 @@ def make_eval_step(num_classes: int, align_corners: bool = True,
     Boundary IoU intersection and union sums (ops/boundary.py), six values
     in all. Each of the three forces the plain tail.
 
-    Not ported yet: `quant` and a `quant_stats` argument of the step
-    (ROADMAP: quant.py)."""
-    if quant:
-        raise NotImplementedError("int8 evaluation is not ported yet "
-                                  "(ROADMAP: quant.py)")
+    quant=True evaluates the int8 forward (quant.py): dynamic activation
+    scales, or the calibrated ones that the step's fifth argument
+    `quant_stats` (from quant.calibrate) brings."""
     tta_scales = normalize_tta_scales(tta_scales)
     if tile is not None:
         tile = (int(tile[0]), int(tile[1]))
@@ -302,11 +304,10 @@ def make_eval_step(num_classes: int, align_corners: bool = True,
     @torch.inference_mode()
     def step(model: torch.nn.Module, images: torch.Tensor,
              segs: torch.Tensor, valid, quant_stats=None):
-        if quant_stats is not None:
-            raise NotImplementedError("calibrated int8 evaluation is not "
-                                      "ported yet (ROADMAP: quant.py)")
         require_eval_mode(model.modules(), "the eval step")
         fwd = nhwc_forward(model)
+        if quant:
+            fwd = quantized_forward(fwd, model, quant_stats)
 
         def averaged(x):
             return tta_logits(fwd, x, scales=tta_scales, flip=tta_flip,

@@ -9,7 +9,8 @@ The model is an `nn.Module` with f32 parameters whose compute dtype is its
 own (`dtype=torch.bfloat16` for mixed precision); bf16 needs no loss scaling.
 Checkpoints are the port's `.pt` files (engine/checkpoint.py).
 
-Not ported yet: `mesh` and `zero` (ROADMAP: parallel/) and `qat`.
+`qat=True` trains quantization-aware (the forward in quant.py's "qat"
+mode). Not ported yet: `mesh` and `zero` (ROADMAP: parallel/).
 """
 
 from __future__ import annotations
@@ -136,7 +137,7 @@ def make_optimizer(params, lr: float = 1e-3, adam: bool = False,
                           weight_decay=weight_decay, clip_grad=clip_grad)
 
 
-_UNPORTED = {"mesh": "parallel/", "zero": "parallel/", "qat": "quant.py"}
+_UNPORTED = {"mesh": "parallel/", "zero": "parallel/"}
 
 
 class Trainer:
@@ -171,6 +172,10 @@ class Trainer:
     `full_res_output=False` too (`distill_loss` resizes a teacher grid that
     differs).
 
+    `qat=True`: quantization-aware training (`make_train_step(qat=True)`),
+    straight-through fake quant of every eligible conv, so that the int8
+    serving path's rounding costs little accuracy.
+
     `mixed_precision` is taken as the JAX Trainer takes it, so that the
     train CLI's call works, and ignored: the model's `dtype` decides the
     compute dtype, as in the JAX package.
@@ -188,7 +193,7 @@ class Trainer:
                  ema_decay: float = 0.0, mixed_precision: bool = False,
                  aux_weight: float = 0.4, distill_fn: Callable | None = None,
                  distill_weight: float = 0.0, distill_temp: float = 2.0,
-                 device=None, **unported):
+                 qat: bool = False, device=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Trainer got an unknown option {name!r}")
@@ -208,6 +213,7 @@ class Trainer:
         self.log_dir = log_dir
         self.profile = profile
         self.ema_decay = float(ema_decay)
+        self.qat = bool(qat)
 
         if weights:
             # warm start tolerates modules the checkpoint lacks (they keep
@@ -266,6 +272,7 @@ class Trainer:
                     self.state.ema_params[name].copy_(value)
         self._train_step = make_train_step(loss_fn=loss_fn,
                                            accumulate=self.accumulate,
+                                           qat=self.qat,
                                            ema_decay=self.ema_decay,
                                            aux_weight=aux_weight,
                                            distill_fn=distill_fn,

@@ -29,6 +29,10 @@ ocrnet: w18, w32, w48; segnext: tiny, t, s, b; segformer: b0..b5, tiny,
 tiny-d4; segmenter: pico, b16, l16; maskformer: r50, tiny; upernet: r50,
 r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*); `--scan-blocks`
 segformer's stacked block stages (another family exits with status 2).
+`--int8` runs every eligible convolution on the exact int8 product with
+dynamic activation scales (`quant.py`); `--int8 --calib` calibrates the
+scales on the first batch and runs the calibrated program over the whole
+directory.
 """
 
 from __future__ import annotations
@@ -53,15 +57,14 @@ from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
 from .ops.kernels.upsample_argmax import fused_upsample_argmax
 from .ops.resize import resize_bilinear
 from .ops.tta import normalize_tta_scales, tta_logits
+from .quant import calibrate_from_u8, quantized_forward
 from .utils.cli import refuse_unported
 from .utils.imgcodecs import imread
 from .utils.png import encode_png
 
-__all__ = ["make_infer_fn", "inference", "make_mask_fn", "make_tiled_mask_fn",
-           "sum_tile_logits", "run", "build_parser", "parse_args", "main"]
-
-_NOT_PORTED_INT8 = ("int8 inference is not ported yet (ROADMAP queue 1 item "
-                    "9, quant.py)")
+__all__ = ["make_infer_fn", "inference", "make_mask_fn", "build_mask_fn",
+           "make_tiled_mask_fn", "sum_tile_logits", "run", "build_parser",
+           "parse_args", "main"]
 
 
 def _serving_input(model, legacy_preproc: bool):
@@ -89,12 +92,14 @@ def make_infer_fn(model: torch.nn.Module, legacy_preproc: bool = False,
     Returns fn(images_u8 [B, H, W, 3] RGB, numpy or tensor) -> f32 softmax
     probabilities [B, h, w, C] on the model's device, of the logits that
     `tta_logits` averages (tta_flip / tta_scales as in `make_mask_fn`).
-    int8 and quant_stats are not ported yet (ROADMAP: quant.py)."""
-    if int8 or quant_stats is not None:
-        raise NotImplementedError(_NOT_PORTED_INT8)
+    int8=True runs every eligible conv on the exact int8 product (quant.py)
+    with dynamic activation scales, or calibrated ones when `quant_stats`
+    (from quant.calibrate / calibrate_from_u8) is passed."""
     prepare = _serving_input(model, legacy_preproc)
     tta_scales = normalize_tta_scales(tta_scales)
     fwd = nhwc_forward(model)
+    if int8 or quant_stats is not None:
+        fwd = quantized_forward(fwd, model, quant_stats)
     modules = tuple(model.modules())
 
     @torch.inference_mode()
@@ -112,13 +117,19 @@ def inference(model: torch.nn.Module, imgs, img_size=(64, 64),
               tta_scales=()):
     """imgs: a list of BGR uint8 [H, W, 3] arrays (as cv2.imread gives
     them). Returns a list of int64 [H, W] argmax masks, one per image at
-    its own size. img_size is (W, H). int8 / calib / quant_stats are not
-    ported yet (ROADMAP: quant.py)."""
-    if int8 or calib or quant_stats is not None:
-        raise NotImplementedError(_NOT_PORTED_INT8)
+    its own size. img_size is (W, H).
+
+    int8=True: the quantized forward with dynamic activation scales;
+    calib=True also calibrates the scales on THIS batch first. To calibrate
+    once and reuse the scales across calls, pass `quant_stats` from
+    quant.calibrate_from_u8 instead (the CLI's --calib does that with the
+    first batch)."""
     batch = np.stack([resize_u8(img, tuple(img_size), "linear")[:, :, ::-1]
                       for img in imgs])
-    probs = make_infer_fn(model, legacy_preproc, tta_flip=tta_flip,
+    if int8 and calib and quant_stats is None:
+        quant_stats = calibrate_from_u8(model, batch, legacy_preproc)
+    probs = make_infer_fn(model, legacy_preproc, int8=int8,
+                          quant_stats=quant_stats, tta_flip=tta_flip,
                           tta_scales=tta_scales)(batch)
     with torch.inference_mode():
         return [torch.argmax(resize_probs(p, img.shape[:2]), dim=-1)
@@ -140,15 +151,27 @@ def make_mask_fn(model: torch.nn.Module, out_hw=None,
     if mesh is not None:
         raise NotImplementedError("multi-card serving is not ported yet "
                                   "(ROADMAP: parallel/)")
+    return build_mask_fn(model, out_hw, legacy_preproc, "make_mask_fn",
+                         tta_flip=tta_flip, tta_scales=tta_scales)
+
+
+def build_mask_fn(model: torch.nn.Module, out_hw, legacy_preproc: bool,
+                  what: str, quant: bool = False, quant_stats=None,
+                  tta_flip: bool = False, tta_scales=()):
+    """The body of `make_mask_fn` and `quant.make_quant_mask_fn` (`what`
+    names the caller in the eval-mode error): with quant=True the forward
+    runs in "int8" mode with `quant_stats`, or "int8dyn" without."""
     prepare = _serving_input(model, legacy_preproc)
     align = getattr(model, "up_align_corners", True)
     tta_scales = normalize_tta_scales(tta_scales)
     fwd = nhwc_forward(model)
+    if quant:
+        fwd = quantized_forward(fwd, model, quant_stats)
     modules = tuple(model.modules())  # each call checks their flags
 
     @torch.inference_mode()
     def fn(images_u8):
-        require_eval_mode(modules, "make_mask_fn")
+        require_eval_mode(modules, what)
         x = prepare(images_u8)
         hw = (tuple(int(s) for s in out_hw) if out_hw is not None
               else (x.shape[1], x.shape[2]))
@@ -237,11 +260,15 @@ def _write_mask(path: str, segmap) -> None:
 
 def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
         legacy_preproc=False, batch_size=8, ema=False, tta=False, tile=None,
-        tta_scales=(), variant="", scan_blocks=False, device=None):
+        tta_scales=(), variant="", scan_blocks=False, int8=False,
+        calib=False, device=None):
     """The root inference CLI's `run` on `device` (None: the card): every
     image of `img_dir` whose suffix is in IMG_EXT (PNG and JPEG are read;
-    another format raises) -> `<output_dir>/<name>.png`. Returns the masks
-    by name."""
+    another format raises) -> `<output_dir>/<name>.png`. int8=True takes
+    the quantized forward; with calib=True its activation scales are
+    calibrated once on the first batch and kept for the whole directory.
+    As in the root CLI, `tile` takes the unquantized sliding-window path
+    whatever `int8` says. Returns the masks by name."""
     from .utils.runtime import require_cuda
     device = require_cuda() if device is None else torch.device(device)
     shutil.rmtree(output_dir, ignore_errors=True)
@@ -263,12 +290,20 @@ def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
             img = imread(osp.join(img_dir, name))
             masks[name] = tiled(img[None, :, :, ::-1])[0].cpu().numpy()
     else:
+        quant_stats = None
+        if int8 and calib and names:
+            # calibrate once on the first batch, reuse for the whole run
+            first = np.stack([resize_u8(imread(osp.join(img_dir, n)),
+                                        tuple(img_size), "linear")[:, :, ::-1]
+                              for n in names[:batch_size]])
+            quant_stats = calibrate_from_u8(model, first, legacy_preproc)
         for start in range(0, len(names), batch_size):
             chunk = names[start:start + batch_size]
             imgs = [imread(osp.join(img_dir, n)) for n in chunk]
             masks.update(zip(chunk, inference(
                 model, imgs, img_size, legacy_preproc=legacy_preproc,
-                tta_flip=tta, tta_scales=tta_scales)))
+                int8=int8, quant_stats=quant_stats, tta_flip=tta,
+                tta_scales=tta_scales)))
     for name, segmap in masks.items():
         _write_mask(osp.join(output_dir, osp.splitext(name)[0] + ".png"),
                     segmap)
@@ -277,8 +312,7 @@ def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
 
 # flags of the root CLI whose machinery is not ported: name -> (default,
 # ROADMAP queue 1 item)
-UNPORTED = {"show": (False, 11), "int8": (False, 9), "calib": (False, 9),
-            "moe": (0, 10)}
+UNPORTED = {"show": (False, 11), "moe": (0, 10)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -297,8 +331,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="divide by 255 instead of the training "
                              "normalization")
     parser.add_argument("--show", action="store_true")
-    parser.add_argument("--int8", action="store_true")
-    parser.add_argument("--calib", action="store_true")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 forward (dynamic activation scales)")
+    parser.add_argument("--calib", action="store_true",
+                        help="with --int8: calibrate the activation scales "
+                             "on the first batch and keep them")
     parser.add_argument("--ema", action="store_true",
                         help="the EMA-averaged weights stored by train --ema")
     parser.add_argument("--tta", action="store_true",
@@ -331,7 +368,8 @@ def main(argv=None, device=None):
                opt.weights, opt.model, opt.legacy_preproc, opt.batch_size,
                ema=opt.ema, tta=opt.tta, tile=opt.tile,
                tta_scales=tuple(opt.tta_scales), variant=opt.variant,
-               scan_blocks=opt.scan_blocks, device=device)
+               scan_blocks=opt.scan_blocks, int8=opt.int8, calib=opt.calib,
+               device=device)
 
 
 if __name__ == "__main__":

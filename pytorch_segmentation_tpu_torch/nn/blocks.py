@@ -18,9 +18,16 @@ per-channel scale (DANet's residual gates, SegNeXt's layer scales) and
 `raw_conv` a biased convolution of any (kh, kw) kernel with symmetric
 k // 2 padding (SegNeXt's strip convolutions).
 
-Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The int8,
-quantization-aware and dot-1x1 branches of the JAX module are not ported
-yet.
+Padding is symmetric, dilation*(k-1)//2, as in the JAX package. The JAX
+module's dot-1x1 switch (`set_conv1x1_dot`) is not ported.
+
+int8 quantization (`quant.py`; `set_quant_mode`): a ConvNormAct with
+groups == 1 records its input's abs-max ("calib"), runs its convolution as
+an exact int8 product with an f32 rescale ("int8", "int8dyn", eval mode
+only) or on straight-through fake-quantized operands ("qat", train mode
+only). The mode belongs to the calling thread, so a quantized forward on
+one thread leaves a bf16 forward on another alone. The folded path stays
+unquantized, as the JAX package's `ConvStatsFolded` does.
 
 The folded path (opt-in, `set_force_fused_1x1("on")`; the JAX package's
 `BatchNormFolded` and `ConvStatsFolded`) lives on the same modules and the
@@ -32,19 +39,24 @@ between the two paths on the same weights.
 
 from __future__ import annotations
 
+import threading
 from collections.abc import Callable
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.int8 import int8_conv2d
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
 
 __all__ = ["BatchNorm2d", "ConvNormAct", "GroupNorm", "LayerNorm", "Linear",
            "Scale", "SeparableConvNormAct", "conv2d", "nhwc_conv",
            "raw_conv", "BN_MOMENTUM",
            "set_force_fused_1x1", "fused_1x1_available",
-           "apply_fold"]
+           "apply_fold", "QUANT_MODES", "set_quant_mode", "get_quant_mode",
+           "get_quant_stats", "set_quant_min_k", "get_quant_min_k",
+           "quantize_symmetric", "int8_operands"]
 
 BN_MOMENTUM = 0.1  # torch convention
 
@@ -69,6 +81,90 @@ def fused_1x1_available() -> bool:
     """Whether ResNet bottlenecks and MobileNetV2 inverted residuals take
     the folded chain. Off by default."""
     return _FORCE_FUSED_1X1 == "on"
+
+
+# int8 quantization mode, per thread:
+#   None      - the plain path
+#   "calib"   - the plain path, each eligible conv's input abs-max recorded
+#               as a running max into the thread's statistics mapping
+#   "int8"    - per-out-channel int8 weights x per-tensor int8 activations
+#               (the scale from the calibrated statistic) -> an exact int32
+#               product -> f32 rescale; BN (running statistics) and the
+#               activation unchanged
+#   "int8dyn" - the same with the live batch's abs-max as the scale
+#   "qat"     - quantization-aware training: straight-through fake quant of
+#               the conv's input and kernel with int8dyn's scales; train
+#               mode only (the three modes above are eval mode only)
+QUANT_MODES = (None, "calib", "int8", "int8dyn", "qat")
+_QUANT = threading.local()
+
+# The int8 gate: only convs whose contraction K = kh*kw*Cin is at least this
+# are quantized (int8, int8dyn, qat); calibration records every eligible
+# conv whatever the gate says. The JAX package's value, process-wide.
+_QUANT_MIN_K = 576
+
+# The scales as the JAX package's compiled program forms them: XLA turns
+# `m / 127.0` into `m * f32(1/127)` and folds s_x * s_w into
+# max_w * (max_x * f32(1/127)^2). With these constants the port's int8 path
+# gives the compiled program's bits (an op-by-op JAX evaluation differs from
+# it by one ulp in places).
+_INV_127 = float(np.float32(1.0 / 127.0))
+_INV_127_SQ = float(np.float32(np.float32(_INV_127) * np.float32(_INV_127)))
+
+
+def set_quant_mode(mode, stats=None) -> None:
+    """Set the calling thread's quantization mode (one of QUANT_MODES) and
+    its statistics: a dict ConvNormAct -> f32 0-d tensor, read in "int8"
+    and written in "calib". Other threads keep theirs."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"quant mode must be one of {QUANT_MODES}, not "
+                         f"{mode!r}")
+    _QUANT.mode = mode
+    _QUANT.stats = stats
+
+
+def get_quant_mode():
+    return getattr(_QUANT, "mode", None)
+
+
+def get_quant_stats():
+    return getattr(_QUANT, "stats", None)
+
+
+def set_quant_min_k(min_k: int) -> None:
+    """Set the int8 gate (process-wide)."""
+    global _QUANT_MIN_K
+    _QUANT_MIN_K = int(min_k)
+
+
+def get_quant_min_k() -> int:
+    return _QUANT_MIN_K
+
+
+def quantize_symmetric(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(v / scale), -127, 127) in f32 (round half to even, as
+    jnp.round); the int8 values the JAX package's quantize gives."""
+    return torch.clamp(torch.round(v / scale), -127.0, 127.0)
+
+
+def _weight_max(w: torch.Tensor) -> torch.Tensor:
+    """Per-out-channel max|w| over (I, H, W) of OIHW, at least 1e-8,
+    [O, 1, 1, 1] f32: 127 times the symmetric weight scale."""
+    return torch.clamp(w.abs().amax(dim=(1, 2, 3)), min=1e-8).view(
+        -1, 1, 1, 1)
+
+
+def int8_operands(x: torch.Tensor, weight: torch.Tensor,
+                  amax: torch.Tensor):
+    """The int8 branch's operands: x [B, Cin, H, W] quantized per tensor
+    with the abs-max `amax` (f32 0-d), the OIHW f32 `weight` per out
+    channel, and the f32 rescale [1, Cout, 1, 1] that turns their int32
+    product into the conv's output."""
+    x_max = torch.clamp(amax, min=1e-6)
+    x_q = quantize_symmetric(x.float(), x_max * _INV_127).to(torch.int8)
+    w_max = _weight_max(weight)
+    w_q = quantize_symmetric(weight, w_max * _INV_127).to(torch.int8)
+    return x_q, w_q, w_max.view(1, -1, 1, 1) * (x_max * _INV_127_SQ)
 
 
 def apply_fold(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -273,10 +369,76 @@ class ConvNormAct(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(conv2d(self.conv, x, self.dtype))
+        mode = self._quant_mode(x)
+        if mode is None:
+            y = conv2d(self.conv, x, self.dtype)
+        elif mode == "qat":
+            y = self._fake_quant_conv(x)
+        else:
+            y = self._int8_conv(x, mode)
+        x = self.bn(y)
         if self.activate is not None:
             x = self.activate(x)
         return x
+
+    def _quant_mode(self, x: torch.Tensor):
+        """The thread's quant mode as it applies to this conv: grouped convs
+        take no part, "qat" applies in train mode and the other modes in
+        eval mode, and the gate turns int8, int8dyn and qat off below
+        `_QUANT_MIN_K`. "calib" records the input's abs-max here and runs
+        the plain conv."""
+        mode = get_quant_mode()
+        if (mode is None or self.conv.groups != 1
+                or (mode == "qat") != self.training):
+            return None
+        if mode == "calib":
+            stats = get_quant_stats()
+            amax = x.detach().abs().amax().float()
+            if self in stats:
+                amax = torch.maximum(stats[self], amax)
+            stats[self] = amax
+            return None
+        k = self.conv.kernel_size[0]
+        if k * k * self.conv.in_channels < _QUANT_MIN_K:
+            return None
+        return mode
+
+    def _int8_conv(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        """The serving branch: int8 activations (per-tensor scale from the
+        calibrated statistic, or the live abs-max) times int8 weights
+        (per-out-channel), an exact int32 product, then one f32 multiply by
+        s_x * s_w and a cast to the compute dtype."""
+        conv = self.conv
+        if mode == "int8":
+            stats = get_quant_stats()
+            if stats is None or self not in stats:
+                raise KeyError("int8 mode needs a calibrated statistic for "
+                               "every quantized ConvNormAct (quant."
+                               "calibrate)")
+            amax = stats[self]
+        else:
+            amax = x.abs().amax().float()
+        x_q, w_q, rescale = int8_operands(x, conv.weight, amax)
+        y = int8_conv2d(x_q, w_q, conv.stride[0], conv.padding[0],
+                        conv.dilation[0])
+        return (y.float() * rescale).to(self.dtype)
+
+    def _fake_quant_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The QAT branch: the conv's input and kernel fake-quantized with
+        int8dyn's scales (detached), the rounding passed straight through
+        (STE: v + (v_dq - v).detach()), and the conv in the compute dtype
+        on the fake-quantized operands."""
+        conv = self.conv
+        xf = x.float()
+        s_x = torch.clamp(xf.detach().abs().amax(), min=1e-6) * _INV_127
+        x_dq = quantize_symmetric(xf, s_x) * s_x
+        xf = xf + (x_dq - xf).detach()
+        kernel = conv.weight
+        s_w = _weight_max(kernel.detach()) * _INV_127
+        w_dq = quantize_symmetric(kernel, s_w) * s_w
+        w = kernel + (w_dq - kernel).detach()
+        return F.conv2d(xf.to(self.dtype), w.to(self.dtype), None,
+                        conv.stride, conv.padding, conv.dilation)
 
     def folded(self, x_raw: torch.Tensor, in_scale: torch.Tensor,
                in_shift: torch.Tensor, act_in: str = "relu"):

@@ -18,9 +18,10 @@ tiny-d4; segmenter: pico, b16, l16; maskformer: r50, tiny; upernet: r50,
 r34, mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*), and `--scan-blocks`
 segformer's stacked block stages (another family exits with status 2),
 which must match the checkpoint. A checkpoint of `train --aux-loss` loads
-without its train-only auxiliary heads. `--int8`, `--moe`, `--moe-top-k`
-and `--dp` (the root CLI's) exit with status 2 and name their ROADMAP
-item.
+without its train-only auxiliary heads. `--int8` serves the int8 forward
+(`quant.py`) with dynamic activation scales: the root CLI passes no
+calibration statistics either. `--moe`, `--moe-top-k` and `--dp` (the root
+CLI's) exit with status 2 and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,8 +40,7 @@ from .utils.cli import refuse_unported
 __all__ = ["UNPORTED", "parse_args", "build_server", "main"]
 
 # name -> (default, ROADMAP queue 1 item)
-UNPORTED = {"int8": (False, 9), "moe": (0, 10), "moe_top_k": (2, 10),
-            "dp": (False, 10)}
+UNPORTED = {"moe": (0, 10), "moe_top_k": (2, 10), "dp": (False, 10)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -69,7 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "requests into one batch")
     parser.add_argument("--legacy-preproc", action="store_true")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ forward (not ported yet)")
+                        help="int8 forward (quant.py), dynamic activation "
+                             "scales")
     parser.add_argument("--ema", action="store_true",
                         help="serve the EMA-averaged weights")
     parser.add_argument("--tta", action="store_true",
@@ -93,7 +94,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_server(opt: argparse.Namespace, device) -> MaskServer:
     """The model the options name, with the checkpoint's weights (its EMA
     parameters with --ema) on `device`, behind a MaskServer with the
-    options' batching, preprocessing and TTA. Not started."""
+    options' batching, preprocessing, int8 forward and TTA. Not
+    started."""
     model = build_model(opt.model, num_classes=opt.num_classes,
                         dtype=torch.bfloat16, full_res_output=False,
                         **apply_scan_blocks(
@@ -103,8 +105,8 @@ def build_server(opt: argparse.Namespace, device) -> MaskServer:
     return MaskServer(model, img_size=tuple(opt.img_size),
                       max_batch=opt.max_batch,
                       batch_window_ms=opt.batch_window_ms,
-                      legacy_preproc=opt.legacy_preproc, tta_flip=opt.tta,
-                      tta_scales=tuple(opt.tta_scales))
+                      legacy_preproc=opt.legacy_preproc, int8=opt.int8,
+                      tta_flip=opt.tta, tta_scales=tuple(opt.tta_scales))
 
 
 def main(argv=None):

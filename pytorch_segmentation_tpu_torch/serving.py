@@ -6,7 +6,9 @@
   coalesce into one device batch. A single dispatcher thread owns the
   device; handler threads wait on a per-request event.
 - The device path is inference.make_mask_fn: normalize -> forward ->
-  fused upsample+argmax.
+  fused upsample+argmax. int8=True (or quant_stats) takes the int8 twin,
+  quant.make_quant_mask_fn; int8 with TTA serves make_infer_fn(int8=True)'s
+  probabilities and takes their argmax on the host.
 - Requests are decoded, resized to the model size, and masks resized back
   and encoded, on the host in numpy and torch, with the port's own codecs:
   a body is read by its signature as cv2.imdecode(..., IMREAD_COLOR) reads
@@ -37,8 +39,9 @@ import numpy as np
 import torch
 
 from .data.colormap import VOC_COLORMAP, colorize_mask
-from .inference import make_mask_fn
+from .inference import make_infer_fn, make_mask_fn
 from .ops.resize import resize_bilinear, resize_nearest
+from .quant import make_quant_mask_fn
 from .utils.imgcodecs import IMREAD_COLOR, imdecode
 from .utils.png import encode_png
 
@@ -72,24 +75,39 @@ class MaskServer:
     model: an eval-mode module on its device
     (engine.checkpoint.load_model_bundle); img_size: (W, H) model input size
     (requests are resized to it, masks resized back to each request's own
-    resolution with nearest interpolation)."""
+    resolution with nearest interpolation). int8=True serves the int8
+    forward (quant.py) with dynamic activation scales, or calibrated ones
+    when `quant_stats` (from quant.calibrate_from_u8) is passed."""
 
     def __init__(self, model, img_size=(513, 513), max_batch: int = 8,
                  batch_window_ms: float = 5.0, legacy_preproc: bool = False,
                  int8: bool = False, quant_stats=None, tta_flip: bool = False,
                  tta_scales=(), colormap=None, mesh=None):
-        if int8 or quant_stats is not None:
-            raise NotImplementedError("int8 serving is not ported yet "
-                                      "(ROADMAP: quant.py)")
         self.img_size = (int(img_size[0]), int(img_size[1]))  # (W, H)
         self.max_batch = max(1, int(max_batch))
         self.batch_window_s = max(0.0, float(batch_window_ms)) / 1e3
         self.colormap = colormap if colormap is not None else VOC_COLORMAP
         hw = (self.img_size[1], self.img_size[0])
-        self._mask_fn = make_mask_fn(model, out_hw=hw,
-                                     legacy_preproc=legacy_preproc,
-                                     tta_flip=tta_flip, tta_scales=tta_scales,
-                                     mesh=mesh)
+        self._probs_fn = None
+        if (int8 or quant_stats is not None) and (tta_flip or tta_scales):
+            # the quantized forward composes with the TTA ensemble in
+            # make_infer_fn, which takes no mesh; the argmax runs on the host
+            if mesh is not None:
+                raise NotImplementedError("multi-card serving is not ported "
+                                          "yet (ROADMAP: parallel/)")
+            self._probs_fn = make_infer_fn(
+                model, legacy_preproc, int8=True, quant_stats=quant_stats,
+                tta_flip=tta_flip, tta_scales=tta_scales)
+            self._mask_fn = None
+        elif int8 or quant_stats is not None:
+            self._mask_fn = make_quant_mask_fn(
+                model, out_hw=hw, legacy_preproc=legacy_preproc,
+                quant_stats=quant_stats, mesh=mesh)
+        else:
+            self._mask_fn = make_mask_fn(model, out_hw=hw,
+                                         legacy_preproc=legacy_preproc,
+                                         tta_flip=tta_flip,
+                                         tta_scales=tta_scales, mesh=mesh)
         self.model_name = type(model).__name__
         self._queue: queue.Queue = queue.Queue()
         self._stop = threading.Event()
@@ -111,7 +129,10 @@ class MaskServer:
         self._run_batch(np.zeros((self.max_batch, h, w, 3), np.uint8))
 
     def _run_batch(self, images_u8):
-        return self._mask_fn(images_u8).cpu().numpy()
+        if self._mask_fn is not None:
+            return self._mask_fn(images_u8).cpu().numpy()
+        probs = self._probs_fn(images_u8).cpu().numpy()
+        return probs.argmax(axis=-1).astype(np.int32)
 
     def _dispatch_loop(self):
         while not self._stop.is_set():

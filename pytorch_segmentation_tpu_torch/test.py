@@ -18,8 +18,10 @@ mit-b0..mit-b5, mit-tiny, cn-*, swin-*, vit-*); `--scan-blocks` builds
 segformer's stacked block stages (a checkpoint of `train --scan-blocks`;
 another family exits with status 2); a checkpoint of `train --aux-loss`
 loads without its train-only auxiliary heads (BiSeNetV2's booster heads
-too). `--int8`, `--calib-batches` and `--moe` exit with status 2 and name
-their ROADMAP item. Runs on the card;
+too). `--int8` evaluates the int8 forward (`quant.py`) with dynamic
+activation scales; `--int8 --calib-batches N` calibrates the scales on the
+first N normalized val batches first and evaluates the calibrated forward.
+`--moe` exits with status 2 and names its ROADMAP item. Runs on the card;
 `run(opt, "cpu")` runs the same on the CPU.
 """
 
@@ -35,6 +37,7 @@ from .engine import test
 from .engine.checkpoint import load_model_bundle
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
                      variant_kwargs)
+from .quant import calibrate
 from .utils.cli import refuse_unported
 from .utils.runtime import require_cuda
 
@@ -45,7 +48,7 @@ DATASETS = {"coco": CocoDataset, "segimg": SegImgDataset,
             "idimg": IdImgDataset}
 
 # name -> (default, ROADMAP queue 1 item)
-UNPORTED = {"int8": (False, 9), "calib_batches": (0, 9), "moe": (0, 10)}
+UNPORTED = {"moe": (0, 10)}
 
 
 def run(opt: argparse.Namespace, device=None) -> float:
@@ -63,7 +66,18 @@ def run(opt: argparse.Namespace, device=None) -> float:
                             opt.model, variant_kwargs(opt.model, opt.variant),
                             opt.scan_blocks))
     model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
-    return test(model, val_fetcher, tta_flip=opt.tta,
+    quant_stats = None
+    if opt.int8 and opt.calib_batches > 0:
+        # the fetcher's batches are normalized already
+        calib = []
+        for i, (images, _, _) in enumerate(val_fetcher):
+            if i >= opt.calib_batches:
+                break
+            calib.append(images)
+        quant_stats = calibrate(model, calib)
+        print(f"calibrated int8 scales on {len(calib)} val batches")
+    return test(model, val_fetcher, int8=opt.int8, quant_stats=quant_stats,
+                tta_flip=opt.tta,
                 tta_scales=opt.tta_scales, report_path=opt.report or None,
                 ignore_index=opt.ignore_index,
                 tile=(opt.tile[1], opt.tile[0]) if opt.tile else None,
@@ -90,8 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--img_size", type=int, nargs=2, default=[320, 320])
     p.add_argument("-bs", "--batch-size", type=int, default=32)
     p.add_argument("--num-workers", type=int, default=4)
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--calib-batches", type=int, default=0)
+    p.add_argument("--int8", action="store_true",
+                   help="evaluate the int8 forward")
+    p.add_argument("--calib-batches", type=int, default=0,
+                   help="with --int8: calibrate the activation scales on "
+                        "this many val batches first; 0: dynamic scales")
     p.add_argument("--ema", action="store_true",
                    help="evaluate the EMA-averaged weights of train --ema")
     p.add_argument("--tta", action="store_true",

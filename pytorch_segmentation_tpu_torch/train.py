@@ -19,6 +19,8 @@ distillation term of a frozen teacher (`--distill-model`,
 validation set is evaluated (`engine.test`), `<log_dir>/log.jsonl` gets the
 val mIoU, and
 `weights/last.pt` (and `weights/best.pt` when the mIoU rose) is written.
+`--qat` trains quantization-aware (`Trainer(qat=True)`, quant.py), and the
+epoch's eval, which picks best.pt, then runs the int8 forward.
 Prints the per-epoch images/s and loss, the eval table and
 `save best, miou: ...`.
 
@@ -86,7 +88,7 @@ AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
 # item). `train()` raises for them; the CLI exits with status 2.
 UNPORTED = {
     "remat": (False, 5), "bn_subsample": (1, 5),
-    "debug_nans": (False, 5), "qat": (False, 9),
+    "debug_nans": (False, 5),
     "tp": (1, 10), "pp": (1, 10), "ep": (1, 10), "spatial": (1, 10),
     "zero": (False, 10), "moe": (0, 10),
 }
@@ -222,7 +224,7 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
                       // max(1, accumulate),
                       ema_decay=ema, aux_weight=aux_loss,
                       distill_fn=distill_fn, distill_weight=distill_weight,
-                      distill_temp=distill_temp, device=device)
+                      distill_temp=distill_temp, qat=qat, device=device)
     if precompile:
         sizes = multi_scale_sizes((h, w)) if multi_scale else [(h, w)]
         trainer.warmup(sizes, batch_size)
@@ -231,9 +233,11 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
         trainer.step()
         best = False
         if not notest:
-            # under --ema the deployment weights are the averaged ones
+            # under --qat the deployment target is the int8 forward, so the
+            # eval (and the choice of best.pt) runs it; under --ema the
+            # deployment weights are the averaged ones
             eval_model = trainer.ema_model if ema > 0 else trainer.model
-            metrics = test(eval_model, val_fetcher,
+            metrics = test(eval_model, val_fetcher, int8=qat,
                            ignore_index=ignore_index, device=device)
             trainer.log_record(epoch=trainer.epoch - 1, val_miou=metrics)
             if metrics > trainer.metrics:
@@ -298,7 +302,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nans", action="store_true")
     p.add_argument("--precompile", action="store_true",
                    help="one step per input size before the first epoch")
-    p.add_argument("--qat", action="store_true")
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware training: fake-quant every "
+                        "int8-eligible conv (STE); the epoch's eval runs "
+                        "the int8 forward")
     p.add_argument("--cache-images", action="store_true")
     p.add_argument("--matcher", type=str, default="sinkhorn",
                    choices=["sinkhorn", "hungarian"])

@@ -30,7 +30,11 @@ leaf's rank and its siblings where a name is not enough:
 leaf (it has no Dense or LayerNorm leaves and no lone `scale`; tests hold
 the two equal there, and the inverse against the JAX `convert_named`
 elsewhere), written without jax so that a GPU host without jax can run it;
-`jax_trees_from_state_dict` is its inverse. `load_state` reads the `.pt`
+`jax_trees_from_state_dict` is its inverse. `quant_stats_from_jax` and
+`quant_stats_to_jax` carry the JAX package's int8 calibration collection
+(`quant_stats`: one `in_absmax` scalar under each ConvNormAct's path) to the
+port's mapping from that ConvNormAct's qualified name, which is the same
+path, and back. `load_state` reads the `.pt`
 files whose `'model'` entry is a state_dict: those that
 `save_torch_checkpoint` (and `port_weights.py --reverse`) write, and the
 port's own trainer checkpoints.
@@ -41,8 +45,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["BARE_PARAMS", "SCALE_INITS", "state_dict_from_jax", "jax_trees_from_state_dict",
-           "load_state", "seeded_state_dict"]
+__all__ = ["BARE_PARAMS", "SCALE_INITS", "state_dict_from_jax",
+           "jax_trees_from_state_dict", "quant_stats_from_jax",
+           "quant_stats_to_jax", "load_state", "seeded_state_dict"]
 
 # parameters that are neither a kernel, a bias nor a norm's scale: carried
 # verbatim under their own names
@@ -173,6 +178,37 @@ def jax_trees_from_state_dict(sd: dict) -> tuple[dict, dict]:
         if found is not None:
             put(found[0], parts, found[1], found[2])
     return params, batch_stats
+
+
+def quant_stats_from_jax(tree: dict) -> dict:
+    """The JAX package's nested `quant_stats` collection -> the port's
+    {ConvNormAct qualified name: f32 0-d tensor} ({} for an empty one)."""
+    out: dict = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, path)
+            elif k == "in_absmax":
+                out[prefix] = torch.tensor(np.asarray(v, np.float32))
+            else:
+                raise ValueError(f"unmapped quant_stats leaf {path!r}")
+
+    walk(tree, "")
+    return out
+
+
+def quant_stats_to_jax(stats: dict) -> dict:
+    """The inverse of `quant_stats_from_jax`: nested numpy f32 scalars."""
+    tree: dict = {}
+    for name, value in stats.items():
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node["in_absmax"] = np.asarray(torch.as_tensor(value).detach().cpu()
+                                       .float().numpy(), np.float32)
+    return tree
 
 
 def load_state(path: str) -> dict:

@@ -87,7 +87,7 @@ def test_cli_has_the_root_flags_and_defaults(filename):
 
 # a value away from the default, for each unported option that takes one
 _VALUES = {"bn_subsample": "2", "tp": "2", "pp": "2", "ep": "2",
-           "spatial": "2", "moe": "4", "calib_batches": "2"}
+           "spatial": "2", "moe": "4"}
 _POSITIONAL = {"train.py": ["data", "--model", "deeplabv3plus"],
                "test.py": ["val.json"], "inference.py": ["in", "out"]}
 _REFUSED = [(f, n) for f in sorted(CLIS) for n in CLIS[f].UNPORTED]
@@ -205,10 +205,10 @@ def test_train_main_passes_every_train_keyword():
             continue  # data=opt.data, model=opt.model, the caller's device
         assert f"{p}=opt." in src, p
     assert "data_dir=opt.data" in src and "model_name=opt.model" in src
-    with pytest.raises(NotImplementedError, match="--qat is not ported"):
+    with pytest.raises(NotImplementedError, match="--remat is not ported"):
         ttrain.train("d", "deeplabv3plus", 1, (64, 64), 2, 1, 1e-3, False,
                      False, "", 1, False, False, False, False, False,
-                     qat=True, device="cpu")
+                     remat=True, device="cpu")
 
 
 class _JaxConv(fnn.Module):
@@ -253,8 +253,12 @@ def test_inference_matches_jax(legacy_preproc, tta):
         clear = ranked[..., 0] - ranked[..., 1] > GAP
         assert clear.mean() > 0.9
         assert np.array_equal(g[clear], w[clear])
-    with pytest.raises(NotImplementedError, match="quant.py"):
-        tinference.inference(twin, imgs, size_wh, int8=True)
+    # int8 is ported: a model without an eligible conv infers as before
+    for kw in (dict(int8=True), dict(int8=True, calib=True)):
+        int8 = tinference.inference(twin, imgs, size_wh,
+                                    legacy_preproc=legacy_preproc,
+                                    tta_flip=tta, **kw)
+        assert all(np.array_equal(a, b) for a, b in zip(int8, got))
 
 
 class _Tiny(torch.nn.Module):
@@ -400,3 +404,86 @@ def test_cli_train_resume_test_inference_on_the_cpu(tmp_path, monkeypatch,
         assert np.array_equal(mask, w)
         written = imread(osp.join("out", osp.splitext(name)[0] + ".png"))
         assert np.array_equal(written, colorize_mask(mask))
+
+
+@pytest.mark.parametrize("cli", ["serve-int8", "test-int8-calib",
+                                 "inference-int8-calib", "train-qat"])
+def test_int8_and_qat_flags_run_on_the_cpu(cli, tmp_path, monkeypatch,
+                                           capsys):
+    """Each command line's int8 / QAT flag on a shallow DeepLabV3+ at -s 64
+    64 (the default int8 gate, which quantizes the ResNet's deep convs):
+    `serve --int8` builds a server on the int8 mask function; `test --int8
+    --calib-batches 2` calibrates on the val set's one batch and prints
+    the mIoU that engine.test gives with those scales; `inference --int8
+    --calib` writes the masks of inference() with the first batch's
+    scales; `train --qat` trains one epoch quantization-aware and picks
+    best.pt on the int8 eval."""
+    from pytorch_segmentation_tpu_torch import quant as tquant
+    from pytorch_segmentation_tpu_torch import serve as tserve
+    from pytorch_segmentation_tpu_torch.utils.weights import (
+        seeded_state_dict)
+    for module in (*CLIS.values(), tserve):
+        monkeypatch.setattr(module, "build_model", _shallow)
+    monkeypatch.chdir(tmp_path)
+    data = str(tmp_path / "coco")
+    make_synthetic_coco(data, num_train=4, num_val=2, img_size=(80, 60),
+                        seed=1, num_classes=3)
+    model = _shallow("deeplabv3plus", 4)
+    torch.save({"model": seeded_state_dict(model, 0)}, "w.pt")
+    model = load_model_bundle(model, "w.pt", "cpu")
+    val_set = CocoDataset(osp.join(data, "val.json"), img_size=(64, 64),
+                          augments=False)
+
+    def fetcher():
+        return Fetcher(DataLoader(val_set, 2), PostFetch(device="cpu"))
+
+    if cli == "serve-int8":
+        opt = tserve.parse_args(["--weights", "w.pt", "-s", "64", "64",
+                                 "-nc", "4", "--max-batch", "2", "--int8"])
+        server = tserve.build_server(opt, "cpu")
+        batch = np.stack([resize_u8(imread(osp.join(data, f"val_000{i}.jpg")),
+                                    (64, 64), "linear")[:, :, ::-1]
+                          for i in range(2)])
+        served = load_model_bundle(_shallow(
+            "deeplabv3plus", 4, dtype=torch.bfloat16, full_res_output=False),
+            "w.pt", "cpu")                       # as build_server makes it
+        want = tquant.make_quant_mask_fn(served)(batch).numpy()
+        assert np.array_equal(server._run_batch(batch), want)
+        plain = tinference.make_mask_fn(served)(batch).numpy()
+        assert not np.array_equal(plain, want)
+    elif cli == "test-int8-calib":
+        miou = ttest.main([osp.join(data, "val.json"), "--weights", "w.pt",
+                           "-s", "64", "64", "-bs", "2", "--num-workers", "1",
+                           "--int8", "--calib-batches", "2"], device="cpu")
+        assert "calibrated int8 scales on 1 val batches" in \
+            capsys.readouterr().out
+        stats = tquant.calibrate(model, [next(iter(fetcher()))[0]])
+        want = engine_test(model, fetcher(), quant_stats=stats,
+                           device="cpu", show_first_batch=False)
+        assert miou == want and 0.0 <= miou <= 1.0
+    elif cli == "inference-int8-calib":
+        os.makedirs("imgs")
+        for name in ("val_0000.jpg", "val_0001.jpg"):
+            os.link(osp.join(data, name), osp.join("imgs", name))
+        masks = tinference.main(["imgs", "out", "-s", "64", "64", "-nc", "4",
+                                 "--weights", "w.pt", "-bs", "1", "--int8",
+                                 "--calib"], device="cpu")
+        imgs = [imread(osp.join("imgs", n)) for n in sorted(masks)]
+        first = resize_u8(imgs[0], (64, 64), "linear")[None, :, :, ::-1]
+        stats = tquant.calibrate_from_u8(model, first)
+        want = tinference.inference(model, imgs, (64, 64), int8=True,
+                                    quant_stats=stats)
+        for (name, mask), w in zip(sorted(masks.items()), want):
+            assert mask.shape == (60, 80) and np.array_equal(mask, w)
+    else:
+        evals = []
+        real_test = ttrain.test
+        monkeypatch.setattr(ttrain, "test", lambda *a, **kw: evals.append(
+            kw["int8"]) or real_test(*a, **kw))
+        trainer = ttrain.main([data, "--model", "deeplabv3plus", "--dataset",
+                               "coco", "-s", "64", "64", "-bs", "2", "-a",
+                               "1", "--num-workers", "2", "--epochs", "1",
+                               "--qat"], device="cpu")
+        assert trainer.qat and trainer.epoch == 1 and evals == [True]
+        assert np.isfinite(json.loads(open("runs/log.jsonl").readline())[
+            "loss"])

@@ -272,8 +272,12 @@ def test_unported_options_raise(weights, images):
         assert 0.5 < float((mask == plain).float().mean()) < 1.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_mask_fn(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskServer(model, int8=True)
+    # int8 serving is ported: the server's batches go through the int8
+    # forward (the default gate quantizes the ResNet's deep convs)
+    masks = MaskServer(model, int8=True, img_size=(HW, HW),
+                       max_batch=2)._run_batch(images)
+    assert masks.dtype == np.int32 and masks.shape == (2, HW, HW)
+    assert 0.5 < float((masks == plain.numpy()).mean()) < 1.0
 
 
 def test_port_imports_no_jax():
@@ -327,9 +331,9 @@ def test_serve_cli_needs_weights(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--int8"], 9), (["--moe", "4"], 10), (["--moe-top-k", "1"], 10),
+    (["--moe", "4"], 10), (["--moe-top-k", "1"], 10),
     (["--scan-blocks"], None), (["--dp"], 10)],
-    ids=["int8", "moe", "moe-top-k", "scan-blocks", "dp"])
+    ids=["moe", "moe-top-k", "scan-blocks", "dp"])
 def test_serve_cli_refuses_unported_flags(argv, item, tmp_path, capsys):
     """The root serve CLI's flags whose machinery is not ported exit 2 and
     name their ROADMAP item (not argparse's 'unrecognized arguments').

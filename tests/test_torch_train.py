@@ -606,12 +606,14 @@ def test_seeded_state_dict_starts(init):
 
 
 def test_unported_train_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(qat=True)
-    for option in ("mesh", "zero", "qat"):
+    for option in ("mesh", "zero"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
                              **{option: object()})
+    # quantization-aware training is ported: the Trainer and the step take it
+    tsteps.make_train_step(qat=True)
+    assert ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
+                            qat=True).qat
     # distillation is ported: the Trainer and the step take a teacher
     teacher = tsteps.nhwc_forward(_TorchTiny().eval())
     tsteps.make_train_step(distill_fn=teacher, distill_weight=1.0)
