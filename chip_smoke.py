@@ -45,7 +45,14 @@ and an int8 + flip-TTA request, `test(int8=True)` and `test(quant_stats=)`
 over 80 images, Trainer(qat=True) beside the plain Trainer, two QAT steps
 with the fused 1x1 switch on, `train --qat`, `test --int8 --calib-batches
 2`, `inference --int8 --calib` and `serve --int8`'s server; the int8
-products against cuDNN's bf16 convolutions at the same shapes), and then
+products against cuDNN's bf16 convolutions at the same shapes), runs it
+data-parallel (`dp`, parallel/: under `torch.distributed.run` with one
+process and NCCL over loopback, the Trainer with the fused 1x1 switch off
+and on, with ZeRO, `test()` and MaskServer through `make_mesh()`, bit-equal
+to the same run without a mesh, each step's ms without and with the mesh,
+and `train --zero` for 2 steps; then two gloo ranks on the one card at
+batch 16 each against one process at batch 32, replicated and under ZeRO,
+with each rank's peak memory), and then
 trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
 conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
@@ -103,6 +110,7 @@ plain versions on tensors those runs handed them.
                                      # phase alone, on a set of its own
     python3 chip_smoke.py --int8     # the builds, then the int8 phase
                                      # alone, on a set of its own
+    python3 chip_smoke.py --dp       # the builds, then the dp phase alone
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
@@ -112,8 +120,8 @@ runs, on the command lines' run (`cli_launches`), on the losses phase's
 runs (`losses_launches`), on the nonsquare phase's runs
 (`nonsquare_launches`, every kernel; kernels 1-3's figures at its shapes
 under `nonsquare`), on the int8 phase's runs (`int8_launches`, every
-kernel), on the families phase's
-runs (`families_launches`, and by model in `families_launches_by_model`,
+kernel), on the dp phase's world-1 mesh runs (`dp_launches`), on the
+families phase's runs (`families_launches`, and by model in `families_launches_by_model`,
 with each family's shape's figures under `families` for kernels 1-3), its
 error against
 the plain version, its time, the plain version's, one library call's where
@@ -131,8 +139,11 @@ import dataclasses
 import json
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import struct
 import threading
@@ -156,7 +167,8 @@ from pytorch_segmentation_tpu_torch.data.rasterize import (
     rasterize_annotations)
 from pytorch_segmentation_tpu_torch.data.resize_host import resize_u8
 from pytorch_segmentation_tpu_torch.engine import test as run_eval
-from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
+from pytorch_segmentation_tpu_torch.engine.checkpoint import (
+    load_model_bundle, save_checkpoint)
 from pytorch_segmentation_tpu_torch.engine.steps import (make_eval_step,
                                                          nhwc_forward,
                                                          require_eval_mode)
@@ -189,6 +201,8 @@ from pytorch_segmentation_tpu_torch.ops.metrics import (confusion_update,
                                                         sample_valid_mask)
 from pytorch_segmentation_tpu_torch.ops.resize import (resize_bilinear,
                                                        resize_nearest)
+from pytorch_segmentation_tpu_torch.parallel import (initialize_distributed,
+                                                     make_mesh, shard_batch)
 from pytorch_segmentation_tpu_torch.quant import (calibrate,
                                                   calibrate_from_u8,
                                                   make_quant_mask_fn,
@@ -1618,7 +1632,7 @@ def family_model(key, **kwargs):
 
 
 def make_trainer(device, name, batch, tmp, loss_fn=compute_loss, weights="",
-                 **model_kwargs):
+                 mesh=None, zero=False, **model_kwargs):
     """`family_model(name)` (bf16 compute over f32 parameters,
     full_res_output=True, so the Trainer's deferred upsample routes the loss
     through the upsample+CE kernels; `model_kwargs` to its constructor) in a
@@ -1626,13 +1640,14 @@ def make_trainer(device, name, batch, tmp, loss_fn=compute_loss, weights="",
     loss at the Trainer's default weight, from the seeded start: the same
     weights on every call. `loss_fn` replaces the CE (MaskFormer's set
     criterion: no deferred upsample then); `weights` is a checkpoint to
-    start from."""
+    start from; `mesh` and `zero` the Trainer's."""
     model = family_model(name, dtype=torch.bfloat16, full_res_output=True,
                          **model_kwargs)
     trainer = Trainer(model, RepeatFetcher(batch, 1), loss_fn=loss_fn,
                       weights=weights, workdir=os.path.join(tmp, "w"),
                       lr=1e-3, momentum=0.9, seed=SEED, log=False,
-                      log_dir=os.path.join(tmp, "runs"), device=device)
+                      log_dir=os.path.join(tmp, "runs"), device=device,
+                      mesh=mesh, zero=zero)
     if (trainer._train_module.full_res_output is not False) != (
             loss_fn is not compute_loss):
         raise AssertionError(f"{name}: the Trainer deferred the upsample "
@@ -4846,6 +4861,308 @@ def hopper_build_figures(ptxas):
     return figures
 
 
+# ------------------------------------------------------------------ dp phase
+
+DP_STEPS = 4
+DP_EVAL_IMAGES = 64  # two eval batches of 32
+DP_CLI_TRAIN, DP_CLI_VAL = 32, 8  # `train -bs 16`: 2 steps, one eval batch
+# two ranks on the one card at batch 16 each against one process at batch
+# 32, from the same start and global batch: the same arithmetic at other
+# batch positions and sizes, and bf16 on the card depends on batch position
+# (ROADMAP "Facts"). At seeded full width that alone moves the 4 steps'
+# losses by ~1.3% and their parameter updates by ~90% in norm: the one
+# process on the batch rolled by 16 rows (`rolled`, the same call) measures
+# it. So each step's loss must stay within DP_PAIR_NOISE times the rolled
+# run's largest loss difference, and the update's norm within DP_PAIR_NORM
+# of one process's (a wrong mean of the gradients, their sum or one rank's
+# half, scales it by 2 or 1/2); the two ranks end bit-equal.
+DP_PAIR_NOISE = 2.0
+DP_PAIR_NORM = (0.67, 1.5)
+
+
+def torchrun(nproc, args, timeout):
+    """This script under `python -m torch.distributed.run` with `nproc`
+    processes over loopback, in a session of its own (killed whole at the
+    timeout). Raises on a non-zero exit with the output's tail; returns
+    the seconds it took."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(nproc), "--master_addr", "127.0.0.1", "--master_port",
+           str(port), os.path.join(here, "chip_smoke.py"), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=here,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(args)}: exit "
+                             f"{proc.returncode}\n{out[-3000:]}\n"
+                             f"{err[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def dp_steps(trainer):
+    """DP_STEPS steps one by one: each step's loss, and the final state
+    (copied to the host, so that it holds no device memory)."""
+    trainer.fetcher.n = 1
+    losses = [trainer.step() for _ in range(DP_STEPS)]
+    return losses, {k: v.detach().cpu()
+                    for k, v in trainer.module.state_dict().items()}
+
+
+def assert_same_run(name, got, want):
+    """Bit-equal losses and state_dicts."""
+    if got[0] != want[0]:
+        raise AssertionError(f"{name}: losses {got[0]} != {want[0]}")
+    bad = [k for k, v in want[1].items() if not torch.equal(got[1][k], v)]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} tensors differ, e.g. "
+                             f"{bad[:3]}")
+
+
+def dp_step_ms(trainers, windows=3):
+    """CUDA-event ms per step of each trainer, in turns: a window of 3
+    steps each, `windows` times, after one step each (cuDNN's choice of
+    algorithms)."""
+    for trainer in trainers.values():
+        trainer.fetcher.n = 1
+        trainer.step()
+    ms = {name: [] for name in trainers}
+    for _ in range(windows):
+        for name, trainer in trainers.items():
+            trainer.fetcher.n = 3
+            ms[name] += step_windows(trainer, 1, [])[1]
+    return ms
+
+
+def dp_worker(tmp):
+    """The dp phase's world-1 run (launched by `dp_phase` under
+    torch.distributed.run, one process). First, before the process group:
+    DeepLabV3+ R50 at 513², batch 32, from `tmp/start.pt`, DP_STEPS steps
+    through the Trainer (fused 1x1 switch off, then on), `test()` over 64
+    images and a served batch of 8, without a mesh. Then
+    `initialize_distributed()` (NCCL over loopback) and the same through
+    `make_mesh()`: Trainer(mesh=) off and on, Trainer(mesh=, zero=True),
+    test(mesh=), MaskServer(mesh=): losses and parameters bit-equal, counts
+    and masks equal (cuDNN's deterministic algorithms for both sides: the
+    all-reduces of one rank are copies, so nothing else may differ). Then
+    each step's ms without and with the mesh in turns (cuDNN's defaults),
+    and last the train CLI (`main`, under this torchrun) with --zero for 2
+    steps and its epoch's eval, whose last.pt loads on one card. Writes
+    `tmp/worker.json` and, for the two-rank run, `tmp/want.pt` and
+    `tmp/rolled.pt` (one process on the batch rolled by 16 rows)."""
+    device = require_cuda()
+    start = os.path.join(tmp, "start.pt")
+    _, batch = train_batch(device)
+    eval_set = MemoryDataset(DP_EVAL_IMAGES, np.random.default_rng(SEED + 6))
+    served = np.stack([smooth_image(np.random.default_rng(SEED + 8), IMG,
+                                    IMG) for _ in range(BATCH - 2)])
+    serve_model = load_model_bundle(family_model(
+        "deeplabv3plus", dtype=torch.bfloat16, full_res_output=False),
+        start, device)
+
+    def trainer(tag, **kw):
+        return make_trainer(device, "deeplabv3plus", batch,
+                            os.path.join(tmp, tag), weights=start, **kw)
+
+    def paths(tag, **kw):
+        """Trainer off and on, test() of the first, a served batch."""
+        off = trainer(tag + "_off", **kw)
+        out = {"off": dp_steps(off)}
+        blocks.set_force_fused_1x1("on")
+        try:
+            out["on"] = dp_steps(trainer(tag + "_on", **kw))
+        finally:
+            blocks.set_force_fused_1x1(None)
+        out["counts"] = eval_report(off.model, eval_set, device, tmp,
+                                    **kw)[1]["per_class"]
+        server = MaskServer(serve_model, img_size=(IMG, IMG),
+                            max_batch=BATCH, **kw)
+        out["masks"] = server._run_batch(served)
+        return off, out
+
+    torch.backends.cudnn.deterministic = True
+    plain, want = paths("plain")
+    torch.save(want["off"], os.path.join(tmp, "want.pt"))
+    # the same global batch in another order: what bf16 at other batch
+    # positions alone moves (the two-rank run's bound)
+    images, segs, n = batch
+    rolled = (images.roll(TRAIN_BATCH // 2, 0), segs.roll(TRAIN_BATCH // 2, 0),
+              n)
+    torch.save(dp_steps(make_trainer(device, "deeplabv3plus", rolled,
+                                     os.path.join(tmp, "rolled"),
+                                     weights=start)),
+               os.path.join(tmp, "rolled.pt"))
+    rank_device = initialize_distributed()
+    mesh = make_mesh()
+    if (mesh.world, rank_device, torch.distributed.get_backend()) != (
+            1, device, "nccl"):
+        raise AssertionError(f"world {mesh.world} on {rank_device} "
+                             f"{torch.distributed.get_backend()}")
+    reset_kernel_counts()
+    fm.reset_launch_count()
+    meshed, got = paths("mesh", mesh=mesh)
+    zero = trainer("zero", mesh=mesh, zero=True)
+    zero_run = dp_steps(zero)
+    launches = kernel_counts()
+    launches["fused_matmul_bn"] = fm.launch_count()
+    assert_same_run("mesh, switch off", got["off"], want["off"])
+    assert_same_run("mesh, switch on", got["on"], want["on"])
+    assert_same_run("mesh, zero", zero_run, want["off"])
+    if got["counts"] != want["counts"]:
+        raise AssertionError("test(mesh=) counts differ from test()'s")
+    if not np.array_equal(got["masks"], want["masks"]):
+        raise AssertionError("MaskServer(mesh=) masks differ")
+    torch.backends.cudnn.deterministic = False
+    ms = dp_step_ms({"without": plain, "mesh": meshed})
+
+    reset_kernel_counts()
+    fm.reset_launch_count()
+    data = make_synthetic_coco(os.path.join(tmp, "coco"), DP_CLI_TRAIN,
+                               DP_CLI_VAL, CLI_WH, seed=SEED,
+                               num_classes=CLI_CATEGORIES)
+    from pytorch_segmentation_tpu_torch import train as train_cli
+    os.makedirs(os.path.join(tmp, "cli"))
+    t0 = time.perf_counter()
+    with working_dir(os.path.join(tmp, "cli")):
+        cli = train_cli.main([data, "--model", "deeplabv3plus", "--dataset",
+                              "coco", "-s", str(IMG), str(IMG), "-bs", "16",
+                              "-a", "1", "-mp", "--epochs", "1", "--zero",
+                              "--num-workers", str(CLI_WORKERS)])
+        cli_seconds = time.perf_counter() - t0
+        if cli.state.step != 2:
+            raise AssertionError(f"train --zero took {cli.state.step} steps")
+        load_model_bundle(family_model("deeplabv3plus", full_res_output=False),
+                          os.path.join("weights", "last.pt"), device)
+    cli_launches = kernel_counts()
+    cli_launches["fused_matmul_bn"] = fm.launch_count()
+    with open(os.path.join(tmp, "worker.json"), "w") as f:
+        json.dump({"losses": got["off"][0], "fused_losses": got["on"][0],
+                   "step_ms": ms, "launches": launches,
+                   "cli_launches": cli_launches, "cli_seconds": cli_seconds,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
+
+
+def dp_pair(tmp):
+    """Two ranks on the one card (launched by `dp_phase`): a gloo group,
+    both ranks bound to cuda:0, each on its 16 of the batch of 32 from
+    `tmp/start.pt`: DP_STEPS steps replicated, then DP_STEPS under ZeRO
+    (bit-equal to the replicated ones), each with its peak memory. Rank r
+    writes `tmp/pair<r>.pt`."""
+    torch.cuda.set_device(0)
+    device = require_cuda()
+    torch.distributed.init_process_group("gloo", init_method="env://")
+    try:
+        mesh = make_mesh()
+        _, (images, segs, _) = train_batch(device)
+        batch = (*shard_batch(mesh, images, segs), TRAIN_BATCH // mesh.world)
+        torch.backends.cudnn.deterministic = True
+        out = {}
+        for tag, zero in (("replicated", False), ("zero", True)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = make_trainer(device, "deeplabv3plus", batch,
+                                   os.path.join(tmp, f"pair_{tag}"),
+                                   weights=os.path.join(tmp, "start.pt"),
+                                   mesh=mesh, zero=zero)
+            if trainer.zero != zero:
+                raise AssertionError(f"{tag}: Trainer.zero {trainer.zero}")
+            t0 = time.perf_counter()
+            out[tag] = dp_steps(trainer)
+            # each step ends in its loss's host read: the wall of 4 steps,
+            # the first (cuDNN's choices) included
+            out[tag + "_ms"] = 1e3 * (time.perf_counter() - t0) / DP_STEPS
+            out[tag + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del trainer
+        assert_same_run("two ranks, zero", out["zero"], out["replicated"])
+        torch.save(out, os.path.join(tmp, f"pair{mesh.rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_phase(device):
+    """Data parallelism on the card (`parallel/`): the world-1 NCCL run
+    (`dp_worker`) and two gloo ranks on the one card (`dp_pair`) against
+    one process at batch 32, each a torch.distributed.run of this script.
+    Returns each kernel's launches under the world-1 mesh: its Trainer,
+    test() and MaskServer runs and `train --zero`."""
+    start = seeded_state_dict(family_model("deeplabv3plus"), SEED,
+                              init="train")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(os.path.join(tmp, "start.pt"), start)
+        worker_s = torchrun(1, ["--dp-worker", tmp], timeout=600)
+        with open(os.path.join(tmp, "worker.json")) as f:
+            res = json.load(f)
+        pair_s = torchrun(2, ["--dp-pair", tmp], timeout=300)
+        want, rolled, pair, pair1 = (
+            torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=True)
+            for name in ("want", "rolled", "pair0", "pair1"))
+    assert_same_run("rank 1 against rank 0", pair1["replicated"],
+                    pair["replicated"])
+    got = pair["replicated"]
+
+    def apart(run):
+        """(largest relative loss difference, the update's difference in
+        norm relative to one process's update, the update's norm ratio,
+        the worst leaves) against one process at batch 32."""
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run[0], want[0]))
+        num = den = size = 0.0
+        worst = []
+        for k, v in want[1].items():
+            if v.is_floating_point() and "running_" not in k:
+                moved = v.cpu() - start[k]
+                diff = float((run[1][k].cpu() - v.cpu()).square().sum())
+                num += diff
+                den += float(moved.square().sum())
+                size += float((run[1][k].cpu() - start[k]).square().sum())
+                worst.append((diff / max(float(moved.square().sum()),
+                                         1e-30), k))
+        return (loss_rel, (num / max(den, 1e-30)) ** 0.5,
+                (size / max(den, 1e-30)) ** 0.5,
+                [(k, r ** 0.5) for r, k in sorted(worst)[-4:]])
+
+    pair_apart, rolled_apart = apart(got), apart(rolled)
+    launches = res["launches"]
+    total = copy.deepcopy(launches)
+    add_launches(total, res["cli_launches"])
+    for name, n in (("upsample_argmax", launches["upsample_argmax"]),
+                    ("softmax_ce fwd", launches["softmax_ce"]["fwd"]),
+                    ("softmax_ce bwd", launches["softmax_ce"]["bwd"]),
+                    ("eval_confusion", launches["eval_confusion"]),
+                    ("fused_matmul_bn", launches["fused_matmul_bn"]["fwd"])):
+        if not n:
+            raise AssertionError(f"{name}: no launch under the mesh")
+    if not total["banded_resample"]:
+        raise AssertionError("banded_resample: no launch in train --zero")
+    step_ms = {k: statistics.median(v) for k, v in res["step_ms"].items()}
+    log("dp", world1_nccl="bit-equal", step_ms_median=step_ms,
+        step_ms=res["step_ms"],
+        mesh_overhead_ms=step_ms["mesh"] - step_ms["without"],
+        launches=launches, cli_zero_launches=res["cli_launches"],
+        cli_zero_seconds=res["cli_seconds"], worker_seconds=worker_s,
+        worker_peak_gb=res["peak_gb"], pair_seconds=pair_s,
+        pair_losses=got[0], one_process_losses=want[0],
+        rolled_losses=rolled[0], pair_apart=pair_apart,
+        rolled_apart=rolled_apart,
+        pair_peak_gb={"replicated": pair["replicated_peak_gb"],
+                      "zero": pair["zero_peak_gb"]},
+        pair_step_ms={"replicated": pair["replicated_ms"],
+                      "zero": pair["zero_ms"]})
+    if (pair_apart[0] > DP_PAIR_NOISE * rolled_apart[0]
+            or not DP_PAIR_NORM[0] <= pair_apart[2] <= DP_PAIR_NORM[1]):
+        raise AssertionError(f"two ranks against one process: {pair_apart}, "
+                             f"the rolled batch {rolled_apart}")
+    return total
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4869,7 +5186,17 @@ def main():
                         help="after the builds, run only the int8 phase "
                              "(on a synthetic set of its own) and stop: no "
                              "kernels line, no last line")
+    parser.add_argument("--dp", action="store_true",
+                        help="after the builds, run only the dp phase and "
+                             "stop: no kernels line, no last line")
+    # the dp phase's own runs under torch.distributed.run
+    parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-pair", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.dp_worker or args.dp_pair:
+        (dp_worker if args.dp_worker else dp_pair)(
+            args.dp_worker or args.dp_pair)
+        return
     device = require_cuda()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4915,6 +5242,9 @@ def main():
     if args.families:
         only_families(args.families)
         families_phase(device)
+        return
+    if args.dp:
+        dp_phase(device)
         return
     if args.losses or args.nonsquare or args.int8:
         with tempfile.TemporaryDirectory() as tmp:
@@ -5017,6 +5347,7 @@ def main():
             device, os.path.join(cli_tmp, "coco"))
         int8_launches = int8_phase(device, dataset,
                                    os.path.join(cli_tmp, "coco"))
+    dp_launches = dp_phase(device)
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
     family_launches, family_by_model, family_cases, family_fused = (
@@ -5057,6 +5388,7 @@ def main():
          "losses_launches": losses_launches["upsample_argmax"],
          "nonsquare_launches": nonsquare_launches["upsample_argmax"],
          "int8_launches": int8_launches["upsample_argmax"],
+         "dp_launches": dp_launches["upsample_argmax"],
          "nonsquare": nonsquare_cases["upsample_argmax"],
          "families_launches": family_launches["upsample_argmax"],
          "families_launches_by_model": by_model("upsample_argmax"),
@@ -5076,6 +5408,7 @@ def main():
          "losses_launches": losses_launches["softmax_ce"]["fwd"],
          "nonsquare_launches": nonsquare_launches["softmax_ce"]["fwd"],
          "int8_launches": int8_launches["softmax_ce"]["fwd"],
+         "dp_launches": dp_launches["softmax_ce"]["fwd"],
          "nonsquare": nonsquare_cases["softmax_ce"]["fwd"],
          "families_launches": family_launches["softmax_ce"]["fwd"],
          "families_launches_by_model": by_model("softmax_ce", "fwd"),
@@ -5095,6 +5428,7 @@ def main():
          "losses_launches": losses_launches["softmax_ce"]["bwd"],
          "nonsquare_launches": nonsquare_launches["softmax_ce"]["bwd"],
          "int8_launches": int8_launches["softmax_ce"]["bwd"],
+         "dp_launches": dp_launches["softmax_ce"]["bwd"],
          "nonsquare": nonsquare_cases["softmax_ce"]["bwd"],
          "families_launches": family_launches["softmax_ce"]["bwd"],
          "families_launches_by_model": by_model("softmax_ce", "bwd"),
@@ -5116,6 +5450,7 @@ def main():
          "losses_launches": losses_launches["banded_resample"],
          "nonsquare_launches": nonsquare_launches["banded_resample"],
          "int8_launches": int8_launches["banded_resample"],
+         "dp_launches": dp_launches["banded_resample"],
          "families_launches": family_launches["banded_resample"],
          "families_launches_by_model": by_model("banded_resample"),
          **resample_path},
@@ -5137,6 +5472,7 @@ def main():
          "losses_launches": losses_launches["eval_confusion"],
          "nonsquare_launches": nonsquare_launches["eval_confusion"],
          "int8_launches": int8_launches["eval_confusion"],
+         "dp_launches": dp_launches["eval_confusion"],
          "nonsquare": nonsquare_cases["eval_confusion"],
          "families_launches": family_launches["eval_confusion"],
          "families_launches_by_model": by_model("eval_confusion"),
@@ -5151,6 +5487,7 @@ def main():
          "launches": fused_launches["fwd"],
          "nonsquare_launches": nonsquare_launches["fused_matmul_bn"]["fwd"],
          "int8_launches": int8_launches["fused_matmul_bn"]["fwd"],
+         "dp_launches": dp_launches["fused_matmul_bn"]["fwd"],
          "families_launches": family_launches["fused_matmul_bn"]["fwd"],
          "families_launches_by_model": by_model("fused_matmul_bn", "fwd"),
          "families_shapes": len(family_fused), **fused_path["fwd"]},
@@ -5162,6 +5499,7 @@ def main():
          "nonsquare_launches":
              nonsquare_launches["fused_matmul_bn"]["bwd_dx"],
          "int8_launches": int8_launches["fused_matmul_bn"]["bwd_dx"],
+         "dp_launches": dp_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dx"),
          "families_shapes": len(family_fused), **fused_path["bwd_dx"]},
@@ -5174,6 +5512,7 @@ def main():
          "nonsquare_launches":
              nonsquare_launches["fused_matmul_bn"]["bwd_dw"],
          "int8_launches": int8_launches["fused_matmul_bn"]["bwd_dw"],
+         "dp_launches": dp_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dw"),
          "families_shapes": len(family_fused), **fused_path["bwd_dw"]},
@@ -5185,6 +5524,7 @@ def main():
          "launches": cmajor_launches,
          "nonsquare_launches": nonsquare_launches["cmajor_matmul"],
          "int8_launches": int8_launches["cmajor_matmul"],
+         "dp_launches": 0,
          **cmajor_path}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,18 +64,23 @@ class PostFetch:
     from the augmentation's at every batch. It runs without an `augment_fn`
     as well.
 
-    Not ported yet: `sharding` (ROADMAP: parallel/)."""
+    `sharding` (`parallel.data_sharding(mesh)`, which the Trainer and
+    `engine.test` set on a PostFetch built without one): the batches are
+    this rank's shard of each global batch, augmented on the sharding's
+    device (the default `device`) from generators of the rank's own streams,
+    so that no two ranks augment alike; rank 0 draws what a PostFetch
+    without a sharding draws. The multi-scale size comes from `seed` alone,
+    the same on every rank."""
 
     def __init__(self, augment_fn=None, multi_scale: bool = False,
                  base_hw=None, seed: int = 0,
                  dtype: torch.dtype = torch.float32, sharding=None,
                  mix_fn=None, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "PostFetch(sharding=...) is not ported yet (ROADMAP: "
-                "parallel/)")
+        if device is None and sharding is not None:
+            device = sharding.device
         self.device = (require_cuda() if device is None
                        else torch.device(device))
+        self.sharding = sharding
         self.augment_fn = augment_fn
         self.mix_fn = mix_fn
         self.multi_scale = multi_scale
@@ -90,18 +95,23 @@ class PostFetch:
         through pinned memory and an asynchronous copy for the card)."""
         return host_to_device(array, self.device)
 
+    def _seed(self, step: int, stream: int) -> int:
+        """Streams 0-2 of rank 0; a rank r of a sharding has 3r to 3r+2."""
+        rank = 0 if self.sharding is None else self.sharding.rank
+        return _batch_seed(self.seed, step, stream + 3 * rank)
+
     def generators(self, step: int):
         """The device and the host generator of batch `step`."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(_batch_seed(self.seed, step, 0))
+        gen.manual_seed(self._seed(step, 0))
         host_gen = torch.Generator()
-        host_gen.manual_seed(_batch_seed(self.seed, step, 1))
+        host_gen.manual_seed(self._seed(step, 1))
         return gen, host_gen
 
     def mix_generator(self, step: int) -> torch.Generator:
         """The device generator of batch `step`'s mix: a stream of its own."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(_batch_seed(self.seed, step, 2))
+        gen.manual_seed(self._seed(step, 2))
         return gen
 
     @torch.no_grad()

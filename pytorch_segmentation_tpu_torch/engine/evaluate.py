@@ -4,7 +4,9 @@ Streams batches through the eval step, which returns the loss and the
 per-class tp/fn/fp vectors as tensors on the model's device with no host
 sync. Each batch's results are packed into one small tensor and copied to
 pinned host memory asynchronously; the host reads them one batch late, while
-the next batch runs, and sums them in float64.
+the next batch runs, and sums them in float64. Under a mesh each rank
+evaluates its shard of the validation set, and each batch's results are
+summed over the ranks before the copy.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.boundary import boundary_iou
-from ..ops.metrics import compute_metrics
+from ..ops.metrics import compute_metrics, sample_valid_mask
 from ..ops.tta import normalize_tta_scales
-from ..utils.runtime import require_cuda
+from ..parallel.mesh import data_sharding, make_mesh, require_one_device
+from ..utils.runtime import require_cuda, same_device
 from ..utils.visualize import show_batch
 from .steps import make_eval_step, make_predict_step
 
@@ -87,15 +91,35 @@ def test(model: torch.nn.Module, fetcher, show_first_batch: bool = True,
     passed. The first batch's picture stays the plain forward's, as in the
     JAX package.
 
-    Not ported yet: `mesh` (ROADMAP: parallel/)."""
-    if mesh is not None:
-        raise NotImplementedError("multi-card evaluation is not ported yet "
-                                  "(ROADMAP: parallel/)")
+    mesh (`parallel.make_mesh()`; by default the process group when one is
+    initialized): one process per card, each evaluating its rank's shard of
+    the set (`DataLoader(rank=, world_size=)`; the fetcher's PostFetch gets
+    the mesh's `data_sharding`). Each rank masks its own padded samples with
+    its `valid`; the counts and the loss sums of each batch are summed over
+    the ranks, so every rank returns the global mIoU. The printed table and
+    the report come from rank 0; the first-batch picture is skipped across
+    processes, as in the JAX package. Every rank calls `test`."""
     if quant_stats is not None:
         int8 = True
+    if mesh is None and dist.is_initialized():
+        mesh = make_mesh(None if device is None else (device,))
+    group = None
+    if mesh is not None:
+        at = require_one_device(mesh, "test()")
+        if device is not None and not same_device(device, at):
+            raise ValueError(f"test()'s device {device} is not its mesh's "
+                             f"{at}")
+        device, group = at, mesh.group
+        log = log and mesh.rank == 0
+        show_first_batch = show_first_batch and mesh.world == 1
+        if mesh.rank != 0:
+            report_path = None
+        pf = getattr(fetcher, "post_fetch_fn", None)
+        if pf is not None and getattr(pf, "sharding", False) is None:
+            pf.sharding = data_sharding(mesh)
     device = require_cuda() if device is None else torch.device(device)
     at = next(model.parameters()).device
-    if (at.type, at.index or 0) != (device.type, device.index or 0):
+    if not same_device(at, device):
         raise ValueError(f"the model is on {at}, the evaluation on {device}")
     tta_scales = normalize_tta_scales(tta_scales)
     classes = fetcher.loader.dataset.classes
@@ -123,6 +147,8 @@ def test(model: torch.nn.Module, fetcher, show_first_batch: bool = True,
     def drain(pending):
         nonlocal val_loss, n_read
         got = pending.read()
+        if group is not None:  # the ranks' loss sum over their count
+            got = np.concatenate([[got[0] / max(got[1], 1.0)], got[2:]])
         val_loss += got[0]
         rows = got[1:].reshape(-1, num_classes)
         sums[:len(rows)] += rows
@@ -134,6 +160,12 @@ def test(model: torch.nn.Module, fetcher, show_first_batch: bool = True,
         images = torch.as_tensor(images).to(device, non_blocking=True)
         segs = torch.as_tensor(segs).to(device, non_blocking=True)
         res = eval_step(module, images, segs, valid, quant_stats)
+        if group is not None:
+            n = sample_valid_mask(valid, images.shape[0], device).float().sum()
+            packed = torch.cat([r.reshape(-1).float()
+                                for r in (res[0] * n, n, *res[1:])])
+            dist.all_reduce(packed, group=group)
+            res = (packed,)
         if n_batches == 1 and show_first_batch:
             # predictions are needed only for the first batch's picture;
             # computed separately on <= 8 samples

@@ -17,6 +17,18 @@ Unlike the JAX state, a `TrainState` is mutable: the model's parameters, the
 optimizer state, the accumulator and the EMA weights are updated in place,
 and the step returns the same object.
 
+Under a mesh (`make_train_step(mesh=)`, one process per card) each rank
+steps on its shard of the global batch and the step computes what one
+process computes on the concatenated batch, up to rounding, as the JAX
+package's global program does under pjit: BatchNorm's moments and the loss
+ratios' sums are taken over every rank inside the forward
+(`parallel.mesh.batch_statistics_over`), the gradients and the loss are
+averaged over the ranks after the backward (one bucketed all-reduce a
+call), and then each rank applies the same update. Under ZeRO
+(`parallel.zero.ZeroOptimizer`) the optimizer state, the accumulator and the
+EMA hold this rank's shards only, and the updated shards are all-gathered
+into the parameters.
+
 The eval and predict steps take the eval-mode module itself where the JAX
 ones take a state. They run under `torch.inference_mode()`, make no host
 sync and return tensors on the model's device. Eval masks padded samples
@@ -41,6 +53,8 @@ from ..ops.loss import compute_loss
 from ..ops.metrics import sample_valid_mask
 from ..ops.resize import resize_bilinear
 from ..ops.tta import normalize_tta_scales, tta_logits
+from ..parallel.mesh import (all_reduce_mean_, batch_statistics_over,
+                             require_one_device)
 from ..quant import quant_mode, quantized_forward
 
 __all__ = ["TrainState", "create_train_state", "distill_loss",
@@ -53,10 +67,12 @@ __all__ = ["TrainState", "create_train_state", "distill_loss",
 class TrainState:
     """model: the module the step runs in train mode. optimizer: an object
     whose `apply(count)` consumes the parameters' `.grad` for update number
-    `count` (engine.trainer.make_optimizer). step: optimizer updates so far;
-    micro_step: calls so far. grad_acc: f32 gradient sums, one per trainable
-    parameter (None when accumulate == 1). ema_params: name -> f32 moving
-    average of the parameters (None when EMA is off)."""
+    `count` (engine.trainer.make_optimizer), or a `parallel.zero.
+    ZeroOptimizer`, whose own shard tensors take the `.grad`. step: optimizer
+    updates so far; micro_step: calls so far. grad_acc: f32 gradient sums,
+    one per trainable parameter (None when accumulate == 1). ema_params:
+    name -> f32 moving average of the parameters (None when EMA is off).
+    Under ZeRO grad_acc and ema_params hold this rank's shards."""
     model: torch.nn.Module
     optimizer: object
     step: int = 0
@@ -81,16 +97,26 @@ def _trainable(model):
     return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
 
 
+def _zero_shard(optimizer):
+    """A ZeRO optimizer's `shard` (this rank's part of each full-size
+    tensor), or None for a replicated one."""
+    return getattr(optimizer, "shard", None)
+
+
 def create_train_state(model: torch.nn.Module, optimizer,
                        accumulate: int = 1, ema: bool = False) -> TrainState:
+    trainable = _trainable(model)
+    values = [p.detach() for _, p in trainable]
+    shard = _zero_shard(optimizer)
+    if shard is not None:
+        values = shard(values)
     grad_acc = None
     if accumulate > 1:
-        grad_acc = [torch.zeros_like(p, dtype=torch.float32)
-                    for _, p in _trainable(model)]
+        grad_acc = [torch.zeros_like(v, dtype=torch.float32) for v in values]
     ema_params = None
     if ema:  # seeded at the initial parameters, as real copies
-        ema_params = {n: p.detach().float().clone()
-                      for n, p in _trainable(model)}
+        ema_params = {n: v.float().clone()
+                      for (n, _), v in zip(trainable, values)}
     return TrainState(model=model, optimizer=optimizer, grad_acc=grad_acc,
                       ema_params=ema_params)
 
@@ -116,7 +142,8 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                     qat: bool = False, ema_decay: float = 0.0,
                     aux_weight: float = 0.4,
                     distill_fn: Callable | None = None,
-                    distill_weight: float = 0.0, distill_temp: float = 2.0):
+                    distill_weight: float = 0.0, distill_temp: float = 2.0,
+                    mesh=None):
     """Returns `(state, images, segs) -> (state, loss)` over ONE loader
     batch. images: [B, H, W, 3] normalized float, segs: [B, H, W] int, both
     on the model's device; the model sees the images as a channels_last NCHW
@@ -146,8 +173,18 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
     loss sees the int8 serving path's rounding while the gradients pass it
     unchanged.
 
-    Not ported yet: the MoE load-balance losses (ROADMAP: parallel/ and
+    mesh (`parallel.mesh.make_mesh`, one device a process): the images and
+    labels are this rank's shard of the global batch; BatchNorm's statistics
+    and the loss ratios span every rank, and the gradients and the returned
+    loss are their mean over the ranks (the module docstring). Every rank
+    calls the step, in the same order.
+
+    Not ported yet: the MoE load-balance losses (ROADMAP queue 1 item 10,
     nn/moe.py)."""
+    group, world = None, 1
+    if mesh is not None:
+        require_one_device(mesh, "the train step")
+        group, world = mesh.group, mesh.world
     distill = distill_fn is not None and distill_weight > 0
     distill_weight = float(distill_weight)
     accumulate = max(1, int(accumulate))
@@ -155,11 +192,17 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
     aux_weight = float(aux_weight)
 
     def update(state, params, grads):
-        for (_, p), g in zip(params, grads):
+        zero = _zero_shard(state.optimizer) is not None
+        # under ZeRO the optimizer updates its shards, then gathers them
+        targets = (state.optimizer.params if zero
+                   else [p for _, p in params])
+        for p, g in zip(targets, grads):
             p.grad = g
         state.optimizer.apply(state.step)
-        for _, p in params:
+        for p in targets:
             p.grad = None
+        if zero:
+            state.optimizer.gather()
         state.step += 1
         if ema_decay:
             if state.ema_params is None:
@@ -169,13 +212,10 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
             with torch.no_grad():
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, [p.detach().float()
-                                          for _, p in params],
+                                          for p in targets],
                                     alpha=1.0 - ema_decay)
 
-    def step(state: TrainState, images: torch.Tensor, segs: torch.Tensor):
-        model = state.model
-        model.train()
-        params = _trainable(model)
+    def forward_loss(model, images, segs):
         with quant_mode("qat" if qat else None):
             logits = model(images.permute(0, 3, 1, 2))
         if isinstance(logits, dict):
@@ -183,8 +223,8 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                 raise ValueError("distillation needs per-pixel logits; this "
                                  "model's train-mode forward returned a "
                                  "dict")
-            loss = loss_fn(logits, segs)
-        elif isinstance(logits, (tuple, list)):
+            return loss_fn(logits, segs)
+        if isinstance(logits, (tuple, list)):
             main, aux = logits
             main = main.permute(0, 2, 3, 1)
             auxs = aux if isinstance(aux, (tuple, list)) else (aux,)
@@ -198,8 +238,22 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                 teacher = distill_fn(images)
             loss = loss + distill_weight * distill_loss(main, teacher,
                                                         distill_temp)
-        grads = torch.autograd.grad(loss, [p for _, p in params])
+        return loss
+
+    def step(state: TrainState, images: torch.Tensor, segs: torch.Tensor):
+        model = state.model
+        model.train()
+        params = _trainable(model)
+        with batch_statistics_over(group):
+            loss = forward_loss(model, images, segs)
+        grads = list(torch.autograd.grad(loss, [p for _, p in params]))
         loss = loss.detach()
+        if group is not None:
+            loss = loss.clone()
+            all_reduce_mean_(grads + [loss], group, world)
+        shard = _zero_shard(state.optimizer)
+        if shard is not None:
+            grads = shard(grads)
         if accumulate == 1:
             update(state, params, grads)
             state.micro_step += 1

@@ -10,7 +10,8 @@ own (`dtype=torch.bfloat16` for mixed precision); bf16 needs no loss scaling.
 Checkpoints are the port's `.pt` files (engine/checkpoint.py).
 
 `qat=True` trains quantization-aware (the forward in quant.py's "qat"
-mode). Not ported yet: `mesh` and `zero` (ROADMAP: parallel/).
+mode). `mesh` trains data-parallel, one process per card (parallel/), and
+`zero` shards the optimizer state over its ranks (parallel/zero.py).
 """
 
 from __future__ import annotations
@@ -23,9 +24,12 @@ import time
 from collections.abc import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..ops.loss import compute_loss, make_loss_fn
-from ..utils.runtime import host_to_device, require_cuda
+from ..parallel.mesh import (data_sharding, make_mesh, put_replicated_tree,
+                             replicated_sharding, require_one_device)
+from ..utils.runtime import host_to_device, require_cuda, same_device
 from ..utils.weights import load_state, seeded_state_dict
 from .checkpoint import save_checkpoint
 from .steps import create_train_state, make_train_step
@@ -137,9 +141,6 @@ def make_optimizer(params, lr: float = 1e-3, adam: bool = False,
                           weight_decay=weight_decay, clip_grad=clip_grad)
 
 
-_UNPORTED = {"mesh": "parallel/", "zero": "parallel/"}
-
-
 class Trainer:
     """fetcher: an iterable with a length that yields `(images, segs,
     valid)` per batch: normalized float images [B, H, W, 3], integer labels
@@ -179,6 +180,20 @@ class Trainer:
     `mixed_precision` is taken as the JAX Trainer takes it, so that the
     train CLI's call works, and ignored: the model's `dtype` decides the
     compute dtype, as in the JAX package.
+
+    `mesh` (`parallel.make_mesh()`; by default the process group when one is
+    initialized, as the JAX Trainer's default mesh spans every device):
+    data-parallel training, one process per card. The fetcher yields this
+    rank's shard of each global batch (`DataLoader(rank=, world_size=)`),
+    its `PostFetch` gets the mesh's `data_sharding`, every rank starts from
+    rank 0's parameters and buffers (broadcast) and takes the same steps
+    (`make_train_step(mesh=)`). Only rank 0 prints and writes `log.jsonl`,
+    `last.pt` and `best.pt`; every rank resumes from the file. `zero=True`
+    keeps only this rank's shard of the optimizer state, the accumulator and
+    the EMA (`parallel.zero.ZeroOptimizer`); `save` then gathers the full
+    state, so a `.pt` does not depend on the rank count, and `save` and
+    `ema_model` are collectives that every rank calls. With one rank `zero`
+    is the replicated path.
     """
 
     def __init__(self, model: torch.nn.Module, fetcher,
@@ -193,40 +208,48 @@ class Trainer:
                  ema_decay: float = 0.0, mixed_precision: bool = False,
                  aux_weight: float = 0.4, distill_fn: Callable | None = None,
                  distill_weight: float = 0.0, distill_temp: float = 2.0,
-                 qat: bool = False, device=None, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"Trainer got an unknown option {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet (ROADMAP: "
-                    f"{_UNPORTED[name]})")
+                 qat: bool = False, mesh=None, zero: bool = False,
+                 device=None, **unknown):
+        if unknown:
+            raise TypeError(f"Trainer got an unknown option "
+                            f"{next(iter(unknown))!r}")
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(None if device is None else (device,))
+        if mesh is not None:
+            at = require_one_device(mesh, "the Trainer")
+            if device is not None and not same_device(device, at):
+                raise ValueError(f"the Trainer's device {device} is not its "
+                                 f"mesh's {at}")
+            device = at
         self.device = (require_cuda() if device is None
                        else torch.device(device))
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
+        self.zero = bool(zero) and mesh is not None and mesh.world > 1
         self.module = model
         self.fetcher = fetcher
         self.workdir = workdir
         self.accumulate = max(1, int(accumulate))
         self.epoch = 0
         self.metrics = 0.0  # best val mIoU so far
-        self.log = log
+        self.log = log and self.rank == 0
         self.log_dir = log_dir
         self.profile = profile
         self.ema_decay = float(ema_decay)
         self.qat = bool(qat)
 
-        if weights:
-            # warm start tolerates modules the checkpoint lacks (they keep
-            # their seeded start); a key the model lacks is an error
+        # warm start tolerates modules the checkpoint lacks (they keep
+        # their seeded start); a key the model lacks is an error. The seeded
+        # start is drawn only where something keeps it: resume loads every
+        # key
+        start = load_state(weights) if weights else {}
+        if not resume and set(model.state_dict()) - set(start):
             model.load_state_dict(seeded_state_dict(model, seed,
                                                     init="train"))
-            extra = model.load_state_dict(load_state(weights),
-                                          strict=False).unexpected_keys
+        if start:
+            extra = model.load_state_dict(start, strict=False).unexpected_keys
             if extra:
                 raise ValueError(f"{weights}: keys the model lacks: {extra}")
-        else:
-            model.load_state_dict(seeded_state_dict(model, seed,
-                                                    init="train"))
         ckpt = None
         if resume:
             ckpt = torch.load(os.path.join(workdir, "last.pt"),
@@ -235,6 +258,14 @@ class Trainer:
             self.epoch = int(ckpt["epoch"])
             self.metrics = float(ckpt["best_miou"])
         model.to(self.device, memory_format=torch.channels_last)
+        if mesh is not None:
+            # rank 0's values in every replica (the JAX Trainer's
+            # put_replicated_tree); the fetcher's PostFetch augments this
+            # rank's shard with a stream of its own
+            put_replicated_tree(replicated_sharding(mesh), model)
+            pf = getattr(fetcher, "post_fetch_fn", None)
+            if pf is not None and getattr(pf, "sharding", False) is None:
+                pf.sharding = data_sharding(mesh)
 
         # Train on low-resolution logits and fold the model's trailing
         # bilinear upsample into the loss (the fused upsample+CE kernel on
@@ -255,9 +286,16 @@ class Trainer:
             lr=lr, adam=adam, momentum=momentum, weight_decay=weight_decay,
             clip_grad=clip_grad, lr_schedule=lr_schedule,
             warmup_steps=warmup_steps, total_steps=total_steps)
-        self.optimizer = make_optimizer(
-            [p for p in model.parameters() if p.requires_grad],
-            **self._optimizer_options)
+        params = [p for p in model.parameters() if p.requires_grad]
+        if self.zero:
+            from ..parallel.zero import ZeroOptimizer
+            inner = {**self._optimizer_options, "clip_grad": 0.0}
+            self.optimizer = ZeroOptimizer(
+                params, mesh, lambda shards: make_optimizer(shards, **inner),
+                clip_grad=clip_grad)
+        else:
+            self.optimizer = make_optimizer(params,
+                                            **self._optimizer_options)
         self.state = create_train_state(self._train_module, self.optimizer,
                                         accumulate=self.accumulate,
                                         ema=self.ema_decay > 0)
@@ -268,7 +306,11 @@ class Trainer:
             self.state.step = int(ckpt["step"])
             self.state.micro_step = self.state.step * self.accumulate
             if self.ema_decay > 0 and ckpt["ema"] is not None:
-                for name, value in ckpt["ema"].items():
+                names = list(self.state.ema_params)
+                values = [ckpt["ema"][n] for n in names]
+                if self.zero:
+                    values = self.optimizer.shard(values)
+                for name, value in zip(names, values):
                     self.state.ema_params[name].copy_(value)
         self._train_step = make_train_step(loss_fn=loss_fn,
                                            accumulate=self.accumulate,
@@ -277,7 +319,8 @@ class Trainer:
                                            aux_weight=aux_weight,
                                            distill_fn=distill_fn,
                                            distill_weight=distill_weight,
-                                           distill_temp=distill_temp)
+                                           distill_temp=distill_temp,
+                                           mesh=mesh)
 
     @property
     def model(self) -> torch.nn.Module:
@@ -292,8 +335,18 @@ class Trainer:
         if self.state.ema_params is None:
             return self.model
         twin = copy.deepcopy(self.module)
-        twin.load_state_dict(self.state.ema_params, strict=False)
+        twin.load_state_dict(self._full_ema(), strict=False)
         return twin.eval()
+
+    def _full_ema(self):
+        """The EMA weights at full size (under ZeRO gathered from every
+        rank's shards: a collective)."""
+        ema = self.state.ema_params
+        if ema is None or not self.zero:
+            return ema
+        names = list(ema)
+        return dict(zip(names, self.optimizer.gather_tensors(
+            [ema[n] for n in names])))
 
     def _to_device(self, array):
         return host_to_device(array, self.device)
@@ -380,18 +433,23 @@ class Trainer:
         return mean_loss
 
     def log_record(self, **record) -> None:
-        """Append one JSON line to <log_dir>/log.jsonl."""
+        """Append one JSON line to <log_dir>/log.jsonl (rank 0 only)."""
+        if self.rank != 0:
+            return
         os.makedirs(self.log_dir, exist_ok=True)
         record.setdefault("time", time.time())
         with open(os.path.join(self.log_dir, "log.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
 
     def save(self, best: bool = False) -> None:
-        """Write last.pt (and best.pt when `best`) under `workdir`."""
+        """Write last.pt (and best.pt when `best`) under `workdir`; under a
+        mesh every rank calls it and rank 0 writes."""
         kw = dict(model_state=self.module.state_dict(),
                   optimizer_state=self.optimizer.state_dict(),
                   step=self.state.step, epoch=self.epoch,
-                  best_miou=self.metrics, ema=self.state.ema_params)
+                  best_miou=self.metrics, ema=self._full_ema())
+        if self.rank != 0:
+            return
         save_checkpoint(os.path.join(self.workdir, "last.pt"), **kw)
         if best:
             save_checkpoint(os.path.join(self.workdir, "best.pt"), **kw)

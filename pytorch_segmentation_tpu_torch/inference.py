@@ -53,10 +53,11 @@ from .data.resize_host import resize_probs, resize_u8
 from .engine.checkpoint import load_model_bundle
 from .engine.steps import nhwc_forward, require_eval_mode
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
-                     variant_kwargs)
+                     variant_kwargs, without_default_init)
 from .ops.kernels.upsample_argmax import fused_upsample_argmax
 from .ops.resize import resize_bilinear
 from .ops.tta import normalize_tta_scales, tta_logits
+from .parallel.mesh import replicas, split_batch
 from .quant import calibrate_from_u8, quantized_forward
 from .utils.cli import refuse_unported
 from .utils.imgcodecs import imread
@@ -147,20 +148,40 @@ def make_mask_fn(model: torch.nn.Module, out_hw=None,
     forward on the horizontally flipped batch before the upsample+argmax;
     tta_scales adds forwards at other input scales (ops/tta.py), composing
     with the flip. Each call raises a ValueError if any submodule of `model`
-    is in train mode."""
-    if mesh is not None:
-        raise NotImplementedError("multi-card serving is not ported yet "
-                                  "(ROADMAP: parallel/)")
+    is in train mode.
+
+    mesh=make_mesh() (one process, without a process group) serves over
+    every local card, as the JAX single-host mesh: the model is replicated
+    on each card (`parallel.replicas`; `model` on the first), each call's
+    batch must divide by the card count (a ValueError otherwise) and is
+    split into one chunk a card, each chunk runs the whole path on its card
+    (the upsample+argmax kernel there), and the masks are gathered on the
+    first card: the masks of one card, on N cards."""
     return build_mask_fn(model, out_hw, legacy_preproc, "make_mask_fn",
-                         tta_flip=tta_flip, tta_scales=tta_scales)
+                         tta_flip=tta_flip, tta_scales=tta_scales, mesh=mesh)
 
 
 def build_mask_fn(model: torch.nn.Module, out_hw, legacy_preproc: bool,
                   what: str, quant: bool = False, quant_stats=None,
-                  tta_flip: bool = False, tta_scales=()):
+                  tta_flip: bool = False, tta_scales=(), mesh=None):
     """The body of `make_mask_fn` and `quant.make_quant_mask_fn` (`what`
     names the caller in the eval-mode error): with quant=True the forward
-    runs in "int8" mode with `quant_stats`, or "int8dyn" without."""
+    runs in "int8" mode with `quant_stats`, or "int8dyn" without; `mesh`
+    as `make_mask_fn` takes it."""
+    if mesh is not None:
+        if mesh.world > 1:
+            raise ValueError(f"{what} serves in one process over its local "
+                             f"cards; this mesh spans {mesh.world} "
+                             f"processes")
+        fns = [build_mask_fn(m, out_hw, legacy_preproc, what, quant,
+                             quant_stats, tta_flip, tta_scales)
+               for m in replicas(mesh, model)]
+
+        def sharded(images_u8):
+            masks = [fn(chunk) for fn, chunk in zip(
+                fns, split_batch(mesh, images_u8))]
+            return torch.cat([m.to(mesh.device) for m in masks])
+        return sharded
     prepare = _serving_input(model, legacy_preproc)
     align = getattr(model, "up_align_corners", True)
     tta_scales = normalize_tta_scales(tta_scales)
@@ -273,10 +294,12 @@ def run(img_dir, output_dir, img_size, num_classes, weights, model_name,
     device = require_cuda() if device is None else torch.device(device)
     shutil.rmtree(output_dir, ignore_errors=True)
     os.makedirs(output_dir, exist_ok=True)
-    model = build_model(model_name, num_classes=num_classes,
-                        **apply_scan_blocks(
-                            model_name, variant_kwargs(model_name, variant),
-                            scan_blocks))
+    with without_default_init():
+        model = build_model(model_name, num_classes=num_classes,
+                            **apply_scan_blocks(
+                                model_name, variant_kwargs(model_name,
+                                                           variant),
+                                scan_blocks))
     model = load_model_bundle(model, weights, device, use_ema=ema)
     names = sorted(n for n in os.listdir(img_dir)
                    if osp.splitext(n)[1] in IMG_EXT)

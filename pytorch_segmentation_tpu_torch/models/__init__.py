@@ -6,7 +6,15 @@ DANet, LR-ASPP (MobileNetV3-Large), SegFormer (MiT-B0...B5), SegNeXt (MSCAN
 Segmenter (ViT) and MaskFormer (trained on `make_maskformer_loss`).
 `MODEL_VARIANTS` is the JAX package's table; `apply_scan_blocks` its CLI
 gate of `--scan-blocks`. `UNPORTED_ENCODERS` (UPerNet encoders the port
-lacks) is empty."""
+lacks) is empty. Every constructor takes the JAX modules' `axis_name`; the
+statistics of train-mode BatchNorm are global under a mesh whether or not it
+is set (`parallel/mesh.batch_statistics_over`), as under the JAX pjit.
+`without_default_init` builds a model whose weights are loaded next without
+torch's random fills."""
+
+import contextlib
+
+import torch
 
 from .bisenetv2 import BiSeNetV2
 from .danet import DANet
@@ -28,7 +36,8 @@ __all__ = ["BiSeNetV2", "DANet", "DeepLabV3", "DeepLabV3Plus", "FCN", "FPN",
            "HRNet", "LRASPP", "MaskFormer", "OCRNet", "PSPNet", "SegFormer",
            "Segmenter", "SegNeXt", "UNet", "UPerNet", "UNPORTED_ENCODERS",
            "MODEL_REGISTRY", "MODEL_VARIANTS", "apply_scan_blocks",
-           "build_model", "make_maskformer_loss", "variant_kwargs"]
+           "build_model", "make_maskformer_loss", "variant_kwargs",
+           "without_default_init"]
 
 
 def _fastfcn(**kw):
@@ -57,6 +66,27 @@ MODEL_REGISTRY = {
     "deeplabv3": DeepLabV3,
     "lraspp": LRASPP,
 }
+
+
+@contextlib.contextmanager
+def without_default_init():
+    """Inside the block, modules are built without torch's random parameter
+    fills (`torch.nn.init.kaiming_uniform_`, `uniform_` and `normal_`, 0.4-0.7
+    s a build of DeepLabV3+, PSPNet or UPerNet at the published widths on
+    one host thread); buffers are made as always. For a model whose every
+    parameter is loaded or seeded next (the CLIs: `load_model_bundle` loads
+    strictly, the Trainer seeds or loads every entry). The fills are
+    torch's module-level functions: no other thread may build modules
+    meanwhile."""
+    names = ("kaiming_uniform_", "uniform_", "normal_")
+    saved = {n: getattr(torch.nn.init, n) for n in names}
+    for n in names:
+        setattr(torch.nn.init, n, lambda t, *args, **kwargs: t)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(torch.nn.init, n, fn)
 
 
 def build_model(name: str, num_classes: int, **kwargs):

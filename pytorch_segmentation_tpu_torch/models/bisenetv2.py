@@ -95,8 +95,10 @@ class BiSeNetV2(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False, remat: bool = False,
-                 aux: bool = False):
+                 aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         _refuse_unported(remat=remat)
         self.num_classes = num_classes
         self.dtype = dtype

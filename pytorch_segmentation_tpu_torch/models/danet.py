@@ -43,8 +43,10 @@ class DANet(nn.Module):
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  channels: int = 512, dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False, aux: bool = False):
+                 up_align_corners: bool = False, aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.channels = channels
         self.dtype = dtype

@@ -28,8 +28,10 @@ class DeepLabV3Plus(nn.Module):
 
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  dtype: torch.dtype = torch.bfloat16,
-                 full_res_output: bool = True, up_align_corners: bool = True):
+                 full_res_output: bool = True, up_align_corners: bool = True,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output

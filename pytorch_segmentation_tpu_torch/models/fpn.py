@@ -31,8 +31,10 @@ class FPN(nn.Module):
                  block: str = "bottleneck", fpn_channels: int = 256,
                  seg_channels: int = 128, dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False):
+                 up_align_corners: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.block = block
         self.dtype = dtype

@@ -101,8 +101,10 @@ class HRNet(nn.Module):
                  base_channels: int = 32, dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False,
-                 feature_output: bool = False):
+                 feature_output: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.feature_output = feature_output
         self.num_classes = num_classes
         self.dtype = dtype

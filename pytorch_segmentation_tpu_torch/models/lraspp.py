@@ -34,8 +34,10 @@ class LRASPP(nn.Module):
     def __init__(self, num_classes: int, inter_channels: int = 128,
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False):
+                 up_align_corners: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output

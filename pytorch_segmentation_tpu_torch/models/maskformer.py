@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from ..nn.backbones.resnet import ResNet
 from ..nn.blocks import ConvNormAct, LayerNorm, Linear, conv2d
 from ..ops.resize import resize_bilinear_nchw, resize_nearest
+from ..parallel.mesh import batch_sum
 from ..utils.runtime import host_to_device
 from .segformer import _refuse_unported
 
@@ -151,8 +152,10 @@ class MaskFormer(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False, remat: bool = False,
-                 aux_loss: bool = True):
+                 aux_loss: bool = True,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         _refuse_unported(remat=remat)
         self.num_classes = num_classes
         self.num_queries, self.dim = num_queries, dim
@@ -339,7 +342,9 @@ def make_maskformer_loss(num_classes: int, matcher: str = "sinkhorn",
     """`loss_fn(outputs, segs)` for `make_train_step`: outputs is the
     train-mode dict, segs [B, H, W] integer labels at a multiple of the
     mask logits' size (`_targets`: a label >= num_classes, such as 255, is
-    in no target and in no pixel sum)."""
+    in no target and in no pixel sum). Each image is matched on its own;
+    the class and mask terms are ratios of batch sums, which a mesh takes
+    over every rank."""
     if matcher not in MATCHERS:
         raise ValueError(f"matcher must be one of {MATCHERS}, not "
                          f"{matcher!r}")
@@ -352,7 +357,6 @@ def make_maskformer_loss(num_classes: int, matcher: str = "sinkhorn",
             cls, mask, targets, num_classes, w_cls, w_focal, w_dice,
             focal_alpha, focal_gamma)
         asgn = match(cost.detach(), targets[4])              # [B, K, Q]
-        n_match = asgn.sum().clamp(min=1.0)
         q_cls_logp = torch.einsum("bcq,bqc->bq", asgn,
                                   logp[..., :num_classes])
         # clamped: a Sinkhorn decode collision must not flip the sign of
@@ -360,12 +364,14 @@ def make_maskformer_loss(num_classes: int, matcher: str = "sinkhorn",
         matched = asgn.sum(1).clamp(max=1.0)                 # [B, Q]
         ce = -(q_cls_logp + (1 - matched) * eos_coef
                * logp[..., num_classes])
-        denom = matched.sum() + eos_coef * (1 - matched).sum()
-        loss_cls = ce.sum() / denom.clamp(min=1.0)
         focal_m = torch.einsum("bcq,bqc->bc", asgn, focal_qc)
         dice_m = torch.einsum("bcq,bqc->bc", asgn, dice_qc)
-        loss_mask = (w_focal * focal_m.sum() + w_dice * dice_m.sum()) \
-            / n_match
+        # ratios of batch sums: each sum over a mesh's ranks
+        ce_sum, denom, mask_sum, n_match = batch_sum(
+            ce.sum(), matched.sum() + eos_coef * (1 - matched).sum(),
+            w_focal * focal_m.sum() + w_dice * dice_m.sum(), asgn.sum())
+        loss_cls = ce_sum / denom.clamp(min=1.0)
+        loss_mask = mask_sum / n_match.clamp(min=1.0)
         return w_cls * loss_cls + loss_mask
 
     def loss_fn(outputs, segs):

@@ -52,8 +52,10 @@ class OCRNet(nn.Module):
                  num_branches_list: Sequence[int] = (2, 3, 4),
                  base_channels: int = 32, dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False, aux: bool = False):
+                 up_align_corners: bool = False, aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.key_channels = key_channels
         self.dtype = dtype

@@ -44,8 +44,10 @@ class PSPNet(nn.Module):
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  bins=(1, 2, 3, 6), dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True, up_align_corners: bool = True,
-                 jpu: bool = False, aux: bool = False):
+                 jpu: bool = False, aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.bins = tuple(bins)
         self.dtype = dtype

@@ -264,8 +264,10 @@ class SegFormer(nn.Module):
                  full_res_output: bool = True,
                  up_align_corners: bool = False, split_fuse: bool = True,
                  remat: bool = False, scan_blocks: bool = False,
-                 pp_mesh=None, moe_experts: int = 0):
+                 pp_mesh=None, moe_experts: int = 0,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         _refuse_unported(remat, pp_mesh, moe_experts)
         dims, depths, heads, dec_dim = SEGFORMER_VARIANTS[variant]
         self.num_classes = num_classes

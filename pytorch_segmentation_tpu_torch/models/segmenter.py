@@ -66,8 +66,10 @@ class Segmenter(nn.Module):
                  n_decoder_layers: int = 2,
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False, remat: bool = False):
+                 up_align_corners: bool = False, remat: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         _refuse_unported(remat=remat)
         layers, dim, heads, patch, base_grid, _ = VIT_VARIANTS[variant]
         self.num_classes = num_classes

@@ -249,8 +249,10 @@ class SegNeXt(nn.Module):
     def __init__(self, num_classes: int, variant: str = "t",
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True, remat: bool = False,
-                 up_align_corners: bool = False):
+                 up_align_corners: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         _refuse_unported(remat=remat)
         if variant not in MSCAN_VARIANTS:
             raise ValueError(f"unknown SegNeXt variant {variant!r}; "

@@ -94,9 +94,11 @@ class FCN(_DilatedResNetSeg):
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False, aux: bool = False):
+                 up_align_corners: bool = False, aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__(num_classes, backbone_layers, 512, dtype,
                          full_res_output, up_align_corners, aux)
+        self.axis_name = axis_name
         self.head = ConvNormAct(2048, 512, 3, dtype=dtype)
 
     def decode(self, y):
@@ -110,9 +112,11 @@ class DeepLabV3(_DilatedResNetSeg):
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  rates=(12, 24, 36), dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False, aux: bool = False):
+                 up_align_corners: bool = False, aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__(num_classes, backbone_layers, 256, dtype,
                          full_res_output, up_align_corners, aux)
+        self.axis_name = axis_name
         self.rates = tuple(rates)
         self.aspp_b0 = ConvNormAct(2048, 256, 1, dtype=dtype)
         for i, rate in enumerate(self.rates):

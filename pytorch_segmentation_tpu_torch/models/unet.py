@@ -32,8 +32,10 @@ class UNet(nn.Module):
     output_stride = 2  # stride of the logits when full_res_output=False
 
     def __init__(self, num_classes: int, dtype: torch.dtype = torch.bfloat16,
-                 full_res_output: bool = True, up_align_corners: bool = True):
+                 full_res_output: bool = True, up_align_corners: bool = True,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output

@@ -62,8 +62,10 @@ class UPerNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False, remat: bool = False,
-                 aux: bool = False):
+                 aux: bool = False,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
         if encoder not in ("resnet", "mit", "convnext", "swin", "vit"):
             raise ValueError(f"unknown UPerNet encoder {encoder!r}")
         _refuse_unported(remat=remat)

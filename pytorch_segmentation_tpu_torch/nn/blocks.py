@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.int8 import int8_conv2d
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
+from ..parallel.mesh import batch_mean, batch_world
 
 __all__ = ["BatchNorm2d", "ConvNormAct", "GroupNorm", "LayerNorm", "Linear",
            "Scale", "SeparableConvNormAct", "conv2d", "nhwc_conv",
@@ -303,8 +304,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     gradients flow through them. The running statistics move with momentum
     0.1 towards the batch mean and the unbiased batch variance (the
     normalization itself uses the biased one), outside the graph, and
-    `num_batches_tracked` advances by one. The JAX module's `stat_subsample`
-    and `axis_name` (statistics across replicas) are not ported."""
+    `num_batches_tracked` advances by one. Inside
+    `parallel.mesh.batch_statistics_over(group)` (the train step under a
+    mesh) E[x] and E[x^2] are the means over the group's ranks, through an
+    all-reduce that autograd sees, and the running variance's Bessel factor
+    counts every rank's values: the statistics of the global batch, as the
+    JAX module's under pjit or with `axis_name`. Its `stat_subsample` is not
+    ported."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__(num_features, eps=1e-5, momentum=BN_MOMENTUM)
@@ -336,18 +342,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         epilogue) instead of being reduced from the activation. Returns the
         folded (scale, shift) in f32 for the CONSUMER to apply: the
         normalize itself fuses into the next layer's prologue. Same
-        parameters, buffers and running update as `forward`."""
+        parameters, buffers, running update and sums over a mesh's ranks
+        as `forward`."""
         if self.training:
-            return self._fold_moments(col_sum / n, col_sumsq / n, n)
+            mean, ex2 = batch_mean(col_sum / n, col_sumsq / n)
+            return self._fold_moments(mean, ex2, n * batch_world())
         return self._fold_moments(None, None, n)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean = ex2 = None
+        n = x.numel() // x.shape[1]
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            ex2 = (xf * xf).mean(dim=(0, 2, 3))
-        inv, shift = self._fold_moments(mean, ex2, x.numel() // x.shape[1])
+            mean, ex2 = batch_mean(xf.mean(dim=(0, 2, 3)),
+                                   (xf * xf).mean(dim=(0, 2, 3)))
+            n *= batch_world()
+        inv, shift = self._fold_moments(mean, ex2, n)
         return apply_fold(x, inv, shift, self.compute_dtype)
 
 

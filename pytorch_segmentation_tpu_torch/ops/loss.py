@@ -13,12 +13,21 @@ rectangularity prior of ops/rect_loss.py. They run in plain PyTorch on
 full-resolution f32 logits, as the JAX package runs them outside any Pallas
 kernel; only `build_loss("ce")` with no knob keeps the fused kernel (it is
 `compute_loss` itself, which the Trainer recognises).
+
+Under a mesh (`parallel.mesh.batch_statistics_over`, the train step over
+several ranks) a loss that is a ratio of batch sums (CE with `ignore_index`,
+class weights or smoothing; Dice) takes both sums over every rank, so each
+rank's value is the global batch's; a mean over equal per-rank shards (the
+plain CE, focal, rect, distillation) is the global one once the step
+averages over ranks. OHEM's k-th value and Lovász's sorts need the whole
+global batch at once and raise when it spans several ranks.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import batch_sum, require_local_batch
 from ..utils.runtime import device_constant
 from .kernels.softmax_ce import fused_upsample_ce
 from .resize import resize_bilinear
@@ -58,7 +67,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     per_pixel = lse - true_logit
     if ignore_index is not None:
         validf = valid.float()
-        return (per_pixel * validf).sum() / validf.sum().clamp(min=1.0)
+        total, count = batch_sum((per_pixel * validf).sum(), validf.sum())
+        return total / count.clamp(min=1.0)
     return per_pixel.mean()
 
 
@@ -110,6 +120,8 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                           pixels only. Ignored pixels are never kept.
 
     logits [..., C] (any float), labels [...] int. All math in f32."""
+    if ohem_frac:
+        require_local_batch("OHEM")
     logits = logits.float()
     num_classes = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
@@ -140,18 +152,21 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
             kth = torch.kthvalue(flat_p, k).values
             cutoff = torch.clamp(kth, min=float(ohem_thresh))
             mask = mask * (p_true <= cutoff).float()
-    denom = (wy * mask).sum().clamp(min=1e-12)
-    loss = (nll * wy * mask).sum() / denom
+    sums = [(nll * wy * mask).sum(), (wy * mask).sum()]
     if label_smoothing:
-        eps = float(label_smoothing)
         if cw is None:
             # sum_c (lse - z_c) = C * lse - sum_c z_c
             smooth = num_classes * lse - logits.sum(dim=-1)
         else:
             smooth = cw.sum() * lse - torch.tensordot(logits, cw,
                                                       dims=([-1], [0]))
-        loss = ((1.0 - eps) * loss
-                + (eps / num_classes) * (smooth * mask).sum() / denom)
+        sums.append((smooth * mask).sum())
+    sums = batch_sum(*sums)
+    denom = sums[1].clamp(min=1e-12)
+    loss = sums[0] / denom
+    if label_smoothing:
+        eps = float(label_smoothing)
+        loss = (1.0 - eps) * loss + (eps / num_classes) * sums[2] / denom
     return loss
 
 
@@ -249,7 +264,8 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     inter = zeros.index_add(0, t, torch.where(counted, p_true,
                                               torch.zeros_like(p_true)))
     gt_count = zeros.index_add(0, t, counted.float())
-    card = probas.sum(dim=0) + gt_count
+    inter, gt_count, p_sum = batch_sum(inter, gt_count, probas.sum(dim=0))
+    card = p_sum + gt_count
     dice = (2.0 * inter + smooth) / (card + smooth)
     present = gt_count > 0
     n_present = present.float().sum().clamp(min=1.0)
@@ -294,6 +310,7 @@ def lovasz_softmax_loss(logits: torch.Tensor,
     its gradient does). One class at a time: a sort of all classes at once
     would hold [C, N] values and int64 indices (2.1 GB at batch 32 and
     513² with 21 classes) besides the saved indices."""
+    require_local_batch("the Lovász-softmax loss")
     num_classes = logits.shape[-1]
     probas = torch.softmax(logits.float(), dim=-1).reshape(-1, num_classes)
     labels = labels.reshape(-1)

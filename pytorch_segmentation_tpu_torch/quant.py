@@ -142,10 +142,8 @@ def make_quant_mask_fn(model: torch.nn.Module, out_hw=None,
     RGB) -> int32 masks [B, *out_hw] on the model's device, every eligible
     conv on the exact int8 product, the low-resolution logits through
     `fused_upsample_argmax`. quant_stats: from `calibrate` /
-    `calibrate_from_u8`; None takes dynamic scales ("int8dyn")."""
-    if mesh is not None:
-        raise NotImplementedError("multi-card int8 serving is not ported "
-                                  "yet (ROADMAP: parallel/)")
+    `calibrate_from_u8`; None takes dynamic scales ("int8dyn"). mesh: one
+    process's local cards, as `inference.make_mask_fn` takes it."""
     from .inference import build_mask_fn
     return build_mask_fn(model, out_hw, legacy_preproc, "make_quant_mask_fn",
-                         quant=True, quant_stats=quant_stats)
+                         quant=True, quant_stats=quant_stats, mesh=mesh)

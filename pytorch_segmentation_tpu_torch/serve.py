@@ -20,8 +20,11 @@ segformer's stacked block stages (another family exits with status 2),
 which must match the checkpoint. A checkpoint of `train --aux-loss` loads
 without its train-only auxiliary heads. `--int8` serves the int8 forward
 (`quant.py`) with dynamic activation scales: the root CLI passes no
-calibration statistics either. `--moe`, `--moe-top-k` and `--dp` (the root
-CLI's) exit with status 2 and name their ROADMAP item.
+calibration statistics either. `--dp` serves over every local card
+(`parallel.make_mesh()`: the model replicated a card, each padded batch
+split over them, `--max-batch` rounded up to a multiple of the card count).
+`--moe` and `--moe-top-k` (the root CLI's) exit with status 2 and name their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,14 +36,15 @@ import torch
 
 from .engine.checkpoint import load_model_bundle
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
-                     variant_kwargs)
+                     variant_kwargs, without_default_init)
+from .parallel import make_mesh
 from .serving import MaskServer
 from .utils.cli import refuse_unported
 
 __all__ = ["UNPORTED", "parse_args", "build_server", "main"]
 
 # name -> (default, ROADMAP queue 1 item)
-UNPORTED = {"moe": (0, 10), "moe_top_k": (2, 10), "dp": (False, 10)}
+UNPORTED = {"moe": (0, 10), "moe_top_k": (2, 10)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -83,7 +87,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--scan-blocks", action="store_true",
                         help="a stacked-params segformer checkpoint")
     parser.add_argument("--dp", action="store_true",
-                        help="data-parallel serving (not ported yet)")
+                        help="data-parallel serving over every local "
+                             "card: the model replicates, the padded batch "
+                             "splits over the cards (max-batch rounds up to "
+                             "a multiple of the card count)")
     opt = parser.parse_args(argv)
     refuse_unported(parser, opt, UNPORTED)
     if not os.path.isfile(opt.weights):
@@ -94,15 +101,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_server(opt: argparse.Namespace, device) -> MaskServer:
     """The model the options name, with the checkpoint's weights (its EMA
     parameters with --ema) on `device`, behind a MaskServer with the
-    options' batching, preprocessing, int8 forward and TTA. Not
-    started."""
-    model = build_model(opt.model, num_classes=opt.num_classes,
-                        dtype=torch.bfloat16, full_res_output=False,
-                        **apply_scan_blocks(
-                            opt.model, variant_kwargs(opt.model, opt.variant),
-                            opt.scan_blocks))
+    options' batching, preprocessing, int8 forward and TTA, over every
+    local card with --dp (on the CPU: `device` alone). Not started."""
+    with without_default_init():
+        model = build_model(opt.model, num_classes=opt.num_classes,
+                            dtype=torch.bfloat16, full_res_output=False,
+                            **apply_scan_blocks(
+                                opt.model,
+                                variant_kwargs(opt.model, opt.variant),
+                                opt.scan_blocks))
     model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
-    return MaskServer(model, img_size=tuple(opt.img_size),
+    mesh = None
+    if opt.dp:
+        cuda = torch.device(device).type == "cuda"
+        mesh = make_mesh(None if cuda else (device,))
+    return MaskServer(model, img_size=tuple(opt.img_size), mesh=mesh,
                       max_batch=opt.max_batch,
                       batch_window_ms=opt.batch_window_ms,
                       legacy_preproc=opt.legacy_preproc, int8=opt.int8,

@@ -77,7 +77,10 @@ class MaskServer:
     (requests are resized to it, masks resized back to each request's own
     resolution with nearest interpolation). int8=True serves the int8
     forward (quant.py) with dynamic activation scales, or calibrated ones
-    when `quant_stats` (from quant.calibrate_from_u8) is passed."""
+    when `quant_stats` (from quant.calibrate_from_u8) is passed.
+    mesh=make_mesh() serves every batch over the local cards
+    (`inference.make_mask_fn(mesh=)`); `max_batch` is rounded up to a
+    multiple of the card count, so that the padded batch divides."""
 
     def __init__(self, model, img_size=(513, 513), max_batch: int = 8,
                  batch_window_ms: float = 5.0, legacy_preproc: bool = False,
@@ -85,21 +88,26 @@ class MaskServer:
                  tta_scales=(), colormap=None, mesh=None):
         self.img_size = (int(img_size[0]), int(img_size[1]))  # (W, H)
         self.max_batch = max(1, int(max_batch))
+        quantized = int8 or quant_stats is not None
+        if mesh is not None:
+            n = len(mesh.devices)
+            self.max_batch = -(-self.max_batch // n) * n
+            if quantized and (tta_flip or tta_scales):
+                raise ValueError("--dp composes with --int8 or TTA, not the "
+                                 "int8+TTA probability path (host argmax; "
+                                 "shard it yourself if needed)")
         self.batch_window_s = max(0.0, float(batch_window_ms)) / 1e3
         self.colormap = colormap if colormap is not None else VOC_COLORMAP
         hw = (self.img_size[1], self.img_size[0])
         self._probs_fn = None
-        if (int8 or quant_stats is not None) and (tta_flip or tta_scales):
+        if quantized and (tta_flip or tta_scales):
             # the quantized forward composes with the TTA ensemble in
             # make_infer_fn, which takes no mesh; the argmax runs on the host
-            if mesh is not None:
-                raise NotImplementedError("multi-card serving is not ported "
-                                          "yet (ROADMAP: parallel/)")
             self._probs_fn = make_infer_fn(
                 model, legacy_preproc, int8=True, quant_stats=quant_stats,
                 tta_flip=tta_flip, tta_scales=tta_scales)
             self._mask_fn = None
-        elif int8 or quant_stats is not None:
+        elif quantized:
             self._mask_fn = make_quant_mask_fn(
                 model, out_hw=hw, legacy_preproc=legacy_preproc,
                 quant_stats=quant_stats, mesh=mesh)

@@ -36,7 +36,7 @@ from .data import (CocoDataset, DataLoader, Fetcher, IdImgDataset, PostFetch,
 from .engine import test
 from .engine.checkpoint import load_model_bundle
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
-                     variant_kwargs)
+                     variant_kwargs, without_default_init)
 from .quant import calibrate
 from .utils.cli import refuse_unported
 from .utils.runtime import require_cuda
@@ -61,10 +61,12 @@ def run(opt: argparse.Namespace, device=None) -> float:
     val_loader = DataLoader(val_data, batch_size=opt.batch_size,
                             num_workers=opt.num_workers)
     val_fetcher = Fetcher(val_loader, PostFetch(device=device))
-    model = build_model(opt.model, num_classes=len(val_data.classes),
-                        **apply_scan_blocks(
-                            opt.model, variant_kwargs(opt.model, opt.variant),
-                            opt.scan_blocks))
+    with without_default_init():
+        model = build_model(opt.model, num_classes=len(val_data.classes),
+                            **apply_scan_blocks(
+                                opt.model,
+                                variant_kwargs(opt.model, opt.variant),
+                                opt.scan_blocks))
     model = load_model_bundle(model, opt.weights, device, use_ema=opt.ema)
     quant_stats = None
     if opt.int8 and opt.calib_batches > 0:

@@ -48,6 +48,19 @@ maskformer: r50, tiny; upernet: r50, r34, mit-b0..mit-b5, mit-tiny, cn-*,
 swin-*, vit-*). Runs on the card
 (`require_cuda`);
 `train(..., device="cpu")` runs the same on the CPU.
+
+Data parallelism, one process per card, as the reference's DDP:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m pytorch_segmentation_tpu_torch.train data/coco --model deeplabv3plus
+
+Under torchrun the process group is the mesh (`parallel.
+initialize_distributed`, NCCL; gloo with `device="cpu"`): each rank loads
+its shard of the train and val sets (`-bs` images a rank: the global batch
+is `-bs` times the rank count), the step's BatchNorm statistics, loss and
+gradients span every rank, the epoch's eval is global, and rank 0 prints
+and writes the checkpoints. `--zero` shards the optimizer state over the
+ranks (`parallel/zero.py`; with one rank it is the plain path).
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ import json
 import os.path as osp
 
 import torch
+import torch.distributed as dist
 
 from .data import (AugmentConfig, CocoDataset, CocoInstance, DataLoader,
                    Fetcher, IdImgDataset, PostFetch, SegImgDataset,
@@ -65,8 +79,10 @@ from .data.resize_host import multi_scale_sizes
 from .engine import Trainer, load_model_bundle, test
 from .engine.steps import nhwc_forward
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
-                     make_maskformer_loss, variant_kwargs)
+                     make_maskformer_loss, variant_kwargs,
+                     without_default_init)
 from .ops.loss import build_loss
+from .parallel import initialize_distributed, make_mesh
 from .utils.cli import refuse_unported, unported_options
 from .utils.runtime import require_cuda
 
@@ -90,7 +106,7 @@ UNPORTED = {
     "remat": (False, 5), "bn_subsample": (1, 5),
     "debug_nans": (False, 5),
     "tp": (1, 10), "pp": (1, 10), "ep": (1, 10), "spatial": (1, 10),
-    "zero": (False, 10), "moe": (0, 10),
+    "moe": (0, 10),
 }
 
 
@@ -129,7 +145,9 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
           cutmix=0.0, mosaic=0.0, balance=0.0, matcher="sinkhorn",
           bn_subsample=1, debug_nans=False, device=None):
     """The root `train()` on `device` (None: the card). Writes weights/ and
-    runs/ under the working directory; returns the Trainer."""
+    runs/ under the working directory; returns the Trainer. Under an
+    initialized process group the group is the mesh (the module
+    docstring)."""
     unported = unported_options(locals(), UNPORTED)
     if unported:
         raise NotImplementedError("; ".join(unported))
@@ -141,6 +159,8 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
         model_kw["aux"] = True
     apply_scan_blocks(model_name, model_kw, scan_blocks)
     device = require_cuda() if device is None else torch.device(device)
+    mesh = make_mesh((device,)) if dist.is_initialized() else None
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     ds_cls, train_file, val_file = DATASETS[dataset]
     train_data = ds_cls(osp.join(data_dir, train_file), img_size=img_size,
                         multi_scale=multi_scale, rect=rect,
@@ -158,7 +178,8 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
               f"({int((rf > 1).sum())}/{len(rf)} images oversampled)")
     train_loader = DataLoader(train_data, batch_size=batch_size, shuffle=True,
                               drop_last=True, num_workers=num_workers,
-                              seed=seed, repeat_factors=rf)
+                              seed=seed, rank=rank, world_size=world,
+                              repeat_factors=rf)
     h, w = img_size[1], img_size[0]
     # bf16 feed when the model computes bf16: its first convolution casts
     # the input anyway
@@ -176,14 +197,17 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
                           augments=False, rect=rect,
                           cache_images=cache_images)
         val_loader = DataLoader(val_data, batch_size=batch_size,
-                                shuffle=False, num_workers=num_workers)
+                                shuffle=False, num_workers=num_workers,
+                                rank=rank, world_size=world)
         val_fetcher = Fetcher(val_loader, PostFetch(device=device))
 
     if patience and notest:
         raise SystemExit("--patience keys off per-epoch val mIoU; it can't "
                          "work with --notest")
-    model = build_model(model_name, num_classes=len(train_data.classes),
-                        dtype=feed_dtype, **model_kw)
+    # the Trainer seeds or loads every entry
+    with without_default_init():
+        model = build_model(model_name, num_classes=len(train_data.classes),
+                            dtype=feed_dtype, **model_kw)
 
     distill_fn = None
     if distill:
@@ -191,11 +215,11 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
         # logits stay at its own stride, as the student's do under the
         # deferred upsample (distill_loss resizes a grid that differs)
         tname = distill_model or model_name
-        teacher = load_model_bundle(
-            build_model(tname, num_classes=len(train_data.classes),
-                        dtype=feed_dtype, full_res_output=False,
-                        **variant_kwargs(tname, distill_variant)),
-            distill, device)
+        with without_default_init():
+            teacher = build_model(tname, num_classes=len(train_data.classes),
+                                  dtype=feed_dtype, full_res_output=False,
+                                  **variant_kwargs(tname, distill_variant))
+        teacher = load_model_bundle(teacher, distill, device)
         distill_fn = nhwc_forward(teacher)
 
     cw = parse_class_weights(class_weights, len(train_data.classes))
@@ -224,7 +248,8 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
                       // max(1, accumulate),
                       ema_decay=ema, aux_weight=aux_loss,
                       distill_fn=distill_fn, distill_weight=distill_weight,
-                      distill_temp=distill_temp, qat=qat, device=device)
+                      distill_temp=distill_temp, qat=qat, mesh=mesh,
+                      zero=zero, device=device)
     if precompile:
         sizes = multi_scale_sizes((h, w)) if multi_scale else [(h, w)]
         trainer.warmup(sizes, batch_size)
@@ -237,12 +262,13 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
             # eval (and the choice of best.pt) runs it; under --ema the
             # deployment weights are the averaged ones
             eval_model = trainer.ema_model if ema > 0 else trainer.model
-            metrics = test(eval_model, val_fetcher, int8=qat,
+            metrics = test(eval_model, val_fetcher, mesh=mesh, int8=qat,
                            ignore_index=ignore_index, device=device)
             trainer.log_record(epoch=trainer.epoch - 1, val_miou=metrics)
             if metrics > trainer.metrics:
                 best = True
-                print("save best, miou: %g" % metrics)
+                if rank == 0:
+                    print("save best, miou: %g" % metrics)
                 trainer.metrics = metrics
                 epochs_since_best = 0
             else:
@@ -250,8 +276,9 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
         if not nosave:
             trainer.save(best)
         if patience and epochs_since_best >= patience:
-            print("early stop: no val mIoU improvement in %d epochs "
-                  "(best %g)" % (patience, trainer.metrics))
+            if rank == 0:
+                print("early stop: no val mIoU improvement in %d epochs "
+                      "(best %g)" % (patience, trainer.metrics))
             break
     return trainer
 
@@ -347,38 +374,44 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None, device=None):
     """Parse `argv` and train on `device` (None: the card); returns the
-    Trainer."""
+    Trainer. Under torchrun the process group is set up first and taken
+    down at the end."""
     opt = parse_args(argv)
     print(opt)
-    return train(data_dir=opt.data, model_name=opt.model, epochs=opt.epochs,
-          img_size=opt.img_size, batch_size=opt.batch_size,
-          accumulate=opt.accumulate, lr=opt.lr, adam=opt.adam,
-          resume=opt.resume, weights=opt.weights,
-          num_workers=opt.num_workers, multi_scale=opt.multi_scale,
-          rect=opt.rect, mixed_precision=opt.mix_precision,
-          notest=opt.notest, nosave=opt.nosave, seed=opt.seed,
-          profile=opt.profile, dataset=opt.dataset, remat=opt.remat,
-          lr_schedule=opt.lr_schedule, warmup_steps=opt.warmup_steps,
-          fast_augment=opt.fast_augment, precompile=opt.precompile,
-          qat=opt.qat, ema=opt.ema, loss=opt.loss,
-          cache_images=opt.cache_images, momentum=opt.momentum,
-          weight_decay=opt.weight_decay, clip_grad=opt.clip_grad,
-          patience=opt.patience, aux_loss=opt.aux_loss, tp=opt.tp,
-          matcher=opt.matcher,
-          variant=opt.variant, pp=opt.pp,
-          pp_microbatches=opt.pp_microbatches,
-          scan_blocks=opt.scan_blocks, distill=opt.distill,
-          distill_model=opt.distill_model,
-          distill_variant=opt.distill_variant,
-          distill_weight=opt.distill_weight,
-          distill_temp=opt.distill_temp, class_weights=opt.class_weights,
-          label_smoothing=opt.label_smoothing, ohem=opt.ohem,
-          ohem_thresh=opt.ohem_thresh, zero=opt.zero, moe=opt.moe,
-          moe_top_k=opt.moe_top_k, ep=opt.ep, spatial=opt.spatial,
-          ignore_index=opt.ignore_index, cutmix=opt.cutmix,
-          mosaic=opt.mosaic, balance=opt.balance,
-          bn_subsample=opt.bn_subsample, debug_nans=opt.debug_nans,
-          device=device)
+    rank_device = initialize_distributed(device=device)
+    try:
+        return train(data_dir=opt.data, model_name=opt.model, epochs=opt.epochs,
+              img_size=opt.img_size, batch_size=opt.batch_size,
+              accumulate=opt.accumulate, lr=opt.lr, adam=opt.adam,
+              resume=opt.resume, weights=opt.weights,
+              num_workers=opt.num_workers, multi_scale=opt.multi_scale,
+              rect=opt.rect, mixed_precision=opt.mix_precision,
+              notest=opt.notest, nosave=opt.nosave, seed=opt.seed,
+              profile=opt.profile, dataset=opt.dataset, remat=opt.remat,
+              lr_schedule=opt.lr_schedule, warmup_steps=opt.warmup_steps,
+              fast_augment=opt.fast_augment, precompile=opt.precompile,
+              qat=opt.qat, ema=opt.ema, loss=opt.loss,
+              cache_images=opt.cache_images, momentum=opt.momentum,
+              weight_decay=opt.weight_decay, clip_grad=opt.clip_grad,
+              patience=opt.patience, aux_loss=opt.aux_loss, tp=opt.tp,
+              matcher=opt.matcher,
+              variant=opt.variant, pp=opt.pp,
+              pp_microbatches=opt.pp_microbatches,
+              scan_blocks=opt.scan_blocks, distill=opt.distill,
+              distill_model=opt.distill_model,
+              distill_variant=opt.distill_variant,
+              distill_weight=opt.distill_weight,
+              distill_temp=opt.distill_temp, class_weights=opt.class_weights,
+              label_smoothing=opt.label_smoothing, ohem=opt.ohem,
+              ohem_thresh=opt.ohem_thresh, zero=opt.zero, moe=opt.moe,
+              moe_top_k=opt.moe_top_k, ep=opt.ep, spatial=opt.spatial,
+              ignore_index=opt.ignore_index, cutmix=opt.cutmix,
+              mosaic=opt.mosaic, balance=opt.balance,
+              bn_subsample=opt.bn_subsample, debug_nans=opt.debug_nans,
+              device=device if rank_device is None else rank_device)
+    finally:
+        if rank_device is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

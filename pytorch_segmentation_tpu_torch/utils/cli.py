@@ -13,7 +13,7 @@ __all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
 # ROADMAP.md queue 1, by item number
 ROADMAP_ITEMS = {
     5: "ROADMAP queue 1 item 5, train step rest",
-    10: "ROADMAP queue 1 item 10, parallel/ and nn/moe.py",
+    10: "ROADMAP queue 1 item 10, --spatial, tp, pp, ep and nn/moe.py",
     11: "ROADMAP queue 1 item 11, export and utilities",
 }
 

@@ -6,11 +6,13 @@ import functools
 
 import torch
 
-__all__ = ["require_cuda", "device_constant", "host_to_device"]
+__all__ = ["require_cuda", "same_device", "device_constant", "host_to_device"]
 
 
 def require_cuda() -> torch.device:
-    """Return the first CUDA device, or raise when there is none.
+    """Return the current CUDA device (the first, unless the process was
+    bound to another: `parallel.initialize_distributed` binds a rank to
+    cuda:LOCAL_RANK), or raise when there is none.
 
     Also turns TF32 off for f32 matrix products and convolutions: a float32
     reference on the card must run in full float32 (cuDNN's f32 convolutions
@@ -19,7 +21,13 @@ def require_cuda() -> torch.device:
         raise RuntimeError("no CUDA device: this path runs only on the GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one (an index left out is 0)."""
+    a, b = torch.device(a), torch.device(b)
+    return (a.type, a.index or 0) == (b.type, b.index or 0)
 
 
 @functools.lru_cache(maxsize=256)

@@ -42,6 +42,8 @@ port's own trainer checkpoints.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -261,14 +263,27 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
 
     A leaf of a `stack` module (SegFormer's `scan_blocks` stages) is drawn
     layer by layer, each layer as the unrolled block's leaf.
+
+    The draws depend on the entries' names and shapes alone: the last few
+    results are kept and each call returns fresh copies of them.
     """
     if init not in ("serve", "train", "uniform"):
         raise ValueError(f"init must be 'serve', 'train' or 'uniform', not "
                          f"{init!r}")
+    signature = tuple((name, tuple(t.shape))
+                      for name, t in model.state_dict().items())
+    return {k: v.clone() for k, v in _seeded(signature, int(seed),
+                                             init).items()}
+
+
+@functools.lru_cache(maxsize=4)
+def _seeded(signature: tuple, seed: int, init: str) -> dict:
+    """`seeded_state_dict`'s draws for the (name, shape) entries of
+    `signature`."""
     rng = np.random.default_rng(seed)
     sd = {}
-    state = model.state_dict()
-    for name, t in state.items():
+    state = dict(signature)
+    for name, shape in state.items():
         parts = name.split(".")
         leaf = parts[-1]
         # a `stack` module's leaf has a leading layer axis: each layer is
@@ -281,7 +296,7 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
         sibling = state.get(".".join(parts[:-1] + ["weight"]))
         is_ln = (not is_bn and leaf in ("weight", "bias")
                  and sibling is not None
-                 and sibling.dim() - stacked == 1)
+                 and len(sibling) - stacked == 1)
 
         def draw(shape):
             if leaf == "num_batches_tracked":
@@ -329,7 +344,6 @@ def seeded_state_dict(model: torch.nn.Module, seed: int,
                 return 0.01 * rng.standard_normal(shape)
             raise ValueError(f"no seeded init for {name!r}")
 
-        shape = tuple(t.shape)
         v = (np.stack([draw(shape[1:]) for _ in range(shape[0])])
              if stacked else draw(shape))
         sd[name] = torch.from_numpy(np.asarray(

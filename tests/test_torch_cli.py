@@ -108,6 +108,18 @@ def test_unported_flag_exits_2_naming_its_item(filename, name, capsys):
         capsys.readouterr().err
 
 
+@pytest.mark.parametrize("filename,name", [("train.py", "zero")],
+                         ids=["train-zero"])
+def test_ported_flag_parses(filename, name):
+    """A flag that the refusals lost now parses (`--zero` goes on to
+    `train(zero=)` and `Trainer(zero=)`: the replicated path with one
+    rank)."""
+    flag = "--" + name.replace("_", "-")
+    assert name not in CLIS[filename].UNPORTED
+    assert getattr(CLIS[filename].parse_args(
+        _POSITIONAL[filename] + [flag]), name) is True
+
+
 @pytest.mark.parametrize("filename", sorted(CLIS))
 def test_unported_model_and_shapes_exit_2(filename, capsys):
     """A variant a family lacks exits 2; (train) non-square sizes parse;

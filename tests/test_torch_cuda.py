@@ -1062,3 +1062,56 @@ def test_cli_train_resume_test_inference_on_card(device, tmp_path,
     for (name, mask), img, w in zip(sorted(masks.items()), imgs, want):
         assert mask.shape == img.shape[:2] == (72, 96)
         assert np.array_equal(mask, w), name
+
+
+def test_world1_nccl_step_equals_the_step_without_a_mesh(device):
+    """Two steps of the small bf16 model without a mesh, then in a world-1
+    NCCL group over loopback through `make_mesh()`: the same losses and
+    state, bit for bit (cuDNN's deterministic algorithms on both sides; the
+    all-reduces of one rank are copies)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pytorch_segmentation_tpu_torch.engine.steps import (
+        create_train_state, make_train_step)
+    from pytorch_segmentation_tpu_torch.engine.trainer import make_optimizer
+    from pytorch_segmentation_tpu_torch.ops.loss import make_loss_fn
+    from pytorch_segmentation_tpu_torch.parallel import make_mesh
+    from pytorch_segmentation_tpu_torch.utils.weights import (
+        seeded_state_dict)
+
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.standard_normal(
+        (4, 64, 64, 3)).astype(np.float32)).to(device)
+    segs = torch.from_numpy(rng.integers(0, 5, (4, 64, 64))).to(device)
+
+    def run(mesh):
+        model = build_model("deeplabv3plus", 5, backbone_layers=(1, 1, 1, 1),
+                            full_res_output=False)
+        model.load_state_dict(seeded_state_dict(model, 0, init="train"))
+        model.to(device, memory_format=torch.channels_last)
+        state = create_train_state(model, make_optimizer(
+            model.parameters(), lr=1e-2, momentum=0.9))
+        step = make_train_step(loss_fn=make_loss_fn(), mesh=mesh)
+        losses = [float(step(state, images, segs)[1]) for _ in range(2)]
+        return losses, model.state_dict()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = run(None)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+        try:
+            got = run(make_mesh())
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got[0] == want[0]
+    for k, v in want[1].items():
+        assert torch.equal(got[1][k], v), k

@@ -47,6 +47,7 @@ from pytorch_segmentation_tpu_torch.models import build_model
 from pytorch_segmentation_tpu_torch.ops import boundary as tboundary
 from pytorch_segmentation_tpu_torch.ops import tta as ttta
 from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
+from pytorch_segmentation_tpu_torch.parallel import make_mesh
 from pytorch_segmentation_tpu_torch.utils.png import decode_png
 from pytorch_segmentation_tpu_torch.utils.visualize import show_batch
 from pytorch_segmentation_tpu_torch.utils.weights import (
@@ -570,8 +571,12 @@ def test_test_quiet_and_unported_options(tmp_path, capsys, monkeypatch):
     for kw in (dict(int8=True), dict(quant_stats={})):
         assert port_test(model, fetcher, show_first_batch=False, log=False,
                          device="cpu", **kw) == miou
-    with pytest.raises(NotImplementedError, match="ROADMAP: parallel/"):
-        port_test(model, fetcher, device="cpu", mesh=object())
+    # a one-device mesh of one process: the same evaluation
+    mesh = make_mesh(devices=["cpu"])
+    assert port_test(model, fetcher, show_first_batch=False, log=False,
+                     device="cpu", mesh=mesh) == miou
+    with pytest.raises(ValueError, match="one process per card"):
+        port_test(model, fetcher, mesh=make_mesh(devices=["cpu", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_test(model, fetcher)                 # no silent CPU

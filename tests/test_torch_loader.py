@@ -23,6 +23,8 @@ from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
 from pytorch_segmentation_tpu_torch.data.resize_host import multi_scale_sizes
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.parallel import (DataSharding,
+                                                     data_sharding, make_mesh)
 
 torch.set_num_threads(1)
 
@@ -218,8 +220,15 @@ def test_postfetch_randomness_is_a_function_of_seed_and_step():
 def test_postfetch_device_and_unported_options():
     mix = tdata.make_mix_fn(cutmix_p=0.5)
     assert PostFetch(mix_fn=mix, device="cpu").mix_fn is mix
-    with pytest.raises(NotImplementedError, match="ROADMAP: parallel/"):
-        PostFetch(sharding=object(), device="cpu")
+    # a one-device mesh's sharding: its device, and rank 0 draws what a
+    # PostFetch without one draws; another rank draws otherwise
+    sharded = PostFetch(sharding=data_sharding(make_mesh(devices=["cpu"])))
+    assert sharded.device == torch.device("cpu")
+    plain, rank1 = PostFetch(device="cpu"), PostFetch(
+        sharding=DataSharding(1, 2, torch.device("cpu")))
+    for a, b, c in zip(sharded.generators(3), plain.generators(3),
+                       rank1.generators(3)):
+        assert a.initial_seed() == b.initial_seed() != c.initial_seed()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PostFetch()   # device=None means the card

@@ -28,6 +28,7 @@ from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
 from pytorch_segmentation_tpu_torch.models import MODEL_REGISTRY, build_model
+from pytorch_segmentation_tpu_torch.parallel import make_mesh
 from pytorch_segmentation_tpu_torch.serving import MaskServer
 from pytorch_segmentation_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
@@ -270,8 +271,9 @@ def test_unported_options_raise(weights, images):
         mask = make_mask_fn(model, **kw)(images)
         assert mask.dtype == torch.int32 and mask.shape == plain.shape
         assert 0.5 < float((mask == plain).float().mean()) < 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mask_fn(model, mesh=object())
+    # a one-device mesh serves the same masks
+    assert torch.equal(
+        make_mask_fn(model, mesh=make_mesh(devices=["cpu"]))(images), plain)
     # int8 serving is ported: the server's batches go through the int8
     # forward (the default gate quantizes the ResNet's deep convs)
     masks = MaskServer(model, int8=True, img_size=(HW, HW),
@@ -330,10 +332,31 @@ def test_serve_cli_needs_weights(tmp_path, capsys):
     assert "missing.pt" in capsys.readouterr().err
 
 
+def test_serve_cli_dp_serves_over_a_local_mesh(tmp_path):
+    """`serve --dp` builds its server over the local mesh (on the CPU the
+    one device asked for): its padded batch rounds up to the card count and
+    its masks are those of the server without it."""
+    from pytorch_segmentation_tpu_torch import serve
+    from pytorch_segmentation_tpu_torch.engine.checkpoint import (
+        save_checkpoint)
+    from pytorch_segmentation_tpu_torch.utils.weights import (
+        seeded_state_dict)
+    path = str(tmp_path / "unet.pt")
+    save_checkpoint(path, seeded_state_dict(build_model("unet", NC), seed=0))
+    argv = ["--model", "unet", "-nc", str(NC), "-s", "64", "64",
+            "--weights", path, "--max-batch", "3"]
+    batch = np.random.default_rng(2).integers(0, 256, (3, 64, 64, 3),
+                                              dtype=np.uint8)
+    plain = serve.build_server(serve.parse_args(argv), "cpu")
+    dp = serve.build_server(serve.parse_args(argv + ["--dp"]), "cpu")
+    assert dp.max_batch == plain.max_batch == 3
+    assert np.array_equal(dp._run_batch(batch), plain._run_batch(batch))
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--moe", "4"], 10), (["--moe-top-k", "1"], 10),
-    (["--scan-blocks"], None), (["--dp"], 10)],
-    ids=["moe", "moe-top-k", "scan-blocks", "dp"])
+    (["--scan-blocks"], None)],
+    ids=["moe", "moe-top-k", "scan-blocks"])
 def test_serve_cli_refuses_unported_flags(argv, item, tmp_path, capsys):
     """The root serve CLI's flags whose machinery is not ported exit 2 and
     name their ROADMAP item (not argparse's 'unrecognized arguments').

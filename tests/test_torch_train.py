@@ -27,6 +27,7 @@ from pytorch_segmentation_tpu_torch.inference import (make_mask_fn,
                                                        make_tiled_mask_fn)
 from pytorch_segmentation_tpu_torch.models import build_model
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
+from pytorch_segmentation_tpu_torch.parallel import make_mesh
 from pytorch_segmentation_tpu_torch.ops.loss import compute_loss
 from pytorch_segmentation_tpu_torch.utils.weights import (
     jax_trees_from_state_dict, load_state, seeded_state_dict,
@@ -606,10 +607,16 @@ def test_seeded_state_dict_starts(init):
 
 
 def test_unported_train_options_raise(tmp_path):
-    for option in ("mesh", "zero"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",
-                             **{option: object()})
+    # a one-device mesh of one process, with ZeRO (one rank: the replicated
+    # path): the steps of the Trainer without a mesh
+    losses = []
+    for kw in ({}, dict(mesh=make_mesh(devices=["cpu"]), zero=True)):
+        trainer = ttrainer.Trainer(
+            _TorchTiny(), _Fetcher(_batches(2, seed=13, hw=16)),
+            device="cpu", log_dir=str(tmp_path), log=False, seed=3, **kw)
+        losses.append(trainer.step())
+        assert not trainer.zero
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
     # quantization-aware training is ported: the Trainer and the step take it
     tsteps.make_train_step(qat=True)
     assert ttrainer.Trainer(_TorchTiny(), _Fetcher([]), device="cpu",

@@ -4,7 +4,6 @@ the same seeded weights, each JAX program compiled once."""
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import jax
@@ -21,7 +20,8 @@ from pytorch_segmentation_tpu.utils.port_torch import (convert_named,
 from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.utils.weights import (
     jax_trees_from_state_dict, load_state, seeded_state_dict,
     state_dict_from_jax)
@@ -32,24 +32,6 @@ LR, MOMENTUM = 1e-3, 0.9
 # time; the programs' HLO is the same (an f32 loss moves by 1e-7 relative)
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
-
-
-@contextlib.contextmanager
-def without_default_init():
-    """Build modules without torch's default parameter init (the random
-    fills of `reset_parameters`): every module the harness builds is either
-    loaded strictly or only read for its names and shapes, and the fills
-    cost a third of a second a build at the published widths. Buffers
-    (BN statistics, the unit folds) are made as always."""
-    names = ("kaiming_uniform_", "uniform_", "normal_")
-    saved = {n: getattr(torch.nn.init, n) for n in names}
-    for n in names:
-        setattr(torch.nn.init, n, lambda t, *args, **kwargs: t)
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(torch.nn.init, n, fn)
 
 
 def _shape_tree(tree):
