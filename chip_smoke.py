@@ -51,8 +51,16 @@ process and NCCL over loopback, the Trainer with the fused 1x1 switch off
 and on, with ZeRO, `test()` and MaskServer through `make_mesh()`, bit-equal
 to the same run without a mesh, each step's ms without and with the mesh,
 and `train --zero` for 2 steps; then two gloo ranks on the one card at
-batch 16 each against one process at batch 32, replicated and under ZeRO,
-with each rank's peak memory), and then
+batch 16 each against one process at batch 32, replicated, under ZeRO and
+with remat, with each rank's peak memory), recomputes activations and takes
+the train step's other options (`remat`, ROADMAP queue 1 item 5:
+DeepLabV3+ with remat off and on, the fused 1x1 switch off and on, the
+remat steps bit-equal to the plain ones under cuDNN's deterministic
+algorithms and kernel 5's forward launched again in the recompute, QAT
+with remat bit-equal to QAT, each run's ms a step and peak memory, BN
+statistics from every second pixel and the debug-NaN switch beside the
+plain step, a NaN image raising under the switch, Segmenter-B/16 with
+remat off and on), and then
 trains it with the fused 1x1 switch on (`nn.blocks.set_force_fused_1x1`:
 conv1 and conv3 of every bottleneck through the fused BN-apply + ReLU +
 product + BN-statistics forward, dx and dW kernels, 32 launches of each per
@@ -98,8 +106,9 @@ plain versions on tensors those runs handed them.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --profile  # also torch.profiler tables, by op, of
-                                     # the train step (switch off and on),
-                                     # the eval step and the augmentation
+                                     # the train step (switch off and on,
+                                     # and with remat), the eval step and
+                                     # the augmentation
     python3 chip_smoke.py --families maskformer segformer_scan
                                      # the builds, then the families phase
                                      # for these entries alone
@@ -111,6 +120,8 @@ plain versions on tensors those runs handed them.
     python3 chip_smoke.py --int8     # the builds, then the int8 phase
                                      # alone, on a set of its own
     python3 chip_smoke.py --dp       # the builds, then the dp phase alone
+    python3 chip_smoke.py --remat    # the builds, then the remat phase
+                                     # and the dp phase's two gloo ranks
 
 Every phase prints one line; any failure raises, so the exit code is not 0.
 The line before the last is a JSON object with each kernel's launches on its
@@ -120,7 +131,9 @@ runs, on the command lines' run (`cli_launches`), on the losses phase's
 runs (`losses_launches`), on the nonsquare phase's runs
 (`nonsquare_launches`, every kernel; kernels 1-3's figures at its shapes
 under `nonsquare`), on the int8 phase's runs (`int8_launches`, every
-kernel), on the dp phase's world-1 mesh runs (`dp_launches`), on the
+kernel), on the dp phase's world-1 mesh runs (`dp_launches`), on the remat
+phase's remat steps with the fused switch on (`remat_launches`, kernels 2
+and 5), on the
 families phase's runs (`families_launches`, and by model in `families_launches_by_model`,
 with each family's shape's figures under `families` for kernels 1-3), its
 error against
@@ -136,6 +149,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -216,7 +230,8 @@ from pytorch_segmentation_tpu_torch.tools.bench_eval_confusion import (
 from pytorch_segmentation_tpu_torch.utils import imgcodecs, jpeg, png
 from pytorch_segmentation_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from pytorch_segmentation_tpu_torch.utils.png import decode_png, encode_png
-from pytorch_segmentation_tpu_torch.utils.runtime import require_cuda
+from pytorch_segmentation_tpu_torch.utils.runtime import (debug_nans,
+                                                          require_cuda)
 from pytorch_segmentation_tpu_torch.utils.synthetic import make_synthetic_coco
 from pytorch_segmentation_tpu_torch.utils.weights import seeded_state_dict
 
@@ -1632,7 +1647,7 @@ def family_model(key, **kwargs):
 
 
 def make_trainer(device, name, batch, tmp, loss_fn=compute_loss, weights="",
-                 mesh=None, zero=False, **model_kwargs):
+                 mesh=None, zero=False, qat=False, **model_kwargs):
     """`family_model(name)` (bf16 compute over f32 parameters,
     full_res_output=True, so the Trainer's deferred upsample routes the loss
     through the upsample+CE kernels; `model_kwargs` to its constructor) in a
@@ -1640,14 +1655,14 @@ def make_trainer(device, name, batch, tmp, loss_fn=compute_loss, weights="",
     loss at the Trainer's default weight, from the seeded start: the same
     weights on every call. `loss_fn` replaces the CE (MaskFormer's set
     criterion: no deferred upsample then); `weights` is a checkpoint to
-    start from; `mesh` and `zero` the Trainer's."""
+    start from; `mesh`, `zero` and `qat` the Trainer's."""
     model = family_model(name, dtype=torch.bfloat16, full_res_output=True,
                          **model_kwargs)
     trainer = Trainer(model, RepeatFetcher(batch, 1), loss_fn=loss_fn,
                       weights=weights, workdir=os.path.join(tmp, "w"),
                       lr=1e-3, momentum=0.9, seed=SEED, log=False,
                       log_dir=os.path.join(tmp, "runs"), device=device,
-                      mesh=mesh, zero=zero)
+                      mesh=mesh, zero=zero, qat=qat)
     if (trainer._train_module.full_res_output is not False) != (
             loss_fn is not compute_loss):
         raise AssertionError(f"{name}: the Trainer deferred the upsample "
@@ -4909,11 +4924,11 @@ def torchrun(nproc, args, timeout):
     return time.perf_counter() - t0
 
 
-def dp_steps(trainer):
-    """DP_STEPS steps one by one: each step's loss, and the final state
+def dp_steps(trainer, steps=DP_STEPS):
+    """`steps` steps one by one: each step's loss, and the final state
     (copied to the host, so that it holds no device memory)."""
     trainer.fetcher.n = 1
-    losses = [trainer.step() for _ in range(DP_STEPS)]
+    losses = [trainer.step() for _ in range(steps)]
     return losses, {k: v.detach().cpu()
                     for k, v in trainer.module.state_dict().items()}
 
@@ -5054,9 +5069,10 @@ def dp_worker(tmp):
 def dp_pair(tmp):
     """Two ranks on the one card (launched by `dp_phase`): a gloo group,
     both ranks bound to cuda:0, each on its 16 of the batch of 32 from
-    `tmp/start.pt`: DP_STEPS steps replicated, then DP_STEPS under ZeRO
-    (bit-equal to the replicated ones), each with its peak memory. Rank r
-    writes `tmp/pair<r>.pt`."""
+    `tmp/start.pt`: DP_STEPS steps replicated, then DP_STEPS under ZeRO and
+    DP_STEPS with remat=True (each bit-equal to the replicated ones: the
+    recompute runs on autograd's device thread, which must see the batch
+    group), each with its peak memory. Rank r writes `tmp/pair<r>.pt`."""
     torch.cuda.set_device(0)
     device = require_cuda()
     torch.distributed.init_process_group("gloo", init_method="env://")
@@ -5066,13 +5082,15 @@ def dp_pair(tmp):
         batch = (*shard_batch(mesh, images, segs), TRAIN_BATCH // mesh.world)
         torch.backends.cudnn.deterministic = True
         out = {}
-        for tag, zero in (("replicated", False), ("zero", True)):
+        for tag, zero, remat in (("replicated", False, False),
+                                 ("zero", True, False),
+                                 ("remat", False, True)):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             trainer = make_trainer(device, "deeplabv3plus", batch,
                                    os.path.join(tmp, f"pair_{tag}"),
                                    weights=os.path.join(tmp, "start.pt"),
-                                   mesh=mesh, zero=zero)
+                                   mesh=mesh, zero=zero, remat=remat)
             if trainer.zero != zero:
                 raise AssertionError(f"{tag}: Trainer.zero {trainer.zero}")
             t0 = time.perf_counter()
@@ -5083,6 +5101,7 @@ def dp_pair(tmp):
             out[tag + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             del trainer
         assert_same_run("two ranks, zero", out["zero"], out["replicated"])
+        assert_same_run("two ranks, remat", out["remat"], out["replicated"])
         torch.save(out, os.path.join(tmp, f"pair{mesh.rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -5153,9 +5172,11 @@ def dp_phase(device):
         rolled_losses=rolled[0], pair_apart=pair_apart,
         rolled_apart=rolled_apart,
         pair_peak_gb={"replicated": pair["replicated_peak_gb"],
-                      "zero": pair["zero_peak_gb"]},
+                      "zero": pair["zero_peak_gb"],
+                      "remat": pair["remat_peak_gb"]},
         pair_step_ms={"replicated": pair["replicated_ms"],
-                      "zero": pair["zero_ms"]})
+                      "zero": pair["zero_ms"], "remat": pair["remat_ms"]},
+        pair_remat="bit-equal")
     if (pair_apart[0] > DP_PAIR_NOISE * rolled_apart[0]
             or not DP_PAIR_NORM[0] <= pair_apart[2] <= DP_PAIR_NORM[1]):
         raise AssertionError(f"two ranks against one process: {pair_apart}, "
@@ -5163,12 +5184,187 @@ def dp_phase(device):
     return total
 
 
+# the remat phase: steps a bit-equality run takes, and Segmenter's size
+REMAT_STEPS = 2
+REMAT_SEGMENTER_IMG = 512
+
+
+def release_memory():
+    """Free what dropped trainers held (their cycles too) before the next
+    run's peak is read."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def remat_figures(trainer):
+    """1 + 5 steps at cuDNN's defaults (`timed_steps`): ms a step (wall and
+    CUDA events, the window's), peak GB and the first timed loss."""
+    torch.backends.cudnn.deterministic = False
+    losses, wall_ms, event_ms, _, peak_gb = timed_steps(trainer, 1, 1)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    return {"ms_per_step_wall": wall_ms[0], "ms_per_step_cuda_events":
+            event_ms[0], "peak_memory_gb": peak_gb, "first_loss": losses[0]}
+
+
+def remat_pair(device):
+    """The dp phase's two gloo ranks alone (`dp_pair`: replicated, ZeRO and
+    remat, each bit-equal to the replicated run): each rank's peak GB and ms
+    a step of each run."""
+    start = seeded_state_dict(family_model("deeplabv3plus"), SEED,
+                              init="train")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(os.path.join(tmp, "start.pt"), start)
+        seconds = torchrun(2, ["--dp-pair", tmp], timeout=300)
+        pair = torch.load(os.path.join(tmp, "pair0.pt"), weights_only=True)
+    return {"seconds": seconds, **{f"{tag}_{k}": pair[f"{tag}_{k}"]
+                                   for tag in ("replicated", "remat")
+                                   for k in ("ms", "peak_gb")}}
+
+
+def remat_phase(device, profile=False, pair=False):
+    """Activation recompute, `--bn-subsample` and `--debug-nans` (ROADMAP
+    queue 1 item 5). DeepLabV3+ R50 at 513², batch 32, bf16, remat off and
+    on, with the fused 1x1 switch off and on: REMAT_STEPS steps each under
+    cuDNN's deterministic algorithms, the remat run bit-equal to the plain
+    one, kernel 5 launched 64 forward (the recompute's included) + 32 dx +
+    32 dW a step under remat and kernel 2 one forward and one backward;
+    then each run's ms a step and peak memory at cuDNN's defaults
+    (`remat_figures`). `qat=True` with remat bit-equal to `qat=True`
+    without. `--bn-subsample 2` and the debug-NaN switch, each beside the
+    plain run's ms a step; under the switch a NaN in one image raises a
+    FloatingPointError. Segmenter-B/16 at 512², batch 32, remat off and on:
+    ms a step and peak memory. With `pair`, the dp phase's two gloo ranks
+    (their remat run bit-equal to their replicated one; the whole script
+    runs them in the dp phase). Returns kernels 2 and 5's launches on the
+    remat steps with the switch on."""
+    t0 = time.perf_counter()
+    _, batch = train_batch(device)
+    runs, figures, checked = {}, {}, {}
+    remat_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(tag, b=batch, name="deeplabv3plus", **kw):
+            return make_trainer(device, name, b, os.path.join(tmp, tag),
+                                **kw)
+
+        for switch in ("off", "on"):
+            blocks.set_force_fused_1x1(switch)
+            try:
+                for remat in (False, True):
+                    tag = f"{'remat' if remat else 'plain'}_{switch}"
+                    run = trainer(tag, remat=remat)
+                    torch.backends.cudnn.deterministic = True
+                    ce.reset_launch_count()
+                    fm.reset_launch_count()
+                    runs[tag] = dp_steps(run, REMAT_STEPS)
+                    counts = {"softmax_ce": ce.launch_count(),
+                              "fused_matmul_bn": fm.launch_count()}
+                    n = REMAT_STEPS
+                    # kernel 5: 32 of each a step with the switch on, the
+                    # forward again in the recompute under remat
+                    on = 32 * n if switch == "on" else 0
+                    want = {"softmax_ce": {"fwd": n, "bwd": n},
+                            "fused_matmul_bn": {
+                                "fwd": (2 if remat else 1) * on,
+                                "bwd_dx": on, "bwd_dw": on}}
+                    if counts != want:
+                        raise AssertionError(f"{tag}: {n} steps launched "
+                                             f"{counts}, not {want}")
+                    checked[tag] = counts
+                    if remat and switch == "on":
+                        remat_launches = counts
+                    figures[tag] = remat_figures(run)
+                    if profile and tag == "remat_off":
+                        profile_steps(run, phase="profile_remat")
+                    del run
+                    release_memory()
+            finally:
+                blocks.set_force_fused_1x1(None)
+                torch.backends.cudnn.deterministic = False
+            assert_same_run(f"remat, switch {switch}", runs[f"remat_{switch}"],
+                            runs[f"plain_{switch}"])
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            qat = {}
+            for remat in (False, True):
+                run = trainer(f"qat_{remat}", qat=True, remat=remat)
+                qat[remat] = dp_steps(run, REMAT_STEPS)
+                del run
+                release_memory()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        assert_same_run("qat with remat", qat[True], qat[False])
+        if qat[False][0] == runs["plain_off"][0]:
+            raise AssertionError("the QAT steps' losses are the plain ones")
+
+        with blocks.bn_stat_subsample(2):
+            run = trainer("subsample")
+            figures["bn_subsample_2"] = remat_figures(run)
+            del run
+            release_memory()
+        if figures["bn_subsample_2"]["first_loss"] == \
+                runs["plain_off"][0][0]:
+            raise AssertionError("--bn-subsample 2 left the loss unchanged")
+
+        with debug_nans():
+            run = trainer("debug_nans")
+            figures["debug_nans"] = remat_figures(run)
+            images, segs, valid = batch
+            poisoned = images.clone()
+            poisoned[3, 100, 200, 1] = float("nan")
+            run.fetcher.batch = (poisoned, segs, valid)
+            run.fetcher.n = 1
+            try:
+                run.step()
+            except FloatingPointError as e:
+                raised = str(e)
+            else:
+                raise AssertionError("a NaN image raised nothing under "
+                                     "the debug-NaN switch")
+            del run
+            release_memory()
+        if "NaN in the loss" not in raised:
+            raise AssertionError(f"the debug-NaN switch raised {raised!r}")
+
+        _, seg_batch = train_batch(device, hw=REMAT_SEGMENTER_IMG)
+        for remat in (False, True):
+            run = trainer(f"segmenter_{remat}", b=seg_batch,
+                          name="segmenter", remat=remat)
+            figures[f"segmenter_{'remat' if remat else 'plain'}"] = (
+                remat_figures(run))
+            del run
+            release_memory()
+    phase_seconds = time.perf_counter() - t0
+    pair_figures = remat_pair(device) if pair else None
+
+    def ratio(key, base):
+        return (figures[key]["ms_per_step_cuda_events"]
+                / figures[base]["ms_per_step_cuda_events"])
+    log("remat", seconds=phase_seconds, batch=TRAIN_BATCH, steps=REMAT_STEPS,
+        bit_equal="remat against plain, switch off and on; qat with remat "
+                  "against qat",
+        launches=checked, figures=figures,
+        remat_step_ratio={"switch_off": ratio("remat_off", "plain_off"),
+                          "switch_on": ratio("remat_on", "plain_on"),
+                          "segmenter": ratio("segmenter_remat",
+                                             "segmenter_plain")},
+        bn_subsample_2_ratio=ratio("bn_subsample_2", "plain_off"),
+        debug_nans_added_ms_per_step={
+            k: figures["debug_nans"][k] - figures["plain_off"][k]
+            for k in ("ms_per_step_wall", "ms_per_step_cuda_events")},
+        debug_nans_raised=raised, qat_losses=qat[True][0],
+        pair=pair_figures)
+    return remat_launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler tables, by op, of "
-                             "the train step (fused 1x1 switch off and on), "
-                             "the eval step and the augmentation")
+                             "the train step (fused 1x1 switch off and on, "
+                             "and with remat), the eval step and the "
+                             "augmentation")
     parser.add_argument("--families", nargs="+", metavar="KEY",
                         help="after the builds, run only the families phase "
                              "for these FAMILY_IMGS entries (their one-batch "
@@ -5188,6 +5384,10 @@ def main():
                              "kernels line, no last line")
     parser.add_argument("--dp", action="store_true",
                         help="after the builds, run only the dp phase and "
+                             "stop: no kernels line, no last line")
+    parser.add_argument("--remat", action="store_true",
+                        help="after the builds, run only the remat phase "
+                             "(with the dp phase's two gloo ranks) and "
                              "stop: no kernels line, no last line")
     # the dp phase's own runs under torch.distributed.run
     parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
@@ -5245,6 +5445,9 @@ def main():
         return
     if args.dp:
         dp_phase(device)
+        return
+    if args.remat:
+        remat_phase(device, profile=args.profile, pair=True)
         return
     if args.losses or args.nonsquare or args.int8:
         with tempfile.TemporaryDirectory() as tmp:
@@ -5348,6 +5551,7 @@ def main():
         int8_launches = int8_phase(device, dataset,
                                    os.path.join(cli_tmp, "coco"))
     dp_launches = dp_phase(device)
+    remat_launches = remat_phase(device, profile=args.profile)
     fused_launches = train_fused_phase(device, train_figures,
                                        profile=args.profile)
     family_launches, family_by_model, family_cases, family_fused = (
@@ -5409,6 +5613,7 @@ def main():
          "nonsquare_launches": nonsquare_launches["softmax_ce"]["fwd"],
          "int8_launches": int8_launches["softmax_ce"]["fwd"],
          "dp_launches": dp_launches["softmax_ce"]["fwd"],
+         "remat_launches": remat_launches["softmax_ce"]["fwd"],
          "nonsquare": nonsquare_cases["softmax_ce"]["fwd"],
          "families_launches": family_launches["softmax_ce"]["fwd"],
          "families_launches_by_model": by_model("softmax_ce", "fwd"),
@@ -5429,6 +5634,7 @@ def main():
          "nonsquare_launches": nonsquare_launches["softmax_ce"]["bwd"],
          "int8_launches": int8_launches["softmax_ce"]["bwd"],
          "dp_launches": dp_launches["softmax_ce"]["bwd"],
+         "remat_launches": remat_launches["softmax_ce"]["bwd"],
          "nonsquare": nonsquare_cases["softmax_ce"]["bwd"],
          "families_launches": family_launches["softmax_ce"]["bwd"],
          "families_launches_by_model": by_model("softmax_ce", "bwd"),
@@ -5488,6 +5694,7 @@ def main():
          "nonsquare_launches": nonsquare_launches["fused_matmul_bn"]["fwd"],
          "int8_launches": int8_launches["fused_matmul_bn"]["fwd"],
          "dp_launches": dp_launches["fused_matmul_bn"]["fwd"],
+         "remat_launches": remat_launches["fused_matmul_bn"]["fwd"],
          "families_launches": family_launches["fused_matmul_bn"]["fwd"],
          "families_launches_by_model": by_model("fused_matmul_bn", "fwd"),
          "families_shapes": len(family_fused), **fused_path["fwd"]},
@@ -5500,6 +5707,7 @@ def main():
              nonsquare_launches["fused_matmul_bn"]["bwd_dx"],
          "int8_launches": int8_launches["fused_matmul_bn"]["bwd_dx"],
          "dp_launches": dp_launches["fused_matmul_bn"]["bwd_dx"],
+         "remat_launches": remat_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dx"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dx"),
          "families_shapes": len(family_fused), **fused_path["bwd_dx"]},
@@ -5513,6 +5721,7 @@ def main():
              nonsquare_launches["fused_matmul_bn"]["bwd_dw"],
          "int8_launches": int8_launches["fused_matmul_bn"]["bwd_dw"],
          "dp_launches": dp_launches["fused_matmul_bn"]["bwd_dw"],
+         "remat_launches": remat_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches": family_launches["fused_matmul_bn"]["bwd_dw"],
          "families_launches_by_model": by_model("fused_matmul_bn", "bwd_dw"),
          "families_shapes": len(family_fused), **fused_path["bwd_dw"]},

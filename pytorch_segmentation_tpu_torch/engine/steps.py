@@ -34,6 +34,14 @@ ones take a state. They run under `torch.inference_mode()`, make no host
 sync and return tensors on the model's device. Eval masks padded samples
 (eval batches have a fixed size; see data/loader.py) out of the loss and the
 confusion counts.
+
+With the debug-NaN switch on (`utils/runtime.set_debug_nans`, the train
+CLI's `--debug-nans`) each step checks what it returns and, for the train
+step, every tensor it updated (the parameters, the buffers, the optimizer
+state, the gradient sums and the EMA) and raises a `FloatingPointError`
+naming the first that holds a NaN, as the JAX package's steps do under
+`jax_debug_nans`. The check reads the flags back in one host sync and
+changes no value.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from ..ops.tta import normalize_tta_scales, tta_logits
 from ..parallel.mesh import (all_reduce_mean_, batch_statistics_over,
                              require_one_device)
 from ..quant import quant_mode, quantized_forward
+from ..utils.runtime import check_nans, debug_nans_enabled
 
 __all__ = ["TrainState", "create_train_state", "distill_loss",
            "make_train_step",
@@ -101,6 +110,23 @@ def _zero_shard(optimizer):
     """A ZeRO optimizer's `shard` (this rank's part of each full-size
     tensor), or None for a replicated one."""
     return getattr(optimizer, "shard", None)
+
+
+def _check_train_step(state: TrainState, params, loss) -> None:
+    """The debug-NaN check of a train step: the loss, then every parameter,
+    buffer, optimizer-state tensor, gradient sum and EMA of `state`."""
+    names = [n for n, _ in params]
+    named = [("the loss", loss)]
+    named += [(f"parameter {n}", p)
+              for n, p in state.model.named_parameters()]
+    named += [(f"buffer {n}", b) for n, b in state.model.named_buffers()]
+    named += [(f"optimizer state {k} of {names[i]}", v)
+              for i, k, v in state.optimizer.state_tensors()]
+    named += [(f"gradient sum of {n}", g)
+              for n, g in zip(names, state.grad_acc or ())]
+    named += [(f"EMA of {n}", v)
+              for n, v in (state.ema_params or {}).items()]
+    check_nans(named, "the train step")
 
 
 def create_train_state(model: torch.nn.Module, optimizer,
@@ -240,7 +266,8 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
                                                         distill_temp)
         return loss
 
-    def step(state: TrainState, images: torch.Tensor, segs: torch.Tensor):
+    def run_step(state: TrainState, images: torch.Tensor,
+                 segs: torch.Tensor):
         model = state.model
         model.train()
         params = _trainable(model)
@@ -268,6 +295,12 @@ def make_train_step(loss_fn: Callable = compute_loss, accumulate: int = 1,
             update(state, params,
                    torch._foreach_div(state.grad_acc, float(accumulate)))
             torch._foreach_zero_(state.grad_acc)
+        return state, loss
+
+    def step(state: TrainState, images: torch.Tensor, segs: torch.Tensor):
+        state, loss = run_step(state, images, segs)
+        if debug_nans_enabled():
+            _check_train_step(state, _trainable(state.model), loss)
         return state, loss
 
     return step
@@ -309,6 +342,12 @@ def tiled_logits(fwd_tile, images: torch.Tensor, tile_hw, overlap: float,
               value=edge_pad)
     canvas, count = sum_tile_logits(fwd_tile, x, (th, tw), overlap)
     return canvas[:, :h, :w] / count[:, :h, :w]
+
+
+# what the eval step returns, in order
+_EVAL_OUTPUTS = ("the loss", "the true positives", "the false negatives",
+                 "the false positives", "the boundary intersections",
+                 "the boundary unions")
 
 
 def make_eval_step(num_classes: int, align_corners: bool = True,
@@ -426,7 +465,13 @@ def make_eval_step(num_classes: int, align_corners: bool = True,
                 boundary_pixels(th, tw, boundary_ratio), valid=pix)
         return out
 
-    return step
+    def checked_step(model, images, segs, valid, quant_stats=None):
+        out = step(model, images, segs, valid, quant_stats)
+        if debug_nans_enabled():
+            check_nans(zip(_EVAL_OUTPUTS, out), "the eval step")
+        return out
+
+    return checked_step
 
 
 def make_predict_step(align_corners: bool = True, use_kernels: bool = True):

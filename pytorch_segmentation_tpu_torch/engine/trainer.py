@@ -127,6 +127,14 @@ class OptimizerChain:
     def state_dict(self) -> dict:
         return self.inner.state_dict()
 
+    def state_tensors(self) -> list:
+        """(parameter index, key, tensor) of every tensor of the optimizer
+        state (the momentum, or Adam's moments and step), in the
+        parameters' order."""
+        return [(i, k, v) for i, p in enumerate(self.params)
+                for k, v in self.inner.state.get(p, {}).items()
+                if isinstance(v, torch.Tensor)]
+
     def load_state_dict(self, state: dict) -> None:
         self.inner.load_state_dict(state)
 

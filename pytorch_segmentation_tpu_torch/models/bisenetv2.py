@@ -26,7 +26,9 @@ from scratch: no backbone of its own.
 
 The expansion of a gather-and-expansion layer is a grouped 3x3 convolution
 with `groups = cin` and 6 * cin outputs: output channel j reads input
-channel j // 6, as flax's `feature_group_count` groups them.
+channel j // 6, as flax's `feature_group_count` groups them. `remat=True`
+recomputes each gather-and-expansion layer in the backward
+(`nn.blocks.checkpoint`).
 """
 
 from __future__ import annotations
@@ -37,9 +39,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.blocks import BatchNorm2d, ConvNormAct, conv2d
+from ..nn.blocks import BatchNorm2d, ConvNormAct, checkpoint, conv2d
 from ..ops.resize import resize_bilinear_nchw
-from .segformer import _refuse_unported
 
 __all__ = ["BiSeNetV2"]
 
@@ -99,7 +100,7 @@ class BiSeNetV2(nn.Module):
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
-        _refuse_unported(remat=remat)
+        self.remat = remat
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output
@@ -167,7 +168,8 @@ class BiSeNetV2(nn.Module):
         for names in (("ge3_0", "ge3_1"), ("ge4_0", "ge4_1"),
                       ("ge5_0", "ge5_1", "ge5_2", "ge5_3")):
             for name in names:
-                s = getattr(self, name)(s)
+                layer = getattr(self, name)
+                s = checkpoint(layer, s) if self.remat else layer(s)
             taps.append(s)
         g = s.float().mean(dim=(2, 3), keepdim=True)
         g = self.ce_conv(self.ce_bn(g.to(self.dtype)))

@@ -23,6 +23,11 @@ module's einsums run outside any kernel. aux=True adds each branch's class
 conv (`pam_cls`, `cam_cls`): a train-mode forward then returns (logits,
 (pam logits, cam logits)) at stride 8, never upsampled here; an eval-mode
 forward returns the logits alone and does not run them.
+
+`remat=True` recomputes the ResNet's residual blocks and the two
+parameter-free attention segments (PAM's scores, softmax and product with
+v; CAM's energy, softmax and product) in the backward, as the JAX module's
+`jax.checkpoint` of each: the [B, N, N] scores are not kept.
 """
 
 from __future__ import annotations
@@ -31,10 +36,27 @@ import torch
 import torch.nn as nn
 
 from ..nn.backbones.resnet import ResNet
-from ..nn.blocks import ConvNormAct, Scale, conv2d
+from ..nn.blocks import ConvNormAct, Scale, checkpoint, conv2d
 from ..ops.resize import resize_bilinear_nchw
 
 __all__ = ["DANet"]
+
+
+def _pam_attention(q, k, v):
+    """q, k [B, ch/8, N] and v [B, ch, N] -> the attended values [B, ch,
+    N]."""
+    scores = torch.bmm(q.transpose(1, 2), k)        # [B, N, N]
+    attn = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    return torch.bmm(v, attn.transpose(1, 2))
+
+
+def _cam_attention(cf):
+    """cf [B, ch, N] -> the channel-attended map [B, ch, N]."""
+    energy = torch.bmm(cf, cf.transpose(1, 2)).float()  # [B, ch, ch]
+    # the paper's rowmax(energy) - energy, in f32 before the softmax
+    energy = energy.amax(dim=-1, keepdim=True) - energy
+    attn = torch.softmax(energy, dim=-1).to(cf.dtype)
+    return torch.bmm(attn, cf)
 
 
 class DANet(nn.Module):
@@ -44,11 +66,12 @@ class DANet(nn.Module):
                  channels: int = 512, dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False, aux: bool = False,
-                 axis_name: str | None = None):
+                 remat: bool = False, axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
         self.num_classes = num_classes
         self.channels = channels
+        self.remat = remat
         self.dtype = dtype
         self.full_res_output = full_res_output
         self.up_align_corners = up_align_corners
@@ -56,7 +79,7 @@ class DANet(nn.Module):
         self.backbone = ResNet("bottleneck", backbone_layers,
                                replace_stride_with_dilation=(False, True,
                                                              True),
-                               dtype=dtype)
+                               dtype=dtype, remat=remat)
         ch = channels
         self.pam_in = ConvNormAct(2048, ch, 3, dtype=dtype)
         self.pam_query = nn.Conv2d(ch, ch // 8, 1, bias=True)
@@ -78,19 +101,15 @@ class DANet(nn.Module):
         q = conv2d(self.pam_query, p, dt).flatten(2)    # [B, ch/8, N]
         k = conv2d(self.pam_key, p, dt).flatten(2)      # [B, ch/8, N]
         v = conv2d(self.pam_value, p, dt).flatten(2)    # [B, ch, N]
-        scores = torch.bmm(q.transpose(1, 2), k)        # [B, N, N]
-        attn = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-        ctx = torch.bmm(v, attn.transpose(1, 2))        # [B, ch, N]
+        ctx = (checkpoint(_pam_attention, q, k, v) if self.remat
+               else _pam_attention(q, k, v))
         return self.pam_gamma(ctx.view(b, ch, h, w)) + p
 
     def _cam(self, c: torch.Tensor) -> torch.Tensor:
         b, ch, h, w = c.shape
         cf = c.flatten(2)                                   # [B, ch, N]
-        energy = torch.bmm(cf, cf.transpose(1, 2)).float()  # [B, ch, ch]
-        # the paper's rowmax(energy) - energy, in f32 before the softmax
-        energy = energy.amax(dim=-1, keepdim=True) - energy
-        attn = torch.softmax(energy, dim=-1).to(cf.dtype)
-        ctx = torch.bmm(attn, cf)                           # [B, ch, N]
+        ctx = (checkpoint(_cam_attention, cf) if self.remat
+               else _cam_attention(cf))
         return self.cam_gamma(ctx.view(b, ch, h, w)) + c
 
     def forward(self, x: torch.Tensor):

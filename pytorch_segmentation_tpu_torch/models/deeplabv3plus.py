@@ -7,7 +7,8 @@ rates 6/12/18); bilinear align_corners=True upsample to the tap's size;
 concat (384 ch); 3x3 class conv with bias. With `full_res_output=True` a
 final x4 bilinear upsample follows; with False the model returns stride-4
 logits and the caller upsamples (the serving path fuses that into the
-upsample+argmax kernel).
+upsample+argmax kernel). `remat=True` recomputes the ResNet's residual
+blocks in the backward.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ class DeepLabV3Plus(nn.Module):
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True, up_align_corners: bool = True,
-                 axis_name: str | None = None):
+                 remat: bool = False, axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
         self.num_classes = num_classes
@@ -39,7 +40,7 @@ class DeepLabV3Plus(nn.Module):
         self.backbone = ResNet("bottleneck", backbone_layers,
                                replace_stride_with_dilation=(False, False,
                                                              True),
-                               dtype=dtype)
+                               dtype=dtype, remat=remat)
         self.project = ConvNormAct(256, 128, kernel_size=1, dtype=dtype)
         self.aspp = ASPP(self.backbone.out_channels, 256,
                          atrous_rates=(6, 12, 18), dtype=dtype)

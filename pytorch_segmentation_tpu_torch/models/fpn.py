@@ -9,7 +9,8 @@ ConvNormAct -> x2 bilinear, align_corners=False) steps, sums the four
 stride-4 maps and applies the 1x1 class conv (with bias). With
 `full_res_output=True` a x4 bilinear upsample (align_corners=False)
 follows. `block` is 'bottleneck' (ResNet-50, laterals from 256/512/1024/
-2048 channels) or 'basic' (ResNet-34, from 64/128/256/512).
+2048 channels) or 'basic' (ResNet-34, from 64/128/256/512). `remat=True`
+recomputes the ResNet's residual blocks in the backward.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class FPN(nn.Module):
                  block: str = "bottleneck", fpn_channels: int = 256,
                  seg_channels: int = 128, dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
-                 up_align_corners: bool = False,
+                 up_align_corners: bool = False, remat: bool = False,
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
@@ -40,7 +41,8 @@ class FPN(nn.Module):
         self.dtype = dtype
         self.full_res_output = full_res_output
         self.up_align_corners = up_align_corners
-        self.backbone = ResNet(block, backbone_layers, dtype=dtype)
+        self.backbone = ResNet(block, backbone_layers, dtype=dtype,
+                               remat=remat)
         expansion = 4 if block == "bottleneck" else 1
         for i, width in enumerate((64, 128, 256, 512)):
             self.add_module(f"lat{i}", ConvNormAct(

@@ -41,8 +41,9 @@ matched masks, at unit weight per supervised layer. The matchers:
 `_sinkhorn_assign` (entropic OT on the card, 50 log-domain iterations, a
 dummy column for the unmatched queries, an argmax decode) and
 `_hungarian_assign` (scipy's `linear_sum_assignment` on the host: one
-device-to-host copy and one host-to-device copy a layer). `remat` is not
-ported and raises.
+device-to-host copy and one host-to-device copy a layer). `remat=True`
+recomputes the ResNet's residual blocks in the backward (the train CLI
+refuses `--remat` for this family, as the JAX CLI does).
 """
 
 from __future__ import annotations
@@ -59,7 +60,6 @@ from ..nn.blocks import ConvNormAct, LayerNorm, Linear, conv2d
 from ..ops.resize import resize_bilinear_nchw, resize_nearest
 from ..parallel.mesh import batch_sum
 from ..utils.runtime import host_to_device
-from .segformer import _refuse_unported
 
 __all__ = ["MaskFormer", "make_maskformer_loss", "MATCHERS"]
 
@@ -156,7 +156,6 @@ class MaskFormer(nn.Module):
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
-        _refuse_unported(remat=remat)
         self.num_classes = num_classes
         self.num_queries, self.dim = num_queries, dim
         self.dec_layers = dec_layers
@@ -164,7 +163,8 @@ class MaskFormer(nn.Module):
         self.full_res_output = full_res_output
         self.up_align_corners = up_align_corners
         self.aux_loss = aux_loss
-        self.backbone = ResNet(block, backbone_layers, dtype=dtype)
+        self.backbone = ResNet(block, backbone_layers, dtype=dtype,
+                               remat=remat)
         expansion = 4 if block == "bottleneck" else 1
         for i, width in enumerate((64, 128, 256, 512)):
             self.add_module(f"lat{i}", ConvNormAct(

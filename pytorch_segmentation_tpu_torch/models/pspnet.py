@@ -22,7 +22,8 @@ ConvNormAct to 256, and `aux_cls`, a 1x1 class conv with bias), at layer
 returns (logits, aux_logits), the aux logits never upsampled here; the
 train step adds `aux_weight` times their loss. An eval-mode forward
 returns the logits alone and does not run the head (the JAX module runs it
-and drops the result).
+and drops the result). `remat=True` recomputes the ResNet's residual blocks
+in the backward.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class PSPNet(nn.Module):
     def __init__(self, num_classes: int, backbone_layers=(3, 4, 6, 3),
                  bins=(1, 2, 3, 6), dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True, up_align_corners: bool = True,
-                 jpu: bool = False, aux: bool = False,
+                 jpu: bool = False, aux: bool = False, remat: bool = False,
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
@@ -58,7 +59,7 @@ class PSPNet(nn.Module):
         dilation = (False, False, False) if jpu else (False, True, True)
         self.backbone = ResNet("bottleneck", backbone_layers,
                                replace_stride_with_dilation=dilation,
-                               dtype=dtype)
+                               dtype=dtype, remat=remat)
         if jpu:
             for i, channels in ((2, 512), (3, 1024), (4, 2048)):
                 self.add_module(f"jpu_conv{i}", ConvNormAct(

@@ -43,8 +43,10 @@ parameter with a leading layer axis (`backbone.blocks{i}.stack.<leaf>`
 (`torch.func.functional_call`), so the gradient of each layer lands in its
 slice of the stack. Stages of depth 1 keep `block{i}_0`.
 `stack_block_params` / `unstack_block_params` convert state_dicts between
-the two layouts. `pp_mesh`, `moe_experts` (with or without scan blocks)
-and `remat` are not ported and raise.
+the two layouts. `remat=True` recomputes each block in the backward
+(`nn.blocks.checkpoint`): each `_Block` of an unrolled stage, each layer's
+`functional_call` of a stacked one. `pp_mesh` and `moe_experts` (with or
+without scan blocks) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.blocks import ConvNormAct, LayerNorm, Linear, conv2d
+from ..nn.blocks import ConvNormAct, LayerNorm, Linear, checkpoint, conv2d
 from ..ops.resize import resize_bilinear, resize_bilinear_nchw
+from ..utils.roadmap import not_ported
 
 __all__ = ["SegFormer", "SEGFORMER_VARIANTS", "stack_block_params",
            "unstack_block_params"]
@@ -155,9 +158,9 @@ class _BlockStack(nn.Module):
     layer on that layer's slices."""
 
     def __init__(self, dim: int, heads: int, sr: int, mlp_ratio: int,
-                 depth: int, dtype: torch.dtype):
+                 depth: int, dtype: torch.dtype, remat: bool = False):
         super().__init__()
-        self.depth = depth
+        self.depth, self.remat = depth, remat
         self.stack = _Block(dim, heads, sr, mlp_ratio, dtype)
         for name, p in list(self.stack.named_parameters()):
             owner, _, leaf = name.rpartition(".")
@@ -177,9 +180,13 @@ class _BlockStack(nn.Module):
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         params = dict(self.stack.named_parameters())
-        for j in range(self.depth):
-            x = torch.func.functional_call(
+
+        def layer(x, j):
+            return torch.func.functional_call(
                 self.stack, {n: p[j] for n, p in params.items()}, (x, h, w))
+
+        for j in range(self.depth):
+            x = checkpoint(layer, x, j) if self.remat else layer(x, j)
         return x
 
 
@@ -189,9 +196,9 @@ class _MiT(nn.Module):
     def __init__(self, embed_dims, depths, num_heads, sr_ratios=(8, 4, 2, 1),
                  mlp_ratio: int = 4, in_channels: int = 3,
                  dtype: torch.dtype = torch.bfloat16,
-                 scan_blocks: bool = False):
+                 scan_blocks: bool = False, remat: bool = False):
         super().__init__()
-        self.depths, self.dtype = tuple(depths), dtype
+        self.depths, self.dtype, self.remat = tuple(depths), dtype, remat
         cin = in_channels
         self._stages: list[list[str]] = []
         for i, (dim, depth, heads) in enumerate(zip(embed_dims, depths,
@@ -203,7 +210,8 @@ class _MiT(nn.Module):
             if scan_blocks and depth > 1:
                 names = [f"blocks{i + 1}"]
                 self.add_module(names[0], _BlockStack(
-                    dim, heads, sr_ratios[i], mlp_ratio, depth, dtype))
+                    dim, heads, sr_ratios[i], mlp_ratio, depth, dtype,
+                    remat))
             else:
                 names = [f"block{i + 1}_{j}" for j in range(depth)]
                 for name in names:
@@ -221,21 +229,13 @@ class _MiT(nn.Module):
             h, w = y.shape[2:]
             t = getattr(self, f"patch_embed{i + 1}_ln")(_to_tokens(y))
             for name in names:
-                t = getattr(self, name)(t, h, w)
+                block = getattr(self, name)
+                t = (checkpoint(block, t, h, w)
+                     if self.remat and isinstance(block, _Block)
+                     else block(t, h, w))
             x = _to_map(getattr(self, f"norm{i + 1}")(t), h, w)
             feats.append(x)
         return feats
-
-
-def _refuse_unported(remat=False, pp_mesh=None, moe_experts=0):
-    for on, what, item in (
-            (pp_mesh is not None, "pp_mesh (pipeline parallelism)", 10),
-            (moe_experts > 0, "moe_experts > 0 (nn/moe.py)", 10),
-            (remat, "remat=True", 5)):
-        if on:
-            from ..utils.cli import ROADMAP_ITEMS
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"({ROADMAP_ITEMS[item]})")
 
 
 class _SplitFuse(ConvNormAct):
@@ -268,7 +268,10 @@ class SegFormer(nn.Module):
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
-        _refuse_unported(remat, pp_mesh, moe_experts)
+        if pp_mesh is not None:
+            raise not_ported("pp_mesh (pipeline parallelism)", 10)
+        if moe_experts > 0:
+            raise not_ported("moe_experts > 0 (nn/moe.py)", 10)
         dims, depths, heads, dec_dim = SEGFORMER_VARIANTS[variant]
         self.num_classes = num_classes
         self.dtype = dtype
@@ -276,7 +279,7 @@ class SegFormer(nn.Module):
         self.up_align_corners = up_align_corners
         self.split_fuse = split_fuse
         self.backbone = _MiT(dims, depths, heads, dtype=dtype,
-                             scan_blocks=scan_blocks)
+                             scan_blocks=scan_blocks, remat=remat)
         for i, dim in enumerate(dims):
             self.add_module(f"linear_c{i + 1}", Linear(dim, dec_dim, dtype))
         self.fuse = _SplitFuse(4 * dec_dim, dec_dim, 1, dtype=dtype)

@@ -12,7 +12,8 @@ in f32 (TF32 stays off on the card: `utils/runtime.require_cuda`), and
 `mask_norm`, an f32 LayerNorm over the K classes. The logits are f32 at
 stride 16; `full_res_output=True` resizes them to the INPUT size (bilinear,
 align_corners=False), else the resize is left to the loss and eval kernels.
-`remat` is not ported and raises.
+`remat=True` recomputes the ViT's blocks in the backward (the decoder's
+are kept, as in the JAX module).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import torch.nn as nn
 from ..nn.backbones.vit import VIT_VARIANTS, ViT, _ViTBlock
 from ..nn.blocks import LayerNorm, Linear
 from ..ops.resize import resize_bilinear_nchw
-from .segformer import _refuse_unported
 
 __all__ = ["Segmenter"]
 
@@ -70,14 +70,14 @@ class Segmenter(nn.Module):
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
-        _refuse_unported(remat=remat)
         layers, dim, heads, patch, base_grid, _ = VIT_VARIANTS[variant]
         self.num_classes = num_classes
         self.dtype = dtype
         self.full_res_output = full_res_output
         self.up_align_corners = up_align_corners
         self.backbone = ViT(layers, dim, heads, patch, base_grid,
-                            out_indices=(layers - 1,), dtype=dtype)
+                            out_indices=(layers - 1,), dtype=dtype,
+                            remat=remat)
         self.decoder = _MaskTransformer(num_classes, dim, heads,
                                         n_decoder_layers, dtype)
 

@@ -27,7 +27,8 @@ fixed bases `nmf_bases` (numpy RandomState(1), column-normalised: the JAX
 package's in place of mmseg's per-forward random bases), and only the last
 coefficient update and the reconstruction carry the gradient to the input.
 The products are plain `torch.bmm`, as the JAX module's einsums run outside
-any kernel.
+any kernel. `remat=True` recomputes each MSCAN block in the backward
+(`nn.blocks.checkpoint`).
 """
 
 from __future__ import annotations
@@ -38,9 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn.blocks import (BatchNorm2d, ConvNormAct, GroupNorm, LayerNorm,
-                         Scale, conv2d, raw_conv)
+                         Scale, checkpoint, conv2d, raw_conv)
 from ..ops.resize import resize_bilinear_nchw
-from .segformer import _refuse_unported
 
 __all__ = ["SegNeXt", "MSCAN", "MSCAN_VARIANTS", "nmf2d", "nmf_bases"]
 
@@ -133,9 +133,10 @@ class MSCAN(nn.Module):
     """The encoder: the four stage outputs at strides 4, 8, 16 and 32."""
 
     def __init__(self, depths=(3, 3, 5, 2), dims=(32, 64, 160, 256),
-                 mlp_ratios=(8, 8, 4, 4), dtype: torch.dtype = torch.bfloat16):
+                 mlp_ratios=(8, 8, 4, 4), dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
-        self.depths = tuple(depths)
+        self.depths, self.remat = tuple(depths), remat
         cin = 3
         for s, (depth, dim, ratio) in enumerate(zip(depths, dims,
                                                     mlp_ratios)):
@@ -161,7 +162,8 @@ class MSCAN(nn.Module):
             else:
                 x = getattr(self, f"embed{s}")(x)
             for b in range(depth):
-                x = getattr(self, f"stage{s}_block{b}")(x)
+                block = getattr(self, f"stage{s}_block{b}")
+                x = checkpoint(block, x) if self.remat else block(x)
             norm = getattr(self, f"stage{s}_norm")
             x = norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             taps.append(x)
@@ -253,7 +255,6 @@ class SegNeXt(nn.Module):
                  axis_name: str | None = None):
         super().__init__()
         self.axis_name = axis_name
-        _refuse_unported(remat=remat)
         if variant not in MSCAN_VARIANTS:
             raise ValueError(f"unknown SegNeXt variant {variant!r}; "
                              f"available: {sorted(MSCAN_VARIANTS)}")
@@ -262,7 +263,7 @@ class SegNeXt(nn.Module):
         self.dtype = dtype
         self.full_res_output = full_res_output
         self.up_align_corners = up_align_corners
-        self.backbone = MSCAN(depths, dims, ratios, dtype)
+        self.backbone = MSCAN(depths, dims, ratios, dtype, remat)
         self.squeeze = _GNConv(sum(dims[1:]), ham_ch, dtype)
         self.hamburger = _Hamburger(ham_ch, rank, dtype)
         self.align = _GNConv(ham_ch, ham_ch, dtype)

@@ -20,6 +20,7 @@ aux=True adds torchvision's FCNHead on layer 3 as the nested `aux_head`
 `aux_head.aux_cls`, a 1x1 class conv with bias). A train-mode forward then
 returns (logits, aux logits at stride 8, never upsampled here); an
 eval-mode forward returns the logits alone and does not run the head.
+`remat=True` recomputes the ResNet's residual blocks in the backward.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ class _DilatedResNetSeg(nn.Module):
 
     def __init__(self, num_classes: int, backbone_layers, head_channels: int,
                  dtype: torch.dtype, full_res_output: bool,
-                 up_align_corners: bool, aux: bool):
+                 up_align_corners: bool, aux: bool, remat: bool):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
@@ -66,7 +67,7 @@ class _DilatedResNetSeg(nn.Module):
         self.backbone = ResNet("bottleneck", backbone_layers,
                                replace_stride_with_dilation=(False, True,
                                                              True),
-                               dtype=dtype)
+                               dtype=dtype, remat=remat)
         self.cls_conv = nn.Conv2d(head_channels, num_classes, 1, bias=True)
         if aux:
             self.aux_head = _AuxHead(num_classes, dtype)
@@ -95,9 +96,9 @@ class FCN(_DilatedResNetSeg):
                  dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False, aux: bool = False,
-                 axis_name: str | None = None):
+                 remat: bool = False, axis_name: str | None = None):
         super().__init__(num_classes, backbone_layers, 512, dtype,
-                         full_res_output, up_align_corners, aux)
+                         full_res_output, up_align_corners, aux, remat)
         self.axis_name = axis_name
         self.head = ConvNormAct(2048, 512, 3, dtype=dtype)
 
@@ -113,9 +114,9 @@ class DeepLabV3(_DilatedResNetSeg):
                  rates=(12, 24, 36), dtype: torch.dtype = torch.bfloat16,
                  full_res_output: bool = True,
                  up_align_corners: bool = False, aux: bool = False,
-                 axis_name: str | None = None):
+                 remat: bool = False, axis_name: str | None = None):
         super().__init__(num_classes, backbone_layers, 256, dtype,
-                         full_res_output, up_align_corners, aux)
+                         full_res_output, up_align_corners, aux, remat)
         self.axis_name = axis_name
         self.rates = tuple(rates)
         self.aspp_b0 = ConvNormAct(2048, 256, 1, dtype=dtype)

@@ -27,7 +27,8 @@ aux=True adds the FCN auxiliary head on C4 (`aux_conv`, a 3x3 ConvNormAct
 to 256, and `aux_cls`, a 1x1 class conv with bias) at C4's stride (16): a
 train-mode forward then returns (logits, aux logits), the aux logits never
 upsampled here; an eval-mode forward returns the logits alone and does not
-run the head (the JAX module runs it and drops the result).
+run the head (the JAX module runs it and drops the result). `remat=True`
+recomputes the encoder's blocks in the backward, whichever the encoder.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..nn.backbones.vit import VIT_VARIANTS, ViT
 from ..nn.blocks import ConvNormAct, conv2d
 from ..ops.pool import adaptive_avg_pool2d
 from ..ops.resize import resize_bilinear_nchw
-from .segformer import SEGFORMER_VARIANTS, _MiT, _refuse_unported
+from .segformer import SEGFORMER_VARIANTS, _MiT
 
 __all__ = ["UPerNet", "UNPORTED_ENCODERS"]
 
@@ -68,7 +69,6 @@ class UPerNet(nn.Module):
         self.axis_name = axis_name
         if encoder not in ("resnet", "mit", "convnext", "swin", "vit"):
             raise ValueError(f"unknown UPerNet encoder {encoder!r}")
-        _refuse_unported(remat=remat)
         self.num_classes = num_classes
         self.encoder = encoder
         self.block = block
@@ -80,22 +80,23 @@ class UPerNet(nn.Module):
         self.aux = aux
         if encoder == "mit":
             dims, depths, heads, _ = SEGFORMER_VARIANTS[mit_variant]
-            self.backbone = _MiT(dims, depths, heads, dtype=dtype)
+            self.backbone = _MiT(dims, depths, heads, dtype=dtype,
+                                 remat=remat)
             widths = tuple(dims)
         elif encoder == "convnext":
             depths, dims = CONVNEXT_VARIANTS[convnext_variant]
-            self.backbone = ConvNeXt(depths, dims, dtype=dtype)
+            self.backbone = ConvNeXt(depths, dims, dtype=dtype, remat=remat)
             widths = tuple(dims)
         elif encoder == "swin":
             depths, dim, heads, window = SWIN_VARIANTS[swin_variant]
             self.backbone = SwinTransformer(depths, dim, heads, window,
-                                            dtype=dtype)
+                                            dtype=dtype, remat=remat)
             widths = tuple(dim * 2 ** s for s in range(4))
         elif encoder == "vit":
             layers, dim, heads, patch, base_grid, out_idx = \
                 VIT_VARIANTS[vit_variant]
             self.backbone = ViT(layers, dim, heads, patch, base_grid,
-                                out_idx, dtype=dtype)
+                                out_idx, dtype=dtype, remat=remat)
             for i in range(len(NECK_SCALES)):
                 self.add_module(f"neck_lat{i}", nn.Conv2d(dim, dim, 1,
                                                           bias=True))
@@ -103,7 +104,8 @@ class UPerNet(nn.Module):
                     dim, dim, 3, padding=1, bias=True))
             widths = (dim,) * 4
         else:
-            self.backbone = ResNet(block, backbone_layers, dtype=dtype)
+            self.backbone = ResNet(block, backbone_layers, dtype=dtype,
+                                   remat=remat)
             expansion = 4 if block == "bottleneck" else 1
             widths = tuple(w * expansion for w in (64, 128, 256, 512))
         for s in self.pool_scales:

@@ -12,7 +12,8 @@ Every LayerNorm has eps 1e-6. The trunk runs on NHWC tensors, as the JAX
 module does: the LayerNorms and Dense layers act on the last axis, and the
 convolutions see the NCHW view (channels_last strides). It returns the four
 stage outputs at strides 4, 8, 16 and 32 as NCHW views. Drop-path is
-omitted, as in the JAX module.
+omitted, as in the JAX module. `remat=True` recomputes each block in the
+backward (`nn.blocks.checkpoint`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..blocks import LayerNorm, Linear, nhwc_conv
+from ..blocks import LayerNorm, Linear, checkpoint, nhwc_conv
 
 __all__ = ["ConvNeXt", "CONVNEXT_VARIANTS"]
 
@@ -56,9 +57,10 @@ class ConvNeXt(nn.Module):
     wide."""
 
     def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768),
-                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
-        self.depths, self.dtype = tuple(depths), dtype
+        self.depths, self.dtype, self.remat = tuple(depths), dtype, remat
         self.stem_conv = nn.Conv2d(in_channels, dims[0], 4, stride=4,
                                    bias=True)
         self.stem_norm = LayerNorm(dims[0], dtype)
@@ -79,6 +81,7 @@ class ConvNeXt(nn.Module):
                 x = nhwc_conv(getattr(self, f"down{s}_conv"),
                               getattr(self, f"down{s}_norm")(x), self.dtype)
             for b in range(depth):
-                x = getattr(self, f"stage{s}_block{b}")(x)
+                block = getattr(self, f"stage{s}_block{b}")
+                x = checkpoint(block, x) if self.remat else block(x)
             taps.append(x.permute(0, 3, 1, 2))
         return taps

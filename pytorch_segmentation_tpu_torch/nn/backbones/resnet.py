@@ -5,7 +5,9 @@ Returns the per-stage feature list [stem, layer1..layer4].
 `replace_stride_with_dilation` trades a stage's stride for dilation, so
 DeepLabV3+ runs at output stride 16. Submodules are named like the flax
 tree (`stem`, `layer{s}_block{b}` with `conv1..3` and `downsample`), so the
-JAX package's weights load by name.
+JAX package's weights load by name. `remat=True` recomputes each residual
+block (downsample included; not the stem) in the backward
+(`nn.blocks.checkpoint`), as the JAX module's `nn.remat` of the block.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..blocks import ConvNormAct, apply_fold, fused_1x1_available
+from ..blocks import (ConvNormAct, apply_fold, checkpoint,
+                      fused_1x1_available)
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "resnet34_cfg",
            "resnet50_cfg"]
@@ -97,8 +100,10 @@ class ResNet(nn.Module):
     def __init__(self, block: str, layers: Sequence[int],
                  replace_stride_with_dilation: Sequence[bool] = (False, False,
                                                                  False),
-                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         block_cls = BasicBlock if block == "basic" else Bottleneck
         # stem: 7x7/2 conv + BN + ReLU, then a 3x3/2 max-pool (pad 1, -inf)
         self.stem = ConvNormAct(in_channels, 64, kernel_size=7, stride=2,
@@ -135,7 +140,8 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for names in self._stages:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = checkpoint(block, x) if self.remat else block(x)
             features.append(x)
         return features
 

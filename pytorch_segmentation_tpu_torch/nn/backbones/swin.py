@@ -29,7 +29,8 @@ rounds elsewhere.
 
 The trunk runs on NHWC tensors, as the JAX module does, and returns the four
 stage outputs at strides 4/8/16/32, C..8C wide, as NCHW views. Drop-path is
-omitted, as in the JAX module.
+omitted, as in the JAX module. `remat=True` recomputes each block in the
+backward (`nn.blocks.checkpoint`).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..blocks import LayerNorm, Linear, nhwc_conv
+from ..blocks import LayerNorm, Linear, checkpoint, nhwc_conv
 
 __all__ = ["SwinTransformer", "SWIN_VARIANTS"]
 
@@ -189,9 +190,9 @@ class SwinTransformer(nn.Module):
 
     def __init__(self, depths=(2, 2, 6, 2), dim: int = 96,
                  heads=(3, 6, 12, 24), window: int = 7, in_channels: int = 3,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
-        self.depths, self.dtype = tuple(depths), dtype
+        self.depths, self.dtype, self.remat = tuple(depths), dtype, remat
         self.patch_conv = nn.Conv2d(in_channels, dim, 4, stride=4, bias=True)
         self.patch_norm = LayerNorm(dim, dtype, eps=LN_EPS)
         for s, depth in enumerate(depths):
@@ -211,6 +212,7 @@ class SwinTransformer(nn.Module):
             if s > 0:
                 x = getattr(self, f"merge{s}")(x)
             for b in range(depth):
-                x = getattr(self, f"stage{s}_block{b}")(x)
+                block = getattr(self, f"stage{s}_block{b}")
+                x = checkpoint(block, x) if self.remat else block(x)
             taps.append(x.permute(0, 3, 1, 2))
         return taps

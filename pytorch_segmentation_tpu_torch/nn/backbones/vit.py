@@ -15,7 +15,8 @@ under the JAX package's names:
     eps 1e-6. The products are plain `torch.matmul`, never SDPA.
 No final LayerNorm on the taps. The trunk returns the sequences after the
 `out_indices` blocks, class token dropped, as stride-`patch` NCHW maps
-(views of the (B, 1 + N, C) tokens).
+(views of the (B, 1 + N, C) tokens). `remat=True` recomputes each block in
+the backward (`nn.blocks.checkpoint`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.resize import resize_bicubic
-from ..blocks import LayerNorm, Linear, conv2d
+from ..blocks import LayerNorm, Linear, checkpoint, conv2d
 
 __all__ = ["ViT", "VIT_VARIANTS"]
 
@@ -79,8 +80,9 @@ class ViT(nn.Module):
     def __init__(self, layers: int = 12, dim: int = 768, heads: int = 12,
                  patch: int = 16, base_grid: int = 14,
                  out_indices=(2, 5, 8, 11), in_channels: int = 3,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers, self.dim, self.base_grid = layers, dim, base_grid
         self.out_indices, self.dtype = tuple(out_indices), dtype
         self.conv_proj = nn.Conv2d(in_channels, dim, patch, stride=patch,
@@ -110,7 +112,8 @@ class ViT(nn.Module):
         seq = seq + self.position_embedding(gh, gw).to(self.dtype)
         taps = []
         for i in range(self.layers):
-            seq = getattr(self, f"block{i}")(seq)
+            block = getattr(self, f"block{i}")
+            seq = checkpoint(block, seq) if self.remat else block(seq)
             if i in self.out_indices:
                 taps.append(seq[:, 1:].reshape(b, gh, gw, c).permute(
                     0, 3, 1, 2))

@@ -35,10 +35,24 @@ same state_dict: `BatchNorm2d.fold` turns column sums into the per-channel
 (scale, shift) for the CONSUMER to apply, and `ConvNormAct.folded` carries a
 raw convolution output plus that fold from layer to layer, so a model flips
 between the two paths on the same weights.
+
+Batch statistics from every s-th pixel (`set_bn_stat_subsample`, the train
+CLI's `--bn-subsample`; process-wide): a train-mode `BatchNorm2d.forward`
+takes E[x] and E[x^2] over `x[:, :, ::s, ::s]` (s = 1 where min(H, W) <
+32 s) and normalizes the whole tensor; `BatchNorm2d.fold` always counts
+every pixel, as the JAX package's `ConvStatsFolded` does.
+
+`checkpoint(fn, *args)` is the one activation-recompute (remat) call of the
+port's models: `torch.utils.checkpoint` without re-entry, whose recompute in
+the backward leaves the BatchNorm running statistics alone (they moved in
+the forward) and sees the mesh's batch group and the quant mode that the
+forward saw, whichever thread runs it. The fused switch is process-wide and
+read as it stands.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections.abc import Callable
 
@@ -46,10 +60,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.int8 import int8_conv2d
 from ..ops.kernels.fused_matmul_bn import fused_bn_act_matmul
-from ..parallel.mesh import batch_mean, batch_world
+from ..parallel.mesh import (batch_group, batch_mean,
+                             batch_statistics_over, batch_world)
 
 __all__ = ["BatchNorm2d", "ConvNormAct", "GroupNorm", "LayerNorm", "Linear",
            "Scale", "SeparableConvNormAct", "conv2d", "nhwc_conv",
@@ -57,7 +73,9 @@ __all__ = ["BatchNorm2d", "ConvNormAct", "GroupNorm", "LayerNorm", "Linear",
            "set_force_fused_1x1", "fused_1x1_available",
            "apply_fold", "QUANT_MODES", "set_quant_mode", "get_quant_mode",
            "get_quant_stats", "set_quant_min_k", "get_quant_min_k",
-           "quantize_symmetric", "int8_operands"]
+           "quantize_symmetric", "int8_operands", "set_bn_stat_subsample",
+           "get_bn_stat_subsample", "bn_stat_subsample", "checkpoint",
+           "recomputing"]
 
 BN_MOMENTUM = 0.1  # torch convention
 
@@ -76,6 +94,78 @@ def set_force_fused_1x1(mode) -> None:
         raise ValueError(f"set_force_fused_1x1 takes None, 'off' or 'on', "
                          f"not {mode!r}")
     _FORCE_FUSED_1X1 = mode
+
+
+# batch statistics from every s-th pixel; 1 = exact (the default)
+_BN_SUBSAMPLE = 1
+
+
+def set_bn_stat_subsample(s: int) -> None:
+    """The stride s of every train-mode `BatchNorm2d.forward`'s batch
+    statistics whose module sets none (process-wide; at least 1)."""
+    global _BN_SUBSAMPLE
+    _BN_SUBSAMPLE = max(1, int(s))
+
+
+def get_bn_stat_subsample() -> int:
+    return _BN_SUBSAMPLE
+
+
+@contextlib.contextmanager
+def bn_stat_subsample(s: int):
+    """`set_bn_stat_subsample(s)` inside the block; the setting before it
+    afterwards."""
+    prev = _BN_SUBSAMPLE
+    set_bn_stat_subsample(s)
+    try:
+        yield
+    finally:
+        set_bn_stat_subsample(prev)
+
+
+# set on the thread that recomputes a checkpointed segment, while it does
+_REMAT = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether the calling thread is recomputing a `checkpoint` segment."""
+    return getattr(_REMAT, "active", False)
+
+
+@contextlib.contextmanager
+def _recompute_scope(group, mode, stats):
+    """The recompute's context: the forward's batch group and quant mode on
+    the thread that runs it (autograd's device thread on the card), and the
+    flag that keeps BatchNorm's running statistics where the forward left
+    them."""
+    prev = recomputing(), get_quant_mode(), get_quant_stats()
+    _REMAT.active = True
+    set_quant_mode(mode, stats)
+    try:
+        with batch_statistics_over(group):
+            yield
+    finally:
+        _REMAT.active = prev[0]
+        set_quant_mode(prev[1], prev[2])
+
+
+def _checkpoint_contexts():
+    # called as the segment's forward starts: what its recompute must see
+    return contextlib.nullcontext(), _recompute_scope(
+        batch_group(), get_quant_mode(), get_quant_stats())
+
+
+def checkpoint(fn: Callable, *args):
+    """`fn(*args)` with its activations recomputed in the backward instead
+    of kept (the JAX package's `nn.remat` / `jax.checkpoint`); the same
+    values and gradients, bit for bit. `fn` draws no random numbers, so
+    the RNG state is not saved. Without autograd recording (eval, no_grad)
+    it is the plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=_checkpoint_contexts)
 
 
 def fused_1x1_available() -> bool:
@@ -309,19 +399,30 @@ class BatchNorm2d(nn.BatchNorm2d):
     mesh) E[x] and E[x^2] are the means over the group's ranks, through an
     all-reduce that autograd sees, and the running variance's Bessel factor
     counts every rank's values: the statistics of the global batch, as the
-    JAX module's under pjit or with `axis_name`. Its `stat_subsample` is not
-    ported."""
+    JAX module's under pjit or with `axis_name`.
 
-    def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16):
+    `stat_subsample` s (None: `get_bn_stat_subsample()` at forward time)
+    takes the batch statistics from `x[:, :, ::s, ::s]`, and counts n over
+    those values, where min(H, W) >= 32 s (else s = 1); the normalization
+    uses the whole tensor. While a `checkpoint` segment is recomputed the
+    running statistics and `num_batches_tracked` stay as they are."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.bfloat16,
+                 stat_subsample: int | None = None):
         super().__init__(num_features, eps=1e-5, momentum=BN_MOMENTUM)
         self.compute_dtype = dtype
+        self.stat_subsample = stat_subsample
 
     def _fold_moments(self, mean, ex2, n: int):
         """(scale, shift) in f32 from the batch's E[x] and E[x^2] over `n`
         values per channel (train mode, with the running update) or from the
         running statistics (eval mode; `mean` and `ex2` may then be None)."""
-        if self.training:
+        if not self.training:
+            mean = self.running_mean.float()
+            var = self.running_var.float()
+        else:
             var = (ex2 - mean * mean).clamp(min=0.0)
+        if self.training and not recomputing():
             with torch.no_grad():
                 bessel = float(n) / max(float(n) - 1.0, 1.0)
                 m = self.momentum
@@ -330,9 +431,6 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.copy_((1 - m) * self.running_var
                                        + m * (var * bessel))
                 self.num_batches_tracked += 1
-        else:
-            mean = self.running_mean.float()
-            var = self.running_var.float()
         inv = torch.rsqrt(var + self.eps) * self.weight
         return inv, self.bias - mean * inv
 
@@ -343,7 +441,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         folded (scale, shift) in f32 for the CONSUMER to apply: the
         normalize itself fuses into the next layer's prologue. Same
         parameters, buffers, running update and sums over a mesh's ranks
-        as `forward`."""
+        as `forward`; every one of the n values counts, whatever
+        `stat_subsample` says."""
         if self.training:
             mean, ex2 = batch_mean(col_sum / n, col_sumsq / n)
             return self._fold_moments(mean, ex2, n * batch_world())
@@ -353,10 +452,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = ex2 = None
         n = x.numel() // x.shape[1]
         if self.training:
-            xf = x.float()
+            s = (self.stat_subsample if self.stat_subsample is not None
+                 else _BN_SUBSAMPLE)
+            xs = x
+            if s > 1 and min(x.shape[2:]) >= 32 * s:  # small maps: all
+                xs = x[:, :, ::s, ::s]
+            xf = xs.float()
             mean, ex2 = batch_mean(xf.mean(dim=(0, 2, 3)),
                                    (xf * xf).mean(dim=(0, 2, 3)))
-            n *= batch_world()
+            n = xs.numel() // x.shape[1] * batch_world()
         inv, shift = self._fold_moments(mean, ex2, n)
         return apply_fold(x, inv, shift, self.compute_dtype)
 

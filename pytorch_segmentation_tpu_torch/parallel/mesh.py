@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
+from ..utils.roadmap import not_ported
 from ..utils.runtime import host_to_device, require_cuda
 
 __all__ = ["Mesh", "DataSharding", "ReplicatedSharding",
@@ -43,7 +44,8 @@ __all__ = ["Mesh", "DataSharding", "ReplicatedSharding",
            "replicated_sharding", "shard_batch", "put_global_batch",
            "put_replicated_tree", "replicas", "split_batch",
            "require_one_device", "all_reduce_mean_", "batch_statistics_over",
-           "batch_world", "batch_sum", "batch_mean", "require_local_batch"]
+           "batch_group", "batch_world", "batch_sum", "batch_mean",
+           "require_local_batch"]
 
 # f32 elements in one all-reduce of the gradients' mean (64 MiB)
 BUCKET_ELEMENTS = 1 << 24
@@ -113,9 +115,7 @@ def make_mesh(devices=None, axis_name: str = "data",
     `devices` (default: every local card; the CPU only when asked for).
     spatial > 1, the JAX package's (data, space) mesh, is not ported."""
     if spatial > 1:
-        from ..utils.cli import ROADMAP_ITEMS
-        raise NotImplementedError(f"make_mesh(spatial={spatial}) is not "
-                                  f"ported yet ({ROADMAP_ITEMS[10]})")
+        raise not_ported(f"make_mesh(spatial={spatial})", 10)
     if dist.is_initialized():
         if devices is None:
             devices = (require_cuda(),)
@@ -253,7 +253,7 @@ def batch_statistics_over(group):
     the losses' batch sums are taken over `group`'s ranks (None: this
     process's batch alone), through all-reduces that autograd sees, so the
     backward carries their gradients across ranks."""
-    prev = getattr(_batch, "group", None)
+    prev = batch_group()
     _batch.group = group
     try:
         yield
@@ -261,16 +261,22 @@ def batch_statistics_over(group):
         _batch.group = prev
 
 
+def batch_group():
+    """The group of the calling thread's `batch_statistics_over` block (None
+    outside one)."""
+    return getattr(_batch, "group", None)
+
+
 def batch_world() -> int:
     """The ranks the current batch statistics span (1 outside a mesh)."""
-    group = getattr(_batch, "group", None)
+    group = batch_group()
     return 1 if group is None else dist.get_world_size(group)
 
 
 def batch_sum(*values):
     """Each tensor summed over the ranks of `batch_statistics_over` (one
     all-reduce for all of them, in f32); the tensors themselves outside."""
-    group = getattr(_batch, "group", None)
+    group = batch_group()
     if group is None:
         return values
     flat = torch.cat([v.float().reshape(-1) for v in values])
@@ -282,7 +288,7 @@ def batch_sum(*values):
 def batch_mean(*values):
     """`batch_sum` over the ranks' count: the mean of per-rank means over
     equal shards (the JAX package's `pmean`)."""
-    group = getattr(_batch, "group", None)
+    group = batch_group()
     if group is None:
         return values
     world = dist.get_world_size(group)
@@ -293,6 +299,4 @@ def require_local_batch(what: str) -> None:
     """Raise for a loss that needs the whole global batch at once (a sort or
     a k-th value over every pixel) when the batch spans several ranks."""
     if batch_world() > 1:
-        from ..utils.cli import ROADMAP_ITEMS
-        raise NotImplementedError(f"{what} over a batch split across ranks "
-                                  f"is not ported yet ({ROADMAP_ITEMS[10]})")
+        raise not_ported(f"{what} over a batch split across ranks", 10)

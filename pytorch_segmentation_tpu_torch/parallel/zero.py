@@ -136,6 +136,11 @@ class ZeroOptimizer:
         sizes = [s.numel() for s in shards]
         return [p.split(sizes) for p in parts]
 
+    def state_tensors(self) -> list:
+        """This rank's shards of the optimizer state, as
+        `OptimizerChain.state_tensors` gives them (no collective)."""
+        return self.inner.state_tensors()
+
     def state_dict(self) -> dict:
         state = self.inner.state_dict()
         entries = {i: dict(e) for i, e in state["state"].items()}

@@ -20,7 +20,14 @@ validation set is evaluated (`engine.test`), `<log_dir>/log.jsonl` gets the
 val mIoU, and
 `weights/last.pt` (and `weights/best.pt` when the mIoU rose) is written.
 `--qat` trains quantization-aware (`Trainer(qat=True)`, quant.py), and the
-epoch's eval, which picks best.pt, then runs the int8 forward.
+epoch's eval, which picks best.pt, then runs the int8 forward. `--remat`
+recomputes the backbone's blocks in the backward (`nn.blocks.checkpoint`)
+for the families of the JAX CLI's list (`REMAT_FAMILIES`; another exits
+with its message); `--bn-subsample S` takes train-mode BatchNorm statistics
+from every S-th pixel (`nn.blocks.set_bn_stat_subsample`) and
+`--debug-nans` makes the train and eval steps raise a `FloatingPointError`
+at the first NaN (`utils/runtime.set_debug_nans`), both for the run of
+`train()`.
 Prints the per-epoch images/s and loss, the eval table and
 `save best, miou: ...`.
 
@@ -81,12 +88,15 @@ from .engine.steps import nhwc_forward
 from .models import (MODEL_REGISTRY, apply_scan_blocks, build_model,
                      make_maskformer_loss, variant_kwargs,
                      without_default_init)
+from .nn.blocks import bn_stat_subsample
 from .ops.loss import build_loss
 from .parallel import initialize_distributed, make_mesh
 from .utils.cli import refuse_unported, unported_options
+from .utils.runtime import debug_nans as debug_nans_scope
 from .utils.runtime import require_cuda
 
-__all__ = ["DATASETS", "UNPORTED", "parse_class_weights", "train",
+__all__ = ["DATASETS", "UNPORTED", "REMAT_FAMILIES", "parse_class_weights",
+           "train",
            "build_parser", "parse_args", "main"]
 
 DATASETS = {
@@ -99,12 +109,14 @@ DATASETS = {
 # the JAX CLI's families with an auxiliary head (--aux-loss), all ported
 AUX_LOSS_FAMILIES = ("pspnet", "fastfcn", "upernet", "bisenetv2", "ocrnet",
                      "fcn", "deeplabv3", "danet")
+# the JAX CLI's families that take --remat
+REMAT_FAMILIES = ("deeplabv3plus", "pspnet", "fpn", "fastfcn", "segformer",
+                  "bisenetv2", "fcn", "deeplabv3", "segnext", "segmenter",
+                  "upernet", "danet")
 
 # options whose machinery is not ported: name -> (default, ROADMAP queue 1
 # item). `train()` raises for them; the CLI exits with status 2.
 UNPORTED = {
-    "remat": (False, 5), "bn_subsample": (1, 5),
-    "debug_nans": (False, 5),
     "tp": (1, 10), "pp": (1, 10), "ep": (1, 10), "spatial": (1, 10),
     "moe": (0, 10),
 }
@@ -152,6 +164,11 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
     if unported:
         raise NotImplementedError("; ".join(unported))
     model_kw = variant_kwargs(model_name, variant)
+    if remat:
+        if model_name not in REMAT_FAMILIES:
+            raise SystemExit(f"--remat is not supported for {model_name} "
+                             "(no remat-capable block stages)")
+        model_kw["remat"] = True
     if aux_loss > 0:
         if model_name not in AUX_LOSS_FAMILIES:
             raise SystemExit("--aux-loss is only supported by the "
@@ -250,36 +267,38 @@ def train(data_dir, model_name, epochs, img_size, batch_size, accumulate, lr,
                       distill_fn=distill_fn, distill_weight=distill_weight,
                       distill_temp=distill_temp, qat=qat, mesh=mesh,
                       zero=zero, device=device)
-    if precompile:
-        sizes = multi_scale_sizes((h, w)) if multi_scale else [(h, w)]
-        trainer.warmup(sizes, batch_size)
-    epochs_since_best = 0
-    while trainer.epoch < epochs:
-        trainer.step()
-        best = False
-        if not notest:
-            # under --qat the deployment target is the int8 forward, so the
-            # eval (and the choice of best.pt) runs it; under --ema the
-            # deployment weights are the averaged ones
-            eval_model = trainer.ema_model if ema > 0 else trainer.model
-            metrics = test(eval_model, val_fetcher, mesh=mesh, int8=qat,
-                           ignore_index=ignore_index, device=device)
-            trainer.log_record(epoch=trainer.epoch - 1, val_miou=metrics)
-            if metrics > trainer.metrics:
-                best = True
+    # --bn-subsample and --debug-nans hold for this run's steps
+    with bn_stat_subsample(bn_subsample), debug_nans_scope(debug_nans):
+        if precompile:
+            sizes = multi_scale_sizes((h, w)) if multi_scale else [(h, w)]
+            trainer.warmup(sizes, batch_size)
+        epochs_since_best = 0
+        while trainer.epoch < epochs:
+            trainer.step()
+            best = False
+            if not notest:
+                # under --qat the deployment target is the int8 forward, so
+                # the eval (and the choice of best.pt) runs it; under --ema
+                # the deployment weights are the averaged ones
+                eval_model = trainer.ema_model if ema > 0 else trainer.model
+                metrics = test(eval_model, val_fetcher, mesh=mesh, int8=qat,
+                               ignore_index=ignore_index, device=device)
+                trainer.log_record(epoch=trainer.epoch - 1, val_miou=metrics)
+                if metrics > trainer.metrics:
+                    best = True
+                    if rank == 0:
+                        print("save best, miou: %g" % metrics)
+                    trainer.metrics = metrics
+                    epochs_since_best = 0
+                else:
+                    epochs_since_best += 1
+            if not nosave:
+                trainer.save(best)
+            if patience and epochs_since_best >= patience:
                 if rank == 0:
-                    print("save best, miou: %g" % metrics)
-                trainer.metrics = metrics
-                epochs_since_best = 0
-            else:
-                epochs_since_best += 1
-        if not nosave:
-            trainer.save(best)
-        if patience and epochs_since_best >= patience:
-            if rank == 0:
-                print("early stop: no val mIoU improvement in %d epochs "
-                      "(best %g)" % (patience, trainer.metrics))
-            break
+                    print("early stop: no val mIoU improvement in %d epochs "
+                          "(best %g)" % (patience, trainer.metrics))
+                break
     return trainer
 
 

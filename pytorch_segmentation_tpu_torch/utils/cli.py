@@ -7,22 +7,15 @@ from __future__ import annotations
 import argparse
 
 from ..models import apply_scan_blocks, variant_kwargs
+from .roadmap import ROADMAP_ITEMS, not_ported
 
 __all__ = ["ROADMAP_ITEMS", "unported_options", "refuse_unported"]
-
-# ROADMAP.md queue 1, by item number
-ROADMAP_ITEMS = {
-    5: "ROADMAP queue 1 item 5, train step rest",
-    10: "ROADMAP queue 1 item 10, --spatial, tp, pp, ep and nn/moe.py",
-    11: "ROADMAP queue 1 item 11, export and utilities",
-}
 
 
 def unported_options(values: dict, table: dict) -> list[str]:
     """table: option name -> (default, ROADMAP item number). One message
     for each option of `values` set away from its default."""
-    return [f"--{name.replace('_', '-')} is not ported yet "
-            f"({ROADMAP_ITEMS[item]})"
+    return [str(not_ported(f"--{name.replace('_', '-')}", item))
             for name, (default, item) in table.items()
             if values.get(name, default) != default]
 

@@ -1,12 +1,60 @@
-"""Device set-up for runs on the card."""
+"""Device set-up for runs on the card, and the debug-NaN switch."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 
-__all__ = ["require_cuda", "same_device", "device_constant", "host_to_device"]
+__all__ = ["require_cuda", "same_device", "device_constant", "host_to_device",
+           "set_debug_nans", "debug_nans_enabled", "debug_nans",
+           "check_nans"]
+
+_DEBUG_NANS = False
+
+
+def set_debug_nans(on: bool) -> None:
+    """The process-wide debug-NaN switch (the JAX package's
+    `jax_debug_nans`, the train CLI's `--debug-nans`): while it is on, the
+    train and eval steps check what they return and update
+    (`engine/steps.py`) and raise a `FloatingPointError` naming the first
+    tensor that holds a NaN. One host sync a step; a finite step computes
+    the same bits as with the switch off."""
+    global _DEBUG_NANS
+    _DEBUG_NANS = bool(on)
+
+
+def debug_nans_enabled() -> bool:
+    return _DEBUG_NANS
+
+
+@contextlib.contextmanager
+def debug_nans(on: bool = True):
+    """`set_debug_nans(on)` inside the block; the setting before it
+    afterwards."""
+    prev = _DEBUG_NANS
+    set_debug_nans(on)
+    try:
+        yield
+    finally:
+        set_debug_nans(prev)
+
+
+def check_nans(named, what: str) -> None:
+    """Raise a `FloatingPointError` naming the first of `named` ((name,
+    tensor) pairs, in order) whose values hold a NaN, found by `what`.
+    Integer tensors hold none. One host sync: the per-tensor flags come back
+    together."""
+    named = [(n, t) for n, t in named if t.is_floating_point()]
+    if not named:
+        return
+    device = named[0][1].device   # a CPU scalar (Adam's step) joins it
+    flags = torch.stack([torch.isnan(t).any().to(device) for _, t in named])
+    found = flags.nonzero()
+    if found.numel():
+        name = named[int(found[0, 0])][0]
+        raise FloatingPointError(f"{what}: NaN in {name} (debug NaNs on)")
 
 
 def require_cuda() -> torch.device:

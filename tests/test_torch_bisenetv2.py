@@ -165,7 +165,8 @@ def test_load_model_bundle_drops_the_boosters(tmp_path, capsys):
 
 def test_default_widths_and_remat():
     """The paper's widths on the meta device, their shapes as the JAX
-    module's tree has them; remat=True raises, naming its ROADMAP item."""
+    module's tree has them; remat=True builds (tests/test_torch_remat.py
+    steps it)."""
     with torch.device("meta"):   # the structure only
         model = build_model("bisenetv2", 19, aux=True)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -180,8 +181,8 @@ def test_default_widths_and_remat():
          if not k.endswith("num_batches_tracked")})
     assert params["ge4_0"]["short_pw"]["conv"]["kernel"].shape == (1, 1, 32,
                                                                    64)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_model("bisenetv2", NC, remat=True)
+    with torch.device("meta"):
+        assert build_model("bisenetv2", NC, remat=True).remat
 
 
 CLIS = {"train": ttrain, "test": ttest, "inference": tinference,

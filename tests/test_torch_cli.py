@@ -39,7 +39,8 @@ from pytorch_segmentation_tpu_torch.data.resize_host import resize_u8
 from pytorch_segmentation_tpu_torch.engine import test as engine_test
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
-from pytorch_segmentation_tpu_torch.models import DeepLabV3Plus, build_model
+from pytorch_segmentation_tpu_torch.models import (DeepLabV3Plus, build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.utils.imgcodecs import imread
 from pytorch_segmentation_tpu_torch.utils.synthetic import make_synthetic_coco
@@ -86,8 +87,7 @@ def test_cli_has_the_root_flags_and_defaults(filename):
 
 
 # a value away from the default, for each unported option that takes one
-_VALUES = {"bn_subsample": "2", "tp": "2", "pp": "2", "ep": "2",
-           "spatial": "2", "moe": "4"}
+_VALUES = {"tp": "2", "pp": "2", "ep": "2", "spatial": "2", "moe": "4"}
 _POSITIONAL = {"train.py": ["data", "--model", "deeplabv3plus"],
                "test.py": ["val.json"], "inference.py": ["in", "out"]}
 _REFUSED = [(f, n) for f in sorted(CLIS) for n in CLIS[f].UNPORTED]
@@ -108,16 +108,22 @@ def test_unported_flag_exits_2_naming_its_item(filename, name, capsys):
         capsys.readouterr().err
 
 
-@pytest.mark.parametrize("filename,name", [("train.py", "zero")],
-                         ids=["train-zero"])
+_PORTED = {"zero": [], "remat": [], "bn_subsample": ["2"],
+           "debug_nans": []}
+
+
+@pytest.mark.parametrize("filename,name",
+                         [("train.py", n) for n in _PORTED],
+                         ids=[f"train-{n}" for n in _PORTED])
 def test_ported_flag_parses(filename, name):
     """A flag that the refusals lost now parses (`--zero` goes on to
     `train(zero=)` and `Trainer(zero=)`: the replicated path with one
-    rank)."""
+    rank; `--remat`, `--bn-subsample` and `--debug-nans` to `train()`)."""
     flag = "--" + name.replace("_", "-")
     assert name not in CLIS[filename].UNPORTED
-    assert getattr(CLIS[filename].parse_args(
-        _POSITIONAL[filename] + [flag]), name) is True
+    value = getattr(CLIS[filename].parse_args(
+        _POSITIONAL[filename] + [flag] + _PORTED[name]), name)
+    assert value == (int(_PORTED[name][0]) if _PORTED[name] else True)
 
 
 @pytest.mark.parametrize("filename", sorted(CLIS))
@@ -217,10 +223,10 @@ def test_train_main_passes_every_train_keyword():
             continue  # data=opt.data, model=opt.model, the caller's device
         assert f"{p}=opt." in src, p
     assert "data_dir=opt.data" in src and "model_name=opt.model" in src
-    with pytest.raises(NotImplementedError, match="--remat is not ported"):
+    with pytest.raises(NotImplementedError, match="--tp is not ported"):
         ttrain.train("d", "deeplabv3plus", 1, (64, 64), 2, 1, 1e-3, False,
                      False, "", 1, False, False, False, False, False,
-                     remat=True, device="cpu")
+                     tp=2, device="cpu")
 
 
 class _JaxConv(fnn.Module):
@@ -362,8 +368,11 @@ def test_warmup_leaves_the_weights_and_profile_writes_a_trace(tmp_path,
 
 
 def _shallow(name, num_classes, **kwargs):
-    return DeepLabV3Plus(num_classes=num_classes, backbone_layers=(1, 1, 1, 1),
-                         **kwargs)
+    """One block a stage; the parameters uninitialised, since every caller
+    loads or seeds them all."""
+    with without_default_init():
+        return DeepLabV3Plus(num_classes=num_classes,
+                             backbone_layers=(1, 1, 1, 1), **kwargs)
 
 
 def test_cli_train_resume_test_inference_on_the_cpu(tmp_path, monkeypatch,
@@ -416,6 +425,41 @@ def test_cli_train_resume_test_inference_on_the_cpu(tmp_path, monkeypatch,
         assert np.array_equal(mask, w)
         written = imread(osp.join("out", osp.splitext(name)[0] + ".png"))
         assert np.array_equal(written, colorize_mask(mask))
+
+
+def test_train_remat_bn_subsample_debug_nans_on_the_cpu(tmp_path,
+                                                      monkeypatch):
+    """`train --remat --bn-subsample 2 --debug-nans` on the shallow
+    DeepLabV3+ at -s 64 64: the model recomputes its residual blocks, the
+    epoch's steps run under both settings, and `train()` leaves them as it
+    found them."""
+    from pytorch_segmentation_tpu_torch.utils import runtime
+    for module in CLIS.values():
+        monkeypatch.setattr(module, "build_model", _shallow)
+    seen = []
+    real_step = Trainer.step
+
+    def step(self):
+        seen.append((tblocks.get_bn_stat_subsample(),
+                     runtime.debug_nans_enabled()))
+        return real_step(self)
+
+    monkeypatch.setattr(Trainer, "step", step)
+    monkeypatch.chdir(tmp_path)
+    data = str(tmp_path / "coco")
+    make_synthetic_coco(data, num_train=4, num_val=2, img_size=(80, 60),
+                        seed=1, num_classes=3)
+    trainer = ttrain.main([data, "--model", "deeplabv3plus", "--dataset",
+                           "coco", "-s", "64", "64", "-bs", "2", "-a", "1",
+                           "--num-workers", "2", "--epochs", "1", "--remat",
+                           "--bn-subsample", "2", "--debug-nans"],
+                          device="cpu")
+    assert trainer.module.backbone.remat and trainer.epoch == 1
+    assert seen == [(2, True)]
+    assert (tblocks.get_bn_stat_subsample(), runtime.debug_nans_enabled()) \
+        == (1, False)
+    assert np.isfinite(json.loads(open("runs/log.jsonl").readline())[
+        "loss"])
 
 
 @pytest.mark.parametrize("cli", ["serve-int8", "test-int8-calib",

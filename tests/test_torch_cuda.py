@@ -1115,3 +1115,54 @@ def test_world1_nccl_step_equals_the_step_without_a_mesh(device):
     assert got[0] == want[0]
     for k, v in want[1].items():
         assert torch.equal(got[1][k], v), k
+
+
+def _small_steps(device, remat, images, segs, steps=2):
+    """`steps` steps of the small bf16 DeepLabV3+ (one block a stage) from
+    its seeded start: each loss and the final state."""
+    from pytorch_segmentation_tpu_torch.engine.steps import (
+        create_train_state, make_train_step)
+    from pytorch_segmentation_tpu_torch.engine.trainer import make_optimizer
+    from pytorch_segmentation_tpu_torch.ops.loss import make_loss_fn
+    from pytorch_segmentation_tpu_torch.utils.weights import (
+        seeded_state_dict)
+
+    model = build_model("deeplabv3plus", 5, backbone_layers=(1, 1, 1, 1),
+                        full_res_output=False, remat=remat)
+    model.load_state_dict(seeded_state_dict(model, 0, init="train"))
+    model.to(device, memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(
+        model.parameters(), lr=1e-2, momentum=0.9))
+    step = make_train_step(loss_fn=make_loss_fn())
+    losses = [float(step(state, images, segs)[1]) for _ in range(steps)]
+    return losses, model.state_dict()
+
+
+@pytest.mark.parametrize("switch", ["off", "on"])
+def test_remat_step_equals_the_plain_step_on_the_card(device, switch):
+    """Two steps of the small bf16 model with remat=True equal the plain
+    steps bit for bit (cuDNN's deterministic algorithms; the backward, and
+    so the recompute, runs on autograd's device thread), with the fused
+    1x1 switch off and on; with it on, kernel 5's forward runs again in the
+    recompute: 16 forward launches a step for the 4 bottlenecks' 8 products
+    (conv1 and conv3) against 8 dx and 8 dW."""
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.standard_normal(
+        (4, 64, 64, 3)).astype(np.float32)).to(device)
+    segs = torch.from_numpy(rng.integers(0, 5, (4, 64, 64))).to(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    blocks.set_force_fused_1x1(switch)
+    try:
+        want = _small_steps(device, False, images, segs)
+        fm.reset_launch_count()
+        got = _small_steps(device, True, images, segs)
+        launches = fm.launch_count()
+    finally:
+        blocks.set_force_fused_1x1(None)
+        torch.backends.cudnn.deterministic = deterministic
+    assert got[0] == want[0]
+    for k, v in want[1].items():
+        assert torch.equal(got[1][k], v), k
+    on = 2 * 8 if switch == "on" else 0   # two steps
+    assert launches == {"fwd": 2 * on, "bwd_dx": on, "bwd_dw": on}

@@ -22,7 +22,8 @@ from pytorch_segmentation_tpu_torch.engine.checkpoint import (
     load_model_bundle, save_checkpoint)
 from pytorch_segmentation_tpu_torch.models import (MODEL_VARIANTS,
                                                    build_model,
-                                                   variant_kwargs)
+                                                   variant_kwargs,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.utils.weights import (
     jax_trees_from_state_dict, seeded_state_dict, state_dict_from_jax)
 from torch_family_util import (FamilyCase, assert_forward_matches_jax,
@@ -73,7 +74,8 @@ def test_scale_leaf_round_trip():
 def test_seeded_gates(init):
     """'serve' and 'uniform' start the gates at 0.5..1.5, so both branches
     count; 'train' at 0, the JAX package's start."""
-    model = build_model("danet", NC, dtype=torch.float32, **SMALL)
+    with without_default_init():   # every entry seeded next
+        model = build_model("danet", NC, dtype=torch.float32, **SMALL)
     sd = seeded_state_dict(model, seed=0, init=init)
     model.load_state_dict(sd)
     for name in GATES:
@@ -163,16 +165,17 @@ def test_aux_trainer_step_matches_jax(case, tmp_path):
 def test_load_model_bundle_drops_the_branch_heads(tmp_path, capsys):
     """A checkpoint with `pam_cls.*` and `cam_cls.*` loads into DANet built
     without them: the four entries are dropped and named."""
-    aux_model = build_model("danet", NC, dtype=torch.float32, aux=True,
-                            **SMALL)
+    with without_default_init():   # seeded, then loaded
+        aux_model = build_model("danet", NC, dtype=torch.float32, aux=True,
+                                **SMALL)
+        plain = build_model("danet", NC, dtype=torch.float32, **SMALL)
     sd = seeded_state_dict(aux_model, seed=5)
     path = str(tmp_path / "aux.pt")
     save_checkpoint(path, sd)
     heads = sorted(k for k in sd if k.startswith(("pam_cls.", "cam_cls.")))
     assert heads == ["cam_cls.bias", "cam_cls.weight", "pam_cls.bias",
                      "pam_cls.weight"]
-    model = load_model_bundle(build_model("danet", NC, dtype=torch.float32,
-                                          **SMALL), path, "cpu")
+    model = load_model_bundle(plain, path, "cpu")
     out = capsys.readouterr().out
     assert f"dropping train-only entries not in the eval model: {heads}" in out
     got = model.state_dict()

@@ -43,7 +43,8 @@ from pytorch_segmentation_tpu_torch.engine import steps as tsteps
 from pytorch_segmentation_tpu_torch.engine import test as port_test
 from pytorch_segmentation_tpu_torch.engine.checkpoint import (
     load_model_bundle, save_checkpoint)
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.ops import boundary as tboundary
 from pytorch_segmentation_tpu_torch.ops import tta as ttta
 from pytorch_segmentation_tpu_torch.ops.resize import resize_bilinear
@@ -157,8 +158,9 @@ def deeplab():
     """The port's small f32 DeepLabV3+ (stride-4 twin semantics live in
     `test()`; here the modules are built with full_res_output=False), the
     JAX step's results on one batch with valid=3 of 4, and the batch."""
-    model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                        dtype=torch.float32, full_res_output=False)
+    with without_default_init():   # every entry seeded next
+        model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                            dtype=torch.float32, full_res_output=False)
     sd = seeded_state_dict(model, seed=0)
     model.load_state_dict(sd)
     params, stats = jax_trees_from_state_dict(sd)
@@ -627,9 +629,10 @@ def test_show_batch_writes_a_png(tmp_path):
 
 
 def test_load_model_bundle_use_ema(tmp_path):
-    def build():
-        return build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                           dtype=torch.float32)
+    def build():   # every entry seeded or loaded next
+        with without_default_init():
+            return build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                               dtype=torch.float32)
 
     sd = seeded_state_dict(build(), seed=1)
     ema = {k: v + 0.25 for k, v in sd.items()
@@ -660,8 +663,9 @@ def test_train_eval_save_best_round_trip(tmp_path, monkeypatch):
                   PostFetch(device="cpu"))
     train = Fetcher(DataLoader(dataset, 2, shuffle=True, drop_last=True,
                                num_workers=1), PostFetch(device="cpu"))
-    model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                        dtype=torch.float32, full_res_output=True)
+    with without_default_init():   # the Trainer seeds every entry
+        model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                            dtype=torch.float32, full_res_output=True)
     trainer = Trainer(model, train, workdir=str(tmp_path / "w"), lr=1e-3,
                       ema_decay=0.5, log=False,
                       log_dir=str(tmp_path / "runs"), device="cpu")
@@ -675,9 +679,10 @@ def test_train_eval_save_best_round_trip(tmp_path, monkeypatch):
     trainer.save(best=True)
     trainer.step()                     # training goes on after an eval
 
-    def build():
-        return build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                           dtype=torch.float32, full_res_output=True)
+    def build():   # loaded strictly next
+        with without_default_init():
+            return build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                               dtype=torch.float32, full_res_output=True)
 
     best = str(tmp_path / "w" / "best.pt")
     assert torch.load(best, weights_only=True)["best_miou"] == miou

@@ -25,7 +25,8 @@ from pytorch_segmentation_tpu_torch import test as ttest
 from pytorch_segmentation_tpu_torch import train as ttrain
 from pytorch_segmentation_tpu_torch.models import (MODEL_VARIANTS,
                                                    build_model,
-                                                   variant_kwargs)
+                                                   variant_kwargs,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.nn.backbones.resnet import (
     BasicBlock, ResNet, resnet34_cfg, resnet50_cfg)
 from pytorch_segmentation_tpu_torch.utils.weights import (
@@ -63,7 +64,8 @@ def f32(case):
 def test_resnet_cfg_tree_matches_jax(cfg, jax_cfg):
     """The port's full-depth ResNet of each config has the JAX module's
     parameter and statistics trees, name for name and shape for shape."""
-    model = ResNet(**cfg(dtype=torch.float32))
+    with without_default_init():   # the trees' names and shapes only
+        model = ResNet(**cfg(dtype=torch.float32))
     params, stats = jax_trees_from_state_dict(model.state_dict())
     variables = jax.eval_shape(
         lambda k, x: JaxResNet(**jax_cfg(dtype=jnp.float32)).init(
@@ -129,7 +131,8 @@ def test_variants_are_the_jax_packages():
                               ("danet", "deeplabv3", "fcn", "fpn",
                                "maskformer", "ocrnet", "segformer",
                                "segmenter", "segnext", "upernet")}
-    model = build_model("fpn", NC, **variant_kwargs("fpn", "R34"))
+    with torch.device("meta"):   # the structure only
+        model = build_model("fpn", NC, **variant_kwargs("fpn", "R34"))
     assert model.block == "basic" and model.backbone.out_channels == 512
     assert variant_kwargs("fpn", "") == {}
     with pytest.raises(ValueError, match=r"unknown fpn variant 'r18'; "

@@ -25,7 +25,8 @@ from pytorch_segmentation_tpu.nn.backbones.resnet import (
     Bottleneck as JaxBottleneck)
 from pytorch_segmentation_tpu.ops.pallas import fused_matmul_bn as jfm
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.nn.backbones.resnet import Bottleneck
 from pytorch_segmentation_tpu_torch.ops.kernels import build
@@ -648,12 +649,14 @@ def test_trainer_steps_with_the_switch_on_match_off(tmp_path):
     batch = (rng.standard_normal((2, 65, 65, 3)).astype(np.float32),
              rng.integers(0, 5, (2, 65, 65)).astype(np.int32), 2)
     start = str(tmp_path / "start.pt")
-    torch.save({"model": seeded_state_dict(_small_model(), 0,
-                                           init="uniform")}, start)
+    with without_default_init():   # seeded, then loaded by the Trainer
+        torch.save({"model": seeded_state_dict(_small_model(), 0,
+                                               init="uniform")}, start)
 
     def run(mode):
         tblocks.set_force_fused_1x1(mode)
-        model = _small_model()
+        with without_default_init():
+            model = _small_model()
         trainer = Trainer(model, [batch], lr=1e-3, momentum=0.9,
                           weights=start, log=False,
                           log_dir=str(tmp_path / f"runs_{mode}"),

@@ -22,7 +22,8 @@ from pytorch_segmentation_tpu_torch.data.pipeline import (PostFetch,
                                                           _batch_seed)
 from pytorch_segmentation_tpu_torch.data.resize_host import multi_scale_sizes
 from pytorch_segmentation_tpu_torch.engine.trainer import Trainer
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.parallel import (DataSharding,
                                                      data_sharding, make_mesh)
 
@@ -255,8 +256,9 @@ def test_trainer_fed_by_loader_fetcher_postfetch_with_augmentation(tmp_path):
         seen.append(out)
         return out
 
-    model = build_model("deeplabv3plus", 3, backbone_layers=(1, 1, 1, 1),
-                        dtype=torch.float32, full_res_output=True)
+    with without_default_init():   # the Trainer seeds every entry
+        model = build_model("deeplabv3plus", 3, backbone_layers=(1, 1, 1, 1),
+                            dtype=torch.float32, full_res_output=True)
     trainer = Trainer(model, tloader.Fetcher(loader, recording), lr=1e-3,
                       log=False, log_dir=str(tmp_path / "runs"),
                       workdir=str(tmp_path / "w"), device="cpu")

@@ -240,8 +240,8 @@ def test_trainer_step_matches_jax(case, tmp_path):
 
 def test_variants_and_options():
     """`r50` and `tiny` are the JAX table's; R50 builds (on the meta
-    device) at the paper's sizes; `remat` is not ported and raises; an
-    unknown matcher raises."""
+    device) at the paper's sizes; `remat` builds (tests/test_torch_remat.py
+    steps it); an unknown matcher raises."""
     assert MODEL_VARIANTS["maskformer"] == JAX_MODEL_VARIANTS["maskformer"]
     with torch.device("meta"):
         model = build_model("maskformer", 21,
@@ -251,8 +251,7 @@ def test_variants_and_options():
     assert model.lat0.conv.in_channels == 256
     assert model.input_proj.in_channels == 2048
     assert model.cls_head.out_features == 22
-    with pytest.raises(NotImplementedError,
-                       match="remat=True is not ported yet"):
-        build_model("maskformer", 21, remat=True)
+    with torch.device("meta"):
+        assert build_model("maskformer", 21, remat=True).backbone.remat
     with pytest.raises(ValueError, match="matcher must be one of"):
         make_maskformer_loss(21, matcher="auction")

@@ -50,7 +50,8 @@ from pytorch_segmentation_tpu_torch.engine import steps as tsteps
 from pytorch_segmentation_tpu_torch.engine import test as port_test
 from pytorch_segmentation_tpu_torch.inference import (make_infer_fn,
                                                       make_mask_fn)
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.ops.int8 import (int8_conv2d,
                                                      int8_conv2d_plain)
@@ -498,8 +499,9 @@ def test_qat_with_the_fused_switch(monkeypatch, all_layers_quantized):
     on the folded path, all three unquantized, and fake-quantizes every
     other eligible conv: 12 fewer fake-quantized convs than with the
     switch off."""
-    model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                        dtype=torch.float32, full_res_output=False)
+    with without_default_init():   # every entry seeded next
+        model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                            dtype=torch.float32, full_res_output=False)
     model.load_state_dict(seeded_state_dict(model, 0, init="uniform"))
     fake, fused = [], []
     real_fake = tblocks.ConvNormAct._fake_quant_conv
@@ -565,8 +567,9 @@ def test_segformer_has_no_eligible_conv():
 def dlv3p():
     """(the port's eval-mode model, the JAX bundle, u8 images [2, 33, 33,
     3], the JAX calibration statistics on them by name)."""
-    model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                        dtype=torch.float32, full_res_output=False)
+    with without_default_init():   # every entry seeded next
+        model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                            dtype=torch.float32, full_res_output=False)
     sd = seeded_state_dict(model, 0, init="uniform")
     model.load_state_dict(sd)
     params, stats = jax_trees_from_state_dict(sd)

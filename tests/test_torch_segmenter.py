@@ -240,5 +240,5 @@ def test_variants_build_at_their_widths():
         assert hasattr(model.decoder, "block1")
         assert not hasattr(model.decoder, "block2")
         assert model.decoder.cls_emb.shape == (1, 21, dim)
-    with pytest.raises(NotImplementedError, match=r"remat=True is not ported"):
-        build_model("segmenter", NC, remat=True, **PICO)
+    with without_default_init():
+        assert build_model("segmenter", NC, remat=True, **PICO).backbone.remat

@@ -234,7 +234,7 @@ def test_trainer_step_matches_jax(case, tmp_path):
 @pytest.mark.parametrize("variant", ["tiny", "t", "s", "b"])
 def test_variants(variant):
     """The JAX package's MSCAN sizes, each built on the meta device; the
-    remat switch raises, naming its ROADMAP item."""
+    remat switch builds (tests/test_torch_remat.py steps it)."""
     assert MODEL_VARIANTS["segnext"] == JAX_MODEL_VARIANTS["segnext"]
     assert MSCAN_VARIANTS[variant] == jax_segnext.MSCAN_VARIANTS[variant]
     depths, dims, ratios, ham, rank = MSCAN_VARIANTS[variant]
@@ -245,8 +245,8 @@ def test_variants(variant):
     assert model.backbone.stage3_block0.fc1.out_channels == dims[3] * ratios[3]
     assert model.squeeze.conv.in_channels == sum(dims[1:])
     assert tuple(model.hamburger.bases.shape) == (ham, rank)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_model("segnext", NC, remat=True, **TINY)
+    with torch.device("meta"):
+        assert build_model("segnext", NC, remat=True, **TINY).backbone.remat
 
 
 CLIS = {"train": ttrain, "test": ttest, "inference": tinference,

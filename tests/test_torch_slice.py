@@ -27,7 +27,8 @@ from pytorch_segmentation_tpu_torch.data.colormap import VOC_COLORMAP
 from pytorch_segmentation_tpu_torch.data.pipeline import normalize_images
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import make_mask_fn
-from pytorch_segmentation_tpu_torch.models import MODEL_REGISTRY, build_model
+from pytorch_segmentation_tpu_torch.models import (MODEL_REGISTRY, build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.parallel import make_mesh
 from pytorch_segmentation_tpu_torch.serving import MaskServer
 from pytorch_segmentation_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
@@ -109,8 +110,9 @@ def stride4_logits(weights, images):
 
 
 def _port_model(path, full_res_output=False, dtype=torch.float32):
-    model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                        dtype=dtype, full_res_output=full_res_output)
+    with without_default_init():   # loaded strictly next
+        model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                            dtype=dtype, full_res_output=full_res_output)
     return load_model_bundle(model, path, "cpu")
 
 
@@ -127,8 +129,9 @@ def test_state_dict_equals_jax_export(weights):
 def test_checkpoint_loads_strict(weights):
     params, stats, path = weights
     sd = load_state(path)
-    model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                        dtype=torch.float32)
+    with without_default_init():   # loaded strictly next
+        model = build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                            dtype=torch.float32)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)
     want = state_dict_from_jax(params, stats)

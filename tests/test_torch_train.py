@@ -25,7 +25,8 @@ from pytorch_segmentation_tpu_torch.engine import trainer as ttrainer
 from pytorch_segmentation_tpu_torch.engine.checkpoint import load_model_bundle
 from pytorch_segmentation_tpu_torch.inference import (make_mask_fn,
                                                        make_tiled_mask_fn)
-from pytorch_segmentation_tpu_torch.models import build_model
+from pytorch_segmentation_tpu_torch.models import (build_model,
+                                                   without_default_init)
 from pytorch_segmentation_tpu_torch.nn import blocks as tblocks
 from pytorch_segmentation_tpu_torch.parallel import make_mesh
 from pytorch_segmentation_tpu_torch.ops.loss import compute_loss
@@ -342,8 +343,12 @@ def _jax_module(full_res_output=True):
 
 
 def _port_module(full_res_output=True):
-    return build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
-                       dtype=torch.float32, full_res_output=full_res_output)
+    """Its parameters uninitialised: every caller loads or seeds them all
+    (the Trainer seeds what its weights lack)."""
+    with without_default_init():
+        return build_model("deeplabv3plus", NC, backbone_layers=LAYERS,
+                           dtype=torch.float32,
+                           full_res_output=full_res_output)
 
 
 @pytest.fixture(scope="module")

@@ -122,8 +122,7 @@ def test_full_res_output_is_8x_the_logits():
     full_res_output, 72x72 (8 x 9, as the JAX module: not the input's 65),
     upsampled with align_corners=False; the aux head returns in train mode
     only, at stride 8."""
-    model = build_model("fcn", NC, dtype=torch.float32,
-                        backbone_layers=LAYERS, aux=True)
+    model = _shallow_fcn(aux=True)
     model.load_state_dict(seeded_state_dict(model, 0, init="uniform"))
     x = torch.randn(2, 3, 65, 65, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():

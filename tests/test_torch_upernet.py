@@ -234,16 +234,17 @@ def test_aux_trainer_step_matches_jax(tmp_path):
 def test_load_model_bundle_drops_the_aux_head(tmp_path, capsys):
     """A checkpoint of an aux model loads into UPerNet built without the
     head: `aux_conv.*` and `aux_cls.*` are dropped and named."""
-    aux_model = build_model("upernet", NC, dtype=torch.float32, aux=True,
+    with without_default_init():   # seeded, then loaded
+        aux_model = build_model("upernet", NC, dtype=torch.float32, aux=True,
+                                **dict(RESNET, block="basic"))
+        plain = build_model("upernet", NC, dtype=torch.float32,
                             **dict(RESNET, block="basic"))
     sd = seeded_state_dict(aux_model, seed=5)
     path = str(tmp_path / "aux.pt")
     save_checkpoint(path, sd)
     head = sorted(k for k in sd if k.startswith(("aux_conv.", "aux_cls.")))
     assert len(head) == 8
-    model = load_model_bundle(build_model("upernet", NC, dtype=torch.float32,
-                                          **dict(RESNET, block="basic")),
-                              path, "cpu")
+    model = load_model_bundle(plain, path, "cpu")
     out = capsys.readouterr().out
     assert f"dropping train-only entries not in the eval model: {head}" in out
     got = model.state_dict()

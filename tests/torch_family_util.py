@@ -48,7 +48,8 @@ class FamilyCase:
     at that activation as well. Every bf16 logit is held within 2% of the
     largest, or, given `logits_max_bound`, within that multiple of the
     largest bf16 error at the logits. `f32_logits`: the logits are f32
-    whatever the compute dtype (Segmenter's)."""
+    whatever the compute dtype (Segmenter's). The JAX trees of the seeded
+    weights and their checkpoint file are made at first use."""
 
     def __init__(self, name, jax_cls, num_classes, hw, tmp_dir, probe=None,
                  logits_mean_bound=0.4, logits_max_bound=None,
@@ -62,11 +63,31 @@ class FamilyCase:
         # rtol = atol = 1e-4 holds everywhere; well-conditioned gradients)
         self.sd = seeded_state_dict(self.port_module(), seed=0,
                                     init="uniform")
-        self.params, self.stats = jax_trees_from_state_dict(self.sd)
-        self.path = str(tmp_dir / f"{name}.pt")
-        torch.save({"model": self.sd}, self.path)
+        self._tmp_dir = tmp_dir
         self.images = np.random.default_rng(1).integers(
             0, 256, (2, hw, hw, 3), dtype=np.uint8)
+
+    @functools.cached_property
+    def _trees(self):
+        return jax_trees_from_state_dict(self.sd)
+
+    @property
+    def params(self):
+        """The JAX module's params tree of `sd`, made at first use."""
+        return self._trees[0]
+
+    @property
+    def stats(self):
+        """The JAX module's batch_stats tree of `sd`."""
+        return self._trees[1]
+
+    @functools.cached_property
+    def path(self):
+        """`sd` as a `{'model': state_dict}` checkpoint, written at first
+        use."""
+        path = str(self._tmp_dir / f"{self.name}.pt")
+        torch.save({"model": self.sd}, path)
+        return path
 
     def jax_module(self, full_res_output=False, dtype=jnp.float32):
         return self.jax_cls(num_classes=self.nc, dtype=dtype,
